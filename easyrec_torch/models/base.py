@@ -1,0 +1,110 @@
+"""Model base: context, registry and the rank-model loss/prediction.
+
+Counterpart of easyrec_tpu/models/base.py: ModelContext (:29),
+build_context (:94), RankModel (:160) with its classification prediction
+and build_loss, and the _WithPrediction wrapper of models/rank.py (:416),
+folded into RankModel.forward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from easyrec_torch.features.embedding_layout import EmbeddingLayout
+from easyrec_torch.losses import losses as L
+from easyrec_torch.ops import embedding as emb_ops
+from easyrec_torch.utils.registry import MODELS
+
+
+@dataclasses.dataclass
+class ModelContext:
+  """Everything a model needs, precomputed from the pipeline config."""
+  model_config: object                   # EasyRecModel message
+  specs: Dict[str, object]               # feature name -> FeatureSpec
+  layout: EmbeddingLayout
+  label_fields: List[str]
+
+  def __post_init__(self):
+    self.input_layer = emb_ops.InputLayer(self.layout, self.specs)
+    self.groups = {g.group_name: g for g in self.model_config.feature_groups}
+
+  def group_features(self, name: str) -> List[str]:
+    if name not in self.groups:
+      raise KeyError('unknown feature group %r (have %s)' %
+                     (name, sorted(self.groups)))
+    return list(self.groups[name].feature_names)
+
+
+def _group_names(model_config, roles) -> List[str]:
+  names = []
+  for g in model_config.feature_groups:
+    if g.wide_deep in roles:
+      names.extend(g.feature_names)
+  return list(dict.fromkeys(names))
+
+
+def wide_output_dim(model_config) -> int:
+  """Wide embedding dim of the active model message (default 1)."""
+  which = model_config.WhichOneof('model')
+  if which == 'deepfm':
+    return max(int(model_config.deepfm.wide_output_dim), 1)
+  return 1
+
+
+def build_context(pipeline_config, specs) -> ModelContext:
+  mc = pipeline_config.model_config
+  deep = _group_names(mc, ('DEEP', 'WIDE_AND_DEEP'))
+  wide = _group_names(mc, ('WIDE', 'WIDE_AND_DEEP'))
+  layout = EmbeddingLayout(
+      specs, deep_features=[f for f in deep if f in specs],
+      wide_features=[f for f in wide if f in specs],
+      wide_output_dim=wide_output_dim(mc))
+  return ModelContext(model_config=mc, specs=specs, layout=layout,
+                      label_fields=list(pipeline_config.data_config
+                                        .label_fields))
+
+
+class RankModel(nn.Module):
+  """Binary classification ranking base: subclasses compute raw logits
+  [B, 1] from (batch, pulled); forward adds the prediction."""
+
+  def __init__(self, ctx: ModelContext):
+    super().__init__()
+    self.ctx = ctx
+    self.config = ctx.model_config
+
+  @property
+  def label_name(self) -> str:
+    return self.config.label_name or self.ctx.label_fields[0]
+
+  def raw_logits(self, batch, pulled) -> torch.Tensor:
+    raise NotImplementedError
+
+  def forward(self, batch, pulled) -> Dict[str, torch.Tensor]:
+    logits = self.raw_logits(batch, pulled)[..., 0]
+    return {'logits': logits, 'probs': torch.sigmoid(logits)}
+
+  def build_loss(self, outputs, batch) -> Tuple[torch.Tensor, Dict]:
+    value = L.sigmoid_cross_entropy(batch['label.%s' % self.label_name],
+                                    outputs['logits'], batch['sample_weight'])
+    return value, {'CLASSIFICATION': value}
+
+  def metric_inputs(self, outputs, batch) -> Dict[str, torch.Tensor]:
+    return {'labels': batch['label.%s' % self.label_name],
+            'probs': outputs['probs'],
+            'weights': batch['sample_weight']}
+
+
+def register_model(name: str):
+  return MODELS.register(name)
+
+
+def create_model(ctx: ModelContext, generator=None, device=None) -> RankModel:
+  name = ctx.model_config.model_class
+  if name not in MODELS:
+    raise NotImplementedError('model_class %r is not ported' % name)
+  return MODELS.get(name)(ctx, generator=generator, device=device)

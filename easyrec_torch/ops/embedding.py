@@ -1,0 +1,119 @@
+"""Embedding ops: id packing, fused gather, combiners, input-layer assembly.
+
+Counterpart of easyrec_tpu/ops/embedding.py (single device): `pack_ids`
+(:21), `pull_embeddings` (:56), `combine` (:241) and the parts of
+`InputLayer` (:268-422) that DeepFM uses. The pull happens OUTSIDE the
+differentiated forward: the backward pass produces gradients of the pulled
+rows [B, totK, dim], which the sparse update then applies to the table.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from easyrec_torch.features.embedding_layout import EmbeddingLayout
+from easyrec_torch.ops import packed_table as pt
+
+
+def pack_ids(layout: EmbeddingLayout,
+             batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+  """Concatenate every feature's ids (+ its table's row offset) into one
+  [B, totK] int64 pack per fused table."""
+  packs = {}
+  for key, table in layout.tables.items():
+    cols = []
+    for use in table.uses:
+      bkey = 'feat.%s.ids' % use.feature
+      if bkey not in batch:
+        raise KeyError('batch is missing %s' % bkey)
+      cols.append(batch[bkey].to(torch.int64) + use.offset)
+    packs[key] = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
+  return packs
+
+
+def pull_embeddings(tables: Dict[str, torch.Tensor],
+                    packs: Dict[str, torch.Tensor],
+                    metas: Dict[str, pt.TableMeta]
+                    ) -> Dict[str, torch.Tensor]:
+  """One gather per fused table -> [B, totK, dim]."""
+  return {key: pt.pull(tables[key], packs[key], metas[key])
+          for key in packs}
+
+
+def combine(rows: torch.Tensor, weights: torch.Tensor,
+            combiner: str) -> torch.Tensor:
+  """Reduce [B, K, dim] weighted rows to [B, dim]; weight 0 marks
+  padding."""
+  if combiner == 'sum':
+    return torch.einsum('bk,bkd->bd', weights, rows)
+  if combiner == 'mean':
+    total = torch.einsum('bk,bkd->bd', weights, rows)
+    denom = torch.clamp(weights.sum(dim=1, keepdim=True), min=1e-9)
+    return total / denom
+  if combiner in ('max', 'min'):
+    mask = (weights > 0)[:, :, None]
+    fill = float('-inf') if combiner == 'max' else float('inf')
+    masked = torch.where(mask, rows * weights[:, :, None],
+                         torch.full_like(rows, fill))
+    out = masked.amax(dim=1) if combiner == 'max' else masked.amin(dim=1)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+  raise ValueError('unknown combiner %r' % combiner)
+
+
+class InputLayer:
+  """Assembles per-feature embeddings from the fused pulls."""
+
+  def __init__(self, layout: EmbeddingLayout, specs):
+    self.layout = layout
+    self.specs = specs
+
+  def feature_embedding(self, pulled, batch, fname: str,
+                        role: str = 'deep') -> torch.Tensor:
+    """[B, dim] combined embedding of one categorical feature."""
+    spec = self.specs[fname]
+    key, use = self.layout.feature_use[(fname, role)]
+    rows = pulled[key][:, use.start:use.start + use.k]
+    if use.col_dim:
+      # merged wide-into-deep table: this role reads a column slice
+      rows = rows[..., use.col_start:use.col_start + use.col_dim]
+    combiner = spec.combiner if role == 'deep' else 'sum'
+    return combine(rows, batch['feat.%s.weights' % fname], combiner)
+
+  def dense_feature(self, batch, fname: str) -> torch.Tensor:
+    return batch['feat.%s.dense' % fname]
+
+  def group_embeddings(self, pulled, batch, feature_names,
+                       role: str = 'deep'):
+    """Per-feature [B, d_f] tensors of a group (dense features pass)."""
+    return [self.dense_feature(batch, f) if self.specs[f].kind == 'dense'
+            else self.feature_embedding(pulled, batch, f, role)
+            for f in feature_names]
+
+  def group_concat(self, pulled, batch, feature_names,
+                   role: str = 'deep') -> torch.Tensor:
+    """[B, sum(d_f)] concatenation of a feature group."""
+    outs = self.group_embeddings(pulled, batch, feature_names, role)
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+  def group_stack(self, pulled, batch, feature_names,
+                  role: str = 'deep') -> torch.Tensor:
+    """[B, F, dim] stack (equal dims) for field-wise interactions."""
+    outs = self.group_embeddings(pulled, batch, feature_names, role)
+    dims = {o.shape[-1] for o in outs}
+    if len(dims) != 1:
+      raise ValueError('group_stack needs equal embedding dims, got %s'
+                       % sorted(dims))
+    return torch.stack(outs, dim=1)
+
+  def wide_logits(self, pulled, batch, feature_names) -> torch.Tensor:
+    """[B, wide_dim] summed wide terms, added in feature order."""
+    outs = [self.feature_embedding(pulled, batch, f, 'wide')
+            for f in feature_names if self.specs[f].kind != 'dense']
+    if not outs:
+      raise ValueError('wide group has no categorical features')
+    total = outs[0]
+    for o in outs[1:]:
+      total = total + o
+    return total
