@@ -7,20 +7,28 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order; any failure exits nonzero before the result line:
   1. device  the card's name, count, and nvidia-smi's name and power limit;
-  2. build   both CUDA kernels from easyrec_torch/csrc with nvcc for sm_90a
-             (one nvcc per source, started together), with ptxas's report;
-  3. kernels each kernel against its plain PyTorch version at the flagship
-             shapes (a DummyInput batch of the Criteo DeepFM: 39 id slots
-             per example at batch 4096, dim 32, 26M-row table), with its
-             time from CUDA events beside its bound, the plain version's
-             time and, for the segmented sum, index_add_'s;
-  4. agree   a small DeepFM trains 3 steps on the card and on the CPU from
-             the same weights and batches; losses and tables must agree;
-  5. slice   the flagship config through easyrec_torch.main
-             .train_and_evaluate at full width (num_steps cut to 20; eval
-             runs DummyInput's cap of 50 batches), with every kernel's
-             launch counter read around the run, then the steady-state
-             train-step rate over pre-built synthetic batches.
+  2. build   the three CUDA kernels from easyrec_torch/csrc with nvcc for
+             sm_90a (one nvcc per source, started together), with ptxas's
+             report;
+  3. kernels each kernel against its plain PyTorch version on the card:
+             K1 and K2 at the flagship shapes (a DummyInput batch of the
+             Criteo DeepFM: 39 id slots per example at batch 4096, dim 32,
+             26M-row table), K3 at the flagship shape and at the Taobao
+             DIN's (a synthetic batch: 115 id slots per example at batch
+             4096, two padding segments of ~100k slots, dim 16, 620k-row
+             table), with times from CUDA events beside bounds, the plain
+             versions' times and the library yardsticks;
+  4. agree   a small DeepFM (K1 + K2) and a small DIN (K3) train 3 steps on
+             the card and on the CPU from the same weights and batches;
+             losses and tables must agree;
+  5. din     the Taobao DIN config through easyrec_torch.main
+             .train_and_evaluate at full width with EASYREC_PACKED_FUSED=1
+             (num_steps cut to 20; eval runs DummyInput's cap of 50
+             batches): K3 must launch once per step and table, K1 and K2
+             not at all; then the steady-state train-step rate over
+             pre-built synthetic batches;
+  6. deepfm  the flagship config the same way, unfused: K1 and K2 once per
+             step and table, K3 not at all; then its rate.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -193,7 +201,7 @@ def phase_kernels(torch):
   if not bool(changed[touched].any()):
     fail('rmw_adam: no touched row changed')
   err2 = float((wk - wp).abs().max())
-  del orig, ref, changed
+  del orig, ref, changed, touched
   log('rmw_adam: %d touched rows, %d live untouched (zero-sum) slots, %d '
       'sentinel slots; m/v bit-exact, w within %d ulp (tolerance 1 ulp), '
       'untouched and sentinel rows byte-identical'
@@ -211,26 +219,165 @@ def phase_kernels(torch):
       replaces='easyrec_tpu/ops/packed_table.py:701', max_abs_err=err2,
       ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
       library_ms=None))
-  del table, flush, acc
+  del acc, uids, gsum
+
+  # -- K3 at the flagship shape (13 segments of 4,096 slots: two-level)
+  _, _, err3f = check_fused(torch, pt, table, sids, order, starts, grads,
+                            hypers, opt, 'flagship')
+  k3f_ms = cuda_ms(torch, lambda: pt.rmw_fused_adam(
+      table, sids, order, starts, grads, hypers, opt), 20, flush)
+  log('rmw_fused_adam at the flagship shape: %.4f ms (K1 + K2 above: %.4f '
+      'ms)' % (k3f_ms, k1_ms + k2_ms))
+  del table, flush, grads
   torch.cuda.empty_cache()
+  k3 = phase_kernel_din(torch)
+  k3['max_abs_err'] = max(k3['max_abs_err'], err3f)
+  results.append(k3)
   return results
 
 
-def phase_agree(torch):
-  """A small DeepFM: 3 steps on the card and on the CPU from the same
-  weights and batches. The CPU path runs the kernels' plain versions,
-  whose agreement with the JAX package the CPU tests hold."""
+def check_fused(torch, pt, table, sids, order, starts, grads, hypers, opt,
+                what):
+  """K3 and its plain version from the same table: w, m and v must agree
+  bit for bit (the same f32 additions in the same order, the same IEEE
+  Adam), and every row whose segment sums to zero, that no id names, or
+  that lies outside the table keeps its bytes. Returns the number of
+  touched rows, the number of live segments and the largest |w| difference
+  between the kernel and its plain version."""
+  n = grads.shape[0]
+  rows = table.shape[0]
+  orig = table.clone()
+  ref = table.clone()
+  pt.rmw_fused_adam(table, sids, order, starts, grads, hypers, opt)
+  pt.rmw_fused_adam_plain(ref, sids, order, starts, grads, hypers, opt)
+  torch.cuda.synchronize()
+  if not torch.equal(table.view(torch.int32), ref.view(torch.int32)):
+    bad = int((table.view(torch.int32) != ref.view(torch.int32)).any(dim=1)
+              .sum())
+    fail('rmw_fused_adam (%s): %d rows differ from the plain version'
+         % (what, bad))
+  dim = table.shape[1] // 2
+  err = float((table[:, :dim] - ref[:, :dim]).abs().max())
+  del ref
+  sums = pt.segment_sums_by_chunk(order, starts, grads)
+  live = starts[:n] < n
+  nz = live & (sums != 0).any(dim=1)
+  uids = sids[starts[:n].clamp(max=n - 1)]
+  touched = torch.zeros(rows, dtype=torch.bool, device=table.device)
+  touched[uids[nz & (uids < rows)]] = True
+  changed = (table.view(torch.int32) != orig.view(torch.int32)).any(dim=1)
+  if bool((changed & ~touched).any()):
+    fail('rmw_fused_adam (%s): an untouched row changed' % what)
+  if not bool(changed[touched].all()):
+    fail('rmw_fused_adam (%s): a touched row kept its bytes' % what)
+  lens = starts[1:] - starts[:n]
+  n_touched = int(touched.sum())
+  log('rmw_fused_adam (%s): %d slots, %d segments (%d longer than %d '
+      'slots, the longest %d), %d touched rows, %d live zero-sum segments; '
+      'w, m and v bit-exact against the plain version (tolerance 0), '
+      'untouched rows byte-identical'
+      % (what, n, int(live.sum()), int((lens > pt.FUSED_CHUNK).sum()),
+         pt.FUSED_CHUNK, int(lens.max()), n_touched,
+         int((live & ~nz).sum())))
+  return n_touched, int(live.sum()), err
+
+
+def phase_kernel_din(torch):
+  """K3 at the shape the DIN path gives it: the pack of one synthetic
+  batch of the full-width Taobao DIN (lengths uniform in 1..50, so each of
+  the two sequence features' padding id 0 collects ~100k slots)."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.ops import packed_table as pt
+  from easyrec_torch.optim.sparse import SparseAdam, pack_pair
   from easyrec_torch.train.trainer import Trainer, to_device
   from easyrec_torch.utils import flagship
   from easyrec_torch.utils.synthetic import synthetic_batch
 
-  cfg = flagship.criteo_deepfm_config(batch_size=256, hash_bucket_size=1000,
-                                      num_dense=3, num_cat=6)
+  dev = torch.device('cuda')
+  trainer = Trainer(flagship.taobao_din_config(), device='cuda')
+  bs = int(trainer.data_config.batch_size)
+  batch = synthetic_batch(trainer.specs, list(trainer.ctx.label_fields), bs,
+                          seed=0)
+  packs = emb_ops.pack_ids(trainer.layout, to_device(batch, dev))
+  (key, meta), = trainer.metas.items()
+  ids = packs[key].reshape(-1)
+  n, dim = ids.shape[0], meta.dim
+  log('K3 DIN shape: table %s [%d, %d] f32, %d id slots, dim %d'
+      % (key, meta.rows, meta.width, n, dim))
+  gen = torch.Generator(device=dev).manual_seed(4321)
+  grads = torch.randn((n, dim), generator=gen, device=dev) * 1e-3
+  grads[::97] = 0.0
+  table = torch.empty((meta.rows, meta.width), device=dev)
+  trainer.layout.init_weights(key, 7, dev, table)
+  table[:, dim:] = pack_pair(
+      torch.randn((meta.rows, dim), generator=gen, device=dev) * 1e-3,
+      torch.rand((meta.rows, dim), generator=gen, device=dev) * 1e-6)
+  flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+  opt = SparseAdam()
+  hypers = opt.hypers(torch.tensor(1e-3, device=dev),
+                      torch.tensor(3, dtype=torch.int32, device=dev))
+  sids, order, starts = pt.sort_segments(ids)
+  n_touched, n_live, err3 = check_fused(torch, pt, table, sids, order,
+                                        starts, grads, hypers, opt, 'DIN')
+  k3_ms = cuda_ms(torch, lambda: pt.rmw_fused_adam(
+      table, sids, order, starts, grads, hypers, opt), 20, flush)
+  k3_plain = cuda_ms(torch, lambda: pt.rmw_fused_adam_plain(
+      table, sids, order, starts, grads, hypers, opt), 2, flush)
+  # library yardstick for the sum half: index_add_ (atomics, no fixed
+  # order) into a zero [rows, dim] buffer, then K2 over every row
+  acc = torch.zeros((meta.rows, dim), device=dev)
+  every_row = torch.arange(meta.rows, device=dev)
+
+  def library():
+    acc.zero_()
+    acc.index_add_(0, ids, grads)
+    pt.rmw_adam(table, every_row, acc, hypers, opt)
+
+  k3_lib = cuda_ms(torch, library, 20, flush)
+  # the unfused path at the same shape, for comparison: K1 walks each
+  # padding segment with one warp
+  def unfused():
+    uids, gsum = pt.seg_sum(sids, order, starts, grads, meta.sentinel, '0')
+    pt.rmw_adam(table, uids, gsum, hypers, opt)
+
+  k12_ms = cuda_ms(torch, unfused, 5, flush)
+  map_ms = cuda_ms(torch, lambda: pt.fused_chunk_map(starts, n), 20, flush)
+  # gradients, order and starts read whole, the first sid of each live
+  # segment, hypers, and each touched row read and written
+  k3_bytes = n * dim * 4 + 2 * n * 8 + 8 + n_live * 8 + 12 + \
+      n_touched * meta.width * 4 * 2
+  k3_bound, k3_by = bound_ms(k3_bytes, n * dim + n_touched * dim * 13)
+  log('rmw_fused_adam (DIN): %.4f ms, bound %.4f ms (%d bytes / 3.35 '
+      'TB/s), plain %.3f ms, index_add_ + K2 over all rows (closest '
+      'library call for the sum half) %.4f ms; K1 (mode 0) + K2 at this '
+      'shape %.4f ms; the wrapper\'s chunk map (PyTorch ops, inside K3\'s '
+      'time) %.4f ms' % (k3_ms, k3_bound, k3_bytes, k3_plain, k3_lib,
+                         k12_ms, map_ms))
+  del table, flush, acc, grads
+  torch.cuda.empty_cache()
+  return dict(
+      name='rmw_fused_adam', route='cuda',
+      source='easyrec_torch/csrc/rmw_fused_adam.cu',
+      replaces='easyrec_tpu/ops/packed_table.py:1024', max_abs_err=err3,
+      ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
+      library_ms=k3_lib)
+
+
+def phase_agree(torch, what, cfg, fused):
+  """A small model: 3 steps on the card and on the CPU from the same
+  weights and batches. The CPU path runs the kernels' plain versions,
+  whose agreement with the JAX package the CPU tests hold."""
+  from easyrec_torch.train.trainer import Trainer, to_device
+  from easyrec_torch.utils.synthetic import synthetic_batch
+
+  os.environ['EASYREC_PACKED_FUSED'] = fused
+  bs = int(cfg.data_config.batch_size)
   runs = {}
   for name in ('cpu', 'cuda'):
     t = Trainer(cfg, device=name)
     t.init_state()
     runs[name] = t
+  runs['cuda'].model.load_state_dict(runs['cpu'].model.state_dict())
   for key, table in runs['cpu'].tables.items():
     runs['cuda'].tables[key].copy_(table)
   losses = {}
@@ -238,33 +385,37 @@ def phase_agree(torch):
     dev = torch.device(name)
     losses[name] = []
     for step in range(3):
-      batch = synthetic_batch(t.specs, list(t.ctx.label_fields), 256,
+      batch = synthetic_batch(t.specs, list(t.ctx.label_fields), bs,
                               seed=step)
       losses[name].append(float(t.train_step(to_device(batch,
                                                         dev))['total_loss']))
   for a, b in zip(losses['cpu'], losses['cuda']):
     if not math.isfinite(b) or abs(a - b) > 1e-5 * max(1.0, abs(a)):
-      fail('small DeepFM: losses differ on the card %s and the CPU %s'
-           % (losses['cuda'], losses['cpu']))
+      fail('small %s: losses differ on the card %s and the CPU %s'
+           % (what, losses['cuda'], losses['cpu']))
   for key, table in runs['cpu'].tables.items():
     w_gpu = runs['cuda'].tables[key][:, :table.shape[1] // 2].cpu()
     err = float((w_gpu - table[:, :table.shape[1] // 2]).abs().max())
     # f32 reduction order differs between the card and the CPU; after 3
     # Adam steps of lr 1e-3 the weights agree far inside one step's size
     if err > 1e-5:
-      fail('small DeepFM: table %s weights differ by %g' % (key, err))
-  log('agree: small DeepFM, 3 steps, card vs CPU losses %s vs %s; table '
-      'weights within 1e-5' % (losses['cuda'], losses['cpu']))
+      fail('small %s: table %s weights differ by %g' % (what, key, err))
+  log('agree: small %s, 3 steps, card vs CPU losses %s vs %s; table '
+      'weights within 1e-5' % (what, losses['cuda'], losses['cpu']))
 
 
-def phase_slice(torch, card):
+def phase_slice(torch, card, what, cfg, fused, path_kernels):
+  """train_and_evaluate of `cfg` at full width, SLICE_STEPS steps, with
+  every launch counter set to 0 just before and read just after: each
+  kernel of `path_kernels` must launch once per step and table, every
+  other kernel not at all. Then the steady-state train-step rate over
+  pre-built synthetic batches. Returns the counts."""
   from easyrec_torch import main as main_lib
   from easyrec_torch.ops import kernels
   from easyrec_torch.train.trainer import to_device
-  from easyrec_torch.utils import flagship
   from easyrec_torch.utils.synthetic import synthetic_batch
 
-  cfg = flagship.criteo_deepfm_config()
+  os.environ['EASYREC_PACKED_FUSED'] = fused
   bs = int(cfg.data_config.batch_size)
   edits = {'train_config.num_steps': SLICE_STEPS,
            'train_config.log_step_count_steps': 5}
@@ -277,26 +428,28 @@ def phase_slice(torch, card):
   wall = time.time() - t0
   counts = kernels.launch_counts()
   losses = result['losses']
-  log('slice: train_and_evaluate of the flagship DeepFM, %d steps in %.1f s '
-      '(set-up, input and eval included)' % (result['global_step'], wall))
-  log('slice losses: %s' % ['%.6f' % x for x in losses])
-  log('slice eval: %s' % result.get('eval_metrics'))
-  log('slice launches: %s' % counts)
+  log('%s: train_and_evaluate, EASYREC_PACKED_FUSED=%s, %d steps in %.1f s '
+      '(set-up, input and eval included)'
+      % (what, fused, result['global_step'], wall))
+  log('%s losses: %s' % (what, ['%.6f' % x for x in losses]))
+  log('%s eval: %s' % (what, result.get('eval_metrics')))
+  log('%s launches: %s' % (what, counts))
   if result['global_step'] != SLICE_STEPS or len(losses) != SLICE_STEPS:
-    fail('slice ran %d steps, %d asked' % (result['global_step'],
-                                           SLICE_STEPS))
+    fail('%s ran %d steps, %d asked' % (what, result['global_step'],
+                                        SLICE_STEPS))
   if not all(math.isfinite(x) for x in losses):
-    fail('slice: a loss is not finite')
+    fail('%s: a loss is not finite' % what)
   auc = result.get('eval_metrics', {}).get('auc')
   if auc is None or not 0.0 <= auc <= 1.0:
-    fail('slice: eval AUC missing or out of range: %r' % auc)
+    fail('%s: eval AUC missing or out of range: %r' % (what, auc))
   n_tables = len(result['trainer'].tables)
   for name, c in counts.items():
-    if c != SLICE_STEPS * n_tables:
-      fail('slice: kernel %s launched %d times in %d steps over %d tables'
-           % (name, c, SLICE_STEPS, n_tables))
+    want = SLICE_STEPS * n_tables if name in path_kernels else 0
+    if c != want:
+      fail('%s: kernel %s launched %d times in %d steps over %d tables, '
+           '%d expected' % (what, name, c, SLICE_STEPS, n_tables, want))
   peak = torch.cuda.max_memory_allocated()
-  log('slice peak device memory: %.3f GB' % (peak / 1e9))
+  log('%s peak device memory: %.3f GB' % (what, peak / 1e9))
 
   trainer = result['trainer']
   batches = [to_device(synthetic_batch(trainer.specs,
@@ -312,10 +465,12 @@ def phase_slice(torch, card):
   torch.cuda.synchronize()
   dt = time.perf_counter() - t0
   if not math.isfinite(float(out['total_loss'])):
-    fail('rate: a loss is not finite')
-  log('train step (flagship DeepFM, batch %d, pre-built synthetic batches '
-      'on the device): %.3f ms/step, %.1f examples/s on %s'
-      % (bs, dt / RATE_STEPS * 1e3, RATE_STEPS * bs / dt, card))
+    fail('%s rate: a loss is not finite' % what)
+  log('train step (%s, batch %d, pre-built synthetic batches on the '
+      'device): %.3f ms/step, %.1f examples/s on %s'
+      % (what, bs, dt / RATE_STEPS * 1e3, RATE_STEPS * bs / dt, card))
+  del result, trainer, batches
+  torch.cuda.empty_cache()
   return counts
 
 
@@ -349,12 +504,21 @@ def main():
         log('  [%s] %s' % (kname, line.strip()))
   log('kernels: %s' % ', '.join(k.name for k in kernels.ALL))
 
-  # 3-5
+  # 3-6
+  from easyrec_torch.utils import flagship
   results = phase_kernels(torch)
-  phase_agree(torch)
-  counts = phase_slice(torch, card)
+  phase_agree(torch, 'DeepFM', flagship.criteo_deepfm_config(
+      batch_size=256, hash_bucket_size=1000, num_dense=3, num_cat=6), '0')
+  phase_agree(torch, 'DIN', flagship.taobao_din_config(
+      batch_size=256, seq_len=8), '1')
+  din = phase_slice(torch, card, 'Taobao DIN', flagship.taobao_din_config(),
+                    '1', ('rmw_fused_adam',))
+  deepfm = phase_slice(torch, card, 'flagship DeepFM',
+                       flagship.criteo_deepfm_config(), '0',
+                       ('seg_sum', 'rmw_adam'))
   for r in results:
-    r['launches'] = counts[r['name']]
+    r['launches'] = (din if r['name'] == 'rmw_fused_adam'
+                     else deepfm)[r['name']]
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
           'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
   print(json.dumps({'kernels': [{k: r[k] for k in keys} for r in results]}))

@@ -19,8 +19,8 @@ from easyrec_torch.config.text_format import Message, parse
 
 EasyRecConfig = Message
 
-_PORTED_MODELS = ('DeepFM',)
-_PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature')
+_PORTED_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN')
+_PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature', 'SequenceFeature')
 _PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput')
 
 

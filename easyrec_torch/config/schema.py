@@ -167,13 +167,14 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('model_class', 'string', ''),
         _f('feature_groups', 'msg:FeatureGroupConfig', rep=True),
         _f('deepfm', 'msg:DeepFM', oneof='model'),
+        _f('multi_tower', 'msg:MultiTower', oneof='model'),
         *_unported('model', 'model_params', 'dummy', 'wide_and_deep',
-                   'multi_tower', 'fm', 'dcn', 'autoint', 'dlrm', 'cmbf',
+                   'fm', 'dcn', 'autoint', 'dlrm', 'cmbf',
                    'uniter', 'multi_tower_recall', 'dssm', 'mind',
                    'dropoutnet', 'metric_learning', 'pdn', 'dssm_senet',
                    'dat', 'mmoe', 'esmm', 'dbmtl', 'simple_multi_task',
                    'ple', 'rocket_launching'),
-        _f('seq_att_groups', 'unported', rep=True),
+        _f('seq_att_groups', 'msg:SeqAttGroupConfig', rep=True),
         _f('embedding_regularization', 'float', 0.0),
         _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
         _f('num_class', 'int', 1),
@@ -190,7 +191,22 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('wide_output_dim', 'int', 1),
         _f('l2_regularization', 'float', 1e-4),
     ),
+    'MultiTower': (
+        _f('towers', 'msg:Tower', rep=True),
+        _f('final_dnn', 'msg:DNN'),
+        _f('l2_regularization', 'float', 1e-4),
+        _f('din_towers', 'msg:DINTower', rep=True),
+        _f('bst_towers', 'unported', rep=True),
+    ),
+    'DINTower': (
+        _f('input', 'string', ''),
+        _f('dnn', 'msg:DNN'),
+    ),
     # common.proto
+    'Tower': (
+        _f('input', 'string', ''),
+        _f('dnn', 'msg:DNN'),
+    ),
     'DNN': (
         _f('hidden_units', 'int', rep=True),
         _f('dropout_ratio', 'float', rep=True),
@@ -268,6 +284,8 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('raw_input_dim', 'int', 1),
         _f('ev_params', 'unported'),
         _f('max_multi_len', 'int', 0),
+        _f('max_seq_len', 'int', 0),
+        _f('sub_feature_type', 'enum:FeatureType', 'IdFeature'),
     ),
     'FeatureConfigV2': (
         _f('features', 'msg:FeatureConfig', rep=True),
@@ -277,6 +295,18 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('feature_names', 'string', rep=True),
         _f('wide_deep', 'enum:WideOrDeep', 'DEEP'),
         _f('sequence_features', 'unported', rep=True),
+    ),
+    'SeqAttGroupConfig': (
+        _f('group_name', 'string', ''),
+        _f('seq_att_map', 'msg:SeqAttMap', rep=True),
+        _f('seq_dnn', 'unported'),
+        _f('need_key_feature', 'bool', True),
+        _f('allow_key_transform', 'bool', False),
+    ),
+    'SeqAttMap': (
+        _f('key', 'string', rep=True),
+        _f('hist_seq', 'string', rep=True),
+        _f('aux_hist_seq', 'unported', rep=True),
     ),
 }
 

@@ -18,10 +18,8 @@
 //      c2 = 1/(1-b2^t) read from the device tensor `hypers` (no host scalar
 //      per step); the weight update uses the pre-rounding f32 moments;
 //   4. m and v are repacked with round-to-nearest-even integer rounding.
-// Dedup makes rows unique across slots, so writes never race. Every
-// operation is an explicit IEEE intrinsic (__fmul_rn, __fadd_rn,
-// __fsqrt_rn, __fdiv_rn): nothing is contracted into an FMA, so the kernel
-// repeats the plain version's roundings and m and v agree bit for bit.
+// Steps 3 and 4 are compact_adam.cuh's, which K3 shares. Dedup makes rows
+// unique across slots, so writes never race.
 //
 // Bound on the H100: memory. For U touched rows it reads and writes
 // U * 2*dim*4 bytes (256 B each way at dim 32) and reads the n slots' ids
@@ -33,16 +31,11 @@
 
 #include <cstdint>
 
+#include "compact_adam.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  // round-to-nearest-even bf16 bits in the top 16 of a u32
-  // (optim/sparse.py _bf16_bits)
-  const uint32_t u = __float_as_uint(x);
-  return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
-}
 
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 rmw_adam_kernel(float* __restrict__ table,
@@ -66,19 +59,9 @@ rmw_adam_kernel(float* __restrict__ table,
   const float c2 = hypers[2];
   float* w = table + row * (2 * static_cast<int64_t>(dim));
   uint32_t* mv = reinterpret_cast<uint32_t*>(w + dim);
-  for (int c = lane; c < dim; c += 32) {
-    const float gc = g[c];
-    const uint32_t bits = mv[c];
-    const float m = __uint_as_float(bits & 0xFFFF0000u);
-    const float v = __uint_as_float(bits << 16);
-    const float m_new = __fadd_rn(__fmul_rn(b1, m), __fmul_rn(omb1, gc));
-    const float v_new =
-        __fadd_rn(__fmul_rn(b2, v), __fmul_rn(omb2, __fmul_rn(gc, gc)));
-    const float num = __fmul_rn(-lr, __fmul_rn(m_new, c1));
-    const float den = __fadd_rn(__fsqrt_rn(__fmul_rn(v_new, c2)), eps);
-    w[c] = __fadd_rn(w[c], __fdiv_rn(num, den));
-    mv[c] = bf16_bits(m_new) | (bf16_bits(v_new) >> 16);
-  }
+  for (int c = lane; c < dim; c += 32)
+    easyrec::compact_adam(w + c, mv + c, g[c], lr, c1, c2, b1, omb1, b2,
+                          omb2, eps);
 }
 
 }  // namespace

@@ -28,8 +28,9 @@
 //              the two differ by at most bf16 rounding of the partial sums.
 //   2 ("mix")  payload rounded to bf16, f32 sum
 //
-// Bound on the H100: memory. Per call it reads n*dim*4 bytes of gradients
-// plus 3*n*8 bytes of indices and writes n*dim*4 + n*8 bytes; the work is
+// Bound on the H100: memory. Per call it reads n*dim*4 bytes of gradients,
+// 2*n*8 + 8 bytes of order and starts and L*8 bytes of sids (the first of
+// each of L segments), and writes n*dim*4 + n*8 bytes; the work is
 // one add per gradient element. Rows are 128-byte lines at dim 32, so every
 // gradient load is one full line. A segment of many duplicates (a hot id)
 // is walked by one warp alone: that serial walk, not bandwidth, bounds a

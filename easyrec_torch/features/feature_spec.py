@@ -5,8 +5,10 @@ Counterpart of easyrec_tpu/features/feature_spec.py:33-225. Every feature
 packs into static shapes:
   categorical -> ids[B, K] int32 + weights[B, K] f32   (K = packing width)
   dense       -> dense[B, D] f32
+  sequence    -> ids[B, L] int32 + mask[B, L] f32       (L = max_seq_len)
 A RawFeature with an embedding becomes a weighted-id lookup (ids = iota,
-weights = values). The port builds specs for IdFeature and RawFeature.
+weights = values). The port builds specs for IdFeature, RawFeature and the
+id sequences of SequenceFeature.
 """
 
 from __future__ import annotations
@@ -14,12 +16,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+DEFAULT_MAX_SEQ_LEN = 50
+
+
 @dataclasses.dataclass
 class FeatureSpec:
   """Static description of one transformed feature."""
   name: str                      # feature_name or input_names[0]
-  kind: str                      # categorical | dense
-  num_ids: int = 1               # K (packing width)
+  kind: str                      # categorical | dense | sequence
+  num_ids: int = 1               # K (packing width) or L (max_seq_len)
   table_name: str = ''           # embedding table identity
   rows: int = 0                  # vocab rows of the table
   embedding_dim: int = 0
@@ -39,6 +44,10 @@ class FeatureSpec:
   @property
   def dense_key(self) -> str:
     return 'feat.%s.dense' % self.name
+
+  @property
+  def mask_key(self) -> str:
+    return 'feat.%s.mask' % self.name
 
 
 def feature_output_name(config) -> str:
@@ -98,6 +107,20 @@ def build_feature_spec(config) -> FeatureSpec:
     return FeatureSpec(name=name, kind='dense', value_dim=raw_dim,
                        config=config)
 
+  if ftype == 'SequenceFeature':
+    if config.sub_feature_type == 'RawFeature' and \
+        not list(config.boundaries):
+      raise NotImplementedError('numeric sequence feature %s is not ported'
+                                % name)
+    if config.hash_bucket_size <= 0:
+      raise NotImplementedError('sequence feature %s: only hashed ids '
+                                '(hash_bucket_size) are ported' % name)
+    return FeatureSpec(
+        name=name, kind='sequence',
+        num_ids=int(config.max_seq_len) or DEFAULT_MAX_SEQ_LEN,
+        table_name=table_name, rows=table_rows(config),
+        embedding_dim=emb_dim, combiner=combiner, config=config)
+
   raise NotImplementedError('feature_type %s (feature %s) is not ported'
                             % (ftype, name))
 
@@ -111,7 +134,7 @@ def build_feature_specs(configs) -> Dict[str, FeatureSpec]:
     if spec.name in specs:
       raise ValueError('duplicate feature name %s' % spec.name)
     specs[spec.name] = spec
-    if spec.kind == 'categorical':
+    if spec.kind in ('categorical', 'sequence'):
       shape = (spec.rows, spec.embedding_dim)
       prev = table_shape.get(spec.table_name)
       if prev is not None and prev != shape:

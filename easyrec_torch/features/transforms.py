@@ -1,9 +1,9 @@
 """Host-side feature transforms: raw columns -> packed numpy arrays.
 
 Counterpart of easyrec_tpu/features/transforms.py for the feature types the
-port runs: IdTransform (:136) and RawTransform (:272). Columns are numpy
-arrays: object arrays of str for STRING fields, float64 for FLOAT/DOUBLE,
-int64 for integer fields.
+port runs: IdTransform (:136), RawTransform (:272) and the hashed-id branch
+of SequenceTransform (:493). Columns are numpy arrays: object arrays of str
+for STRING fields, float64 for FLOAT/DOUBLE, int64 for integer fields.
 """
 
 from __future__ import annotations
@@ -156,9 +156,28 @@ class RawTransform(BaseTransform):
     return {spec.dense_key: vals}
 
 
+class SequenceTransform(BaseTransform):
+  """Behaviour sequences 'i1|i2|...' -> ids[B, L] + mask[B, L]: hashed
+  pieces in order, truncated to L, padded with id 0 and mask 0."""
+
+  def __call__(self, columns):
+    spec, config = self.spec, self.config
+    col = to_numpy_str(columns[config.input_names[0]])
+    ids, counts = hashing.split_hash(col, config.separator or '|',
+                                     int(config.hash_bucket_size),
+                                     spec.num_ids)
+    mask = (np.arange(spec.num_ids)[None, :] < counts[:, None]).astype(
+        np.float32)
+    return {
+        spec.ids_key: ids.astype(np.int32),
+        spec.mask_key: mask,
+    }
+
+
 _TRANSFORMS = {
     'IdFeature': IdTransform,
     'RawFeature': RawTransform,
+    'SequenceFeature': SequenceTransform,
 }
 
 

@@ -105,11 +105,13 @@ class DNN(nn.Module):
   def __init__(self, in_features: int, hidden_units: Sequence[int],
                activation: str = 'relu', use_bn: bool = True,
                dropout_ratio: Sequence[float] = (),
+               use_final_activation: bool = True,
                generator: Optional[torch.Generator] = None, device=None):
     super().__init__()
     self.act = get_activation(activation)
     self.hidden_units = tuple(hidden_units)
     self.use_bn = use_bn
+    self.use_final_activation = use_final_activation
     if any(r > 0 for r in dropout_ratio):
       raise NotImplementedError('DNN dropout_ratio is not ported')
     width = in_features
@@ -127,9 +129,11 @@ class DNN(nn.Module):
                dropout_ratio=tuple(cfg.dropout_ratio), **kwargs)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    for i in range(len(self.hidden_units)):
+    last = len(self.hidden_units) - 1
+    for i in range(last + 1):
       x = getattr(self, 'dense_%d' % i)(x)
       if self.use_bn:
         x = getattr(self, 'bn_%d' % i)(x)
-      x = self.act(x)
+      if i < last or self.use_final_activation:
+        x = self.act(x)
     return x

@@ -31,6 +31,8 @@ class ModelContext:
   def __post_init__(self):
     self.input_layer = emb_ops.InputLayer(self.layout, self.specs)
     self.groups = {g.group_name: g for g in self.model_config.feature_groups}
+    self.seq_att_groups = {g.group_name: g
+                           for g in self.model_config.seq_att_groups}
 
   def group_features(self, name: str) -> List[str]:
     if name not in self.groups:
@@ -40,10 +42,19 @@ class ModelContext:
 
 
 def _group_names(model_config, roles) -> List[str]:
+  """Features of the groups in `roles`, then, for the deep role, the keys
+  and histories of the seq_att groups: the JAX package's order
+  (ModelContext.deep_feature_names, :53), which fixes the fused tables'
+  row offsets."""
   names = []
   for g in model_config.feature_groups:
     if g.wide_deep in roles:
       names.extend(g.feature_names)
+  if 'DEEP' in roles:
+    for g in model_config.seq_att_groups:
+      for m in g.seq_att_map:
+        names.extend(m.key)
+        names.extend(m.hist_seq)
   return list(dict.fromkeys(names))
 
 

@@ -1,15 +1,19 @@
 """Ranking models. Counterpart of easyrec_tpu/models/rank.py: DeepFM
-(:32-88). Submodule names follow the flax parameter tree (dnn, final_dnn,
+(:32-88) and MultiTower with its DIN towers (:135-221). Submodule names
+follow the flax parameter tree (dnn, tower_<group>, din_<group>, final_dnn,
 logits) so `convert.py` maps the two one to one."""
 
 from __future__ import annotations
 
 import torch
 
+from easyrec_torch.layers.attention import DinAttention
 from easyrec_torch.layers.dnn import DNN, Dense
 from easyrec_torch.layers.interaction import FM
 from easyrec_torch.models.base import ModelContext, RankModel, register_model
-from easyrec_torch.models.seq_input import group_input, group_width
+from easyrec_torch.models.seq_input import (group_input, group_input_fn,
+                                            group_width, seq_group_tensors,
+                                            seq_group_widths)
 
 
 @register_model('DeepFM')
@@ -55,3 +59,61 @@ class DeepFM(RankModel):
     logits = self.logits(torch.cat([fm_out, deep_out], dim=1))
     return logits + (wide if wide.shape[-1] == logits.shape[-1]
                      else wide.sum(dim=1, keepdim=True))
+
+
+@register_model('MultiTower')
+@register_model('MultiTowerDIN')
+class MultiTower(RankModel):
+  """reference: model/multi_tower.py, multi_tower_din.py:18. A DNN tower
+  per feature group, then a DIN tower per seq_att group ([attended history,
+  query]); their outputs concatenate in that order into final_dnn and the
+  logit."""
+
+  def __init__(self, ctx: ModelContext, generator=None, device=None):
+    super().__init__(ctx)
+    cfg = ctx.model_config.multi_tower
+    kw = dict(generator=generator, device=device)
+    self.tower_inputs = [t.input for t in cfg.towers]
+    width = 0
+    for t in cfg.towers:
+      dnn = DNN.from_config(t.dnn, group_width(ctx, t.input), **kw)
+      self.add_module('tower_%s' % t.input, dnn)
+      width += dnn.out_features
+    self.din_inputs = []
+    for t in cfg.din_towers:
+      group = ctx.seq_att_groups[t.input]
+      dq, dh = seq_group_widths(ctx, group)
+      need_key = group.need_key_feature and dq > 0
+      if need_key and dq != dh:
+        if not group.allow_key_transform:
+          raise ValueError(
+              'seq_att group %r: key dim %d != hist dim %d; set '
+              'allow_key_transform to project the key' % (t.input, dq, dh))
+        self.add_module('key_transform_%s' % t.input, Dense(dq, dh, **kw))
+      self.add_module('din_%s' % t.input, DinAttention(
+          dh, tuple(t.dnn.hidden_units)[:-1] or (32,),
+          activation=t.dnn.activation or 'relu', **kw))
+      self.din_inputs.append((t.input, need_key))
+      width += 2 * dh if need_key else dh
+    self.final_dnn = DNN.from_config(cfg.final_dnn, width, **kw)
+    self.logits = Dense(self.final_dnn.out_features, 1, **kw)
+
+  def _din_tower(self, name, need_key, batch, pulled) -> torch.Tensor:
+    query, hist, mask = seq_group_tensors(
+        self.ctx, self.ctx.seq_att_groups[name], batch, pulled)
+    if not need_key:
+      # no target key: the masked mean of the history is the query
+      denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+      query = (hist * mask[:, :, None]).sum(dim=1) / denom
+    elif hasattr(self, 'key_transform_%s' % name):
+      query = getattr(self, 'key_transform_%s' % name)(query)
+    att = getattr(self, 'din_%s' % name)(query, hist, mask)
+    return torch.cat([att, query], dim=1) if need_key else att
+
+  def raw_logits(self, batch, pulled) -> torch.Tensor:
+    gi = group_input_fn(self.ctx, pulled, batch)
+    outs = [getattr(self, 'tower_%s' % name)(gi(name))
+            for name in self.tower_inputs]
+    outs += [self._din_tower(name, need_key, batch, pulled)
+             for name, need_key in self.din_inputs]
+    return self.logits(self.final_dnn(torch.cat(outs, dim=1)))

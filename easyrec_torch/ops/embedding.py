@@ -2,9 +2,10 @@
 
 Counterpart of easyrec_tpu/ops/embedding.py (single device): `pack_ids`
 (:21), `pull_embeddings` (:56), `combine` (:241) and the parts of
-`InputLayer` (:268-422) that DeepFM uses. The pull happens OUTSIDE the
-differentiated forward: the backward pass produces gradients of the pulled
-rows [B, totK, dim], which the sparse update then applies to the table.
+`InputLayer` (:268-422) that DeepFM and MultiTowerDIN use. The pull
+happens OUTSIDE the differentiated forward: the backward pass produces
+gradients of the pulled rows [B, totK, dim], which the sparse update then
+applies to the table.
 """
 
 from __future__ import annotations
@@ -81,15 +82,30 @@ class InputLayer:
     combiner = spec.combiner if role == 'deep' else 'sum'
     return combine(rows, batch['feat.%s.weights' % fname], combiner)
 
+  def sequence_embedding(self, pulled, batch, fname: str):
+    """([B, L, dim] rows x mask, mask [B, L]) of one id sequence."""
+    key, use = self.layout.feature_use[(fname, 'deep')]
+    rows = pulled[key][:, use.start:use.start + use.k]
+    if use.col_dim:
+      rows = rows[..., use.col_start:use.col_start + use.col_dim]
+    mask = batch['feat.%s.mask' % fname]
+    return rows * mask[:, :, None], mask
+
   def dense_feature(self, batch, fname: str) -> torch.Tensor:
     return batch['feat.%s.dense' % fname]
 
   def group_embeddings(self, pulled, batch, feature_names,
                        role: str = 'deep'):
     """Per-feature [B, d_f] tensors of a group (dense features pass)."""
-    return [self.dense_feature(batch, f) if self.specs[f].kind == 'dense'
-            else self.feature_embedding(pulled, batch, f, role)
-            for f in feature_names]
+    outs = []
+    for f in feature_names:
+      kind = self.specs[f].kind
+      if kind == 'sequence':
+        raise NotImplementedError('sequence feature %s in a flat feature '
+                                  'group is not ported' % f)
+      outs.append(self.dense_feature(batch, f) if kind == 'dense'
+                  else self.feature_embedding(pulled, batch, f, role))
+    return outs
 
   def group_concat(self, pulled, batch, feature_names,
                    role: str = 'deep') -> torch.Tensor:

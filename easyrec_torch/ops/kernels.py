@@ -73,7 +73,14 @@ RMW_ADAM = CudaKernel(
     # stream
     [_P, _P, _P, _P, _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _P])
 
-ALL = (SEG_SUM, RMW_ADAM)
+RMW_FUSED_ADAM = CudaKernel(
+    'rmw_fused_adam', 'rmw_fused_adam.cu', 'easyrec_rmw_fused_adam',
+    # table, sids, order, starts, grads, hypers, chunk_seg, chunk_base,
+    # partial, n, n_chunks, rows, dim, b1, 1-b1, b2, 1-b2, eps, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32,
+     _F32, _F32, _F32, _P])
+
+ALL = (SEG_SUM, RMW_ADAM, RMW_FUSED_ADAM)
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:

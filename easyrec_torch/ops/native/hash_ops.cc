@@ -2,8 +2,9 @@
 //
 // A copy of the string-hash part of easyrec_tpu/ops/native/native_ops.cc:
 // the same MurmurHash64A and seed, so a string lands in the same bucket in
-// both packages. Called from Python through ctypes (easyrec_torch/ops/
-// hashing.py), built with g++ at first use.
+// both packages, and the same fused split-and-hash of delimited sequences.
+// Called from Python through ctypes (easyrec_torch/ops/hashing.py), built
+// with g++ at first use.
 
 #include <cstdint>
 #include <cstring>
@@ -63,6 +64,33 @@ void hash_strings_mod(const char* buf, const int64_t* offsets, int64_t n,
     const int64_t len = offsets[i + 1] - off;
     const uint64_t h = murmur64a(buf + off, len, kSeed);
     out[i] = static_cast<int64_t>(h % num_buckets);
+  }
+}
+
+// Split n delimited strings into at most max_k non-empty pieces each and
+// hash every piece into [0, num_buckets): ids[n*max_k], padded with pad_id,
+// and counts[n]. A copy of split_hash_strings of the JAX package's
+// native_ops.cc, so sequence ids agree between the two packages.
+void split_hash_strings(const char* buf, const int64_t* offsets, int64_t n,
+                        char sep, uint64_t num_buckets, int64_t max_k,
+                        int64_t pad_id, int64_t* ids, int32_t* counts) {
+  for (int64_t i = 0; i < n; ++i) {
+    const char* p = buf + offsets[i];
+    const char* lim = buf + offsets[i + 1];
+    int64_t k = 0;
+    int64_t* row = ids + i * max_k;
+    while (p < lim && k < max_k) {
+      const char* q = static_cast<const char*>(
+          std::memchr(p, sep, static_cast<size_t>(lim - p)));
+      const char* piece_end = q ? q : lim;
+      if (piece_end > p) {
+        row[k++] = static_cast<int64_t>(
+            murmur64a(p, piece_end - p, kSeed) % num_buckets);
+      }
+      p = q ? q + 1 : lim;
+    }
+    counts[i] = static_cast<int32_t>(k);
+    for (; k < max_k; ++k) row[k] = pad_id;
   }
 }
 

@@ -1,8 +1,9 @@
 """Build native sources of the port into `build/easyrec_torch/` and load
 them with ctypes.
 
-Each library is named by a hash of its source and compiler command, so a
-changed source or flag builds anew and a stale library is never loaded.
+Each library is named by a hash of its source, the files it includes by a
+quoted path, and its compiler flags, so a changed source, header or flag
+builds anew and a stale library is never loaded.
 A build writes to a temporary name and renames it into place, so
 concurrent processes (test workers) never load a half-written file.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import List, Optional
@@ -26,6 +28,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 GXX_FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17']
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
 
 def find_nvcc() -> str:
   for cand in (os.environ.get('CUDA_HOME', ''), '/usr/local/cuda'):
@@ -39,6 +43,23 @@ def find_nvcc() -> str:
   return path
 
 
+def hash_sources(source: str, digest, seen=None) -> None:
+  """Feed `source` and, once each, every file it includes by a quoted path
+  that exists beside it (recursively) into `digest`."""
+  seen = set() if seen is None else seen
+  path = os.path.abspath(source)
+  if path in seen:
+    return
+  seen.add(path)
+  with open(path, 'rb') as f:
+    text = f.read()
+  digest.update(text)
+  for name in _LOCAL_INCLUDE.findall(text):
+    dep = os.path.join(os.path.dirname(path), name.decode())
+    if os.path.exists(dep):
+      hash_sources(dep, digest, seen)
+
+
 class NativeBuild:
   """One source file compiled into one shared library."""
 
@@ -46,8 +67,8 @@ class NativeBuild:
     self.source = source
     self.compiler = compiler
     self.flags = list(flags)
-    with open(source, 'rb') as f:
-      digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    hash_sources(source, digest)
     digest.update(' '.join(self.flags).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     self.path = os.path.join(BUILD_DIR, 'lib%s-%s.so'

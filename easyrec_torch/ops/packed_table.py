@@ -17,6 +17,10 @@ gradients [N, dim]:
      gradient sums.
   3. `rmw_adam` -> kernel K2 (csrc/rmw_adam.cu): in-place lazy Adam on the
      touched rows.
+Under EASYREC_PACKED_FUSED=1 steps 2 and 3 are one call instead,
+`rmw_fused_adam` -> kernel K3 (csrc/rmw_fused_adam.cu), which keeps the
+[N, dim] gradient sums out of device memory and sums long segments in
+parallel chunks (the JAX package's _rmw_fused_pallas).
 Each kernel wrapper runs its plain PyTorch version when its tensors lie on
 the CPU and launches its kernel when they lie on a CUDA device; there is no
 other switch between the two.
@@ -34,6 +38,10 @@ from easyrec_torch.ops import kernels
 from easyrec_torch.optim.sparse import SparseAdam
 
 GG_MODES = {'0': 0, '1': 1, 'mix': 2}
+
+# K3 cuts every segment into chunks of this many sorted slots (a constant
+# of csrc/rmw_fused_adam.cu, kChunk)
+FUSED_CHUNK = 256
 
 
 def gg_mode() -> str:
@@ -242,13 +250,131 @@ def rmw_adam(table: torch.Tensor, uids: torch.Tensor, gsum: torch.Tensor,
   return table
 
 
+# ------------------------- K3: fused segmented sum + row RMW, compact Adam
+
+def segment_sums_by_chunk(order, starts, grads):
+  """Per-segment f32 gradient sums [N, dim] in K3's order of additions:
+  each chunk of FUSED_CHUNK sorted slots summed in slot order from 0, then
+  a segment of several chunks as 0 + chunk 0 + chunk 1 + ... The Python
+  loops run at most FUSED_CHUNK and (longest segment / FUSED_CHUNK) times."""
+  n, dim = grads.shape
+  dev = grads.device
+  lens = starts[1:] - starts[:n]                 # 0 for unused segments
+  n_ch = (lens + FUSED_CHUNK - 1) // FUSED_CHUNK
+  seg = torch.repeat_interleave(torch.arange(n, device=dev), n_ch)
+  first = torch.cumsum(n_ch, 0) - n_ch           # first chunk of a segment
+  j = torch.arange(seg.shape[0], device=dev) - first[seg]
+  lo = starts[seg] + j * FUSED_CHUNK
+  clen = torch.clamp(starts[seg + 1] - lo, max=FUSED_CHUNK)
+  # level 1: chunk sums, one slot position of every chunk per pass
+  csum = torch.zeros((seg.shape[0], dim), dtype=torch.float32, device=dev)
+  for p in range(int(clen.max()) if seg.shape[0] else 0):
+    act = torch.nonzero(clen > p)[:, 0]
+    rows = order.index_select(0, lo[act] + p)
+    csum[act] = csum[act] + grads.index_select(0, rows)
+  # level 2: a one-chunk segment's sum is its chunk sum; longer segments
+  # add their chunk sums in chunk order
+  sums = torch.zeros((n, dim), dtype=torch.float32, device=dev)
+  one = torch.nonzero(n_ch == 1)[:, 0]
+  sums[one] = csum[first[one]]
+  for q in range(int(n_ch.max()) if n else 0):
+    act = torch.nonzero((n_ch > 1) & (n_ch > q))[:, 0]
+    if act.shape[0]:
+      sums[act] = sums[act] + csum[first[act] + q]
+  return sums
+
+
+def rmw_fused_adam_plain(table: torch.Tensor, sids: torch.Tensor,
+                         order: torch.Tensor, starts: torch.Tensor,
+                         grads: torch.Tensor, hypers: torch.Tensor,
+                         opt: SparseAdam) -> torch.Tensor:
+  """Plain PyTorch K3: the same tree of f32 additions as the kernel, then
+  K2's plain update; `table` is updated in place and returned."""
+  n = grads.shape[0]
+  sums = segment_sums_by_chunk(order, starts, grads)
+  live = starts[:n] < n
+  uids = torch.where(live, sids[starts[:n].clamp(max=n - 1)],
+                     torch.full_like(sids, -1))
+  return rmw_adam_plain(table, uids, sums, hypers, opt)
+
+
+def fused_chunk_map(starts: torch.Tensor, n: int):
+  """(chunk_seg [n_chunks], chunk_base [n], n_chunks) for K3: segments
+  longer than FUSED_CHUNK own consecutive chunk slots from chunk_base;
+  chunk_seg names the segment of each slot (-1 before the first). No host
+  sync: n_chunks = 2n // FUSED_CHUNK + 1 bounds the slots any input
+  needs, since a long segment of L slots has ceil(L / FUSED_CHUNK) <
+  2L / FUSED_CHUNK chunks."""
+  dev = starts.device
+  n_chunks = 2 * n // FUSED_CHUNK + 1
+  lens = starts[1:] - starts[:n]
+  is_long = lens > FUSED_CHUNK
+  n_ch = torch.where(is_long, (lens + FUSED_CHUNK - 1) // FUSED_CHUNK,
+                     torch.zeros_like(lens))
+  base = torch.cumsum(n_ch, 0) - n_ch
+  mark = torch.full((n_chunks + 1,), -1, dtype=torch.int64, device=dev)
+  # short segments scatter into the dump slot n_chunks, dropped below
+  mark.scatter_(0, torch.where(is_long, base, torch.full_like(base,
+                                                              n_chunks)),
+                torch.arange(n, device=dev))
+  chunk_seg = torch.cummax(mark[:n_chunks], 0).values
+  return chunk_seg, base, n_chunks
+
+
+def rmw_fused_adam(table: torch.Tensor, sids: torch.Tensor,
+                   order: torch.Tensor, starts: torch.Tensor,
+                   grads: torch.Tensor, hypers: torch.Tensor,
+                   opt: SparseAdam) -> torch.Tensor:
+  """Sum each segment's gradients and run lazy Adam on its row, in place,
+  with no [N, dim] sums in between (unused segments and ids outside the
+  table skipped, untouched rows keep their bytes). CPU tensors: plain
+  version; CUDA: K3."""
+  if not isinstance(opt, SparseAdam):
+    raise NotImplementedError(
+        'sparse optimizer %r has no port: only compact Adam runs on the '
+        'combined table' % (opt,))
+  rows, width = table.shape
+  n, dim = grads.shape
+  dev = table.device
+  _check(table, 'table', torch.float32, (rows, 2 * dim), dev)
+  _check(sids, 'sids', torch.int64, (n,), dev)
+  _check(order, 'order', torch.int64, (n,), dev)
+  _check(starts, 'starts', torch.int64, (n + 1,), dev)
+  _check(grads, 'grads', torch.float32, (n, dim), dev)
+  _check(hypers, 'hypers', torch.float32, (3,), dev)
+  if dev.type == 'cpu':
+    return rmw_fused_adam_plain(table, sids, order, starts, grads, hypers,
+                                opt)
+  if dev.type != 'cuda':
+    raise ValueError('rmw_fused_adam: unsupported device %s' % dev)
+  if dim > 128:
+    raise ValueError('rmw_fused_adam: dim %d above the kernel\'s 128' % dim)
+  chunk_seg, chunk_base, n_chunks = fused_chunk_map(starts, n)
+  partial = torch.empty((n_chunks, dim), dtype=torch.float32, device=dev)
+  b1, omb1, b2, omb2, eps = opt.constants
+  kernels.RMW_FUSED_ADAM.launch(
+      dev, table.data_ptr(), sids.data_ptr(), order.data_ptr(),
+      starts.data_ptr(), grads.data_ptr(), hypers.data_ptr(),
+      chunk_seg.data_ptr(), chunk_base.data_ptr(), partial.data_ptr(), n,
+      n_chunks, rows, dim, b1, omb1, b2, omb2, eps)
+  return table
+
+
+def fused_mode() -> bool:
+  """EASYREC_PACKED_FUSED as in the JAX package: '1' takes K3, anything
+  else K1 + K2."""
+  return os.environ.get('EASYREC_PACKED_FUSED', '0') == '1'
+
+
 def apply_packed_update(table: torch.Tensor, ids: torch.Tensor,
                         grads: torch.Tensor, hypers: torch.Tensor,
                         opt: SparseAdam, meta: TableMeta) -> torch.Tensor:
   """Sparse-update one combined table, in place, from raw (duplicated)
-  ids [N] and their gradients [N, dim]."""
+  ids [N] and their gradients [N, dim]: K3 under EASYREC_PACKED_FUSED=1,
+  else K1 then K2."""
   sids, order, starts = sort_segments(ids.reshape(-1).to(torch.int64))
-  uids, gsum = seg_sum(sids, order, starts,
-                       grads.reshape(-1, meta.dim).to(torch.float32)
-                       .contiguous(), meta.sentinel)
+  grads = grads.reshape(-1, meta.dim).to(torch.float32).contiguous()
+  if fused_mode():
+    return rmw_fused_adam(table, sids, order, starts, grads, hypers, opt)
+  uids, gsum = seg_sum(sids, order, starts, grads, meta.sentinel)
   return rmw_adam(table, uids, gsum, hypers, opt)

@@ -1,12 +1,14 @@
-"""Where the time of the flagship train step goes, on the GPU.
+"""Where the time of a benchmark model's train step goes, on the GPU.
 
-    python -m easyrec_torch.tools.profile_step [--steps 10] [--top 25]
+    python -m easyrec_torch.tools.profile_step [--model deepfm|din]
+        [--steps 10] [--top 25]
 
-Builds the flagship Criteo DeepFM trainer (easyrec_torch/utils/flagship.py)
-on the card at its batch of 4096, warms it up for 5 steps on pre-built
-synthetic batches already on the device, then runs --steps steps without
-and then under torch.profiler and prints, with the
-card's name and power limit:
+Builds the trainer of the flagship Criteo DeepFM (K1 + K2) or of the
+Taobao DIN (EASYREC_PACKED_FUSED=1, K3), both from
+easyrec_torch/utils/flagship.py, on the card at batch 4096, warms it up
+for 5 steps on pre-built synthetic batches already on the device, then
+runs --steps steps without and then under torch.profiler and prints, with
+the card's name and power limit:
   - wall time per step without the profiler (ends in
     torch.cuda.synchronize()), and with it (the profiler adds host time to
     every operator);
@@ -21,11 +23,15 @@ Needs a GPU; fails where torch.cuda.is_available() is False.
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 import time
 
 WARMUP_STEPS = 5
+# --model -> (flagship config function, EASYREC_PACKED_FUSED, name)
+MODELS = {'deepfm': ('criteo_deepfm_config', '0', 'flagship DeepFM'),
+          'din': ('taobao_din_config', '1', 'Taobao DIN')}
 
 def _device_us(evt) -> float:
   for name in ('self_device_time_total', 'self_cuda_time_total'):
@@ -37,6 +43,7 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+  ap.add_argument('--model', choices=sorted(MODELS), default='deepfm')
   ap.add_argument('--steps', type=int, default=10)
   ap.add_argument('--top', type=int, default=25)
   args = ap.parse_args(argv)
@@ -58,7 +65,9 @@ def main(argv=None) -> int:
                        text=True, timeout=60).stdout.strip()
   card = '%s (nvidia-smi: %s)' % (torch.cuda.get_device_name(0), smi)
   dev = torch.device('cuda')
-  trainer = Trainer(flagship.criteo_deepfm_config(), device='cuda')
+  config_fn, fused, what = MODELS[args.model]
+  os.environ['EASYREC_PACKED_FUSED'] = fused
+  trainer = Trainer(getattr(flagship, config_fn)(), device='cuda')
   trainer.init_state()
   bs = int(trainer.data_config.batch_size)
   labels = list(trainer.ctx.label_fields)
@@ -93,8 +102,8 @@ def main(argv=None) -> int:
     return 1
   launches = sum(e.count for e in kernels) / args.steps
   print('card: %s' % card)
-  print('flagship DeepFM train step, batch %d, %d steps under the profiler'
-        % (bs, args.steps))
+  print('%s train step, batch %d, EASYREC_PACKED_FUSED=%s, %d steps '
+        'under the profiler' % (what, bs, fused, args.steps))
   print('wall %.3f ms/step (%.1f examples/s) without the profiler, %.3f '
         'with it; device busy %.3f ms/step; device idle %.1f%% of the '
         'unprofiled wall; %.0f kernel launches/step'

@@ -10,8 +10,8 @@ checkpoints. A step:
      embedding regulariser over the pulled rows masked by sample_weight;
   4. runs backward();
   5. runs dense Adam at the schedule's rate for this step;
-  6. runs the sparse update of each table through kernels K1 and K2
-     (ops/packed_table.py).
+  6. runs the sparse update of each table (ops/packed_table.py): kernels
+     K1 and K2, or the fused kernel K3 under EASYREC_PACKED_FUSED=1.
 Everything the step needs per step (step counter, learning rates, Adam
 bias corrections) stays on the device: a step syncs the host only where
 the caller reads a loss.
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from easyrec_torch.config import config_util
+from easyrec_torch.config import config_util, schema
 from easyrec_torch.data.input_pipeline import InputPipeline
 from easyrec_torch.device import resolve_device
 from easyrec_torch.features import feature_spec as fs
@@ -52,9 +52,14 @@ def l2_of_kernels(model: nn.Module) -> torch.Tensor:
 
 
 def _model_l2_reg(model_config) -> float:
+  """l2_regularization of whichever model message is set, where it has one
+  (trainer.py:59-67)."""
   which = model_config.WhichOneof('model')
-  if which == 'deepfm':
-    return float(model_config.deepfm.l2_regularization)
+  if which is None:
+    return 0.0
+  sub = getattr(model_config, which)
+  if schema.has_field(sub.type_name, 'l2_regularization'):
+    return float(sub.l2_regularization)
   return 0.0
 
 

@@ -1,9 +1,9 @@
 """Synthetic packed batches straight from feature specs.
 
 Counterpart of easyrec_tpu/utils/synthetic.py for the feature kinds the port
-runs (categorical and dense). Batches are the same flat numpy dicts the
-input pipeline yields, so benchmarks can time the train step without the
-host CSV path.
+runs (categorical, dense and id sequences). Batches are the same flat numpy
+dicts the input pipeline yields, so benchmarks can time the train step
+without the host CSV path.
 """
 
 from __future__ import annotations
@@ -29,6 +29,14 @@ def synthetic_batch(specs: Dict[str, FeatureSpec],
     if spec.kind == 'dense':
       batch[spec.dense_key] = rng.random(
           (batch_size, spec.value_dim)).astype(np.float32)
+    elif spec.kind == 'sequence':
+      # lengths uniform in 1..L; padded positions carry id 0, mask 0
+      lens = rng.integers(1, spec.num_ids + 1, batch_size)
+      ids = _skewed_ids(rng, spec.rows, (batch_size, spec.num_ids), skew)
+      mask = (np.arange(spec.num_ids)[None, :] <
+              lens[:, None]).astype(np.float32)
+      batch[spec.ids_key] = (ids * mask).astype(np.int32)
+      batch[spec.mask_key] = mask
     elif spec.is_weighted:
       batch[spec.ids_key] = np.broadcast_to(
           np.arange(spec.num_ids, dtype=np.int32),

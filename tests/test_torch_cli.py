@@ -1,7 +1,7 @@
 """The port's user surface on the CPU: the train CLI learns the fixture
 data, CUDA is the default device and its absence raises, and importing and
-running the port loads nothing of JAX, protobuf, pandas, pyarrow or the
-JAX package."""
+running the port (the DeepFM and the fused Taobao DIN) loads nothing of
+JAX, protobuf, pandas, pyarrow or the JAX package."""
 
 import os
 import re
@@ -60,10 +60,17 @@ import importlib, pkgutil, sys
 import easyrec_torch
 for mod in pkgutil.walk_packages(easyrec_torch.__path__, 'easyrec_torch.'):
   importlib.import_module(mod.name)
+import os
 from easyrec_torch import main
+from easyrec_torch.utils import flagship
 result = main.train_and_evaluate(sys.argv[1], device='cpu',
                                  edit_config_json={'train_config.num_steps': 3})
 assert result['global_step'] == 3
+os.environ['EASYREC_PACKED_FUSED'] = '1'
+result = main.train_and_evaluate(flagship.taobao_din_config(batch_size=64),
+                                 device='cpu',
+                                 edit_config_json={'train_config.num_steps': 2})
+assert result['global_step'] == 2
 banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas', 'pyarrow',
           'easyrec_tpu')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned or

@@ -116,9 +116,96 @@ def test_wrappers_check_cuda_inputs(cuda):
                 opt)
 
 
-def test_train_step_launches_each_kernel_once(cuda):
-  """A small DeepFM step on the card goes through both kernels once per
-  fused table."""
+def _table(device, rows, dim, seed):
+  gen = torch.Generator(device=device).manual_seed(seed)
+  table = torch.empty((rows, 2 * dim), device=device)
+  table[:, :dim] = torch.randn((rows, dim), generator=gen, device=device)
+  table[:, dim:] = pack_pair(
+      torch.randn((rows, dim), generator=gen, device=device) * 1e-3,
+      torch.rand((rows, dim), generator=gen, device=device) * 1e-4)
+  return table
+
+
+def _check_fused_against_plain(device, ids, grads, rows):
+  """K3 and its plain version from the same table: w, m and v bit-equal
+  (the same f32 additions in the same order, the same IEEE Adam); rows
+  that are untouched, zero-sum or outside the table keep their bytes."""
+  dim = grads.shape[1]
+  sids, order, starts = pt.sort_segments(ids)
+  table = _table(device, rows, dim, 5)
+  opt = SparseAdam()
+  hyp = opt.hypers(torch.tensor(1e-2, device=device),
+                   torch.tensor(2, dtype=torch.int32, device=device))
+  orig, ref = table.clone(), table.clone()
+  before = kernels.launch_counts()['rmw_fused_adam']
+  pt.rmw_fused_adam(table, sids, order, starts, grads, hyp, opt)
+  torch.cuda.synchronize()
+  assert kernels.launch_counts()['rmw_fused_adam'] == before + 1
+  pt.rmw_fused_adam_plain(ref, sids, order, starts, grads, hyp, opt)
+  assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
+  uids, gsum = pt.seg_sum_plain(sids, order, starts, grads, rows, '0')
+  live = uids < rows
+  touched = torch.zeros(rows, dtype=torch.bool, device=device)
+  touched[uids[live & (gsum != 0).any(dim=1)]] = True
+  changed = (table.view(torch.int32) != orig.view(torch.int32)).any(dim=1)
+  assert not bool((changed & ~touched).any())
+  assert bool(changed[touched].all())
+
+
+@pytest.mark.parametrize('dim', [16, 32])
+def test_rmw_fused_adam_kernel_matches_plain_on_one_long_segment(cuda, dim):
+  """A 100k-slot segment (a padding id of a DIN batch) beside short ones:
+  the two-level path, 391 chunks summed in parallel then in order."""
+  rows = 50_000
+  gen = torch.Generator(device=cuda).manual_seed(7)
+  ids = torch.cat([torch.zeros(100_000, dtype=torch.int64, device=cuda),
+                   torch.randint(1, rows, (20_000,), generator=gen,
+                                 device=cuda)])
+  ids[-5:] = rows                         # ids outside the table
+  grads = torch.randn((ids.shape[0], dim), generator=gen, device=cuda)
+  grads[::11] = 0.0
+  _check_fused_against_plain(cuda, ids, grads, rows)
+
+
+def test_rmw_fused_adam_kernel_matches_plain_on_hot_rows(cuda):
+  """The flagship's shape: 13 rows of 4,096 slots each beside 26 x 4,096
+  mostly unique ids, dim 32, a 26M-row table."""
+  bs, rows = 4096, 26_000_014
+  gen = torch.Generator(device=cuda).manual_seed(3)
+  hot = torch.arange(13, device=cuda).repeat(bs)
+  cold = torch.randint(13, rows, (26 * bs,), generator=gen, device=cuda)
+  ids = torch.cat([hot, cold])
+  grads = torch.randn((ids.shape[0], 32), generator=gen, device=cuda) * 1e-2
+  grads[::97] = 0.0
+  _check_fused_against_plain(cuda, ids, grads, rows)
+
+
+def test_rmw_fused_adam_kernel_short_segments_equal_k1_k2(cuda):
+  """Where no segment is longer than the chunk, K3 adds in K1's order:
+  bit-equal to K1 (mode 0) followed by K2."""
+  rows, dim = 3000, 16
+  gen = torch.Generator(device=cuda).manual_seed(9)
+  ids = torch.randint(0, rows, (8000,), generator=gen, device=cuda)
+  grads = torch.randn((8000, dim), generator=gen, device=cuda)
+  sids, order, starts = pt.sort_segments(ids)
+  assert int((starts[1:] - starts[:-1]).max()) <= pt.FUSED_CHUNK
+  opt = SparseAdam()
+  hyp = opt.hypers(torch.tensor(1e-2, device=cuda),
+                   torch.tensor(0, dtype=torch.int32, device=cuda))
+  a = _table(cuda, rows, dim, 1)
+  b = a.clone()
+  pt.rmw_fused_adam(a, sids, order, starts, grads, hyp, opt)
+  uids, gsum = pt.seg_sum(sids, order, starts, grads, rows, '0')
+  pt.rmw_adam(b, uids, gsum, hyp, opt)
+  torch.cuda.synchronize()
+  assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize('fused', ['0', '1'])
+def test_train_step_launches_each_kernel_once(cuda, fused, monkeypatch):
+  """A small DeepFM step on the card goes through K1 and K2 once per fused
+  table, or through K3 alone under EASYREC_PACKED_FUSED=1."""
+  monkeypatch.setenv('EASYREC_PACKED_FUSED', fused)
   from easyrec_torch.train.trainer import Trainer, to_device
   from easyrec_torch.utils import flagship
   from easyrec_torch.utils.synthetic import synthetic_batch
@@ -130,5 +217,7 @@ def test_train_step_launches_each_kernel_once(cuda):
   kernels.reset_launches()
   out = trainer.train_step(batch)
   assert np.isfinite(float(out['total_loss']))
-  assert kernels.launch_counts() == {'seg_sum': len(trainer.tables),
-                                     'rmw_adam': len(trainer.tables)}
+  n = len(trainer.tables)
+  want = {'seg_sum': 0, 'rmw_adam': 0, 'rmw_fused_adam': n} if fused == '1' \
+      else {'seg_sum': n, 'rmw_adam': n, 'rmw_fused_adam': 0}
+  assert kernels.launch_counts() == want

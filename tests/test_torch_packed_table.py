@@ -263,7 +263,8 @@ def test_wrappers_take_plain_path_on_cpu_and_check_inputs():
   opt = SparseAdam()
   hyp = opt.hypers(torch.tensor(0.1), torch.tensor(0, dtype=torch.int32))
   tpt.rmw_adam(table, uids, gsum, hyp, opt)
-  assert kernels.launch_counts() == {'seg_sum': 0, 'rmw_adam': 0}
+  assert kernels.launch_counts() == {'seg_sum': 0, 'rmw_adam': 0,
+                                     'rmw_fused_adam': 0}
   with pytest.raises(TypeError):
     tpt.seg_sum(sids, order, starts, grads.double(), 3)
   with pytest.raises(ValueError):
