@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order; any failure exits nonzero before the result line:
   1. device  the card's name, count, and nvidia-smi's name and power limit;
-  2. build   the three CUDA kernels from easyrec_torch/csrc with nvcc for
+  2. build   the five CUDA kernels from easyrec_torch/csrc with nvcc for
              sm_90a (one nvcc per source, started together), with ptxas's
              report;
   3. kernels each kernel against its plain PyTorch version on the card:
@@ -18,17 +18,26 @@ Phases, in order; any failure exits nonzero before the result line:
              4096, two padding segments of ~100k slots, dim 16, 620k-row
              table), with times from CUDA events beside bounds, the plain
              versions' times and the library yardsticks;
-  4. agree   a small DeepFM (K1 + K2) and a small DIN (K3) train 3 steps on
+  4. groups  K4 (group push) and K5 (group RMW) against their plain
+             versions at the ported benchmarks' shapes (K4: 106,496 slots
+             into [406,252, 8, 128]; K5: 98,304 groups of a 5 GB
+             [406,252, 8, 384] table, and the 106,496 slots with gg),
+             with times; then every easyrec_torch.benchmarks main() at its
+             full shape and experimental_packed_update at a small one:
+             every correctness line must read true, K4 and K5 must
+             launch, K1-K3 must not;
+  5. agree   a small DeepFM (K1 + K2) and a small DIN (K3) train 3 steps on
              the card and on the CPU from the same weights and batches;
              losses and tables must agree;
-  5. din     the Taobao DIN config through easyrec_torch.main
+  6. din     the Taobao DIN config through easyrec_torch.main
              .train_and_evaluate at full width with EASYREC_PACKED_FUSED=1
              (num_steps cut to 20; eval runs DummyInput's cap of 50
              batches): K3 must launch once per step and table, K1 and K2
              not at all; then the steady-state train-step rate over
              pre-built synthetic batches;
-  6. deepfm  the flagship config the same way, unfused: K1 and K2 once per
+  7. deepfm  the flagship config the same way, unfused: K1 and K2 once per
              step and table, K3 not at all; then its rate.
+K4 and K5 must launch 0 times in 6 and 7.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -363,6 +372,227 @@ def phase_kernel_din(torch):
       library_ms=k3_lib)
 
 
+def group_gids(torch, meta, n_ids, seed):
+  """Group slot ids as the packed-v2 update makes them: n_ids random
+  logical ids, dedup_sum, group_prep; real groups first, then slots
+  naming the scratch group. Returns (ugids int32, gg, n_real)."""
+  from easyrec_torch.benchmarks import bench_packed_v2 as v2
+  from easyrec_torch.optim.sparse import dedup_sum
+
+  dev = torch.device('cuda')
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  ids = torch.randint(0, meta.rows, (n_ids,), generator=gen, device=dev,
+                      dtype=torch.int32)
+  grads = torch.randn((n_ids, meta.dim), generator=gen, device=dev)
+  ugids, gg, _ = v2.group_prep(*dedup_sum(ids, grads, meta.scratch), meta)
+  real = ugids != meta.scratch_gid
+  n_real = int(real.sum())
+  if bool(real[n_real:].any()):
+    fail('group ids: a real group slot follows a scratch slot')
+  return ugids, gg.contiguous(), n_real
+
+
+def phase_groups(torch):
+  """K4 and K5 against their plain versions at the ported benchmarks'
+  shapes, with times; then every ported benchmark's main() at its full
+  shape, each correctness line required true, with K4 and K5 launch
+  counts over those runs. Returns the two kernels' result records."""
+  import numpy as np
+  from easyrec_torch.benchmarks import (bench_dma_issue, bench_group_dma,
+                                        bench_packed_stages,
+                                        bench_packed_v2 as v2)
+  from easyrec_torch.ops import group_dma, kernels
+
+  dev = torch.device('cuda')
+  flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+  results = []
+
+  # -- K4 at the bench_packed_v2 deep shape: 106,496 slots, W 128
+  meta = v2.PackMeta(26_000_000, 16)
+  ugids, gg, n_real = group_gids(torch, meta, 4096 * 26, 21)
+  n = ugids.shape[0]
+  gen = torch.Generator(device=dev).manual_seed(22)
+  table = torch.randn((meta.groups, 8, meta.width), generator=gen,
+                      device=dev)
+  rows = torch.randn((n, 8, meta.width), generator=gen, device=dev)
+  rows[n_real:] = table[meta.scratch_gid]    # pads carry current bytes
+  ref = table.clone()
+  group_dma.group_push(table, ugids, rows)
+  group_dma.group_push_plain(ref, ugids, rows)
+  group_dma.check_ids(dev)
+  if not torch.equal(table.view(torch.int32), ref.view(torch.int32)):
+    fail('group_push: the table differs from the plain version')
+  err4 = float((table - ref).abs().max())
+  del ref
+  log('group_push (push shape): %d slots (%d real groups, %d scratch pads) '
+      'into [%d, 8, %d] f32; byte-equal to the plain version over the whole '
+      'table, scratch group included (tolerance 0)'
+      % (n, n_real, n - n_real, meta.groups, meta.width))
+  k4_ms = cuda_ms(torch, lambda: group_dma.group_push(table, ugids, rows),
+                  20, flush)
+  k4_plain = cuda_ms(torch, lambda: group_dma.group_push_plain(
+      table, ugids, rows), 20, flush)
+  flat, ids64, rows2 = table.view(meta.groups, -1), ugids.long(), \
+      rows.view(n, -1)
+  k4_lib = cuda_ms(torch, lambda: flat.index_copy_(0, ids64, rows2), 20,
+                   flush)
+  k4_bytes = n * rows2.shape[1] * 4 * 2 + n * 4
+  k4_bound, k4_by = bound_ms(k4_bytes, 0)
+  log('group_push: %.4f ms, bound %.4f ms (%d bytes / 3.35 TB/s), plain '
+      '%.4f ms, index_copy_ (int64 ids) %.4f ms'
+      % (k4_ms, k4_bound, k4_bytes, k4_plain, k4_lib))
+  results.append(dict(
+      name='group_push', route='cuda',
+      source='easyrec_torch/csrc/group_push.cu',
+      replaces='benchmarks/bench_packed_v2.py:127', max_abs_err=err4,
+      ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
+      library_ms=k4_lib))
+  del rows, rows2, flat
+
+  # -- K5 at the rmw_variant shape: the same slots with gg, W 128
+  gg = gg.reshape(n, 8, meta.width)
+  err5, t5 = check_group_rmw(torch, group_dma, table, ugids, gg,
+                             meta.scratch_gid, 'rmw_variant shape', flush)
+  del table, gg, ugids
+
+  # -- K5 at the bench_pallas_group_dma shape: 98,304 groups, W 384, 5 GB
+  groups = bench_group_dma.G
+  sgids = np.sort(np.random.default_rng(0).choice(
+      groups, bench_group_dma.SLOTS, replace=False)).astype(np.int32)
+  table = torch.randn((groups, 8, bench_group_dma.W), generator=gen,
+                      device=dev)
+  e, t = check_group_rmw(torch, group_dma, table,
+                         torch.from_numpy(sgids).to(dev), None, None,
+                         'group-DMA shape', flush)
+  del table
+  results.append(dict(
+      name='group_rmw', route='cuda',
+      source='easyrec_torch/csrc/group_rmw.cu',
+      replaces='benchmarks/bench_pallas_group_dma.py:22',
+      max_abs_err=max(err5, e), ms=t['ms'], plain_ms=t['plain_ms'],
+      bound_ms=t['bound_ms'], bound_by=t['bound_by'], library_ms=None))
+  log('group_rmw in the kernels line: the group-DMA shape; at the '
+      'rmw_variant shape %.4f ms, bound %.4f ms, plain %.4f ms'
+      % (t5['ms'], t5['bound_ms'], t5['plain_ms']))
+  del flush
+  torch.cuda.empty_cache()
+
+  # -- every ported benchmark at its full shape
+  kernels.reset_launches()
+  runs = [('bench_group_dma', bench_group_dma.main([])),
+          ('bench_dma_issue', bench_dma_issue.main([])),
+          ('bench_packed_stages', bench_packed_stages.main([])),
+          ('bench_packed_v2', v2.main([]))]
+  torch.cuda.empty_cache()
+  runs.append(('experimental_packed_update', phase_experimental(torch)))
+  counts = kernels.launch_counts()
+  for name, out in runs:
+    if not out['correct']:
+      fail('%s: a correctness line is false: %s' % (name, out))
+  log('ported benchmarks: every correctness line true; launches %s'
+      % counts)
+  for name in ('group_push', 'group_rmw'):
+    if counts[name] == 0:
+      fail('%s never launched in the ported benchmarks' % name)
+  for name in ('seg_sum', 'rmw_adam', 'rmw_fused_adam'):
+    if counts[name] != 0:
+      fail('%s launched in the ported benchmarks' % name)
+  for r in results:
+    r['launches'] = counts[r['name']]
+  torch.cuda.empty_cache()
+  return results
+
+
+def check_group_rmw(torch, group_dma, table, gids, gg, scratch_gid, what,
+                    flush):
+  """K5 and its plain version from the same table, byte-equal on every
+  group but the scratch group (whose pad slots race on the card); then
+  times. Returns (max |difference|, timing record)."""
+  a, b, c = (0.999, 0.0, -0.001) if gg is not None else (0.999, 0.001, 0.0)
+  ref = table.clone()
+  group_dma.group_rmw(table, gids, a, b, gg=gg, c=c)
+  group_dma.group_rmw_plain(ref, gids, a, b, gg=gg, c=c)
+  group_dma.check_ids(table.device)
+  keep = torch.ones(table.shape[0], dtype=torch.bool, device=table.device)
+  if scratch_gid is not None:
+    keep[scratch_gid] = False
+  diff = (table.view(torch.int32) != ref.view(torch.int32)).flatten(
+      1).any(dim=1)
+  if bool(diff[keep].any()):
+    fail('group_rmw (%s): %d groups differ from the plain version'
+         % (what, int(diff[keep].sum())))
+  err = float((table[keep] - ref[keep]).abs().max()) if \
+      scratch_gid is not None else float((table - ref).abs().max())
+  del ref, diff
+  n = gids.shape[0]
+  elems = table[0].numel()
+  n_scratch = 0 if scratch_gid is None else int((gids == scratch_gid).sum())
+  log('group_rmw (%s): %d slots (%d naming the scratch group) of [%d, %d] '
+      'f32 groups%s; byte-equal to the plain version on every other group '
+      '(tolerance 0)' % (what, n, n_scratch, table.shape[0], elems,
+                         ', with gg' if gg is not None else ''))
+  ms = cuda_ms(torch, lambda: group_dma.group_rmw(table, gids, a, b, gg=gg,
+                                                  c=c), 20, flush)
+  plain = cuda_ms(torch, lambda: group_dma.group_rmw_plain(
+      table, gids, a, b, gg=gg, c=c), 5, flush)
+  nbytes = n * elems * 4 * (3 if gg is not None else 2) + n * 4
+  bound, by = bound_ms(nbytes, n * elems * (3 if gg is not None else 2))
+  log('group_rmw (%s): %.4f ms, bound %.4f ms (%d bytes / 3.35 TB/s), '
+      'plain (index_select, the math, index_copy_: the closest PyTorch '
+      'composite; no single call computes it) %.4f ms'
+      % (what, ms, bound, nbytes, plain))
+  return err, dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+
+
+class LazySgd:
+  """The `update_parts` that experimental_packed_update expects and the
+  JAX package does not define: lazy SGD on the weights, the slots decayed
+  toward the gradient."""
+
+  def update_parts(self, w, slots, g, lr, step):
+    return w - lr * g, [0.9 * s + 0.1 * g for s in slots]
+
+
+class GroupMeta:
+  """A small FusedTable-like geometry: dim 16, weight + 2 slots (48
+  combined columns), 8 logical rows a physical row (W 384)."""
+
+  def __init__(self, rows):
+    self.rows, self.dim, self.pack, self.combined_cols = rows, 16, 8, 48
+    self.width = self.pack * self.combined_cols
+    self.group_rows = 8 * self.pack
+    groups = rows // self.group_rows + 2
+    self.scratch = (groups - 1) * self.group_rows
+
+
+def phase_experimental(torch):
+  """apply_group_updates at a small geometry on the card: the K4 path
+  against the index_copy_ path from the same table, byte-equal."""
+  from easyrec_torch.benchmarks import experimental_packed_update as xp
+  from easyrec_torch.ops import group_dma
+  from easyrec_torch.optim.sparse import dedup_sum
+
+  dev = torch.device('cuda')
+  meta = GroupMeta(200_000)
+  groups = meta.rows // meta.group_rows + 2
+  gen = torch.Generator(device=dev).manual_seed(31)
+  table = torch.randn((groups, 8, meta.width), generator=gen, device=dev)
+  ids = torch.randint(0, meta.rows, (20_000,), generator=gen, device=dev)
+  grads = torch.randn((20_000, meta.dim), generator=gen, device=dev)
+  grads[::7] = 0.0
+  uids, ug = dedup_sum(ids, grads, meta.scratch)
+  ref = table.clone()
+  xp.apply_group_updates(table, uids, ug, LazySgd(), 0.1, 0, meta)
+  xp._plain_apply(ref, *xp._group_prep(uids, ug, meta), LazySgd(), 0.1, 0,
+                  meta)
+  group_dma.check_ids(dev)
+  ok = torch.equal(table.view(torch.int32), ref.view(torch.int32))
+  log('experimental_packed_update.apply_group_updates: %d ids into [%d, 8, '
+      '%d]; K4 write-back byte-equal to index_copy_: correct=%s'
+      % (ids.shape[0], groups, meta.width, ok))
+  return {'correct': ok}
+
+
 def phase_agree(torch, what, cfg, fused):
   """A small model: 3 steps on the card and on the CPU from the same
   weights and batches. The CPU path runs the kernels' plain versions,
@@ -504,9 +734,10 @@ def main():
         log('  [%s] %s' % (kname, line.strip()))
   log('kernels: %s' % ', '.join(k.name for k in kernels.ALL))
 
-  # 3-6
+  # 3-7
   from easyrec_torch.utils import flagship
   results = phase_kernels(torch)
+  groups = phase_groups(torch)
   phase_agree(torch, 'DeepFM', flagship.criteo_deepfm_config(
       batch_size=256, hash_bucket_size=1000, num_dense=3, num_cat=6), '0')
   phase_agree(torch, 'DIN', flagship.taobao_din_config(
@@ -519,6 +750,7 @@ def main():
   for r in results:
     r['launches'] = (din if r['name'] == 'rmw_fused_adam'
                      else deepfm)[r['name']]
+  results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
           'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
   print(json.dumps({'kernels': [{k: r[k] for k in keys} for r in results]}))

@@ -80,7 +80,19 @@ RMW_FUSED_ADAM = CudaKernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32,
      _F32, _F32, _F32, _P])
 
-ALL = (SEG_SUM, RMW_ADAM, RMW_FUSED_ADAM)
+GROUP_PUSH = CudaKernel(
+    'group_push', 'group_push.cu', 'easyrec_group_push',
+    # table, gids, rows, bad, n, groups, elems, idx64, stream
+    [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _P])
+
+GROUP_RMW = CudaKernel(
+    'group_rmw', 'group_rmw.cu', 'easyrec_group_rmw',
+    # table, gids, gg (None: no gradient term), bad, n, groups, elems,
+    # idx64, a, b, c, threads, per_block, stream
+    [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32, _F32, _I32, _I32,
+     _P])
+
+ALL = (SEG_SUM, RMW_ADAM, RMW_FUSED_ADAM, GROUP_PUSH, GROUP_RMW)
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:

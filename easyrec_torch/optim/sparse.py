@@ -1,6 +1,7 @@
 """Row-sparse (lazy) Adam for the embedding tables.
 
-Counterpart of easyrec_tpu/optim/sparse.py: `SparseAdam.hypers` and
+Counterpart of easyrec_tpu/optim/sparse.py: `dedup_sum` (:22), Adam's
+separate-array `update_rows` (:155-167), `SparseAdam.hypers` and
 `compact_block` (:146-203) and the bf16-pair moment encoding `pack_pair` /
 `unpack_pair` (:41-59). Moments decay and update only on rows the batch
 touched (the reference's AdamAsync semantics); bias correction uses the
@@ -16,6 +17,26 @@ import numpy as np
 import torch
 
 _HI16 = 0xFFFF0000
+
+
+def dedup_sum(ids: torch.Tensor, grads: torch.Tensor, scratch_row: int):
+  """Combine duplicate row ids: returns (uids [N], ugrads [N, D]), the
+  unique ids in sorted order and their summed gradients. Slots beyond the
+  number of unique ids name `scratch_row` with a zero gradient. The sums
+  are index_add_ in sorted slot order on the CPU, as XLA's sorted
+  segment_sum; on the card index_add_ adds with atomics in no fixed
+  order."""
+  n = ids.shape[0]
+  order = torch.argsort(ids, stable=True)
+  sids = ids.index_select(0, order)
+  sgrads = grads.index_select(0, order)
+  first = torch.ones(n, dtype=torch.bool, device=ids.device)
+  first[1:] = sids[1:] != sids[:-1]
+  seg = torch.cumsum(first, 0) - 1
+  ugrads = torch.zeros_like(grads).index_add_(0, seg, sgrads)
+  uids = torch.full((n,), scratch_row, dtype=ids.dtype,
+                    device=ids.device).scatter_(0, seg, sids)
+  return uids, ugrads
 
 
 def bf16_bits(x: torch.Tensor) -> torch.Tensor:
@@ -73,3 +94,28 @@ class SparseAdam:
     v_new = b2 * v + omb2 * (g * g)
     upd = (-lr) * (m_new * c1) / (torch.sqrt(v_new * c2) + eps)
     return w + upd, pack_pair(m_new, v_new)
+
+  def update_rows(self, table: torch.Tensor, state, uids: torch.Tensor,
+                  ug: torch.Tensor, lr, step: torch.Tensor,
+                  weight_decay: float = 0.0):
+    """Lazy Adam on separate f32 arrays: `table` and `state['m']`,
+    `state['v']` are [rows, D]; `uids` [N] (duplicates only where their
+    gradients are zero, as dedup_sum pads) and `ug` [N, D] their summed
+    gradients. Updates the three arrays in place and returns (table,
+    state). `weight_decay` is sparse_adam(weight_decay=...)'s. One torch
+    op per JAX op, in its order."""
+    idx = uids.to(torch.int64)
+    m, v = state['m'], state['v']
+    b1, omb1, b2, omb2, eps = self.constants
+    t = (step + 1).to(torch.float32)
+    m_rows = b1 * m.index_select(0, idx) + omb1 * ug
+    v_rows = b2 * v.index_select(0, idx) + omb2 * (ug * ug)
+    m.index_copy_(0, idx, m_rows)
+    v.index_copy_(0, idx, v_rows)
+    mhat = m_rows / (1 - torch.pow(self.b1, t))
+    vhat = v_rows / (1 - torch.pow(self.b2, t))
+    upd = -lr * mhat / (torch.sqrt(vhat) + eps)
+    if weight_decay:
+      upd = upd - lr * weight_decay * table.index_select(0, idx)
+    table.index_add_(0, idx, upd)
+    return table, {'m': m, 'v': v}

@@ -1,7 +1,8 @@
 """The port's user surface on the CPU: the train CLI learns the fixture
 data, CUDA is the default device and its absence raises, and importing and
-running the port (the DeepFM and the fused Taobao DIN) loads nothing of
-JAX, protobuf, pandas, pyarrow or the JAX package."""
+running the port (every module, the ported benchmarks included, then the
+DeepFM and the fused Taobao DIN) loads nothing of JAX, protobuf, pandas,
+pyarrow, the JAX package or its benchmarks/ scripts."""
 
 import os
 import re
@@ -72,7 +73,7 @@ result = main.train_and_evaluate(flagship.taobao_din_config(batch_size=64),
                                  edit_config_json={'train_config.num_steps': 2})
 assert result['global_step'] == 2
 banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas', 'pyarrow',
-          'easyrec_tpu')
+          'easyrec_tpu', 'benchmarks')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned or
              m == 'google.protobuf' or m.startswith('google.protobuf.'))
 print('LOADED', bad)

@@ -220,4 +220,112 @@ def test_train_step_launches_each_kernel_once(cuda, fused, monkeypatch):
   n = len(trainer.tables)
   want = {'seg_sum': 0, 'rmw_adam': 0, 'rmw_fused_adam': n} if fused == '1' \
       else {'seg_sum': n, 'rmw_adam': n, 'rmw_fused_adam': 0}
+  want.update(group_push=0, group_rmw=0)
   assert kernels.launch_counts() == want
+
+
+def _groups(device, groups, width, n_real, n_pad, idx_dtype, seed):
+  """A random [groups, 8, width] table and slot ids: n_real unique
+  sorted groups below the scratch group (the last), then n_pad slots
+  naming the scratch group."""
+  gen = torch.Generator(device=device).manual_seed(seed)
+  table = torch.randn((groups, 8, width), generator=gen, device=device)
+  real = torch.randperm(groups - 1, generator=gen, device=device)[:n_real]
+  gids = torch.cat([real.sort().values,
+                    torch.full((n_pad,), groups - 1, device=device,
+                               dtype=torch.int64)]).to(idx_dtype)
+  return table, gids
+
+
+@pytest.mark.parametrize('idx_dtype', [torch.int32, torch.int64])
+@pytest.mark.parametrize('width', [128, 384])
+def test_group_push_kernel_matches_plain(cuda, width, idx_dtype):
+  """K4 byte-equal to its plain version (index_copy_) over the whole
+  table, scratch group included: pad slots carry its current bytes."""
+  from easyrec_torch.ops import group_dma
+  table, gids = _groups(cuda, 3000, width, 1700, 300, idx_dtype, 11)
+  n = gids.shape[0]
+  gen = torch.Generator(device=cuda).manual_seed(12)
+  rows = torch.randn((n, 8, width), generator=gen, device=cuda)
+  rows[1700:] = table[-1]
+  ref = table.clone()
+  before = kernels.launch_counts()['group_push']
+  group_dma.group_push(table, gids, rows)
+  torch.cuda.synchronize()
+  assert kernels.launch_counts()['group_push'] == before + 1
+  group_dma.group_push_plain(ref, gids, rows)
+  assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize('shape', [(64, 4), (256, 1), (32, 8), (1024, 1)])
+@pytest.mark.parametrize('grad', [False, True])
+@pytest.mark.parametrize('width', [128, 384])
+def test_group_rmw_kernel_matches_plain(cuda, width, grad, shape):
+  """K5 byte-equal to its plain version (the same f32 roundings in the
+  same order, no FMA on either side), the scratch group excluded: its pad
+  slots race on the card. Every other group keeps its bytes."""
+  from easyrec_torch.ops import group_dma
+  table, gids = _groups(cuda, 3000, width, 1700, 300, torch.int32, 13)
+  n = gids.shape[0]
+  gen = torch.Generator(device=cuda).manual_seed(14)
+  gg = torch.randn((n, 8, width), generator=gen, device=cuda) if grad \
+      else None
+  a, b, c = (0.999, 0.0, -0.001) if grad else (0.999, 0.001, 0.0)
+  orig, ref = table.clone(), table.clone()
+  threads, per_block = shape
+  before = kernels.launch_counts()['group_rmw']
+  group_dma.group_rmw(table, gids, a, b, gg=gg, c=c, threads=threads,
+                      per_block=per_block)
+  torch.cuda.synchronize()
+  assert kernels.launch_counts()['group_rmw'] == before + 1
+  group_dma.group_rmw_plain(ref, gids, a, b, gg=gg, c=c)
+  assert torch.equal(table[:-1].view(torch.int32), ref[:-1].view(torch.int32))
+  listed = torch.zeros(3000, dtype=torch.bool, device=cuda)
+  listed[gids.long()] = True
+  changed = (table.view(torch.int32) != orig.view(torch.int32)).flatten(
+      1).any(dim=1)
+  assert not bool((changed & ~listed).any())
+
+
+def test_group_wrappers_check_cuda_inputs(cuda):
+  from easyrec_torch.ops import group_dma
+  table, gids = _groups(cuda, 100, 128, 10, 0, torch.int32, 1)
+  rows = torch.zeros((10, 8, 128), device=cuda)
+  with pytest.raises(ValueError):
+    group_dma.group_push(table, gids.cpu(), rows)
+  buf = torch.zeros(100 * 8 * 128 + 1, device=cuda)
+  with pytest.raises(ValueError):                 # not 16-byte aligned
+    group_dma.group_push(buf[1:].view(100, 8, 128), gids, rows)
+  with pytest.raises(ValueError):
+    group_dma.group_rmw(table, gids, 0.5, 0.0, threads=48)
+
+
+@pytest.mark.parametrize('bad_id', [-1, 3000, 1 << 40])
+@pytest.mark.parametrize('kernel', ['push', 'rmw'])
+def test_group_kernels_flag_ids_outside_the_table(cuda, kernel, bad_id):
+  """An id outside [0, G) in one slot: the kernel leaves that slot out
+  (the table equals the plain version run on the other slots), sets its
+  flag, and check_ids raises IndexError as the plain version does at the
+  call; the flag is then clear. (The plain version is not run on the bad
+  id here: index_copy_ on a CUDA tensor asserts on the device.)"""
+  from easyrec_torch.ops import group_dma
+  table, gids = _groups(cuda, 3000, 128, 500, 0, torch.int64, 15)
+  group_dma.check_ids(cuda)
+  bad = gids.clone()
+  bad[200] = bad_id
+  keep = torch.ones(500, dtype=torch.bool, device=cuda)
+  keep[200] = False
+  gen = torch.Generator(device=cuda).manual_seed(16)
+  rows = torch.randn((500, 8, 128), generator=gen, device=cuda)
+  ref = table.clone()
+  if kernel == 'push':
+    group_dma.group_push(table, bad, rows)
+    group_dma.group_push_plain(ref, gids[keep], rows[keep].contiguous())
+  else:
+    group_dma.group_rmw(table, bad, 0.999, 0.0, gg=rows, c=-0.001)
+    group_dma.group_rmw_plain(ref, gids[keep], 0.999, 0.0,
+                              gg=rows[keep].contiguous(), c=-0.001)
+  with pytest.raises(IndexError, match='group_' + kernel):
+    group_dma.check_ids(cuda)
+  group_dma.check_ids(cuda)
+  assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
