@@ -13,11 +13,11 @@ Phases, in order; any failure exits nonzero before the result line:
   3. kernels each kernel against its plain PyTorch version on the card:
              K1 and K2 at the flagship shapes (a DummyInput batch of the
              Criteo DeepFM: 39 id slots per example at batch 4096, dim 32,
-             26M-row table), K3 at the flagship shape and at the Taobao
-             DIN's (a synthetic batch: 115 id slots per example at batch
-             4096, two padding segments of ~100k slots, dim 16, 620k-row
-             table), with times from CUDA events beside bounds, the plain
-             versions' times and the library yardsticks;
+             26M-row table), K1 and K3 at the flagship shape and at the
+             Taobao DIN's (a synthetic batch: 115 id slots per example at
+             batch 4096, two padding segments of ~100k slots, dim 16,
+             620k-row table), with times from CUDA events beside bounds,
+             the plain versions' times and the library yardsticks;
   4. groups  K4 (group push) and K5 (group RMW) against their plain
              versions at the ported benchmarks' shapes (K4: 106,496 slots
              into [406,252, 8, 128]; K5: 98,304 groups of a 5 GB
@@ -38,6 +38,10 @@ Phases, in order; any failure exits nonzero before the result line:
   7. deepfm  the flagship config the same way, unfused: K1 and K2 once per
              step and table, K3 not at all; then its rate.
 K4 and K5 must launch 0 times in 6 and 7.
+  8. kernel-only K1 and K3's kernels alone (and K1 + K2's at the DIN
+             shape), timed by torch.profiler on the inputs of phase 3,
+             after the slices because the profiler stays hooked into the
+             process once it has traced the card.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -99,6 +103,86 @@ def bound_ms(nbytes, nops):
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = nops / F32_OPS_PER_S * 1e3
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def kernel_ms(torch, fn, reps, flush):
+  """Device time of the kernels fn() launches, per call, from
+  torch.profiler: {kernel name: ms per call} summed over its launches,
+  with the L2 flush before each call (and the flush's own kernel) left
+  out of the sum. The wrapper's host gaps between its launches are not in
+  it. Returns {} where the profiler records no device time."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  def device_us(body):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      body()
+      torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+      if e.device_type == DeviceType.CUDA:
+        for name in ('self_device_time_total', 'self_cuda_time_total'):
+          t = getattr(e, name, None)
+          if t is not None:
+            out[e.key] = out.get(e.key, 0.0) + float(t)
+            break
+    return out
+
+  fn()
+  torch.cuda.synchronize()
+  skip = set(device_us(flush.zero_))
+
+  def body():
+    for _ in range(reps):
+      flush.zero_()
+      fn()
+
+  return {k: v / 1e3 / reps for k, v in device_us(body).items()
+          if k not in skip and v > 0}
+
+
+# wrapper calls whose kernels torch.profiler times after the slices: once
+# the profiler has traced the card it stays hooked into the process, so the
+# step rates are taken first. (label, event ms, bound ms, call, host inputs)
+KERNEL_ONLY = []
+
+
+def queue_kernel_only(label, event_ms, bound, call, **tensors):
+  KERNEL_ONLY.append((label, event_ms, bound, call,
+                      {k: v.cpu() for k, v in tensors.items()}))
+
+
+def phase_kernel_only(torch):
+  """The queued wrapper calls again, on their inputs copied back to the
+  card, under torch.profiler: the kernels' own device time beside the
+  event time of the whole wrapper and the bound."""
+  flush = torch.empty(64 << 20, dtype=torch.float32, device='cuda')
+  for label, event_ms, bound, call, host in KERNEL_ONLY:
+    dev = {k: v.cuda() for k, v in host.items()}
+    total = log_kernel_ms(label, kernel_ms(torch, lambda: call(**dev), 20,
+                                           flush), event_ms)
+    if total is not None:
+      log('%s: kernels only %.2f x the bound (%.4f ms)'
+          % (label, total / bound, bound))
+    del dev
+  del flush
+  torch.cuda.empty_cache()
+
+
+def log_kernel_ms(what, by_name, event_ms):
+  """One line: the kernels' summed device time beside the event time of
+  the whole wrapper, and each kernel's share."""
+  if not by_name:
+    log('%s: kernel-only time not measured (the profiler recorded no '
+        'device time); event time %.4f ms' % (what, event_ms))
+    return None
+  total = sum(by_name.values())
+  log('%s: kernels only %.4f ms a call (profiler), event time of the '
+      'wrapper %.4f ms; %s' % (what, total, event_ms, '; '.join(
+          '%s %.4f' % (k[:60], v) for k, v in sorted(
+              by_name.items(), key=lambda kv: -kv[1]))))
+  return total
 
 
 def phase_kernels(torch):
@@ -169,8 +253,15 @@ def phase_kernels(torch):
       n * 8 + n * dim * 4
   k1_bound, k1_by = bound_ms(k1_bytes, n * dim)
   log('seg_sum: %.4f ms, bound %.4f ms (%d bytes / 3.35 TB/s), plain '
-      '%.3f ms, index_add_ %.4f ms' % (k1_ms, k1_bound, k1_bytes, k1_plain,
-                                        k1_lib))
+      '%.3f ms, index_add_ %.4f ms; %s than index_add_'
+      % (k1_ms, k1_bound, k1_bytes, k1_plain, k1_lib,
+         'no slower' if k1_ms <= k1_lib else 'SLOWER'))
+  sentinel = meta.sentinel
+  queue_kernel_only(
+      'seg_sum (flagship, mode 1)', k1_ms, k1_bound,
+      lambda sids, order, starts, grads: pt.seg_sum(sids, order, starts,
+                                                    grads, sentinel, '1'),
+      sids=sids, order=order, starts=starts, grads=grads)
   results.append(dict(
       name='seg_sum', route='cuda', source='easyrec_torch/csrc/seg_sum.cu',
       replaces='easyrec_tpu/ops/packed_table.py:301', max_abs_err=err1,
@@ -241,6 +332,7 @@ def phase_kernels(torch):
   torch.cuda.empty_cache()
   k3 = phase_kernel_din(torch)
   k3['max_abs_err'] = max(k3['max_abs_err'], err3f)
+  results[0]['max_abs_err'] = max(err1, k3.pop('seg_sum_din_err'))
   results.append(k3)
   return results
 
@@ -326,6 +418,20 @@ def phase_kernel_din(torch):
   hypers = opt.hypers(torch.tensor(1e-3, device=dev),
                       torch.tensor(3, dtype=torch.int32, device=dev))
   sids, order, starts = pt.sort_segments(ids)
+  err1 = 0.0
+  for mode in ('0', 'mix', '1'):
+    uk, sk = pt.seg_sum(sids, order, starts, grads, meta.sentinel, mode)
+    up, sp = pt.seg_sum_plain(sids, order, starts, grads, meta.sentinel,
+                              mode)
+    torch.cuda.synchronize()
+    if not (torch.equal(uk, up) and
+            torch.equal(sk.view(torch.int32), sp.view(torch.int32))):
+      fail('seg_sum mode %s at the DIN shape: differs from the plain '
+           'version (max %g)' % (mode, float((sk - sp).abs().max())))
+    err1 = max(err1, float((sk - sp).abs().max()))
+  del uk, sk, up, sp
+  log('seg_sum at the DIN shape: bit-exact against the plain version in '
+      'modes 0, mix and 1 (tolerance 0)')
   n_touched, n_live, err3 = check_fused(torch, pt, table, sids, order,
                                         starts, grads, hypers, opt, 'DIN')
   k3_ms = cuda_ms(torch, lambda: pt.rmw_fused_adam(
@@ -343,31 +449,48 @@ def phase_kernel_din(torch):
     pt.rmw_adam(table, every_row, acc, hypers, opt)
 
   k3_lib = cuda_ms(torch, library, 20, flush)
-  # the unfused path at the same shape, for comparison: K1 walks each
-  # padding segment with one warp
+  # the unfused path at the same shape, for comparison: K1 (mode 0) by the
+  # same chunk tree, then K2
   def unfused():
     uids, gsum = pt.seg_sum(sids, order, starts, grads, meta.sentinel, '0')
     pt.rmw_adam(table, uids, gsum, hypers, opt)
 
-  k12_ms = cuda_ms(torch, unfused, 5, flush)
-  map_ms = cuda_ms(torch, lambda: pt.fused_chunk_map(starts, n), 20, flush)
+  k1d_ms = cuda_ms(torch, lambda: pt.seg_sum(sids, order, starts, grads,
+                                             meta.sentinel, '0'), 20, flush)
+  k12_ms = cuda_ms(torch, unfused, 20, flush)
   # gradients, order and starts read whole, the first sid of each live
   # segment, hypers, and each touched row read and written
   k3_bytes = n * dim * 4 + 2 * n * 8 + 8 + n_live * 8 + 12 + \
       n_touched * meta.width * 4 * 2
   k3_bound, k3_by = bound_ms(k3_bytes, n * dim + n_touched * dim * 13)
   log('rmw_fused_adam (DIN): %.4f ms, bound %.4f ms (%d bytes / 3.35 '
-      'TB/s), plain %.3f ms, index_add_ + K2 over all rows (closest '
-      'library call for the sum half) %.4f ms; K1 (mode 0) + K2 at this '
-      'shape %.4f ms; the wrapper\'s chunk map (PyTorch ops, inside K3\'s '
-      'time) %.4f ms' % (k3_ms, k3_bound, k3_bytes, k3_plain, k3_lib,
-                         k12_ms, map_ms))
+      'TB/s), plain %.3f ms, index_add_ + K2 over all rows (closest library '
+      'call for the sum half) %.4f ms (%s); K1 (mode 0) at this shape %.4f '
+      'ms, K1 + K2 %.4f ms'
+      % (k3_ms, k3_bound, k3_bytes, k3_plain, k3_lib,
+         'K3 faster' if k3_ms < k3_lib else 'K3 SLOWER', k1d_ms, k12_ms))
+  sentinel = meta.sentinel
+
+  def fused(table, sids, order, starts, grads, hypers):
+    pt.rmw_fused_adam(table, sids, order, starts, grads, hypers, opt)
+
+  def k1_k2(table, sids, order, starts, grads, hypers):
+    uids, gsum = pt.seg_sum(sids, order, starts, grads, sentinel, '0')
+    pt.rmw_adam(table, uids, gsum, hypers, opt)
+
+  inputs = dict(table=table, sids=sids, order=order, starts=starts,
+                grads=grads, hypers=hypers)
+  queue_kernel_only('rmw_fused_adam (DIN)', k3_ms, k3_bound, fused,
+                    **inputs)
+  queue_kernel_only('K1 (mode 0) + K2 (DIN)', k12_ms, k3_bound, k1_k2,
+                    **inputs)
   del table, flush, acc, grads
   torch.cuda.empty_cache()
   return dict(
       name='rmw_fused_adam', route='cuda',
       source='easyrec_torch/csrc/rmw_fused_adam.cu',
-      replaces='easyrec_tpu/ops/packed_table.py:1024', max_abs_err=err3,
+      replaces='easyrec_tpu/ops/packed_table.py:1024',
+      max_abs_err=err3, seg_sum_din_err=err1,
       ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
       library_ms=k3_lib)
 
@@ -747,6 +870,7 @@ def main():
   deepfm = phase_slice(torch, card, 'flagship DeepFM',
                        flagship.criteo_deepfm_config(), '0',
                        ('seg_sum', 'rmw_adam'))
+  phase_kernel_only(torch)
   for r in results:
     r['launches'] = (din if r['name'] == 'rmw_fused_adam'
                      else deepfm)[r['name']]

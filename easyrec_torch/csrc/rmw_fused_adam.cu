@@ -17,30 +17,26 @@
 //                         and starts[n] == n
 //   grads  [n, dim]       f32 gradients of the pulled rows, slot order
 //   hypers [3]            lr, 1/(1-b1^t), 1/(1-b2^t) on the device
-//   chunk_seg  [n_chunks] segment of chunk slot c, -1 where none
-//   chunk_base [n]        first chunk slot of segment k (long segments)
-//   partial [n_chunks, dim] scratch for the chunk sums of long segments
+//   partial [2 ceil(n/256), dim] scratch for the chunk sums of long
+//                         segments
 //
-// Order of additions, fixed and free of atomics: every segment is cut into
-// chunks of kChunk sorted slots. A chunk is summed in f32 in slot order
-// from 0. A segment of at most kChunk slots is one chunk, and its sum is
-// final. A longer segment's chunk sums go to `partial`, and its sum is
-// 0 + chunk 0 + chunk 1 + ... in chunk order. The plain version
-// (packed_table.rmw_fused_adam_plain) follows the same tree, so the two
-// agree bit for bit on w, m and v.
+// Order of additions: seg_chunk_sum.cuh's chunk tree, the one K1 runs, so
+// K3 equals K1 (mode 0) followed by K2 bit for bit at every segment
+// length, and its plain version (packed_table.rmw_fused_adam_plain) runs
+// the same tree.
 //
-// Two launches on one stream:
-//   fused_sum_kernel  one warp per segment k < n: a segment of at most
-//                     kChunk slots is summed in registers and updated in
-//                     place at once; and one warp per chunk slot c of the
-//                     long segments, which writes its chunk sum to
-//                     `partial`;
-//   long_finish_kernel one warp per long segment (the warp of its first
-//                     chunk slot): adds its chunk sums in order and
-//                     updates the row.
-// So no warp walks more than kChunk slots: a padding id that collects
-// 100k-200k slots of one batch (Taobao DIN sequences) is summed by
-// hundreds of warps at once.
+// Two launches on one stream, from one call:
+//   fused_sum_kernel     grid-stride loops over (a) the windows of 256
+//                        sorted slots, summing each long-segment chunk that
+//                        starts in one into `partial` (level 1); (b) live
+//                        segments: a tiny one (at most 8 slots, most ids of
+//                        a batch) is summed and its row updated by a group
+//                        of dim / 4 lanes, several a warp; one of up to 256
+//                        slots by a whole warp;
+//   fused_finish_kernel  each long segment's chunk sums (level 2) and its
+//                        row's update, once.
+// No warp walks an unused segment index alone: the grid is at most eight
+// blocks an SM, and the live-segment loop stops at the unused tail.
 //
 // Numerics. The gradient sum is f32 with f32 accumulation; the TPU kernel
 // splits each f32 term into bf16 hi + lo (about 16 significant bits) for
@@ -56,74 +52,72 @@
 // for U touched rows (128 B each way at dim 16); the Adam math is ~13
 // operations per element. At the Taobao DIN shape (n = 471,040, dim 16,
 // L about 98.5k, U about 98k) that is about 30 MB + 8 MB + 0.8 MB + 25 MB.
-// Rows and gradients are 64- or 128-byte lines read whole by one warp.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "compact_adam.cuh"
+#include "seg_chunk_sum.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int64_t kChunk = 256;      // packed_table.FUSED_CHUNK
-constexpr int kMaxColGroups = 4;     // dim <= 128
-constexpr unsigned kFull = 0xffffffffu;
+using easyrec::kChunk;
+using easyrec::kFullMask;
+using easyrec::kPassCols;
+using easyrec::kWarpsPerBlock;
 
-// f32 sum, in sorted-slot order from 0, of gradient rows order[lo..hi)
-// for columns c0 + lane of every 32-column group.
-__device__ __forceinline__ void chunk_sum(const int64_t* __restrict__ order,
-                                          const float* __restrict__ grads,
-                                          int64_t lo, int64_t hi, int dim,
-                                          int lane,
-                                          float (&acc)[kMaxColGroups]) {
-#pragma unroll
-  for (int q = 0; q < kMaxColGroups; ++q) acc[q] = 0.f;
-  for (int64_t j0 = lo; j0 < hi; j0 += 32) {
-    const int cnt = hi - j0 < 32 ? static_cast<int>(hi - j0) : 32;
-    const int64_t mine = lane < cnt ? order[j0 + lane] : 0;
-#pragma unroll 4
-    for (int i = 0; i < cnt; ++i) {
-      const int64_t r = __shfl_sync(kFull, mine, i);
-      const float* g = grads + r * dim;
-#pragma unroll
-      for (int q = 0; q < kMaxColGroups; ++q) {
-        const int c = q * 32 + lane;
-        if (c < dim) acc[q] = __fadd_rn(acc[q], g[c]);
-      }
-    }
-  }
-}
+constexpr int kMaxPasses = 8;      // dim <= 128
 
-// K2's update of one row from its summed gradient (warp-wide).
+// K2's update of one row from its summed gradient g (warp-wide): pass p's
+// columns 16p + 4q + i are component i of lane 4i + q's g[p].
 __device__ __forceinline__ void adam_row(float* __restrict__ table,
                                          int64_t row, int64_t rows, int dim,
                                          int lane,
-                                         const float (&g)[kMaxColGroups],
+                                         const float4 (&g)[kMaxPasses],
                                          const float* __restrict__ hypers,
                                          float b1, float omb1, float b2,
                                          float omb2, float eps) {
   if (row < 0 || row >= rows) return;              // outside the table
-  bool nz = false;
+  bool nz = false;                                 // columns >= dim are 0
 #pragma unroll
-  for (int q = 0; q < kMaxColGroups; ++q)
-    nz |= (q * 32 + lane < dim) && (g[q] != 0.f);
-  if (!__any_sync(kFull, nz)) return;              // untouched: keep bytes
+  for (int p = 0; p < kMaxPasses; ++p) nz |= easyrec::nonzero4(g[p]);
+  if (!__any_sync(kFullMask, nz)) return;          // untouched: keep bytes
+  const int i = lane >> 2;
+  if (i >= 4) return;
   const float lr = hypers[0];
   const float c1 = hypers[1];
   const float c2 = hypers[2];
   float* w = table + row * (2 * static_cast<int64_t>(dim));
   uint32_t* mv = reinterpret_cast<uint32_t*>(w + dim);
 #pragma unroll
-  for (int q = 0; q < kMaxColGroups; ++q) {
-    const int c = q * 32 + lane;
+  for (int p = 0; p < kMaxPasses; ++p) {
+    const int c = p * kPassCols + 4 * (lane & 3) + i;
     if (c < dim)
-      easyrec::compact_adam(w + c, mv + c, g[q], lr, c1, c2, b1, omb1, b2,
-                            omb2, eps);
+      easyrec::compact_adam(w + c, mv + c, easyrec::part(g[p], i), lr, c1,
+                            c2, b1, omb1, b2, omb2, eps);
   }
 }
 
+// The passes of one segment's sum by the whole warp (short segments and
+// level 2); passes past dim are zero. Unlike K1's warp_sum_into, which
+// stores each pass, all passes stay in registers: a row whose whole sum
+// is zero keeps its bytes, and that is known only after the last pass.
+template <bool kVec, typename Rows>
+__device__ __forceinline__ void warp_sum(Rows rows,
+                                         const float* __restrict__ src,
+                                         int64_t lo, int64_t hi, int dim,
+                                         int lane, float4 (&g)[kMaxPasses]) {
+  const int col = 4 * (lane & 3);
+#pragma unroll
+  for (int p = 0; p < kMaxPasses; ++p)
+    g[p] = p * kPassCols < dim
+               ? easyrec::tree_pass<kVec, false>(rows, src, lo, hi, dim,
+                                                 p * kPassCols + col, lane)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <bool kVec>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fused_sum_kernel(float* __restrict__ table,
                  const int64_t* __restrict__ sids,
@@ -131,101 +125,118 @@ fused_sum_kernel(float* __restrict__ table,
                  const int64_t* __restrict__ starts,
                  const float* __restrict__ grads,
                  const float* __restrict__ hypers,
-                 const int64_t* __restrict__ chunk_seg,
-                 const int64_t* __restrict__ chunk_base,
                  float* __restrict__ partial,
-                 int64_t n, int64_t n_chunks, int64_t rows, int dim,
+                 int64_t n, int64_t rows, int dim, int group,
                  float b1, float omb1, float b2, float omb2, float eps) {
   const int lane = threadIdx.x & 31;
-  const int64_t w =
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  float acc[kMaxColGroups];
-  if (w < n) {
-    // segment w: summed and updated here unless it is long
-    const int64_t s = starts[w];
-    if (s >= n) return;                            // unused segment
-    const int64_t e = starts[w + 1];
-    if (e - s > kChunk) return;
-    chunk_sum(order, grads, s, e, dim, lane, acc);
-    adam_row(table, sids[s], rows, dim, lane, acc, hypers, b1, omb1, b2,
-             omb2, eps);
-    return;
-  }
-  // chunk slot c of a long segment: its chunk sum into `partial`
-  const int64_t c = w - n;
-  if (c >= n_chunks) return;
-  const int64_t seg = chunk_seg[c];
-  if (seg < 0) return;
-  const int64_t s = starts[seg];
-  const int64_t e = starts[seg + 1];
-  const int64_t lo = s + (c - chunk_base[seg]) * kChunk;
-  if (lo >= e) return;                             // past the last chunk
-  const int64_t hi = lo + kChunk < e ? lo + kChunk : e;
-  chunk_sum(order, grads, lo, hi, dim, lane, acc);
-  float* out = partial + c * dim;
+  // (a) long-segment chunks, by window: level 1 into `partial`
+  easyrec::sum_long_chunks<kVec, false>(order, starts, grads, partial, n,
+                                        dim, warp, warps, lane);
+  // (b) live segments, 32 / group a warp: a tiny one summed and updated by
+  // its lane group (group * 4 >= dim, so each lane has one float4 of
+  // columns), the others up to a chunk by the whole warp
+  const int gcol = 4 * (lane % group);
+  const unsigned gmask = group == 32
+                             ? kFullMask
+                             : ((1u << group) - 1u) << (lane / group * group);
+  const float lr = hypers[0];
+  const float c1 = hypers[1];
+  const float c2 = hypers[2];
+  easyrec::for_live_segments(
+      starts, n, warp, warps, lane, group,
+      [&](int64_t, int64_t s, int64_t e, bool tiny) {
+        const int64_t row = tiny ? sids[s] : -1;
+        const float4 v =
+            tiny ? easyrec::tiny_sum<kVec, false>(order, grads, s, e, dim,
+                                                  gcol)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        // a row is touched where any lane of its group has a nonzero sum
+        const unsigned nz = __ballot_sync(kFullMask, easyrec::nonzero4(v));
+        if (!tiny || (nz & gmask) == 0 || row < 0 || row >= rows) return;
+        float* w = table + row * (2 * static_cast<int64_t>(dim));
+        uint32_t* mv = reinterpret_cast<uint32_t*>(w + dim);
 #pragma unroll
-  for (int q = 0; q < kMaxColGroups; ++q)
-    if (q * 32 + lane < dim) out[q * 32 + lane] = acc[q];
+        for (int i = 0; i < 4; ++i)
+          if (gcol + i < dim)
+            easyrec::compact_adam(w + gcol + i, mv + gcol + i,
+                                  easyrec::part(v, i), lr, c1, c2, b1, omb1,
+                                  b2, omb2, eps);
+      },
+      [&](int64_t, int64_t s, int64_t e) {
+        float4 gs[kMaxPasses];
+        warp_sum<kVec>(easyrec::SlotRows{order}, grads, s, e, dim, lane, gs);
+        adam_row(table, sids[s], rows, dim, lane, gs, hypers, b1, omb1, b2,
+                 omb2, eps);
+      });
 }
 
+// Level 2 and the update of each long segment, at the warp of the window
+// of its first chunk.
+template <bool kVec>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-long_finish_kernel(float* __restrict__ table,
-                   const int64_t* __restrict__ sids,
-                   const int64_t* __restrict__ starts,
-                   const float* __restrict__ hypers,
-                   const int64_t* __restrict__ chunk_seg,
-                   const int64_t* __restrict__ chunk_base,
-                   const float* __restrict__ partial,
-                   int64_t n_chunks, int64_t rows, int dim,
-                   float b1, float omb1, float b2, float omb2, float eps) {
+fused_finish_kernel(float* __restrict__ table,
+                    const int64_t* __restrict__ sids,
+                    const int64_t* __restrict__ starts,
+                    const float* __restrict__ hypers,
+                    const float* __restrict__ partial,
+                    int64_t n, int64_t rows, int dim,
+                    float b1, float omb1, float b2, float omb2, float eps) {
   const int lane = threadIdx.x & 31;
-  const int64_t c =
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (c >= n_chunks) return;
-  const int64_t seg = chunk_seg[c];
-  if (seg < 0 || chunk_base[seg] != c) return;     // first chunks only
-  const int64_t s = starts[seg];
-  const int64_t n_ch = (starts[seg + 1] - s + kChunk - 1) / kChunk;
-  float acc[kMaxColGroups];
-#pragma unroll
-  for (int q = 0; q < kMaxColGroups; ++q) acc[q] = 0.f;
-  for (int64_t j = 0; j < n_ch; ++j) {
-    const float* p = partial + (c + j) * dim;
-#pragma unroll
-    for (int q = 0; q < kMaxColGroups; ++q) {
-      const int col = q * 32 + lane;
-      if (col < dim) acc[q] = __fadd_rn(acc[q], p[col]);
-    }
-  }
-  adam_row(table, sids[s], rows, dim, lane, acc, hypers, b1, omb1, b2, omb2,
-           eps);
+  easyrec::for_window_items(
+      starts, n, warp, warps, lane,
+      [&](const easyrec::ChunkItem& it, int64_t) {
+    if (it.j != 0) return;
+    float4 gs[kMaxPasses];
+    warp_sum<kVec>(easyrec::ChunkRows{it.s}, partial, 0,
+                   (it.e - it.s + kChunk - 1) / kChunk, dim, lane, gs);
+    adam_row(table, sids[it.s], rows, dim, lane, gs, hypers, b1, omb1, b2,
+             omb2, eps);
+  });
 }
 
-unsigned blocks_for(int64_t warps) {
-  return static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+template <bool kVec>
+cudaError_t launch(float* table, const int64_t* sids, const int64_t* order,
+                   const int64_t* starts, const float* grads,
+                   const float* hypers, float* partial, int64_t n,
+                   int64_t rows, int dim, float b1, float omb1, float b2,
+                   float omb2, float eps, cudaStream_t stream) {
+  const dim3 block(32 * kWarpsPerBlock);
+  fused_sum_kernel<kVec><<<easyrec::persistent_blocks(n), block, 0,
+                           stream>>>(
+      table, sids, order, starts, grads, hypers, partial, n, rows, dim,
+      easyrec::tiny_group(dim), b1, omb1, b2, omb2, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_finish_kernel<kVec>
+      <<<easyrec::persistent_blocks(easyrec::windows(n)), block, 0,
+         stream>>>(table, sids, starts, hypers, partial, n, rows, dim, b1,
+                   omb1, b2, omb2, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// partial: [2 * ceil(n / 256), dim] scratch; vec: rows of grads and
+// partial are 16-byte aligned and dim % 4 == 0.
 extern "C" int easyrec_rmw_fused_adam(
     float* table, const int64_t* sids, const int64_t* order,
     const int64_t* starts, const float* grads, const float* hypers,
-    const int64_t* chunk_seg, const int64_t* chunk_base, float* partial,
-    int64_t n, int64_t n_chunks, int64_t rows, int dim, float b1, float omb1,
-    float b2, float omb2, float eps, cudaStream_t stream) {
-  if (dim <= 0 || dim > 32 * kMaxColGroups)
+    float* partial, int64_t n, int64_t rows, int dim, float b1, float omb1,
+    float b2, float omb2, float eps, int vec, cudaStream_t stream) {
+  if (dim <= 0 || dim > kPassCols * kMaxPasses)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 block(32 * kWarpsPerBlock);
-  fused_sum_kernel<<<blocks_for(n + n_chunks), block, 0, stream>>>(
-      table, sids, order, starts, grads, hypers, chunk_seg, chunk_base,
-      partial, n, n_chunks, rows, dim, b1, omb1, b2, omb2, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_chunks > 0) {
-    long_finish_kernel<<<blocks_for(n_chunks), block, 0, stream>>>(
-        table, sids, starts, hypers, chunk_seg, chunk_base, partial,
-        n_chunks, rows, dim, b1, omb1, b2, omb2, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      vec ? launch<true>(table, sids, order, starts, grads, hypers, partial,
+                         n, rows, dim, b1, omb1, b2, omb2, eps, stream)
+          : launch<false>(table, sids, order, starts, grads, hypers,
+                          partial, n, rows, dim, b1, omb1, b2, omb2, eps,
+                          stream);
+  return static_cast<int>(err);
 }

@@ -64,8 +64,9 @@ class CudaKernel:
 
 SEG_SUM = CudaKernel(
     'seg_sum', 'seg_sum.cu', 'easyrec_seg_sum',
-    # sids, order, starts, grads, uids, sums, n, dim, sentinel, mode, stream
-    [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _P])
+    # sids, order, starts, grads, uids, sums, partial, n, dim, sentinel,
+    # mode, vec, stream
+    [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I32, _P])
 
 RMW_ADAM = CudaKernel(
     'rmw_adam', 'rmw_adam.cu', 'easyrec_rmw_adam',
@@ -75,10 +76,10 @@ RMW_ADAM = CudaKernel(
 
 RMW_FUSED_ADAM = CudaKernel(
     'rmw_fused_adam', 'rmw_fused_adam.cu', 'easyrec_rmw_fused_adam',
-    # table, sids, order, starts, grads, hypers, chunk_seg, chunk_base,
-    # partial, n, n_chunks, rows, dim, b1, 1-b1, b2, 1-b2, eps, stream
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32,
-     _F32, _F32, _F32, _P])
+    # table, sids, order, starts, grads, hypers, partial, n, rows, dim, b1,
+    # 1-b1, b2, 1-b2, eps, vec, stream
+    [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _F32, _F32, _F32, _F32,
+     _F32, _I32, _P])
 
 GROUP_PUSH = CudaKernel(
     'group_push', 'group_push.cu', 'easyrec_group_push',

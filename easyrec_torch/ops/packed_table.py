@@ -14,13 +14,13 @@ gradients [N, dim]:
      segment slots are a sentinel tail, so no step syncs the host on the
      number of unique ids.
   2. `seg_sum` -> kernel K1 (csrc/seg_sum.cu): unique ids and per-id
-     gradient sums.
+     gradient sums, by the chunk tree of csrc/seg_chunk_sum.cuh.
   3. `rmw_adam` -> kernel K2 (csrc/rmw_adam.cu): in-place lazy Adam on the
      touched rows.
 Under EASYREC_PACKED_FUSED=1 steps 2 and 3 are one call instead,
 `rmw_fused_adam` -> kernel K3 (csrc/rmw_fused_adam.cu), which keeps the
-[N, dim] gradient sums out of device memory and sums long segments in
-parallel chunks (the JAX package's _rmw_fused_pallas).
+[N, dim] gradient sums out of device memory (the JAX package's
+_rmw_fused_pallas) and sums by the same chunk tree as K1.
 Each kernel wrapper runs its plain PyTorch version when its tensors lie on
 the CPU and launches its kernel when they lie on a CUDA device; there is no
 other switch between the two.
@@ -39,9 +39,11 @@ from easyrec_torch.optim.sparse import SparseAdam
 
 GG_MODES = {'0': 0, '1': 1, 'mix': 2}
 
-# K3 cuts every segment into chunks of this many sorted slots (a constant
-# of csrc/rmw_fused_adam.cu, kChunk)
+# K1 and K3 cut every segment into chunks of this many sorted slots, and
+# sum a chunk as this many strided chains (csrc/seg_chunk_sum.cuh kChunk,
+# kSlotLanes)
 FUSED_CHUNK = 256
+SLOT_LANES = 8
 
 
 def gg_mode() -> str:
@@ -131,6 +133,79 @@ def sort_segments(ids: torch.Tensor
   return sids, order, starts
 
 
+# ------------------------------------ the chunk tree shared by K1 and K3
+
+def _tree_sums(src: torch.Tensor, lo: torch.Tensor, cnt: torch.Tensor,
+               index: torch.Tensor = None) -> torch.Tensor:
+  """Per group g, the sum of rows src[index[lo[g] + i]] (src[lo[g] + i]
+  without `index`) for i < cnt[g], in the tree of csrc/seg_chunk_sum.cuh:
+  slot-lane p < SLOT_LANES adds positions p, p + 8, p + 16, ... in order
+  to +0.0, then the lane sums combine as v[:o] + v[o:2o] for o = 4, 2, 1.
+  Missing positions add +0.0, which changes no bit of a sum that started
+  at +0.0. The loop runs ceil(max(cnt) / SLOT_LANES) times."""
+  groups, dim = lo.shape[0], src.shape[1]
+  acc = torch.zeros((groups, SLOT_LANES, dim), dtype=torch.float32,
+                    device=src.device)
+  lane = torch.arange(SLOT_LANES, device=src.device)
+  steps = (int(cnt.max()) + SLOT_LANES - 1) // SLOT_LANES if groups else 0
+  for i in range(steps):
+    act = torch.nonzero(cnt > i * SLOT_LANES)[:, 0]
+    off = i * SLOT_LANES + lane
+    ok = off[None, :] < cnt[act, None]
+    pos = lo[act, None] + torch.where(ok, off[None, :], 0)
+    vals = src[pos if index is None else index[pos]]
+    acc[act] = acc[act] + torch.where(ok[:, :, None], vals, 0.0)
+  o = SLOT_LANES // 2
+  while o:
+    acc = acc[:, :o] + acc[:, o:2 * o]
+    o //= 2
+  return acc[:, 0]
+
+
+def segment_sums_by_chunk(order: torch.Tensor, starts: torch.Tensor,
+                          grads: torch.Tensor, mode: str = '0'
+                          ) -> torch.Tensor:
+  """Per-segment gradient sums [N, dim] (zero rows for unused segments) in
+  the order of additions of K1 and K3, the chunk tree of
+  csrc/seg_chunk_sum.cuh, which is fixed by a segment's length alone:
+  level 1 cuts the segment's sorted slots into chunks of FUSED_CHUNK and
+  sums each by _tree_sums; level 2 gives a one-chunk segment its chunk's
+  sum and sums a longer segment's chunk sums by _tree_sums again. `mode`
+  is EASYREC_GG_BF16's: '0' f32 payload; 'mix' payload rounded to bf16;
+  '1' that, and each final sum rounded to bf16 once."""
+  n, dim = grads.shape
+  dev = grads.device
+  payload = grads if mode == '0' else bf16_round(grads)
+  lens = starts[1:] - starts[:n]                 # 0 for unused segments
+  n_ch = (lens + FUSED_CHUNK - 1) // FUSED_CHUNK
+  seg = torch.repeat_interleave(torch.arange(n, device=dev), n_ch)
+  first = torch.cumsum(n_ch, 0) - n_ch           # first chunk of a segment
+  j = torch.arange(seg.shape[0], device=dev) - first[seg]
+  lo = starts[seg] + j * FUSED_CHUNK
+  csum = _tree_sums(payload, lo,
+                    torch.clamp(starts[seg + 1] - lo, max=FUSED_CHUNK),
+                    order)
+  sums = torch.zeros((n, dim), dtype=torch.float32, device=dev)
+  one = torch.nonzero(n_ch == 1)[:, 0]
+  sums[one] = csum[first[one]]
+  many = torch.nonzero(n_ch > 1)[:, 0]
+  if many.shape[0]:
+    sums[many] = _tree_sums(csum, first[many], n_ch[many])
+  return bf16_round(sums) if mode == '1' else sums
+
+
+def long_chunk_bound(n: int) -> int:
+  """Rows of the kernels' chunk scratch: two a window of FUSED_CHUNK sorted
+  slots (csrc/seg_chunk_sum.cuh, chunk_row)."""
+  return 2 * (-(-n // FUSED_CHUNK))
+
+
+def _rows_vectorizable(grads: torch.Tensor) -> bool:
+  """The kernels load 16-byte float4s where every row starts 16-byte
+  aligned, else scalars; the sums are the same."""
+  return grads.shape[1] % 4 == 0 and grads.data_ptr() % 16 == 0
+
+
 # ------------------------------------------------- K1: segmented grad sum
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -154,26 +229,11 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def seg_sum_plain(sids, order, starts, grads, sentinel: int, mode: str):
-  """Plain PyTorch K1: the same function as the kernel, in the kernel's
-  order of additions. Each segment's f32 sum starts at 0 and adds its rows
-  in sorted order, one position of every segment per pass, so the two
-  agree bit for bit."""
-  n, dim = grads.shape
-  payload = grads if mode == '0' else bf16_round(grads)
-  lens = starts[1:] - starts[:n]              # 0 for unused segments
-  by_len = torch.argsort(lens, descending=True)
-  lens_desc = lens.index_select(0, by_len).cpu().numpy()
-  # active[j]: number of segments longer than j (a prefix of by_len)
-  active = np.searchsorted(-lens_desc, -np.arange(int(lens_desc[0]) if n
-                                                  else 0), side='left')
-  sums = torch.zeros_like(grads)
-  first = starts.index_select(0, by_len)
-  for j, count in enumerate(active.tolist()):
-    segs = by_len[:count]
-    rows = order.index_select(0, first[:count] + j)
-    sums[segs] = sums[segs] + payload.index_select(0, rows)
-  if mode == '1':
-    sums = bf16_round(sums)
+  """Plain PyTorch K1: unique ids (sentinel tail) and the chunk-tree sums
+  of segment_sums_by_chunk in `mode`, the kernel's tree, so the two agree
+  bit for bit."""
+  n = grads.shape[0]
+  sums = segment_sums_by_chunk(order, starts, grads, mode)
   live = starts[:n] < n
   uids = torch.where(live, sids[starts[:n].clamp(max=n - 1)],
                      torch.full_like(sids, sentinel))
@@ -199,10 +259,12 @@ def seg_sum(sids: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
     raise ValueError('seg_sum: unsupported device %s' % dev)
   uids = torch.empty(n, dtype=torch.int64, device=dev)
   sums = torch.empty((n, dim), dtype=torch.float32, device=dev)
+  partial = torch.empty((long_chunk_bound(n), dim), dtype=torch.float32,
+                        device=dev)
   kernels.SEG_SUM.launch(
       dev, sids.data_ptr(), order.data_ptr(), starts.data_ptr(),
-      grads.data_ptr(), uids.data_ptr(), sums.data_ptr(), n, dim,
-      int(sentinel), GG_MODES[mode])
+      grads.data_ptr(), uids.data_ptr(), sums.data_ptr(), partial.data_ptr(),
+      n, dim, int(sentinel), GG_MODES[mode], int(_rows_vectorizable(grads)))
   return uids, sums
 
 
@@ -252,73 +314,18 @@ def rmw_adam(table: torch.Tensor, uids: torch.Tensor, gsum: torch.Tensor,
 
 # ------------------------- K3: fused segmented sum + row RMW, compact Adam
 
-def segment_sums_by_chunk(order, starts, grads):
-  """Per-segment f32 gradient sums [N, dim] in K3's order of additions:
-  each chunk of FUSED_CHUNK sorted slots summed in slot order from 0, then
-  a segment of several chunks as 0 + chunk 0 + chunk 1 + ... The Python
-  loops run at most FUSED_CHUNK and (longest segment / FUSED_CHUNK) times."""
-  n, dim = grads.shape
-  dev = grads.device
-  lens = starts[1:] - starts[:n]                 # 0 for unused segments
-  n_ch = (lens + FUSED_CHUNK - 1) // FUSED_CHUNK
-  seg = torch.repeat_interleave(torch.arange(n, device=dev), n_ch)
-  first = torch.cumsum(n_ch, 0) - n_ch           # first chunk of a segment
-  j = torch.arange(seg.shape[0], device=dev) - first[seg]
-  lo = starts[seg] + j * FUSED_CHUNK
-  clen = torch.clamp(starts[seg + 1] - lo, max=FUSED_CHUNK)
-  # level 1: chunk sums, one slot position of every chunk per pass
-  csum = torch.zeros((seg.shape[0], dim), dtype=torch.float32, device=dev)
-  for p in range(int(clen.max()) if seg.shape[0] else 0):
-    act = torch.nonzero(clen > p)[:, 0]
-    rows = order.index_select(0, lo[act] + p)
-    csum[act] = csum[act] + grads.index_select(0, rows)
-  # level 2: a one-chunk segment's sum is its chunk sum; longer segments
-  # add their chunk sums in chunk order
-  sums = torch.zeros((n, dim), dtype=torch.float32, device=dev)
-  one = torch.nonzero(n_ch == 1)[:, 0]
-  sums[one] = csum[first[one]]
-  for q in range(int(n_ch.max()) if n else 0):
-    act = torch.nonzero((n_ch > 1) & (n_ch > q))[:, 0]
-    if act.shape[0]:
-      sums[act] = sums[act] + csum[first[act] + q]
-  return sums
-
-
 def rmw_fused_adam_plain(table: torch.Tensor, sids: torch.Tensor,
                          order: torch.Tensor, starts: torch.Tensor,
                          grads: torch.Tensor, hypers: torch.Tensor,
                          opt: SparseAdam) -> torch.Tensor:
-  """Plain PyTorch K3: the same tree of f32 additions as the kernel, then
-  K2's plain update; `table` is updated in place and returned."""
+  """Plain PyTorch K3: the kernel's chunk tree (segment_sums_by_chunk, f32),
+  then K2's plain update; `table` is updated in place and returned."""
   n = grads.shape[0]
   sums = segment_sums_by_chunk(order, starts, grads)
   live = starts[:n] < n
   uids = torch.where(live, sids[starts[:n].clamp(max=n - 1)],
                      torch.full_like(sids, -1))
   return rmw_adam_plain(table, uids, sums, hypers, opt)
-
-
-def fused_chunk_map(starts: torch.Tensor, n: int):
-  """(chunk_seg [n_chunks], chunk_base [n], n_chunks) for K3: segments
-  longer than FUSED_CHUNK own consecutive chunk slots from chunk_base;
-  chunk_seg names the segment of each slot (-1 before the first). No host
-  sync: n_chunks = 2n // FUSED_CHUNK + 1 bounds the slots any input
-  needs, since a long segment of L slots has ceil(L / FUSED_CHUNK) <
-  2L / FUSED_CHUNK chunks."""
-  dev = starts.device
-  n_chunks = 2 * n // FUSED_CHUNK + 1
-  lens = starts[1:] - starts[:n]
-  is_long = lens > FUSED_CHUNK
-  n_ch = torch.where(is_long, (lens + FUSED_CHUNK - 1) // FUSED_CHUNK,
-                     torch.zeros_like(lens))
-  base = torch.cumsum(n_ch, 0) - n_ch
-  mark = torch.full((n_chunks + 1,), -1, dtype=torch.int64, device=dev)
-  # short segments scatter into the dump slot n_chunks, dropped below
-  mark.scatter_(0, torch.where(is_long, base, torch.full_like(base,
-                                                              n_chunks)),
-                torch.arange(n, device=dev))
-  chunk_seg = torch.cummax(mark[:n_chunks], 0).values
-  return chunk_seg, base, n_chunks
 
 
 def rmw_fused_adam(table: torch.Tensor, sids: torch.Tensor,
@@ -349,14 +356,14 @@ def rmw_fused_adam(table: torch.Tensor, sids: torch.Tensor,
     raise ValueError('rmw_fused_adam: unsupported device %s' % dev)
   if dim > 128:
     raise ValueError('rmw_fused_adam: dim %d above the kernel\'s 128' % dim)
-  chunk_seg, chunk_base, n_chunks = fused_chunk_map(starts, n)
-  partial = torch.empty((n_chunks, dim), dtype=torch.float32, device=dev)
+  partial = torch.empty((long_chunk_bound(n), dim), dtype=torch.float32,
+                        device=dev)
   b1, omb1, b2, omb2, eps = opt.constants
   kernels.RMW_FUSED_ADAM.launch(
       dev, table.data_ptr(), sids.data_ptr(), order.data_ptr(),
       starts.data_ptr(), grads.data_ptr(), hypers.data_ptr(),
-      chunk_seg.data_ptr(), chunk_base.data_ptr(), partial.data_ptr(), n,
-      n_chunks, rows, dim, b1, omb1, b2, omb2, eps)
+      partial.data_ptr(), n, rows, dim, b1, omb1, b2, omb2, eps,
+      int(_rows_vectorizable(grads)))
   return table
 
 

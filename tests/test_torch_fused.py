@@ -4,6 +4,8 @@ version on the CPU: against the JAX package's _rmw_fused_pallas run in
 interpret mode, against the port's own K1 + K2, the chunk map its wrapper
 builds for the kernel, and the EASYREC_PACKED_FUSED dispatch."""
 
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,7 +13,8 @@ import torch
 
 from easyrec_torch.ops import kernels
 from easyrec_torch.ops import packed_table as tpt
-from easyrec_torch.ops.native_build import NVCC_FLAGS, NativeBuild
+from easyrec_torch.ops.native_build import (NVCC_FLAGS, NativeBuild,
+                                            hash_sources)
 from easyrec_torch.optim.sparse import SparseAdam
 from easyrec_tpu.ops import packed_table as jpt
 from easyrec_tpu.optim import sparse as sparse_lib
@@ -113,11 +116,9 @@ def _port_update(ids, grads, table, step, fused):
 
 @pytest.mark.parametrize('hot', [C, 5 * C + 3])
 def test_plain_against_k1_k2_plain(hot):
-  """Against K1 (mode 0, f32) followed by K2: where no segment is longer
-  than the chunk, the same f32 additions in the same order, so the tables
-  are bit-equal; a longer segment adds its chunk sums in chunk order
-  instead of slot by slot, so its row differs by f32 rounding only (w
-  within 1e-7, 1e-2 of lr; m and v within one bf16 ulp)."""
+  """Against K1 (mode 0, f32) followed by K2: both sum by the one chunk
+  tree, so the tables are bit-equal whatever the segments' lengths, a
+  segment of several chunks included."""
   rows, dim, n = 400, 16, 2000
   rng = np.random.default_rng(hot)
   w0 = (rng.standard_normal((rows, dim)) * 0.05).astype(np.float32)
@@ -131,42 +132,67 @@ def test_plain_against_k1_k2_plain(hot):
     for fused, table in zip((True, False), tables):
       _port_update(ids, grads, table, step, fused)
   a, b = tables[0].numpy(), tables[1].numpy()
-  if hot <= C:
-    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
-    return
-  same = (a.view(np.uint32) == b.view(np.uint32)).all(axis=1)
-  assert same.sum() == rows - 1 and not same[11]
-  aw, am, av = tpt.unpack_host(a)
-  bw, bm, bv = tpt.unpack_host(b)
-  np.testing.assert_allclose(aw, bw, rtol=0, atol=1e-7)
-  np.testing.assert_allclose(am, bm, rtol=BF16_ULP, atol=0)
-  np.testing.assert_allclose(av, bv, rtol=BF16_ULP, atol=0)
+  np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+  assert not np.array_equal(a[11], tpt.pack_host(w0, m0, v0)[11])
 
 
-def test_plain_order_of_additions():
-  """The plain version's sums are the two-level tree the kernel runs: each
-  chunk of C sorted slots from 0 in slot order, then 0 + chunk sums in
-  chunk order; an unused segment and an id outside the table change
-  nothing."""
-  rows, dim = 10, 2
-  n = 2 * C + 40
+def _np_tree(rows):
+  """The documented tree, walked by hand: slot-lane p adds rows p, p + 8,
+  ... to 0 in f32, then lanes p and p + o combine for o = 4, 2, 1."""
+  lanes = [np.zeros(rows.shape[1], np.float32) for _ in range(tpt.SLOT_LANES)]
+  for i, row in enumerate(rows):
+    lanes[i % tpt.SLOT_LANES] = lanes[i % tpt.SLOT_LANES] + row
+  o = tpt.SLOT_LANES // 2
+  while o:
+    lanes = [lanes[p] + lanes[p + o] for p in range(o)]
+    o //= 2
+  return lanes[0]
+
+
+def _np_segment_sum(rows):
+  """Level 1: chunks of C rows by _np_tree; level 2: one chunk's sum as
+  it is, several chunks' sums by _np_tree again."""
+  chunks = [_np_tree(rows[lo:lo + C]) for lo in range(0, len(rows), C)]
+  return chunks[0] if len(chunks) == 1 else _np_tree(np.stack(chunks))
+
+
+@pytest.mark.parametrize('mode', ['0', 'mix', '1'])
+@pytest.mark.parametrize('length', [1, tpt.SLOT_LANES - 1, C, C + 1,
+                                    5 * C + 3, 3001])
+def test_plain_order_of_additions(length, mode):
+  """The plain tree (segment_sums_by_chunk, which seg_sum_plain and
+  rmw_fused_adam_plain share) against a hand walk of the tree documented
+  in csrc/seg_chunk_sum.cuh, bit for bit, on terms of magnitudes 1e-6 to
+  1e6, where any other order of additions rounds differently; a short
+  segment and an unused segment beside it. Then the fused update: an
+  unused segment and an id outside the table change nothing."""
+  rows, dim = 10, 3
+  n = length + 7
   ids = np.full(n, 3)
   ids[-7:] = 5
   ids[-1] = rows                               # outside the table
-  rng = np.random.default_rng(1)
+  rng = np.random.default_rng(length)
   grads = rng.standard_normal((n, dim)).astype(np.float32) * \
       np.float32(1e3) ** rng.integers(-2, 3, (n, 1)).astype(np.float32)
   sids, order, starts = tpt.sort_segments(torch.from_numpy(ids))
-  sums = tpt.segment_sums_by_chunk(order, starts, torch.from_numpy(grads))
+  sums = tpt.segment_sums_by_chunk(order, starts, torch.from_numpy(grads),
+                                   mode)
+  payload = grads if mode == '0' else \
+      tpt.bf16_round(torch.from_numpy(grads)).numpy()
   o = order.numpy()
-  g = grads[o[:n - 7]]                         # id 3's rows in slot order
-  want = np.float32(0)
-  for lo in range(0, g.shape[0], C):
-    part = np.zeros(dim, np.float32)
-    for row in g[lo:lo + C]:
-      part = (part + row).astype(np.float32)
-    want = (want + part).astype(np.float32)
-  np.testing.assert_array_equal(sums[0].numpy(), want)
+  want = [_np_segment_sum(payload[o[:length]]),      # id 3, slot order
+          _np_segment_sum(payload[o[length:length + 6]]),
+          _np_segment_sum(payload[o[n - 1:]])]
+  if mode == '1':
+    want = tpt.bf16_round(torch.from_numpy(np.stack(want))).numpy()
+  np.testing.assert_array_equal(sums[:3].numpy().view(np.uint32),
+                                np.stack(want).view(np.uint32))
+  np.testing.assert_array_equal(sums[3:].numpy(), 0.0)
+  uids, k1 = tpt.seg_sum_plain(sids, order, starts, torch.from_numpy(grads),
+                               99, mode)
+  np.testing.assert_array_equal(uids.numpy()[:4], [3, 5, rows, 99])
+  np.testing.assert_array_equal(k1.numpy().view(np.uint32),
+                                sums.numpy().view(np.uint32))
   table = torch.zeros((rows, 2 * dim))
   opt = SparseAdam()
   tpt.rmw_fused_adam(table, sids, order, starts, torch.from_numpy(grads),
@@ -176,32 +202,75 @@ def test_plain_order_of_additions():
   np.testing.assert_array_equal(np.nonzero(changed)[0], [3, 5])
 
 
-@pytest.mark.parametrize('lens', [[1, 2, 3], [C + 1], [700, 3, C, 2 * C + 1],
-                                  [3000]])
+def _chunk_rows(starts, n):
+  """Where the kernels put the chunk sums of long segments (more than C
+  slots), by the formula of seg_chunk_sum.cuh chunk_row: the sorted slots
+  are cut into windows of C; chunk j of segment k (first slot s) starts in
+  window w = (s + j*C) // C and takes scratch row 2w, or 2w + 1 where it
+  is a first chunk (j == 0) starting after its window's first slot.
+  Returns {(k, j): row}."""
+  lens = (starts[1:] - starts[:n]).tolist()
+  first = starts[:n].tolist()
+  rows = {}
+  for k, length in enumerate(lens):
+    if length > C:
+      s = first[k]
+      for j in range(-(-length // C)):
+        rows[(k, j)] = 2 * ((s + j * C) // C) + int(j == 0 and s % C != 0)
+  return rows
+
+
+def _window_items(starts, n):
+  """The kernels' window search (seg_chunk_sum.cuh window_item), in numpy:
+  for window w, t = 0 is the segment holding slot w*C if it is long and
+  one of its chunks starts in the window, t = 1 the last segment starting
+  inside the window after its first slot if it is long (its chunk 0).
+  Returns {(k, j): 2w + t}."""
+  st = starts.numpy()
+  found = {}
+  for w in range(-(-n // C)):
+    lo, hi = w * C, min(w * C + C, n)
+    for t, at in ((0, lo), (1, hi - 1)):
+      k = int(np.searchsorted(st, at, side='right')) - 1
+      s, e = int(st[k]), int(st[k + 1])
+      if e - s <= C:
+        continue
+      if t == 1:
+        if s > lo:
+          found[(k, 0)] = 2 * w + 1
+        continue
+      j = -(-(lo - s) // C)
+      if s + j * C < min(hi, e):
+        found[(k, j)] = 2 * w
+  return found
+
+
+_MIXED = [1, 2, 8, 9, C - 1, C, C + 1, 2 * C, 3 * C + 7, 1000]
+
+
+@pytest.mark.parametrize('lens', [
+    [1, 2, 3], [C + 1], [700, 3, C, 2 * C + 1], [3000]] + [
+        np.random.default_rng(seed).choice(_MIXED, 40).tolist()
+        for seed in range(3)])
 def test_chunk_map_gives_long_segments_their_chunk_slots(lens):
-  """fused_chunk_map, which the CUDA wrapper builds on the device: every
-  segment longer than C owns ceil(len / C) consecutive chunk slots from
-  chunk_base, chunk_seg names it on each of them, and the slot count
-  bound covers the input."""
+  """_chunk_rows, where the kernels put each long segment's chunk sums:
+  every segment longer than C has ceil(len / C) chunks, each on its own
+  scratch row below long_chunk_bound; and the kernels' window search
+  finds exactly those chunks at exactly those rows, with no work list;
+  the last three cases mix tiny, short and long segments starting
+  anywhere in their windows. (On the card, test_kernels_find_every_long_
+  chunk holds the kernels themselves to the plain sums.)"""
   ids = np.repeat(np.arange(len(lens)), lens)
   n = ids.shape[0]
   _, _, starts = tpt.sort_segments(torch.from_numpy(ids))
-  chunk_seg, base, n_chunks = tpt.fused_chunk_map(starts, n)
-  assert n_chunks == 2 * n // C + 1 and chunk_seg.shape == (n_chunks,)
-  want = np.full(n_chunks, -1)
-  nxt = 0
-  for k, length in enumerate(lens):
-    if length > C:
-      nch = -(-length // C)
-      assert int(base[k]) == nxt
-      want[nxt:nxt + nch] = k
-      nxt += nch
-  assert nxt <= n_chunks
-  got = chunk_seg.numpy()
-  np.testing.assert_array_equal(got[:nxt], want[:nxt])
-  # slots past the last chunk keep the last long segment (the kernel skips
-  # them: their chunk starts past the segment's end) or -1
-  assert np.all(got[nxt:] == (want[nxt - 1] if nxt else -1))
+  rows = _chunk_rows(starts, n)
+  want = [(k, j) for k, length in enumerate(lens) if length > C
+          for j in range(-(-length // C))]
+  assert sorted(rows) == want
+  assert len(set(rows.values())) == len(rows)
+  assert all(0 <= r < tpt.long_chunk_bound(n) for r in rows.values())
+  assert tpt.long_chunk_bound(n) == 2 * -(-n // C)
+  assert _window_items(starts, n) == rows
 
 
 @pytest.mark.parametrize('env,fused', [(None, False), ('0', False),
@@ -249,14 +318,25 @@ def test_wrapper_checks_inputs():
 
 
 def test_build_key_covers_the_shared_adam_header(tmp_path):
-  """K2 and K3 take their Adam from one header, compact_adam.cuh, and a
-  library is named by a hash that covers the headers its source includes
-  by a quoted path: a changed header builds both kernels anew, so a stale
-  copy of the update is never loaded. A quoted include that does not lie
-  beside the source is left to the compiler's search path."""
-  for k in (kernels.RMW_ADAM, kernels.RMW_FUSED_ADAM):
-    with open(k.source) as f:
-      assert '#include "compact_adam.cuh"' in f.read()
+  """K2 and K3 take their Adam from one header, compact_adam.cuh, and K1
+  and K3 their sum from another, seg_chunk_sum.cuh; a library is named by
+  a hash that covers the headers its source includes by a quoted path: a
+  changed header builds its kernels anew, so a stale copy of the update or
+  the tree is never loaded. A quoted include that does not lie beside the
+  source is left to the compiler's search path."""
+  for header, users in (('compact_adam.cuh', (kernels.RMW_ADAM,
+                                              kernels.RMW_FUSED_ADAM)),
+                        ('seg_chunk_sum.cuh', (kernels.SEG_SUM,
+                                               kernels.RMW_FUSED_ADAM))):
+    for k in users:
+      with open(k.source) as f:
+        assert '#include "%s"' % header in f.read()
+      digest = hashlib.sha256()
+      hash_sources(k.source, digest)
+      plain = hashlib.sha256()
+      with open(k.source, 'rb') as f:
+        plain.update(f.read())
+      assert digest.hexdigest() != plain.hexdigest()
   src, hdr = tmp_path / 'k.cu', tmp_path / 'h.cuh'
   src.write_text('#include <cstdint>\n#include "h.cuh"\n'
                  '#include "absent.h"\n')

@@ -66,6 +66,119 @@ def test_seg_sum_kernel_matches_plain_on_hot_rows(cuda, mode):
   assert int((uk < 13).sum()) == 13
 
 
+def _din_padding_ids(device, rows=50_000, seed=7):
+  """A DIN batch's shape of long segments: a padding id of 100k slots, one
+  of 3,001, beside 20k mostly unique ids and five ids outside the
+  table."""
+  gen = torch.Generator(device=device).manual_seed(seed)
+  ids = torch.cat([torch.zeros(100_000, dtype=torch.int64, device=device),
+                   torch.full((3001,), 1, dtype=torch.int64, device=device),
+                   torch.randint(2, rows, (20_000,), generator=gen,
+                                 device=device)])
+  ids[-5:] = rows
+  return ids
+
+
+@pytest.mark.parametrize('mode', ['0', 'mix', '1'])
+@pytest.mark.parametrize('dim', [16, 48])
+def test_seg_sum_kernel_matches_plain_on_long_segments(cuda, mode, dim):
+  """The DIN's padding shape, where K1 once walked 100k slots with one
+  warp: 391 chunks of the one tree, bit-exact against the plain version
+  in every mode, at one pass of 16 columns (dim 16) and three (dim 48),
+  both with float4 loads. Scalar loads: test_kernels_take_unaligned_rows
+  and test_seg_sum_kernel_matches_chunk_tree_at_any_dim."""
+  ids = _din_padding_ids(cuda)
+  gen = torch.Generator(device=cuda).manual_seed(8)
+  grads = torch.randn((ids.shape[0], dim), generator=gen, device=cuda)
+  grads[::11] = 0.0
+  sids, order, starts = pt.sort_segments(ids)
+  uk, sk = pt.seg_sum(sids, order, starts, grads, 50_000, mode)
+  up, sp = pt.seg_sum_plain(sids, order, starts, grads, 50_000, mode)
+  assert torch.equal(uk, up)
+  assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+
+
+def _mixed_segments(device, dim, rows, seed):
+  """Tiny (1-8 slots), short (9-256) and long (257-3,000) segments, beside
+  6,000 mostly unique ids; every 13th gradient row zero."""
+  gen = torch.Generator(device=device).manual_seed(seed)
+  lens = torch.tensor([1, 3, 8, 9, 100, 256, 257, 700, 3000, 2, 513],
+                      device=device)
+  ids = torch.repeat_interleave(torch.arange(lens.shape[0], device=device),
+                                lens)
+  ids = torch.cat([ids, torch.randint(lens.shape[0], rows, (6000,),
+                                      generator=gen, device=device)])
+  grads = torch.randn((ids.shape[0], dim), generator=gen, device=device)
+  grads[::13] = 0.0
+  return ids, grads
+
+
+@pytest.mark.parametrize('mode', ['0', 'mix', '1'])
+@pytest.mark.parametrize('dim', [3, 10, 130, 160])
+def test_seg_sum_kernel_matches_chunk_tree_at_any_dim(cuda, mode, dim):
+  """K1 at dims that are not a multiple of 4 (3, 10, 130: scalar loads,
+  the last four columns of a row a partial float4) and above 128 (130,
+  160: a tiny segment's lanes take a second float4 of columns), on tiny,
+  short and long segments: bit-exact against segment_sums_by_chunk."""
+  ids, grads = _mixed_segments(cuda, dim, 20_000, 20)
+  sids, order, starts = pt.sort_segments(ids)
+  uk, sk = pt.seg_sum(sids, order, starts, grads, 20_000, mode)
+  want = pt.segment_sums_by_chunk(order, starts, grads, mode)
+  assert torch.equal(sk.view(torch.int32), want.view(torch.int32))
+  up, _ = pt.seg_sum_plain(sids, order, starts, grads, 20_000, mode)
+  assert torch.equal(uk, up)
+
+
+@pytest.mark.parametrize('dim', [10, 100])
+def test_rmw_fused_adam_kernel_matches_plain_at_any_dim(cuda, dim):
+  """K3 at a dim that is not a multiple of 4 (10: scalar loads) and at
+  seven passes of which the last is partial (100), on tiny, short and
+  long segments: w, m and v bit-equal to the plain version."""
+  ids, grads = _mixed_segments(cuda, dim, 20_000, 21)
+  _check_fused_against_plain(cuda, ids, grads, 20_000)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+def test_kernels_take_unaligned_rows(cuda, fused):
+  """Gradient rows that do not start 16-byte aligned take the kernels'
+  scalar loads: the same sums, bit for bit."""
+  ids = _din_padding_ids(cuda)
+  n, dim = ids.shape[0], 16
+  gen = torch.Generator(device=cuda).manual_seed(9)
+  buf = torch.randn(n * dim + 1, generator=gen, device=cuda)
+  grads = buf[1:].view(n, dim)
+  assert grads.data_ptr() % 16 != 0
+  sids, order, starts = pt.sort_segments(ids)
+  if not fused:
+    _, sk = pt.seg_sum(sids, order, starts, grads, 50_000, '0')
+    _, sp = pt.seg_sum_plain(sids, order, starts, grads, 50_000, '0')
+    assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+    return
+  _check_fused_against_plain(cuda, ids, grads, 50_000)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+def test_kernels_find_every_long_chunk(cuda, fused):
+  """Long segments of every length near a chunk's, starting anywhere in
+  their windows of 256 slots, some on a window's first slot: the window
+  search finds every chunk, so both kernels stay bit-exact."""
+  gen = torch.Generator(device=cuda).manual_seed(12)
+  lens = torch.tensor([256, 257, 1, 511, 512, 513, 3, 255, 767, 1024, 9,
+                       2000, 300], device=cuda)
+  ids = torch.repeat_interleave(torch.arange(13, device=cuda), lens)
+  ids = torch.cat([ids, torch.randint(13, 5000, (3000,), generator=gen,
+                                      device=cuda)])
+  grads = torch.randn((ids.shape[0], 16), generator=gen, device=cuda)
+  if fused:
+    _check_fused_against_plain(cuda, ids, grads, 5000)
+    return
+  sids, order, starts = pt.sort_segments(ids)
+  for mode in ('0', '1'):
+    _, sk = pt.seg_sum(sids, order, starts, grads, 5000, mode)
+    _, sp = pt.seg_sum_plain(sids, order, starts, grads, 5000, mode)
+    assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+
+
 @pytest.mark.parametrize('dim', [32, 16])
 def test_rmw_adam_kernel_matches_plain(cuda, dim):
   """m/v bit-exact, w within 1 ulp; untouched and sentinel rows keep their
@@ -155,7 +268,7 @@ def _check_fused_against_plain(device, ids, grads, rows):
 @pytest.mark.parametrize('dim', [16, 32])
 def test_rmw_fused_adam_kernel_matches_plain_on_one_long_segment(cuda, dim):
   """A 100k-slot segment (a padding id of a DIN batch) beside short ones:
-  the two-level path, 391 chunks summed in parallel then in order."""
+  391 chunks summed at once, then their sums by the same tree."""
   rows = 50_000
   gen = torch.Generator(device=cuda).manual_seed(7)
   ids = torch.cat([torch.zeros(100_000, dtype=torch.int64, device=cuda),
@@ -189,6 +302,29 @@ def test_rmw_fused_adam_kernel_short_segments_equal_k1_k2(cuda):
   grads = torch.randn((8000, dim), generator=gen, device=cuda)
   sids, order, starts = pt.sort_segments(ids)
   assert int((starts[1:] - starts[:-1]).max()) <= pt.FUSED_CHUNK
+  opt = SparseAdam()
+  hyp = opt.hypers(torch.tensor(1e-2, device=cuda),
+                   torch.tensor(0, dtype=torch.int32, device=cuda))
+  a = _table(cuda, rows, dim, 1)
+  b = a.clone()
+  pt.rmw_fused_adam(a, sids, order, starts, grads, hyp, opt)
+  uids, gsum = pt.seg_sum(sids, order, starts, grads, rows, '0')
+  pt.rmw_adam(b, uids, gsum, hyp, opt)
+  torch.cuda.synchronize()
+  assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize('hot', [pt.FUSED_CHUNK + 1, 100_000])
+def test_rmw_fused_adam_kernel_long_segments_equal_k1_k2(cuda, hot):
+  """K1 and K3 sum by the one chunk tree: bit-equal to K1 (mode 0)
+  followed by K2 where a segment spans several chunks, too."""
+  rows, dim = 3000, 16
+  gen = torch.Generator(device=cuda).manual_seed(10)
+  ids = torch.randint(0, rows, (8000,), generator=gen, device=cuda)
+  ids = torch.cat([torch.full((hot,), 5, dtype=torch.int64, device=cuda),
+                   ids])
+  grads = torch.randn((ids.shape[0], dim), generator=gen, device=cuda)
+  sids, order, starts = pt.sort_segments(ids)
   opt = SparseAdam()
   hyp = opt.hypers(torch.tensor(1e-2, device=cuda),
                    torch.tensor(0, dtype=torch.int32, device=cuda))

@@ -81,6 +81,7 @@ def _carry_initial_state(jt, state, tt):
 
 
 LR_SUM = 0.01 + 0.01 + 0.005      # the schedule's rates of the 3 steps
+BN_MOMENTUM = 0.99
 
 
 def _bn_cancelled(path):
@@ -88,6 +89,26 @@ def _bn_cancelled(path):
   rounding, and Adam turns that noise into a step of +-lr either way."""
   keys = [getattr(k, 'key', None) for k in path]
   return (keys[-1] == 'bias' and str(keys[-2]).startswith('dense_'))
+
+
+def _biases_before_bn(params):
+  """{path of BatchNorm bn_i: the bias of dense_i, which feeds it}, f64."""
+  out = {}
+  for path, x in jax.tree_util.tree_leaves_with_path(params):
+    if _bn_cancelled(path):
+      keys = tuple(k.key for k in path)
+      bn = 'bn_' + keys[-2][len('dense_'):]
+      out[keys[:-2] + (bn,)] = np.asarray(x, np.float64)
+  return out
+
+
+def _bias_share(history, bn):
+  """What the biases of `history` (one dict of _biases_before_bn a step,
+  taken before it) put into BatchNorm bn's running mean: each step's
+  batch mean holds its bias, and momentum decays it as the rest."""
+  steps = len(history)
+  return sum((1 - BN_MOMENTUM) * BN_MOMENTUM ** (steps - 1 - s) * h[bn]
+             for s, h in enumerate(history))
 
 
 @pytest.mark.parametrize('mode,use_bn', [('0', False), ('1', False),
@@ -104,9 +125,12 @@ def test_three_steps_match_jax_trainer(mode, use_bn, monkeypatch):
   percent, and the forward and the other rows' gradients of later steps
   follow it. With BatchNorm, the Dense biases before it get a zero
   gradient up to rounding, so Adam moves them by +-lr on either side: they
-  are held only to that bound, the running means that see them to 1% of
-  it, and the rest of the dense parameters, which see those biases before
-  BatchNorm removes them, to 1e-4. In both cases the tables are held to
+  are held only to that bound, and the rest of the dense parameters, which
+  see those biases before BatchNorm removes them, to 1e-4. The running
+  means take in each step's biases; each side's own biases, recorded
+  before every step, are taken out of its means (_bias_share), and the
+  rest is held as the variances are, to 1e-5 (it measures 8e-9). In both
+  cases the tables are held to
   1e-4 (w) and 3% or 2e-7 (m, v). Eval runs on running statistics that do
   not remove the biases, so its loss and AUC are compared without
   BatchNorm only."""
@@ -124,7 +148,11 @@ def test_three_steps_match_jax_trainer(mode, use_bn, monkeypatch):
   _carry_initial_state(jt, state, tt)
   cpu = torch.device('cpu')
 
+  j_hist, t_hist = [], []
   for s in range(3):
+    j_hist.append(_biases_before_bn(jax.device_get(state.params)))
+    t_hist.append(_biases_before_bn(
+        convert.state_dict_to_flax(tt.model.state_dict())[0]))
     state, j_loss = jt.train_step(state, jt.rules.shard_batch(batches[s]))
     t_loss = tt.train_step(to_device(batches[s], cpu))
     np.testing.assert_allclose(float(t_loss['total_loss']),
@@ -146,8 +174,11 @@ def test_three_steps_match_jax_trainer(mode, use_bn, monkeypatch):
   for path, got in jax.tree_util.tree_leaves_with_path(stats):
     want = np.asarray(functools.reduce(lambda t, k: t[k.key], path,
                                        j_stats))
-    atol = 0.02 * LR_SUM if path[-1].key == 'mean' else 1e-5
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=atol)
+    if path[-1].key == 'mean':
+      bn = tuple(k.key for k in path[:-1])
+      got = got - _bias_share(t_hist, bn)
+      want = want - _bias_share(j_hist, bn)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
 
   tight = mode == '0' and not use_bn
   for key, meta in jt.pack_metas.items():
