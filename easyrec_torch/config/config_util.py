@@ -168,6 +168,8 @@ def _unported_fields(msg: Message, path: str):
     if spec.name not in msg._values:
       continue
     value = msg._values[spec.name]
+    if spec.repeated and not value:
+      continue          # reading a repeated field leaves an empty list
     where = '%s.%s' % (path, spec.name) if path else spec.name
     if spec.kind == 'unported':
       yield where

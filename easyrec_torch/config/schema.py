@@ -103,7 +103,7 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
     # train.proto
     'TrainConfig': (
         _f('optimizer_config', 'msg:Optimizer', rep=True),
-        _f('gradient_clipping_by_norm', 'unported'),
+        _f('gradient_clipping_by_norm', 'float', 0.0),
         _f('num_steps', 'int', 0),
         _f('fine_tune_checkpoint', 'unported'),
         _f('log_step_count_steps', 'int', 10),
@@ -113,19 +113,76 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('random_seed', 'int', 2025),
     ),
     'Optimizer': (
+        _f('rms_prop_optimizer', 'msg:RMSPropOptimizer', oneof='optimizer'),
+        _f('momentum_optimizer', 'msg:MomentumOptimizer', oneof='optimizer'),
         _f('adam_optimizer', 'msg:AdamOptimizer', oneof='optimizer'),
-        *_unported('optimizer', 'rms_prop_optimizer', 'momentum_optimizer',
-                   'momentumw_optimizer', 'adamw_optimizer',
-                   'adam_async_optimizer', 'adagrad_optimizer',
-                   'ftrl_optimizer', 'adam_asyncw_optimizer',
-                   'lazy_adam_optimizer'),
+        _f('momentumw_optimizer', 'msg:MomentumWOptimizer',
+           oneof='optimizer'),
+        _f('adamw_optimizer', 'msg:AdamWOptimizer', oneof='optimizer'),
+        _f('adam_async_optimizer', 'msg:AdamAsyncOptimizer',
+           oneof='optimizer'),
+        _f('adagrad_optimizer', 'msg:AdagradOptimizer', oneof='optimizer'),
+        _f('ftrl_optimizer', 'msg:FtrlOptimizer', oneof='optimizer'),
+        _f('adam_asyncw_optimizer', 'msg:AdamAsyncWOptimizer',
+           oneof='optimizer'),
+        _f('lazy_adam_optimizer', 'msg:LazyAdamOptimizer',
+           oneof='optimizer'),
         _f('use_moving_average', 'bool', False),
         _f('embedding_learning_rate_multiplier', 'float', 0.0),
+    ),
+    'RMSPropOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('momentum_optimizer_value', 'float', 0.9),
+        _f('decay', 'float', 0.9),
+        _f('epsilon', 'float', 1.0),
+    ),
+    'MomentumOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('momentum_optimizer_value', 'float', 0.9),
     ),
     'AdamOptimizer': (
         _f('learning_rate', 'msg:LearningRate'),
         _f('beta1', 'float', 0.9),
         _f('beta2', 'float', 0.999),
+    ),
+    'MomentumWOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('weight_decay', 'float', 1e-6),
+        _f('momentum_optimizer_value', 'float', 0.9),
+    ),
+    'AdamWOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('weight_decay', 'float', 1e-6),
+        _f('beta1', 'float', 0.9),
+        _f('beta2', 'float', 0.999),
+    ),
+    'AdamAsyncOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('beta1', 'float', 0.9),
+        _f('beta2', 'float', 0.999),
+    ),
+    'AdamAsyncWOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('weight_decay', 'float', 1e-6),
+        _f('beta1', 'float', 0.9),
+        _f('beta2', 'float', 0.999),
+    ),
+    'LazyAdamOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('beta1', 'float', 0.9),
+        _f('beta2', 'float', 0.999),
+    ),
+    'AdagradOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('initial_accumulator_value', 'float', 0.1),
+    ),
+    'FtrlOptimizer': (
+        _f('learning_rate', 'msg:LearningRate'),
+        _f('learning_rate_power', 'float', -0.5),
+        _f('initial_accumulator_value', 'float', 0.1),
+        _f('l1_reg', 'float', 0.0),
+        _f('l2_reg', 'float', 0.0),
+        _f('l2_shrinkage_reg', 'float', 0.0),
     ),
     'LearningRate': (
         _f('constant_learning_rate', 'msg:ConstantLearningRate',

@@ -6,11 +6,12 @@ module imports nothing of JAX:
     'inner' scope) <-> a torch state_dict: a Dense `kernel` [in, out]
     becomes nn.Linear.weight [out, in]; BatchNorm `scale`/`bias` become
     weight/bias and `mean`/`var` running_mean/running_var;
-  - a compact packed table [G*8, W] (easyrec_tpu/ops/packed_table.py
-    layout: groups of 8 physical rows, `pack` logical rows per physical
-    row, each logical row w[0:dim] | mv[0:dim]) <-> the port's
-    [rows, 2*dim] table. The index math is a copy of unpack_host's
-    (packed_table.py:227-239).
+  - a packed table [G*8, W] of any optimizer (easyrec_tpu/ops/
+    packed_table.py layout: groups of 8 physical rows, `pack` logical rows
+    per physical row, each logical row its `parts` parts of dim columns,
+    cc = parts * dim: [w | s1 | s2], or compact Adam's [w | mv]) <-> the
+    port's [rows, cc] table, which has the same row. The index math is a
+    copy of unpack_host's (packed_table.py:227-239).
 """
 
 from __future__ import annotations
@@ -78,14 +79,15 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor],
   return params, stats
 
 
-def jax_packed_to_table(packed: np.ndarray, dim: int,
-                        rows: int) -> np.ndarray:
-  """Compact packed [G*8, W] -> the port's [rows, 2*dim]."""
-  cc = 2 * dim
+def jax_packed_to_table(packed: np.ndarray, dim: int, rows: int,
+                        parts: int) -> np.ndarray:
+  """Packed [G*8, W] of `parts` physical parts (the JAX PackMeta's n_parts:
+  2 for compact Adam) -> the port's [rows, parts*dim]."""
+  cc = parts * dim
   phys_rows, width = packed.shape
   if width % cc or phys_rows % 8:
-    raise ValueError('packed table %s is not a compact layout of dim %d'
-                     % (packed.shape, dim))
+    raise ValueError('packed table %s is not a %d-part layout of dim %d'
+                     % (packed.shape, parts, dim))
   pack, groups = width // cc, phys_rows // 8
   flat = np.asarray(packed).reshape(groups, 8, pack, cc).reshape(-1, cc)
   if rows > flat.shape[0]:
@@ -96,8 +98,8 @@ def jax_packed_to_table(packed: np.ndarray, dim: int,
 
 def table_to_jax_packed(table: np.ndarray, phys_rows: int,
                         width: int) -> np.ndarray:
-  """The port's [rows, 2*dim] -> compact packed [phys_rows, width], rows
-  past `rows` zero (pack_host's layout)."""
+  """The port's [rows, cc] -> packed [phys_rows, width] of the same
+  combined rows, rows past `rows` zero (pack_host's layout)."""
   rows, cc = table.shape
   pack, groups = width // cc, phys_rows // 8
   full = np.zeros((groups * 8 * pack, cc), np.float32)

@@ -1,5 +1,6 @@
 // Deterministic chunk-tree segmented sum (easyrec_torch), shared by K1
-// (seg_sum.cu) and K3 (rmw_fused_adam.cu).
+// (seg_sum.cu) and K3 (rmw_fused.cu); K2 (rmw_rows.cu) takes its float4
+// helpers and persistent_blocks.
 //
 // Inputs of both callers (ids sorted beforehand by
 // packed_table.sort_segments):

@@ -176,6 +176,19 @@ class EmbeddingLayout:
         w[off + lo:off + hi, :used] = block.mul_(std)
     return out
 
+  def fill_slots(self, key: str, out: torch.Tensor,
+                 values) -> torch.Tensor:
+    """Fill the optimizer slot parts of `out` ([rows, (1 + len(values)) *
+    dim]): part p + 1 of every member row holds values[p] (Adagrad's and
+    FTRL's accumulators start at initial_accumulator_value); the scratch
+    row stays zero, as init_packed_tables_on_device (:274-320) leaves
+    padding."""
+    t = self.tables[key]
+    live = t.rows - SCRATCH_ROWS
+    for p, value in enumerate(values, 1):
+      out[:live, p * t.dim:(p + 1) * t.dim] = float(value)
+    return out
+
 
 def merged_pad_dim(used: int):
   """Smallest physical dim >= used in (16, 32, 64, 128) whose combined

@@ -28,7 +28,9 @@ _F32 = ctypes.c_float
 class CudaKernel:
   """One CUDA source, its C entry point and a count of its launches.
 
-  `launches` goes up by one at each launch of the kernel and nowhere else.
+  `launches` goes up by one at each launch of the kernel and nowhere else;
+  `tagged` counts the launches by the tag a wrapper gives (K2 and K3: the
+  block math).
   """
 
   def __init__(self, name: str, source: str, entry: str, argtypes: List):
@@ -37,6 +39,7 @@ class CudaKernel:
     self.entry = entry
     self.argtypes = argtypes
     self.launches = 0
+    self.tagged: Dict[str, int] = {}
     self._fn = None
     self._lock = threading.Lock()
 
@@ -52,7 +55,7 @@ class CudaKernel:
         self._fn = fn
     return self._fn
 
-  def launch(self, device: torch.device, *args) -> None:
+  def launch(self, device: torch.device, *args, tag: str = None) -> None:
     """Launch on `device`'s current stream; raise on a nonzero return."""
     fn = self._fn or self._load()
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -60,6 +63,8 @@ class CudaKernel:
     if rc != 0:
       raise RuntimeError('%s launch failed: CUDA error %d' % (self.name, rc))
     self.launches += 1
+    if tag is not None:
+      self.tagged[tag] = self.tagged.get(tag, 0) + 1
 
 
 SEG_SUM = CudaKernel(
@@ -68,18 +73,17 @@ SEG_SUM = CudaKernel(
     # mode, vec, stream
     [_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I32, _P])
 
-RMW_ADAM = CudaKernel(
-    'rmw_adam', 'rmw_adam.cu', 'easyrec_rmw_adam',
-    # table, uids, gsum, hypers, n, rows, dim, b1, 1-b1, b2, 1-b2, eps,
-    # stream
-    [_P, _P, _P, _P, _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _P])
+RMW_ROWS = CudaKernel(
+    'rmw_rows', 'rmw_rows.cu', 'easyrec_rmw_rows',
+    # math, table, uids, gsum, hypers, consts (host float[8]), n, rows,
+    # dim, vec, stream
+    [_I32, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P])
 
-RMW_FUSED_ADAM = CudaKernel(
-    'rmw_fused_adam', 'rmw_fused_adam.cu', 'easyrec_rmw_fused_adam',
-    # table, sids, order, starts, grads, hypers, partial, n, rows, dim, b1,
-    # 1-b1, b2, 1-b2, eps, vec, stream
-    [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _F32, _F32, _F32, _F32,
-     _F32, _I32, _P])
+RMW_FUSED = CudaKernel(
+    'rmw_fused', 'rmw_fused.cu', 'easyrec_rmw_fused',
+    # math, table, sids, order, starts, grads, hypers, partial, consts
+    # (host float[8]), n, rows, dim, vec, stream
+    [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P])
 
 GROUP_PUSH = CudaKernel(
     'group_push', 'group_push.cu', 'easyrec_group_push',
@@ -93,7 +97,7 @@ GROUP_RMW = CudaKernel(
     [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32, _F32, _I32, _I32,
      _P])
 
-ALL = (SEG_SUM, RMW_ADAM, RMW_FUSED_ADAM, GROUP_PUSH, GROUP_RMW)
+ALL = (SEG_SUM, RMW_ROWS, RMW_FUSED, GROUP_PUSH, GROUP_RMW)
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:
@@ -109,7 +113,14 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
 def reset_launches() -> None:
   for k in ALL:
     k.launches = 0
+    k.tagged = {}
 
 
 def launch_counts() -> Dict[str, int]:
   return {k.name: k.launches for k in ALL}
+
+
+def tagged_counts() -> Dict[str, int]:
+  """Launches by kernel and tag, as 'kernel/tag'."""
+  return {'%s/%s' % (k.name, tag): c for k in ALL
+          for tag, c in k.tagged.items()}

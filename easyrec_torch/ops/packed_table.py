@@ -1,11 +1,15 @@
 """The port's combined embedding table and its sparse update.
 
-Counterpart of easyrec_tpu/ops/packed_table.py. One row per logical row:
-a table is [rows, 2*dim] f32 holding w[0:dim] | mv[0:dim], where each mv
-element is the Adam moment pair (m, v) as bf16 halves of one float32 (m in
-the top 16 bits). On the flagship that is dim 32, 256 B a row, 6.7 GB.
-The TPU layout's 8-row, 128-lane groups exist only for Mosaic DMA alignment
-and are not carried over; `convert.py` maps between the two.
+Counterpart of easyrec_tpu/ops/packed_table.py. One row per logical row,
+holding the weights and every optimizer slot side by side, in the part
+order of the JAX package's combined row (:9-18): [w | s1 | s2], each part
+`dim` f32 columns, so a row is n_parts * dim wide (sgd 1 part, momentum
+and Adagrad 2, 3-part Adam and FTRL 3). Adam's compact layout keeps the
+two moments as one part of bf16 pairs (m in the top 16 bits of each f32):
+[w | mv], 2 * dim wide. The flagship's compact Adam table is dim 32, 256 B
+a row, 6.7 GB; its Adagrad table the same width. The TPU layout's 8-row,
+128-lane groups exist only for Mosaic DMA alignment and are not carried
+over; `convert.py` maps between the two.
 
 The update of one step, for raw (duplicated) ids [N] and their pulled-row
 gradients [N, dim]:
@@ -15,12 +19,13 @@ gradients [N, dim]:
      number of unique ids.
   2. `seg_sum` -> kernel K1 (csrc/seg_sum.cu): unique ids and per-id
      gradient sums, by the chunk tree of csrc/seg_chunk_sum.cuh.
-  3. `rmw_adam` -> kernel K2 (csrc/rmw_adam.cu): in-place lazy Adam on the
-     touched rows.
+  3. `rmw_rows` -> kernel K2 (csrc/rmw_rows.cu): the optimizer's block math
+     in place on the touched rows.
 Under EASYREC_PACKED_FUSED=1 steps 2 and 3 are one call instead,
-`rmw_fused_adam` -> kernel K3 (csrc/rmw_fused_adam.cu), which keeps the
-[N, dim] gradient sums out of device memory (the JAX package's
-_rmw_fused_pallas) and sums by the same chunk tree as K1.
+`rmw_fused` -> kernel K3 (csrc/rmw_fused.cu), which keeps the [N, dim]
+gradient sums out of device memory (the JAX package's _rmw_fused_pallas)
+and sums by the same chunk tree as K1. K2 and K3 run every block math of
+the sparse optimizers (optim/sparse.py), from csrc/block_math.cuh.
 Each kernel wrapper runs its plain PyTorch version when its tensors lie on
 the CPU and launches its kernel when they lie on a CUDA device; there is no
 other switch between the two.
@@ -28,14 +33,17 @@ other switch between the two.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from easyrec_torch.ops import kernels
-from easyrec_torch.optim.sparse import SparseAdam
+from easyrec_torch.optim.sparse import (MATH_NAMES, MAX_CONSTS,
+                                        SparseOptimizer)
 
 GG_MODES = {'0': 0, '1': 1, 'mix': 2}
 
@@ -58,16 +66,65 @@ def gg_mode() -> str:
 
 
 class TableMeta:
-  """Geometry of one combined table."""
+  """Geometry of one combined table: n_parts = 1 + the optimizer's slots;
+  compact (Adam only, n_parts 3) packs the two moments as bf16 pairs, so
+  the row holds 2 physical parts, as the JAX package's PackMeta."""
 
-  def __init__(self, rows: int, dim: int):
+  def __init__(self, rows: int, dim: int, n_parts: int = 1,
+               compact: bool = False):
+    if compact and n_parts != 3:
+      raise ValueError('compact layout packs exactly 2 slots (n_parts=3)')
     self.rows = int(rows)       # logical rows incl. the scratch row
     self.dim = int(dim)         # physical weight columns
-    self.width = 2 * self.dim   # w | mv
+    self.compact = bool(compact)
+    self.logical_parts = int(n_parts)
+    self.n_parts = 2 if compact else int(n_parts)   # physical parts
+    self.width = self.n_parts * self.dim
     self.sentinel = self.rows   # id of unused update slots (out of range)
 
   def __repr__(self):
-    return 'TableMeta(rows=%d, dim=%d)' % (self.rows, self.dim)
+    return 'TableMeta(rows=%d, dim=%d, parts=%d%s)' % (
+        self.rows, self.dim, self.n_parts, ', compact' if self.compact
+        else '')
+
+
+def compact_mode() -> bool:
+  """EASYREC_PACKED_COMPACT as in the JAX trainer (trainer.py:126-129):
+  anything but '0' keeps Adam's moments as bf16 pairs."""
+  return os.environ.get('EASYREC_PACKED_COMPACT', '1') != '0'
+
+
+def table_meta(rows: int, dim: int, opt: SparseOptimizer) -> TableMeta:
+  """The layout the trainer gives a table under `opt`: one part for the
+  weights and one per slot, compact for Adam under compact_mode() where
+  dim > 1 (the JAX package keeps dim-1 tables 3-part, embedding_layout
+  pack_metas)."""
+  return TableMeta(rows, dim, opt.n_parts,
+                   compact=(compact_mode() and opt.has_compact and
+                            opt.n_parts == 3 and dim > 1))
+
+
+def row_layout(opt: SparseOptimizer, width: int, dim: int) -> bool:
+  """Whether a table row of `width` columns at `dim` is `opt`'s compact
+  layout (True) or its n_parts * dim layout (False); ValueError for any
+  other width."""
+  if width == opt.n_parts * dim:
+    return False
+  if opt.has_compact and width == 2 * dim:
+    return True
+  raise ValueError('table width %d is not a %s layout of dim %d (%d parts%s)'
+                   % (width, opt.name, dim, opt.n_parts,
+                      ', or 2 compact' if opt.has_compact else ''))
+
+
+def slot_fill(meta: TableMeta, slot_init: Sequence[float]) -> List[float]:
+  """The initial value of each physical slot part (init_packed_tables_on_
+  device, embedding_layout.py:293-303): slot_init, or for a compact table
+  its two values packed as one bf16 pair."""
+  si = list(slot_init) + [0.0] * (meta.logical_parts - 1 - len(slot_init))
+  if meta.compact:
+    return [float(np_pack_pair(np.float32([si[0]]), np.float32([si[1]]))[0])]
+  return si
 
 
 # ------------------------------------------------------ host pack / unpack
@@ -89,17 +146,28 @@ def np_unpack_pair(mv: np.ndarray):
           (u << np.uint32(16)).view(np.float32))
 
 
-def pack_host(w: np.ndarray, m: np.ndarray, v: np.ndarray) -> np.ndarray:
-  """Logical (w, m, v) [rows, dim] -> combined [rows, 2*dim] f32."""
-  return np.concatenate([np.asarray(w, np.float32), np_pack_pair(m, v)],
-                        axis=1)
+def pack_host(weights: np.ndarray, slots: Sequence[np.ndarray],
+              meta: TableMeta) -> np.ndarray:
+  """(w [rows, dim], LOGICAL slot arrays [rows, dim]...) -> combined
+  [rows, width] f32; compact metas pack the two slots into bf16 pairs (the
+  JAX package's pack_host, without its groups)."""
+  if meta.compact:
+    assert len(slots) == 2, len(slots)
+    slots = [np_pack_pair(slots[0], slots[1])]
+  parts = [weights] + list(slots)
+  assert len(parts) == meta.n_parts, (len(parts), meta.n_parts)
+  return np.concatenate([np.asarray(p, np.float32) for p in parts], axis=1)
 
 
-def unpack_host(table: np.ndarray):
-  """Combined [rows, 2*dim] -> logical (w, m, v)."""
-  dim = table.shape[1] // 2
-  m, v = np_unpack_pair(table[:, dim:])
-  return np.ascontiguousarray(table[:, :dim]), m, v
+def unpack_host(table: np.ndarray, meta: TableMeta):
+  """Combined [rows, width] -> (weights [rows, dim], LOGICAL slot arrays);
+  compact metas decode the bf16 pair part back into two slots."""
+  d = meta.dim
+  parts = [np.ascontiguousarray(table[:, p * d:(p + 1) * d])
+           for p in range(meta.n_parts)]
+  if meta.compact:
+    return parts[0], list(np_unpack_pair(parts[1]))
+  return parts[0], parts[1:]
 
 
 # ---------------------------------------------------------------- forward
@@ -200,10 +268,11 @@ def long_chunk_bound(n: int) -> int:
   return 2 * (-(-n // FUSED_CHUNK))
 
 
-def _rows_vectorizable(grads: torch.Tensor) -> bool:
-  """The kernels load 16-byte float4s where every row starts 16-byte
-  aligned, else scalars; the sums are the same."""
-  return grads.shape[1] % 4 == 0 and grads.data_ptr() % 16 == 0
+def _rows_vectorizable(*ts: torch.Tensor) -> bool:
+  """The kernels load 16-byte float4s where every row of each tensor starts
+  16-byte aligned (and, for a table, every dim-wide part with it), else
+  scalars; the results are the same."""
+  return all(t.shape[1] % 4 == 0 and t.data_ptr() % 16 == 0 for t in ts)
 
 
 # ------------------------------------------------- K1: segmented grad sum
@@ -268,102 +337,127 @@ def seg_sum(sids: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
   return uids, sums
 
 
-# ----------------------------------------- K2: row RMW with compact Adam
+# ------------------------------------ K2: row RMW with any block math
 
-def rmw_adam_plain(table: torch.Tensor, uids: torch.Tensor,
+@functools.lru_cache(maxsize=None)
+def _opt_math(opt: SparseOptimizer, compact: bool):
+  """(math name, math id, ctypes float array of its constants) for the
+  kernels; kept per optimizer (a frozen dataclass), as the wrapper's host
+  time falls inside a step's launch gaps."""
+  math, consts = opt.kernel_math(compact)
+  arr = (ctypes.c_float * MAX_CONSTS)(*(consts + [0.0] * (MAX_CONSTS -
+                                                          len(consts))))
+  return MATH_NAMES[math], math, arr
+
+
+def _check_opt(opt, hypers, dev):
+  if not isinstance(opt, SparseOptimizer):
+    raise TypeError('%r is not a sparse optimizer of easyrec_torch.optim'
+                    % (opt,))
+  _check(hypers, 'hypers', torch.float32, (opt.n_hypers,), dev)
+
+
+def _block(opt: SparseOptimizer, compact: bool, old: torch.Tensor,
+           g: torch.Tensor, hyp: torch.Tensor) -> torch.Tensor:
+  """The optimizer's block math on rows `old` [k, width]: its parts are
+  dim-wide column slices, as the kernels read them."""
+  dim = g.shape[1]
+  parts = [old[:, p * dim:(p + 1) * dim] for p in range(old.shape[1] // dim)]
+  new = opt.compact_block(*parts, g, hyp) if compact else \
+      opt.block(parts, g, hyp)
+  return torch.cat(list(new), dim=1)
+
+
+def rmw_rows_plain(table: torch.Tensor, uids: torch.Tensor,
                    gsum: torch.Tensor, hypers: torch.Tensor,
-                   opt: SparseAdam) -> torch.Tensor:
-  """Plain PyTorch K2: updates `table` in place and returns it."""
+                   opt: SparseOptimizer) -> torch.Tensor:
+  """Plain PyTorch K2: the block math on each touched row (live id, some
+  summed gradient nonzero: an all-zero row keeps its bytes, as in the JAX
+  package's _math_and_mask), in place; returns `table`."""
   rows, width = table.shape
-  dim = width // 2
+  compact = row_layout(opt, width, gsum.shape[1])
   live = (uids >= 0) & (uids < rows)
   touched = live & (gsum != 0).any(dim=1)
   idx = uids[touched]
-  old = table.index_select(0, idx)
-  w, mv = opt.compact_block(old[:, :dim], old[:, dim:], gsum[touched],
-                            hypers)
-  table.index_copy_(0, idx, torch.cat([w, mv], dim=1))
+  new = _block(opt, compact, table.index_select(0, idx), gsum[touched],
+               hypers)
+  table.index_copy_(0, idx, new)
   return table
 
 
-def rmw_adam(table: torch.Tensor, uids: torch.Tensor, gsum: torch.Tensor,
-             hypers: torch.Tensor, opt: SparseAdam) -> torch.Tensor:
-  """Lazy Adam on the rows `uids` names (sentinels skipped, untouched rows
-  keep their bytes), in place. CPU tensors: plain version; CUDA: K2."""
-  if not isinstance(opt, SparseAdam):
-    raise NotImplementedError(
-        'sparse optimizer %r has no port: only compact Adam runs on the '
-        'combined table' % (opt,))
+def rmw_rows(table: torch.Tensor, uids: torch.Tensor, gsum: torch.Tensor,
+             hypers: torch.Tensor, opt: SparseOptimizer) -> torch.Tensor:
+  """`opt`'s block math on the rows `uids` names, in place: slots whose id
+  lies outside [0, rows) are skipped and untouched rows keep their bytes.
+  The table's width picks the layout (row_layout). CPU tensors: plain
+  version; CUDA: K2."""
   rows, width = table.shape
   n, dim = gsum.shape
   dev = table.device
-  _check(table, 'table', torch.float32, (rows, 2 * dim), dev)
+  _check_opt(opt, hypers, dev)
+  compact = row_layout(opt, width, dim)
+  _check(table, 'table', torch.float32, (rows, width), dev)
   _check(uids, 'uids', torch.int64, (n,), dev)
   _check(gsum, 'gsum', torch.float32, (n, dim), dev)
-  _check(hypers, 'hypers', torch.float32, (3,), dev)
   if dev.type == 'cpu':
-    return rmw_adam_plain(table, uids, gsum, hypers, opt)
+    return rmw_rows_plain(table, uids, gsum, hypers, opt)
   if dev.type != 'cuda':
-    raise ValueError('rmw_adam: unsupported device %s' % dev)
-  b1, omb1, b2, omb2, eps = opt.constants
-  kernels.RMW_ADAM.launch(
-      dev, table.data_ptr(), uids.data_ptr(), gsum.data_ptr(),
-      hypers.data_ptr(), n, rows, dim, b1, omb1, b2, omb2, eps)
+    raise ValueError('rmw_rows: unsupported device %s' % dev)
+  name, math, consts = _opt_math(opt, compact)
+  kernels.RMW_ROWS.launch(
+      dev, math, table.data_ptr(), uids.data_ptr(), gsum.data_ptr(),
+      hypers.data_ptr(), consts, n, rows, dim,
+      int(_rows_vectorizable(table, gsum)), tag=name)
   return table
 
 
-# ------------------------- K3: fused segmented sum + row RMW, compact Adam
+# ------------------------- K3: fused segmented sum + row RMW, any math
 
-def rmw_fused_adam_plain(table: torch.Tensor, sids: torch.Tensor,
-                         order: torch.Tensor, starts: torch.Tensor,
-                         grads: torch.Tensor, hypers: torch.Tensor,
-                         opt: SparseAdam) -> torch.Tensor:
-  """Plain PyTorch K3: the kernel's chunk tree (segment_sums_by_chunk, f32),
-  then K2's plain update; `table` is updated in place and returned."""
+def rmw_fused_plain(table: torch.Tensor, sids: torch.Tensor,
+                    order: torch.Tensor, starts: torch.Tensor,
+                    grads: torch.Tensor, hypers: torch.Tensor,
+                    opt: SparseOptimizer) -> torch.Tensor:
+  """Plain PyTorch K3: the kernel's chunk tree (segment_sums_by_chunk,
+  f32), then K2's plain update; `table` is updated in place and
+  returned."""
   n = grads.shape[0]
   sums = segment_sums_by_chunk(order, starts, grads)
   live = starts[:n] < n
   uids = torch.where(live, sids[starts[:n].clamp(max=n - 1)],
                      torch.full_like(sids, -1))
-  return rmw_adam_plain(table, uids, sums, hypers, opt)
+  return rmw_rows_plain(table, uids, sums, hypers, opt)
 
 
-def rmw_fused_adam(table: torch.Tensor, sids: torch.Tensor,
-                   order: torch.Tensor, starts: torch.Tensor,
-                   grads: torch.Tensor, hypers: torch.Tensor,
-                   opt: SparseAdam) -> torch.Tensor:
-  """Sum each segment's gradients and run lazy Adam on its row, in place,
-  with no [N, dim] sums in between (unused segments and ids outside the
-  table skipped, untouched rows keep their bytes). CPU tensors: plain
-  version; CUDA: K3."""
-  if not isinstance(opt, SparseAdam):
-    raise NotImplementedError(
-        'sparse optimizer %r has no port: only compact Adam runs on the '
-        'combined table' % (opt,))
+def rmw_fused(table: torch.Tensor, sids: torch.Tensor, order: torch.Tensor,
+              starts: torch.Tensor, grads: torch.Tensor,
+              hypers: torch.Tensor, opt: SparseOptimizer) -> torch.Tensor:
+  """Sum each segment's gradients and run `opt`'s block math on its row,
+  in place, with no [N, dim] sums in between (unused segments and ids
+  outside the table skipped, untouched rows keep their bytes). Any dim and
+  layout; the table's width picks the layout (row_layout). CPU tensors:
+  plain version; CUDA: K3."""
   rows, width = table.shape
   n, dim = grads.shape
   dev = table.device
-  _check(table, 'table', torch.float32, (rows, 2 * dim), dev)
+  _check_opt(opt, hypers, dev)
+  compact = row_layout(opt, width, dim)
+  _check(table, 'table', torch.float32, (rows, width), dev)
   _check(sids, 'sids', torch.int64, (n,), dev)
   _check(order, 'order', torch.int64, (n,), dev)
   _check(starts, 'starts', torch.int64, (n + 1,), dev)
   _check(grads, 'grads', torch.float32, (n, dim), dev)
-  _check(hypers, 'hypers', torch.float32, (3,), dev)
   if dev.type == 'cpu':
-    return rmw_fused_adam_plain(table, sids, order, starts, grads, hypers,
-                                opt)
+    return rmw_fused_plain(table, sids, order, starts, grads, hypers, opt)
   if dev.type != 'cuda':
-    raise ValueError('rmw_fused_adam: unsupported device %s' % dev)
-  if dim > 128:
-    raise ValueError('rmw_fused_adam: dim %d above the kernel\'s 128' % dim)
+    raise ValueError('rmw_fused: unsupported device %s' % dev)
   partial = torch.empty((long_chunk_bound(n), dim), dtype=torch.float32,
                         device=dev)
-  b1, omb1, b2, omb2, eps = opt.constants
-  kernels.RMW_FUSED_ADAM.launch(
-      dev, table.data_ptr(), sids.data_ptr(), order.data_ptr(),
+  name, math, consts = _opt_math(opt, compact)
+  kernels.RMW_FUSED.launch(
+      dev, math, table.data_ptr(), sids.data_ptr(), order.data_ptr(),
       starts.data_ptr(), grads.data_ptr(), hypers.data_ptr(),
-      partial.data_ptr(), n, rows, dim, b1, omb1, b2, omb2, eps,
-      int(_rows_vectorizable(grads)))
+      partial.data_ptr(), consts, n, rows, dim,
+      int(_rows_vectorizable(grads)), tag=name)
   return table
 
 
@@ -375,13 +469,14 @@ def fused_mode() -> bool:
 
 def apply_packed_update(table: torch.Tensor, ids: torch.Tensor,
                         grads: torch.Tensor, hypers: torch.Tensor,
-                        opt: SparseAdam, meta: TableMeta) -> torch.Tensor:
+                        opt: SparseOptimizer, meta: TableMeta
+                        ) -> torch.Tensor:
   """Sparse-update one combined table, in place, from raw (duplicated)
-  ids [N] and their gradients [N, dim]: K3 under EASYREC_PACKED_FUSED=1,
-  else K1 then K2."""
+  ids [N] and their gradients [N, dim] with `opt`'s block math: K3 under
+  EASYREC_PACKED_FUSED=1, else K1 then K2."""
   sids, order, starts = sort_segments(ids.reshape(-1).to(torch.int64))
   grads = grads.reshape(-1, meta.dim).to(torch.float32).contiguous()
   if fused_mode():
-    return rmw_fused_adam(table, sids, order, starts, grads, hypers, opt)
+    return rmw_fused(table, sids, order, starts, grads, hypers, opt)
   uids, gsum = seg_sum(sids, order, starts, grads, meta.sentinel)
-  return rmw_adam(table, uids, gsum, hypers, opt)
+  return rmw_rows(table, uids, gsum, hypers, opt)

@@ -1,10 +1,11 @@
 """Where the time of a benchmark model's train step goes, on the GPU.
 
-    python -m easyrec_torch.tools.profile_step [--model deepfm|din]
-        [--steps 10] [--top 25]
+    python -m easyrec_torch.tools.profile_step
+        [--model deepfm|deepfm_adagrad|din] [--steps 10] [--top 25]
 
-Builds the trainer of the flagship Criteo DeepFM (K1 + K2) or of the
-Taobao DIN (EASYREC_PACKED_FUSED=1, K3), both from
+Builds the trainer of the flagship Criteo DeepFM (K1 + K2; deepfm_adagrad:
+its Adagrad-tables configuration) or of the Taobao DIN
+(EASYREC_PACKED_FUSED=1, K3), all from
 easyrec_torch/utils/flagship.py, on the card at batch 4096, warms it up
 for 5 steps on pre-built synthetic batches already on the device, then
 runs --steps steps without and then under torch.profiler and prints, with
@@ -31,6 +32,8 @@ import time
 WARMUP_STEPS = 5
 # --model -> (flagship config function, EASYREC_PACKED_FUSED, name)
 MODELS = {'deepfm': ('criteo_deepfm_config', '0', 'flagship DeepFM'),
+          'deepfm_adagrad': ('criteo_deepfm_adagrad_config', '0',
+                             'flagship DeepFM, Adagrad tables'),
           'din': ('taobao_din_config', '1', 'Taobao DIN')}
 
 def _device_us(evt) -> float:

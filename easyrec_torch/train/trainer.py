@@ -9,12 +9,16 @@ checkpoints. A step:
   3. builds the loss: the model loss, l2 over the dense kernels, and the
      embedding regulariser over the pulled rows masked by sample_weight;
   4. runs backward();
-  5. runs dense Adam at the schedule's rate for this step;
-  6. runs the sparse update of each table (ops/packed_table.py): kernels
-     K1 and K2, or the fused kernel K3 under EASYREC_PACKED_FUSED=1.
-Everything the step needs per step (step counter, learning rates, Adam
-bias corrections) stays on the device: a step syncs the host only where
-the caller reads a loss.
+  5. runs the dense optimizer at the schedule's rate for this step, after
+     clip_by_global_norm where gradient_clipping_by_norm is set;
+  6. runs the sparse update of each table (ops/packed_table.py) with the
+     embedding optimizer's block math: kernels K1 and K2, or the fused
+     kernel K3 under EASYREC_PACKED_FUSED=1.
+The tables hold the embedding optimizer's slots beside the weights
+(packed_table.table_meta: one part per slot, Adam's moments as bf16 pairs
+unless EASYREC_PACKED_COMPACT=0). Everything the step needs per step (step
+counter, learning rates, Adam bias corrections) stays on the device: a
+step syncs the host only where the caller reads a loss.
 """
 
 from __future__ import annotations
@@ -83,13 +87,13 @@ class Trainer:
     self.specs = fs.build_feature_specs(self.feature_configs)
     self.ctx = model_base.build_context(pipeline_config, self.specs)
     self.layout = self.ctx.layout
-    self.metas = {key: pt.TableMeta(t.rows, t.dim)
-                  for key, t in self.layout.tables.items()}
     self.seed = int(self.train_config.random_seed or 2025)
 
     tc = self.train_config
     self.dense_pair, embed_override = opt_builder.build_optimizers(tc)
     self.embed_pair = embed_override or self.dense_pair
+    self.metas = {key: pt.table_meta(t.rows, t.dim, self.embed_pair.sparse)
+                  for key, t in self.layout.tables.items()}
     self.l2_reg = _model_l2_reg(pipeline_config.model_config)
     self.emb_reg = float(pipeline_config.model_config
                          .embedding_regularization)
@@ -103,17 +107,20 @@ class Trainer:
     """Fresh model, tables and optimizer state, all on the device.
 
     Dense parameters are drawn on the CPU from a generator seeded with the
-    config's random_seed and moved; the tables are drawn on the device
-    (EmbeddingLayout.init_weights)."""
+    config's random_seed and moved; the tables' weights are drawn on the
+    device (EmbeddingLayout.init_weights) and their slot parts filled with
+    the embedding optimizer's slot_init."""
     gen = torch.Generator().manual_seed(self.seed)
     self.model = model_base.create_model(self.ctx, generator=gen) \
         .to(self.device)
     self.tables = {}
+    slot_init = self.embed_pair.sparse.slot_init
     for key, meta in self.metas.items():
       table = torch.zeros((meta.rows, meta.width), dtype=torch.float32,
                           device=self.device)
-      self.tables[key] = self.layout.init_weights(key, self.seed,
-                                                  self.device, table)
+      self.layout.init_weights(key, self.seed, self.device, table)
+      self.tables[key] = self.layout.fill_slots(
+          key, table, pt.slot_fill(meta, slot_init))
     self.dense_opt = self.dense_pair.dense(list(self.model.parameters()))
     self.step = torch.zeros((), dtype=torch.int32, device=self.device)
 

@@ -6,6 +6,11 @@ Counterpart of easyrec_tpu/utils/flagship.py:
     feature, batch 4096. All features feed both the deep and the wide
     group, so the wide weights merge into the deep table: one fused table
     of 26,000,014 rows, physical dim 32.
+  - criteo_deepfm_adagrad_config: the same model and tables trained with
+    the two-optimizer pairing of samples/multi_optimizer_freeze.config
+    (:7-17), without its freeze_gradient: an Adagrad (constant lr 0.05,
+    embedding_learning_rate_multiplier 0.5) drives the table, which holds
+    [w | accum], and the flagship's Adam the dense weights.
   - taobao_din_config (:202-221): the reference's din_on_taobao config,
     MultiTowerDIN over 15 id features plus price (num_buckets 50) and two
     behaviour sequences of max_seq_len 50, dim 16, batch 4096: one fused
@@ -15,6 +20,7 @@ Counterpart of easyrec_tpu/utils/flagship.py:
 from __future__ import annotations
 
 from easyrec_torch.config.config_util import get_configs_from_pipeline_str
+from easyrec_torch.config.text_format import parse
 
 
 def criteo_deepfm_config(batch_size: int = 4096,
@@ -96,6 +102,27 @@ model_config {
 """ % (model_dir, batch_size, '\n  '.join(fields), '\n  '.join(features),
        '\n    '.join(deep), '\n    '.join(wide))
   return get_configs_from_pipeline_str(text)
+
+
+_ADAGRAD_TABLES = """
+optimizer_config {
+  adagrad_optimizer {
+    learning_rate { constant_learning_rate { learning_rate: 0.05 } }
+  }
+  embedding_learning_rate_multiplier: 0.5
+}
+"""
+
+
+def criteo_deepfm_adagrad_config(**kwargs):
+  """criteo_deepfm_config(**kwargs) with an Adagrad first in
+  optimizer_config: with two optimizers the first drives the tables and
+  the second, the flagship's Adam, the dense weights."""
+  cfg = criteo_deepfm_config(**kwargs)
+  tables = parse(_ADAGRAD_TABLES, 'TrainConfig').optimizer_config[0]
+  tc = cfg.train_config
+  tc.optimizer_config = [tables] + list(tc.optimizer_config)
+  return cfg
 
 
 # Taobao ad-display schema (din/bst/mmoe_on_taobao.config): 15 id features

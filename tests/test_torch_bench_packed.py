@@ -193,7 +193,7 @@ def test_update_rows_matches(weight_decay):
   m = (rng.standard_normal((rows, dim)) * 1e-2).astype(np.float32)
   v = (rng.random((rows, dim)) * 1e-3).astype(np.float32)
   j_opt = j_sparse.sparse_adam(weight_decay=weight_decay)
-  t_opt = t_sparse.SparseAdam()
+  t_opt = t_sparse.SparseAdam(weight_decay=weight_decay)
   jt, jst = jnp.asarray(w), {'m': jnp.asarray(m), 'v': jnp.asarray(v)}
   tt, tst = _t(w), {'m': _t(m), 'v': _t(v)}
   for step in range(2):
@@ -205,8 +205,7 @@ def test_update_rows_matches(weight_decay):
                                 jnp.int32(step))
     tt, tst = t_opt.update_rows(tt, tst, _t(uids), _t(ug),
                                 torch.tensor(1e-2),
-                                torch.tensor(step, dtype=torch.int32),
-                                weight_decay=weight_decay)
+                                torch.tensor(step, dtype=torch.int32))
   np.testing.assert_allclose(tt.numpy(), jt, rtol=0, atol=ATOL)
   for k in ('m', 'v'):
     np.testing.assert_allclose(tst[k].numpy(), jst[k], rtol=0, atol=ATOL)

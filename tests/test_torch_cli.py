@@ -1,7 +1,8 @@
 """The port's user surface on the CPU: the train CLI learns the fixture
 data, CUDA is the default device and its absence raises, and importing and
 running the port (every module, the ported benchmarks included, then the
-DeepFM and the fused Taobao DIN) loads nothing of JAX, protobuf, pandas,
+DeepFM, the DeepFM with Adagrad tables and the fused Taobao DIN) loads
+nothing of JAX, protobuf, pandas,
 pyarrow, the JAX package or its benchmarks/ scripts."""
 
 import os
@@ -67,6 +68,11 @@ from easyrec_torch.utils import flagship
 result = main.train_and_evaluate(sys.argv[1], device='cpu',
                                  edit_config_json={'train_config.num_steps': 3})
 assert result['global_step'] == 3
+result = main.train_and_evaluate(
+    flagship.criteo_deepfm_adagrad_config(batch_size=64,
+                                          hash_bucket_size=1000),
+    device='cpu', edit_config_json={'train_config.num_steps': 2})
+assert result['global_step'] == 2
 os.environ['EASYREC_PACKED_FUSED'] = '1'
 result = main.train_and_evaluate(flagship.taobao_din_config(batch_size=64),
                                  device='cpu',

@@ -129,21 +129,65 @@ def test_text_format_values_match_protobuf():
   assert t_cfg.model_config.feature_groups[0].feature_names == ['f1', 'f2']
 
 
+@pytest.mark.parametrize('fields', ['', 'learning_rate { constant_learning_rate '
+                                    '{ learning_rate: 0.03 } }'])
+@pytest.mark.parametrize('kind,extra', [
+    ('rms_prop_optimizer', 'decay: 0.8 epsilon: 0.5 '
+                           'momentum_optimizer_value: 0.1'),
+    ('momentum_optimizer', 'momentum_optimizer_value: 0.7'),
+    ('adam_optimizer', 'beta1: 0.8'),
+    ('momentumw_optimizer', 'weight_decay: 0.01'),
+    ('adamw_optimizer', 'weight_decay: 0.02 beta2: 0.99'),
+    ('adam_async_optimizer', ''),
+    ('adagrad_optimizer', 'initial_accumulator_value: 0.3'),
+    ('ftrl_optimizer', 'learning_rate_power: -0.6 l1_reg: 0.1 l2_reg: 0.2 '
+                       'l2_shrinkage_reg: 0.3'),
+    ('adam_asyncw_optimizer', 'weight_decay: 0.04'),
+    ('lazy_adam_optimizer', 'beta2: 0.9')])
+def test_optimizer_messages_match_protobuf(kind, extra, fields):
+  """Every optimizer message, with its fields set or left at the defaults
+  of train.proto, and gradient_clipping_by_norm, read as the protobuf
+  parse reads them; none is refused as unported."""
+  text = ('train_config { optimizer_config { %s { %s } '
+          'embedding_learning_rate_multiplier: 0.5 } '
+          'optimizer_config { %s { %s %s } } '
+          'gradient_clipping_by_norm: 2.5 }\n'
+          'model_config { model_class: "DeepFM" }'
+          % (kind, fields, kind, extra, fields))
+  t_cfg = t_config.get_configs_from_pipeline_str(text)
+  _assert_same(t_cfg, j_config.get_configs_from_pipeline_str(text), 'config')
+  t_config.check_ported(t_cfg)
+
+
 @pytest.mark.parametrize('text,what', [
     ('model_config { model_class: "DIN" }', "model_class 'DIN'"),
     ('feature_configs { input_names: "t" feature_type: TagFeature }',
      'feature_type TagFeature'),
     ('data_config { input_type: OdpsInput }', 'input_type OdpsInput'),
-    ('train_config { optimizer_config { ftrl_optimizer {} } }',
-     'ftrl_optimizer'),
-    ('train_config { gradient_clipping_by_norm: 1.0 }',
-     'gradient_clipping_by_norm'),
+    ('train_config { freeze_gradient: "dnn_0" }', 'freeze_gradient'),
+    ('train_config { fine_tune_checkpoint: "ckpt" }',
+     'fine_tune_checkpoint'),
     ('eval_config { metrics_set { gauc {} } }', 'gauc'),
 ])
 def test_unported_parts_raise_naming_them(text, what):
   base = 'model_config { model_class: "DeepFM" }\n'
   cfg = t_config.get_configs_from_pipeline_str(base + text)
   with pytest.raises(NotImplementedError, match=what):
+    t_config.check_ported(cfg)
+
+
+def test_a_read_empty_repeated_field_is_not_set():
+  """Reading a repeated field (as the models read a group's
+  sequence_features) leaves it empty, which protobuf counts as unset:
+  check_ported still passes, so one config can build two trainers."""
+  cfg = t_flagship.criteo_deepfm_config(batch_size=8, hash_bucket_size=10,
+                                        num_dense=1, num_cat=1)
+  for group in cfg.model_config.feature_groups:
+    assert list(group.sequence_features) == []
+  assert not cfg.train_config.freeze_gradient
+  t_config.check_ported(cfg)
+  cfg.train_config.freeze_gradient = ['dnn']
+  with pytest.raises(NotImplementedError, match='freeze_gradient'):
     t_config.check_ported(cfg)
 
 

@@ -462,11 +462,12 @@ def test_three_steps_match_jax_trainer(fused, use_bn, monkeypatch):
   for key, meta in jt.pack_metas.items():
     assert (meta.dim, meta.pack, meta.width) == (16, 4, 128)
     tt.tables[key].copy_(torch.from_numpy(convert.jax_packed_to_table(
-        np.asarray(state.tables[key]), meta.dim, tt.metas[key].rows)))
+        np.asarray(state.tables[key]), meta.dim, tt.metas[key].rows,
+        meta.n_parts)))
   cpu = torch.device('cpu')
   calls = []
-  real = tpt.rmw_fused_adam
-  monkeypatch.setattr(tpt, 'rmw_fused_adam',
+  real = tpt.rmw_fused
+  monkeypatch.setattr(tpt, 'rmw_fused',
                       lambda *a: calls.append(1) or real(*a))
   kernels.reset_launches()
   for s in range(3):
@@ -503,7 +504,7 @@ def test_three_steps_match_jax_trainer(fused, use_bn, monkeypatch):
       seen[t_emb.pack_ids(tt.layout, _torch(b))[key].numpy().ravel()] = True
     jw, (jm, jv) = jpt.unpack_host(np.asarray(state.tables[key]), meta,
                                    rows)
-    tw, tm, tv = tpt.unpack_host(tt.tables[key].numpy())
+    tw, (tm, tv) = tpt.unpack_host(tt.tables[key].numpy(), tt.metas[key])
     np.testing.assert_allclose(tw, jw, rtol=0,
                                atol=1e-4 if use_bn else 1e-5)
     for got, want in ((tm, jm), (tv, jv)):

@@ -1,8 +1,9 @@
 """The port's fused sparse update, kernel K3 (easyrec_torch/ops/
-packed_table.py rmw_fused_adam, csrc/rmw_fused_adam.cu), through its plain
-version on the CPU: against the JAX package's _rmw_fused_pallas run in
-interpret mode, against the port's own K1 + K2, the chunk map its wrapper
-builds for the kernel, and the EASYREC_PACKED_FUSED dispatch."""
+packed_table.py rmw_fused, csrc/rmw_fused.cu), through its plain version on
+the CPU: against the JAX package's _rmw_fused_pallas run in interpret mode
+(compact Adam here; Adagrad and FTRL in test_torch_optim.py), against the
+port's own K1 + K2, the chunk map its wrapper builds for the kernel, and
+the EASYREC_PACKED_FUSED dispatch."""
 
 import hashlib
 
@@ -27,6 +28,11 @@ def _moments(rng, rows, dim):
   m = (rng.standard_normal((rows, dim)) * 1e-3).astype(np.float32)
   v = (rng.random((rows, dim)) * 1e-4).astype(np.float32)
   return m, v
+
+
+def _tmeta(rows, dim):
+  """The port's compact Adam layout."""
+  return tpt.TableMeta(rows, dim, 3, compact=True)
 
 
 def _step_ids(rng, rows, n):
@@ -58,12 +64,12 @@ def test_plain_matches_fused_pallas_interpret(dim, monkeypatch):
   monkeypatch.setenv('EASYREC_PACKED_FUSED', '1')
   rows, n = 300, 700
   meta = jpt.PackMeta(rows, dim, 3, compact=True)
-  tmeta = tpt.TableMeta(rows, dim)
+  tmeta = _tmeta(rows, dim)
   rng = np.random.default_rng(dim)
   w0 = (rng.standard_normal((rows, dim)) * 0.05).astype(np.float32)
   m0, v0 = _moments(rng, rows, dim)
   packed = jnp.asarray(jpt.pack_host(w0, [m0, v0], meta))
-  table = torch.from_numpy(tpt.pack_host(w0, m0, v0))
+  table = torch.from_numpy(tpt.pack_host(w0, [m0, v0], tmeta))
   orig = table.clone()
   j_opt, t_opt = sparse_lib.sparse_adam(), SparseAdam()
   seen = set()
@@ -83,9 +89,9 @@ def test_plain_matches_fused_pallas_interpret(dim, monkeypatch):
         t_opt.hypers(torch.tensor(1e-2),
                      torch.tensor(step, dtype=torch.int32)),
         t_opt, tmeta)
-  assert kernels.launch_counts()['rmw_fused_adam'] == 0     # CPU: plain
+  assert kernels.launch_counts()['rmw_fused'] == 0     # CPU: plain
   jw, (jm, jv) = jpt.unpack_host(np.asarray(packed), meta, rows)
-  tw, tm, tv = tpt.unpack_host(table.numpy())
+  tw, (tm, tv) = tpt.unpack_host(table.numpy(), tmeta)
   untouched = np.ones(rows, bool)
   untouched[list(seen)] = False
   assert untouched[rows - 5] and untouched[rows - 4]
@@ -108,10 +114,10 @@ def _port_update(ids, grads, table, step, fused):
   sids, order, starts = tpt.sort_segments(torch.from_numpy(ids))
   g = torch.from_numpy(grads)
   if fused:
-    tpt.rmw_fused_adam(table, sids, order, starts, g, hyp, opt)
+    tpt.rmw_fused(table, sids, order, starts, g, hyp, opt)
   else:
     uids, gsum = tpt.seg_sum(sids, order, starts, g, table.shape[0], '0')
-    tpt.rmw_adam(table, uids, gsum, hyp, opt)
+    tpt.rmw_rows(table, uids, gsum, hyp, opt)
 
 
 @pytest.mark.parametrize('hot', [C, 5 * C + 3])
@@ -123,7 +129,9 @@ def test_plain_against_k1_k2_plain(hot):
   rng = np.random.default_rng(hot)
   w0 = (rng.standard_normal((rows, dim)) * 0.05).astype(np.float32)
   m0, v0 = _moments(rng, rows, dim)
-  tables = [torch.from_numpy(tpt.pack_host(w0, m0, v0)) for _ in range(2)]
+  tmeta = _tmeta(rows, dim)
+  tables = [torch.from_numpy(tpt.pack_host(w0, [m0, v0], tmeta))
+            for _ in range(2)]
   for step in range(2):
     ids = rng.integers(0, rows, n)
     ids[ids == 11] = 12
@@ -133,7 +141,7 @@ def test_plain_against_k1_k2_plain(hot):
       _port_update(ids, grads, table, step, fused)
   a, b = tables[0].numpy(), tables[1].numpy()
   np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
-  assert not np.array_equal(a[11], tpt.pack_host(w0, m0, v0)[11])
+  assert not np.array_equal(a[11], tpt.pack_host(w0, [m0, v0], tmeta)[11])
 
 
 def _np_tree(rows):
@@ -161,7 +169,7 @@ def _np_segment_sum(rows):
                                     5 * C + 3, 3001])
 def test_plain_order_of_additions(length, mode):
   """The plain tree (segment_sums_by_chunk, which seg_sum_plain and
-  rmw_fused_adam_plain share) against a hand walk of the tree documented
+  rmw_fused_plain share) against a hand walk of the tree documented
   in csrc/seg_chunk_sum.cuh, bit for bit, on terms of magnitudes 1e-6 to
   1e6, where any other order of additions rounds differently; a short
   segment and an unused segment beside it. Then the fused update: an
@@ -195,9 +203,9 @@ def test_plain_order_of_additions(length, mode):
                                 sums.numpy().view(np.uint32))
   table = torch.zeros((rows, 2 * dim))
   opt = SparseAdam()
-  tpt.rmw_fused_adam(table, sids, order, starts, torch.from_numpy(grads),
-                     opt.hypers(torch.tensor(0.1),
-                                torch.tensor(0, dtype=torch.int32)), opt)
+  tpt.rmw_fused(table, sids, order, starts, torch.from_numpy(grads),
+                opt.hypers(torch.tensor(0.1),
+                           torch.tensor(0, dtype=torch.int32)), opt)
   changed = (table != 0).any(dim=1).numpy()
   np.testing.assert_array_equal(np.nonzero(changed)[0], [3, 5])
 
@@ -283,19 +291,19 @@ def test_apply_packed_update_dispatch(env, fused, monkeypatch):
   else:
     monkeypatch.setenv('EASYREC_PACKED_FUSED', env)
   calls = []
-  for name in ('rmw_fused_adam', 'seg_sum', 'rmw_adam'):
+  for name in ('rmw_fused', 'seg_sum', 'rmw_rows'):
     real = getattr(tpt, name)
     monkeypatch.setattr(tpt, name,
                         lambda *a, _n=name, _f=real, **k:
                         calls.append(_n) or _f(*a, **k))
-  meta = tpt.TableMeta(20, 4)
+  meta = _tmeta(20, 4)
   opt = SparseAdam()
   tpt.apply_packed_update(
       torch.zeros((20, 8)), torch.tensor([[1, 2], [2, 3]]),
       torch.ones((2, 2, 4)),
       opt.hypers(torch.tensor(0.1), torch.tensor(0, dtype=torch.int32)),
       opt, meta)
-  assert calls == (['rmw_fused_adam'] if fused else ['seg_sum', 'rmw_adam'])
+  assert calls == (['rmw_fused'] if fused else ['seg_sum', 'rmw_rows'])
 
 
 def test_wrapper_checks_inputs():
@@ -306,28 +314,28 @@ def test_wrapper_checks_inputs():
   opt = SparseAdam()
   hyp = opt.hypers(torch.tensor(0.1), torch.tensor(0, dtype=torch.int32))
   with pytest.raises(TypeError):
-    tpt.rmw_fused_adam(table, sids, order, starts, grads.double(), hyp, opt)
+    tpt.rmw_fused(table, sids, order, starts, grads.double(), hyp, opt)
   with pytest.raises(ValueError):
-    tpt.rmw_fused_adam(table, sids, order, starts[:-1], grads, hyp, opt)
+    tpt.rmw_fused(table, sids, order, starts[:-1], grads, hyp, opt)
   with pytest.raises(ValueError):
-    tpt.rmw_fused_adam(torch.zeros((8, 3)).t(), sids, order, starts, grads,
-                       hyp, opt)
-  with pytest.raises(NotImplementedError):
-    tpt.rmw_fused_adam(table, sids, order, starts, grads, hyp,
-                       sparse_lib.sparse_sgd())
+    tpt.rmw_fused(torch.zeros((8, 3)).t(), sids, order, starts, grads,
+                  hyp, opt)
+  with pytest.raises(TypeError):       # the JAX package's optimizer
+    tpt.rmw_fused(table, sids, order, starts, grads, hyp,
+                  sparse_lib.sparse_sgd())
 
 
 def test_build_key_covers_the_shared_adam_header(tmp_path):
-  """K2 and K3 take their Adam from one header, compact_adam.cuh, and K1
-  and K3 their sum from another, seg_chunk_sum.cuh; a library is named by
+  """K2 and K3 take their block math from one header, block_math.cuh, and
+  K1 and K3 their sum from another, seg_chunk_sum.cuh; a library is named by
   a hash that covers the headers its source includes by a quoted path: a
   changed header builds its kernels anew, so a stale copy of the update or
   the tree is never loaded. A quoted include that does not lie beside the
   source is left to the compiler's search path."""
-  for header, users in (('compact_adam.cuh', (kernels.RMW_ADAM,
-                                              kernels.RMW_FUSED_ADAM)),
+  for header, users in (('block_math.cuh', (kernels.RMW_ROWS,
+                                            kernels.RMW_FUSED)),
                         ('seg_chunk_sum.cuh', (kernels.SEG_SUM,
-                                               kernels.RMW_FUSED_ADAM))):
+                                               kernels.RMW_FUSED))):
     for k in users:
       with open(k.source) as f:
         assert '#include "%s"' % header in f.read()

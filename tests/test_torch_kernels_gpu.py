@@ -11,6 +11,7 @@ import torch
 
 from easyrec_torch.ops import kernels
 from easyrec_torch.ops import packed_table as pt
+from easyrec_torch.optim import sparse
 from easyrec_torch.optim.sparse import SparseAdam, pack_pair
 
 pytestmark = pytest.mark.gpu
@@ -181,8 +182,8 @@ def test_kernels_find_every_long_chunk(cuda, fused):
 
 @pytest.mark.parametrize('dim', [32, 16])
 def test_rmw_adam_kernel_matches_plain(cuda, dim):
-  """m/v bit-exact, w within 1 ulp; untouched and sentinel rows keep their
-  bytes."""
+  """Compact Adam bit-exact (w, m and v); untouched and sentinel rows keep
+  their bytes."""
   rows = 3000
   sids, order, starts, grads = _segments(cuda, rows=rows, dim=dim, seed=1)
   uids, gsum = pt.seg_sum(sids, order, starts, grads, rows, '1')
@@ -196,16 +197,12 @@ def test_rmw_adam_kernel_matches_plain(cuda, dim):
   hyp = opt.hypers(torch.tensor(1e-2, device=cuda),
                    torch.tensor(4, dtype=torch.int32, device=cuda))
   orig, ref = table.clone(), table.clone()
-  before = kernels.launch_counts()['rmw_adam']
-  pt.rmw_adam(table, uids, gsum, hyp, opt)
+  before = kernels.launch_counts()['rmw_rows']
+  pt.rmw_rows(table, uids, gsum, hyp, opt)
   torch.cuda.synchronize()
-  assert kernels.launch_counts()['rmw_adam'] == before + 1
-  pt.rmw_adam_plain(ref, uids, gsum, hyp, opt)
-  assert torch.equal(table[:, dim:].contiguous().view(torch.int32),
-                     ref[:, dim:].contiguous().view(torch.int32))
-  ulp = (table[:, :dim].contiguous().view(torch.int32).long() -
-         ref[:, :dim].contiguous().view(torch.int32).long()).abs().max()
-  assert int(ulp) <= 1
+  assert kernels.launch_counts()['rmw_rows'] == before + 1
+  pt.rmw_rows_plain(ref, uids, gsum, hyp, opt)
+  assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
   live = uids < rows
   touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
   touched[uids[live & (gsum != 0).any(dim=1)]] = True
@@ -225,36 +222,49 @@ def test_wrappers_check_cuda_inputs(cuda):
   hyp = opt.hypers(torch.tensor(1e-2, device=cuda),
                    torch.tensor(0, dtype=torch.int32, device=cuda))
   with pytest.raises(ValueError):
-    pt.rmw_adam(torch.zeros((64, 100), device=cuda).t(), uids, gsum, hyp,
+    pt.rmw_rows(torch.zeros((64, 100), device=cuda).t(), uids, gsum, hyp,
                 opt)
 
 
-def _table(device, rows, dim, seed):
+def _table(device, rows, dim, seed, opt=SparseAdam(), compact=True):
+  """A random table of `opt`'s layout: weights N(0, 1), Adam moments small
+  (v >= 0), accumulators at least 0.1, FTRL's z of either sign."""
   gen = torch.Generator(device=device).manual_seed(seed)
-  table = torch.empty((rows, 2 * dim), device=device)
-  table[:, :dim] = torch.randn((rows, dim), generator=gen, device=device)
-  table[:, dim:] = pack_pair(
-      torch.randn((rows, dim), generator=gen, device=device) * 1e-3,
-      torch.rand((rows, dim), generator=gen, device=device) * 1e-4)
-  return table
+
+  def randn(scale):
+    return torch.randn((rows, dim), generator=gen, device=device) * scale
+
+  def rand(lo, scale):
+    return lo + torch.rand((rows, dim), generator=gen,
+                           device=device) * scale
+
+  parts = [randn(1.0)]
+  for name in opt.slot_names:
+    parts.append(rand(0.0, 1e-4) if name == 'v' else
+                 rand(0.1, 0.5) if name == 'accum' else
+                 randn(0.05) if name == 'z' else randn(1e-3))
+  if compact:
+    parts = [parts[0], pack_pair(parts[1], parts[2])]
+  return torch.cat(parts, dim=1).contiguous()
 
 
-def _check_fused_against_plain(device, ids, grads, rows):
-  """K3 and its plain version from the same table: w, m and v bit-equal
-  (the same f32 additions in the same order, the same IEEE Adam); rows
-  that are untouched, zero-sum or outside the table keep their bytes."""
+def _check_fused_against_plain(device, ids, grads, rows, opt=SparseAdam(),
+                               compact=True):
+  """K3 and its plain version from the same table: every part bit-equal
+  (the same f32 additions in the same order, the same IEEE block math);
+  rows that are untouched, zero-sum or outside the table keep their
+  bytes."""
   dim = grads.shape[1]
   sids, order, starts = pt.sort_segments(ids)
-  table = _table(device, rows, dim, 5)
-  opt = SparseAdam()
+  table = _table(device, rows, dim, 5, opt, compact)
   hyp = opt.hypers(torch.tensor(1e-2, device=device),
                    torch.tensor(2, dtype=torch.int32, device=device))
   orig, ref = table.clone(), table.clone()
-  before = kernels.launch_counts()['rmw_fused_adam']
-  pt.rmw_fused_adam(table, sids, order, starts, grads, hyp, opt)
+  before = kernels.launch_counts()['rmw_fused']
+  pt.rmw_fused(table, sids, order, starts, grads, hyp, opt)
   torch.cuda.synchronize()
-  assert kernels.launch_counts()['rmw_fused_adam'] == before + 1
-  pt.rmw_fused_adam_plain(ref, sids, order, starts, grads, hyp, opt)
+  assert kernels.launch_counts()['rmw_fused'] == before + 1
+  pt.rmw_fused_plain(ref, sids, order, starts, grads, hyp, opt)
   assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
   uids, gsum = pt.seg_sum_plain(sids, order, starts, grads, rows, '0')
   live = uids < rows
@@ -307,9 +317,9 @@ def test_rmw_fused_adam_kernel_short_segments_equal_k1_k2(cuda):
                    torch.tensor(0, dtype=torch.int32, device=cuda))
   a = _table(cuda, rows, dim, 1)
   b = a.clone()
-  pt.rmw_fused_adam(a, sids, order, starts, grads, hyp, opt)
+  pt.rmw_fused(a, sids, order, starts, grads, hyp, opt)
   uids, gsum = pt.seg_sum(sids, order, starts, grads, rows, '0')
-  pt.rmw_adam(b, uids, gsum, hyp, opt)
+  pt.rmw_rows(b, uids, gsum, hyp, opt)
   torch.cuda.synchronize()
   assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -330,9 +340,9 @@ def test_rmw_fused_adam_kernel_long_segments_equal_k1_k2(cuda, hot):
                    torch.tensor(0, dtype=torch.int32, device=cuda))
   a = _table(cuda, rows, dim, 1)
   b = a.clone()
-  pt.rmw_fused_adam(a, sids, order, starts, grads, hyp, opt)
+  pt.rmw_fused(a, sids, order, starts, grads, hyp, opt)
   uids, gsum = pt.seg_sum(sids, order, starts, grads, rows, '0')
-  pt.rmw_adam(b, uids, gsum, hyp, opt)
+  pt.rmw_rows(b, uids, gsum, hyp, opt)
   torch.cuda.synchronize()
   assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -354,8 +364,8 @@ def test_train_step_launches_each_kernel_once(cuda, fused, monkeypatch):
   out = trainer.train_step(batch)
   assert np.isfinite(float(out['total_loss']))
   n = len(trainer.tables)
-  want = {'seg_sum': 0, 'rmw_adam': 0, 'rmw_fused_adam': n} if fused == '1' \
-      else {'seg_sum': n, 'rmw_adam': n, 'rmw_fused_adam': 0}
+  want = {'seg_sum': 0, 'rmw_rows': 0, 'rmw_fused': n} if fused == '1' \
+      else {'seg_sum': n, 'rmw_rows': n, 'rmw_fused': 0}
   want.update(group_push=0, group_rmw=0)
   assert kernels.launch_counts() == want
 
@@ -465,3 +475,63 @@ def test_group_kernels_flag_ids_outside_the_table(cuda, kernel, bad_id):
     group_dma.check_ids(cuda)
   group_dma.check_ids(cuda)
   assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
+
+
+# every block math of K2 and K3, with its layout (compact for the compact
+# Adam); the constants are off their defaults so every term runs
+MATHS = {
+    'sgd': (sparse.SparseSGD(), False),
+    'momentum': (sparse.SparseMomentum(0.8), False),
+    'adagrad': (sparse.SparseAdagrad(), False),
+    'adam': (SparseAdam(weight_decay=0.01), False),
+    'compact_adam': (SparseAdam(weight_decay=0.01), True),
+    'ftrl': (sparse.SparseFtrl(l1=0.01, l2=0.02, l2_shrinkage=0.05), False),
+}
+MATH_DIMS = [3, 16, 32, 100, 160, 256]
+
+
+@pytest.mark.parametrize('dim', MATH_DIMS)
+@pytest.mark.parametrize('which', sorted(MATHS))
+def test_rmw_rows_kernel_matches_plain_for_every_math(cuda, which, dim):
+  """K2 with each block math against rmw_rows_plain, bit-exact over the
+  whole table: hot rows (the summed gradients of K1's long segments), a
+  sentinel tail, zero-sum rows and ids outside the table; at dims not a
+  multiple of 4 (scalar loads), one float4 a lane (up to 128) and above
+  (each slot by a whole warp, its gradient read twice)."""
+  opt, compact = MATHS[which]
+  rows = 20_000
+  ids, grads = _mixed_segments(cuda, dim, rows, 30)
+  ids[-5:] = rows                          # ids outside the table
+  sids, order, starts = pt.sort_segments(ids)
+  uids, gsum = pt.seg_sum(sids, order, starts, grads, rows, '0')
+  assert int((uids == rows).sum()) > 0     # a sentinel tail
+  table = _table(cuda, rows, dim, 31, opt, compact)
+  hyp = opt.hypers(torch.tensor(2e-2, device=cuda),
+                   torch.tensor(3, dtype=torch.int32, device=cuda))
+  orig, ref = table.clone(), table.clone()
+  before = dict(kernels.tagged_counts())
+  pt.rmw_rows(table, uids, gsum, hyp, opt)
+  torch.cuda.synchronize()
+  tag = 'rmw_rows/%s' % sparse.MATH_NAMES[opt.kernel_math(compact)[0]]
+  assert kernels.tagged_counts()[tag] == before.get(tag, 0) + 1
+  pt.rmw_rows_plain(ref, uids, gsum, hyp, opt)
+  assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
+  live = uids < rows
+  touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
+  touched[uids[live & (gsum != 0).any(dim=1)]] = True
+  changed = (table.view(torch.int32) != orig.view(torch.int32)).any(dim=1)
+  assert not bool((changed & ~touched).any())
+  assert bool(changed[touched].all())
+
+
+@pytest.mark.parametrize('dim', MATH_DIMS)
+@pytest.mark.parametrize('which', sorted(MATHS))
+def test_rmw_fused_kernel_matches_plain_for_every_math(cuda, which, dim):
+  """K3 with each block math against rmw_fused_plain, bit-exact, on tiny,
+  short and long segments beside ids outside the table; at dims 160 and
+  256 (the JAX package's fused kernel takes compact Adam to 256) the sums
+  past the first 128 columns are taken twice, by the same tree."""
+  opt, compact = MATHS[which]
+  ids, grads = _mixed_segments(cuda, dim, 20_000, 32)
+  ids[-5:] = 20_000
+  _check_fused_against_plain(cuda, ids, grads, 20_000, opt, compact)

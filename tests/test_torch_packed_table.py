@@ -1,8 +1,9 @@
 """The port's combined table and its sparse update (easyrec_torch/ops/
 packed_table.py, convert.py) against the JAX package's packed table: layout
-round trip, the forward pull, and the plain versions of kernel K1
-(segmented gradient sum) and K2 (row read-modify-write with compact Adam)
-against the Pallas kernels run in interpret mode and the XLA path."""
+round trip for every part count, the forward pull, and the plain versions
+of kernel K1 (segmented gradient sum) and K2 (row read-modify-write, here
+with compact Adam; every other block math in test_torch_optim.py) against
+the Pallas kernels run in interpret mode and the XLA path."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +13,7 @@ import torch
 from easyrec_torch import convert
 from easyrec_torch.ops import kernels
 from easyrec_torch.ops import packed_table as tpt
-from easyrec_torch.optim.sparse import SparseAdam
+from easyrec_torch.optim.sparse import SparseAdam, SparseSGD
 from easyrec_tpu.ops import packed_table as jpt
 from easyrec_tpu.optim import sparse as sparse_lib
 
@@ -25,19 +26,34 @@ def _moments(rng, rows, dim):
   return m, v
 
 
-@pytest.mark.parametrize('rows,dim', [(1000, 16), (777, 32), (5, 8)])
-def test_table_roundtrip_through_convert(rows, dim):
-  rng = np.random.default_rng(rows)
-  meta = jpt.PackMeta(rows, dim, 3, compact=True)
+def _tmeta(rows, dim, compact=True):
+  """The port's compact Adam layout (the JAX PackMeta(rows, dim, 3,
+  compact=True))."""
+  return tpt.TableMeta(rows, dim, 3, compact=compact)
+
+
+@pytest.mark.parametrize('rows,dim,n_parts,compact', [
+    (1000, 16, 3, True), (777, 32, 3, True), (5, 8, 3, True),
+    (300, 16, 1, False), (300, 1, 1, False), (200, 3, 2, False),
+    (200, 32, 2, False), (100, 16, 3, False), (50, 1, 3, False)])
+def test_table_roundtrip_through_convert(rows, dim, n_parts, compact):
+  """1-, 2- and 3-part tables and compact Adam's: the JAX package's
+  pack_host through convert.py is the port's pack_host, bit for bit, and
+  both unpack to the same logical parts and back."""
+  rng = np.random.default_rng(rows + dim)
+  meta = jpt.PackMeta(rows, dim, n_parts, compact=compact)
+  tmeta = tpt.TableMeta(rows, dim, n_parts, compact=compact)
   w = rng.standard_normal((rows, dim)).astype(np.float32)
-  m, v = _moments(rng, rows, dim)
-  packed = jpt.pack_host(w, [m, v], meta)
-  table = convert.jax_packed_to_table(packed, dim, rows)
+  slots = list(_moments(rng, rows, dim))[:n_parts - 1]
+  packed = jpt.pack_host(w, slots, meta)
+  table = convert.jax_packed_to_table(packed, dim, rows, meta.n_parts)
+  assert table.shape == (rows, tmeta.width)
   np.testing.assert_array_equal(table.view(np.uint32),
-                                tpt.pack_host(w, m, v).view(np.uint32))
-  tw, tm, tv = tpt.unpack_host(table)
-  jw, (jm, jv) = jpt.unpack_host(packed, meta)
-  for a, b in ((tw, jw), (tm, jm), (tv, jv)):
+                                tpt.pack_host(w, slots, tmeta).view(np.uint32))
+  tw, ts = tpt.unpack_host(table, tmeta)
+  jw, js = jpt.unpack_host(packed, meta)
+  assert len(ts) == len(js) == n_parts - 1
+  for a, b in zip([tw] + ts, [jw] + list(js)):
     np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
   back = convert.table_to_jax_packed(table, meta.phys_rows, meta.width)
   np.testing.assert_array_equal(back.view(np.uint32), packed.view(np.uint32))
@@ -53,8 +69,8 @@ def test_pull_matches_jax():
   ids = rng.integers(0, rows, (4, 9))
   want = jpt.pull(jnp.asarray(packed), jnp.asarray(ids, jnp.int32), meta)
   got = tpt.pull(torch.from_numpy(convert.jax_packed_to_table(packed, dim,
-                                                              rows)),
-                 torch.from_numpy(ids), tpt.TableMeta(rows, dim))
+                                                              rows, 2)),
+                 torch.from_numpy(ids), _tmeta(rows, dim))
   assert tuple(got.shape) == (4, 9, dim)
   np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -185,12 +201,12 @@ def test_rmw_adam_plain_matches_pallas_interpret(rows, n, mode, dup2,
   monkeypatch.setenv('EASYREC_GG_BF16', mode)
   dim = 16
   meta = jpt.PackMeta(rows, dim, 3, compact=True)
-  tmeta = tpt.TableMeta(rows, dim)
+  tmeta = _tmeta(rows, dim)
   rng = np.random.default_rng(4)
   w0 = rng.standard_normal((rows, dim)).astype(np.float32) * 0.05
   m0, v0 = _moments(rng, rows, dim)
   packed = jnp.asarray(jpt.pack_host(w0, [m0, v0], meta))
-  table = torch.from_numpy(tpt.pack_host(w0, m0, v0))
+  table = torch.from_numpy(tpt.pack_host(w0, [m0, v0], tmeta))
   orig = table.clone()
   j_opt, t_opt = sparse_lib.sparse_adam(), SparseAdam()
   seen = set()
@@ -211,7 +227,7 @@ def test_rmw_adam_plain_matches_pallas_interpret(rows, n, mode, dup2,
                      torch.tensor(step, dtype=torch.int32)),
         t_opt, tmeta)
   jw, (jm, jv) = jpt.unpack_host(np.asarray(packed), meta)
-  tw, tm, tv = tpt.unpack_host(table.numpy())
+  tw, (tm, tv) = tpt.unpack_host(table.numpy(), tmeta)
   untouched = np.ones(rows, bool)
   untouched[list(seen)] = False
   assert untouched[rows - 5] and untouched[rows - 4]
@@ -235,14 +251,14 @@ def test_rmw_adam_plain_repeats_compact_block():
   rows, dim = 6, 4
   w0 = rng.standard_normal((rows, dim)).astype(np.float32)
   m0, v0 = _moments(rng, rows, dim)
-  table = torch.from_numpy(tpt.pack_host(w0, m0, v0))
+  table = torch.from_numpy(tpt.pack_host(w0, [m0, v0], _tmeta(rows, dim)))
   uids = torch.tensor([1, 4, 6, 6])                  # 6 = sentinel
   gsum = torch.from_numpy(rng.standard_normal((4, dim)).astype(np.float32))
   gsum[1] = 0.0                                      # row 4 untouched
   opt = SparseAdam()
   hyp = opt.hypers(torch.tensor(0.1), torch.tensor(0, dtype=torch.int32))
   before = table.clone()
-  out = tpt.rmw_adam(table, uids, gsum, hyp, opt)
+  out = tpt.rmw_rows(table, uids, gsum, hyp, opt)
   assert out is table
   changed = (table != before).any(dim=1).numpy()
   np.testing.assert_array_equal(changed, [0, 1, 0, 0, 0, 0])
@@ -262,17 +278,21 @@ def test_wrappers_take_plain_path_on_cpu_and_check_inputs():
   table = torch.zeros((3, 8))
   opt = SparseAdam()
   hyp = opt.hypers(torch.tensor(0.1), torch.tensor(0, dtype=torch.int32))
-  tpt.rmw_adam(table, uids, gsum, hyp, opt)
-  assert kernels.launch_counts() == {'seg_sum': 0, 'rmw_adam': 0,
-                                     'rmw_fused_adam': 0, 'group_push': 0,
+  tpt.rmw_rows(table, uids, gsum, hyp, opt)
+  assert kernels.launch_counts() == {'seg_sum': 0, 'rmw_rows': 0,
+                                     'rmw_fused': 0, 'group_push': 0,
                                      'group_rmw': 0}
   with pytest.raises(TypeError):
     tpt.seg_sum(sids, order, starts, grads.double(), 3)
   with pytest.raises(ValueError):
     tpt.seg_sum(sids, order, starts[:-1], grads, 3)
   with pytest.raises(ValueError):
-    tpt.rmw_adam(torch.zeros((8, 3)).t(), uids, gsum, hyp, opt)
+    tpt.rmw_rows(torch.zeros((8, 3)).t(), uids, gsum, hyp, opt)
   with pytest.raises(ValueError):
     tpt.seg_sum(sids, order, starts, grads, 3, mode='bf16')
-  with pytest.raises(NotImplementedError):
-    tpt.rmw_adam(table, uids, gsum, hyp, sparse_lib.sparse_sgd())
+  with pytest.raises(TypeError):       # the JAX package's optimizer
+    tpt.rmw_rows(table, uids, gsum, hyp, sparse_lib.sparse_sgd())
+  with pytest.raises(ValueError):      # [w | mv] is not an sgd row
+    tpt.rmw_rows(table, uids, gsum, hyp[:1], SparseSGD())
+  with pytest.raises(ValueError):      # sgd takes [lr] alone
+    tpt.rmw_rows(table[:, :4].contiguous(), uids, gsum, hyp, SparseSGD())

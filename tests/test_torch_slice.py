@@ -77,7 +77,8 @@ def _carry_initial_state(jt, state, tt):
                                                       state.batch_stats))
   for key, meta in jt.pack_metas.items():
     tt.tables[key].copy_(torch.from_numpy(convert.jax_packed_to_table(
-        np.asarray(state.tables[key]), meta.dim, tt.metas[key].rows)))
+        np.asarray(state.tables[key]), meta.dim, tt.metas[key].rows,
+        meta.n_parts)))
 
 
 LR_SUM = 0.01 + 0.01 + 0.005      # the schedule's rates of the 3 steps
@@ -185,7 +186,7 @@ def test_three_steps_match_jax_trainer(mode, use_bn, monkeypatch):
     rows = tt.metas[key].rows
     jw, (jm, jv) = jpt.unpack_host(np.asarray(state.tables[key]), meta,
                                    rows)
-    tw, tm, tv = tpt.unpack_host(tt.tables[key].numpy())
+    tw, (tm, tv) = tpt.unpack_host(tt.tables[key].numpy(), tt.metas[key])
     np.testing.assert_allclose(tw, jw, rtol=0, atol=1e-6 if tight else 1e-4)
     for got, want in ((tm, jm), (tv, jv)):
       np.testing.assert_allclose(got, want, rtol=BF16_ULP if tight else 0.03,
@@ -199,3 +200,74 @@ def test_three_steps_match_jax_trainer(mode, use_bn, monkeypatch):
     # may land one bin over
     np.testing.assert_allclose(t_eval['auc'], j_eval['auc'], atol=1e-3)
     np.testing.assert_allclose(t_eval['loss'], j_eval['loss'], rtol=2e-5)
+
+
+TABLE_OPTIMIZERS = {
+    # the first optimizer drives the tables, the second (the Adam above)
+    # the dense weights
+    'adagrad': '''optimizer_config {
+    adagrad_optimizer {
+      learning_rate { constant_learning_rate { learning_rate: 0.05 } } }
+    embedding_learning_rate_multiplier: 0.5 }
+  ''',
+    'ftrl': '''optimizer_config {
+    ftrl_optimizer {
+      learning_rate { constant_learning_rate { learning_rate: 0.05 } }
+      l1_reg: 0.001 l2_reg: 0.01 l2_shrinkage_reg: 0.01 } }
+  ''',
+}
+
+
+@pytest.mark.parametrize('which,fused', [('adagrad', '0'), ('adagrad', '1'),
+                                         ('ftrl', '0')])
+def test_three_steps_match_jax_trainer_with_table_optimizer(which, fused,
+                                                            monkeypatch):
+  """The small DeepFM (no BatchNorm, f32 gradient sums) with Adagrad or
+  FTRL tables and Adam dense weights, three steps through both trainers:
+  the tables hold [w | accum] or [w | accum | z] on both sides, the JAX
+  package's on its XLA path, the port's through K1 + K2's plain versions
+  (or K3's under EASYREC_PACKED_FUSED=1). Tolerances, with their reasons:
+  losses relative 2e-5 and dense parameters 5e-6, as the Adam slice
+  above; every table part within 1e-6, FTRL's z within 3e-6 (XLA's
+  pow(acc, 0.5) against the port's correctly rounded root: z takes
+  sigma * w, sigma a difference of two close roots, tests/test_torch_
+  optim.py Z_ATOL). Rows no batch pulled are bit-equal."""
+  monkeypatch.setenv('EASYREC_PACKED_TABLES', '1')
+  monkeypatch.setenv('EASYREC_GG_BF16', '0')
+  monkeypatch.setenv('EASYREC_PACKED_FUSED', fused)
+  text = (CONFIG % {'bn': 'false'}).replace(
+      'optimizer_config { adam_optimizer',
+      TABLE_OPTIMIZERS[which] + 'optimizer_config { adam_optimizer', 1)
+  jt = JTrainer(j_config.get_configs_from_pipeline_str(text),
+                devices=jax.devices('cpu')[:1])
+  assert jt.packed_mode and not jt._packed_compact
+  tt = TTrainer(t_config.get_configs_from_pipeline_str(text), device='cpu')
+  assert tt.embed_pair.sparse.name == which
+  batches = [synthetic_batch(jt.specs, ['label'], 64, seed=s)
+             for s in range(3)]
+  state = jt.init_state(batches[0])
+  _carry_initial_state(jt, state, tt)
+  for s in range(3):
+    state, j_loss = jt.train_step(state, jt.rules.shard_batch(batches[s]))
+    t_loss = tt.train_step(to_device(batches[s], torch.device('cpu')))
+    np.testing.assert_allclose(float(t_loss['total_loss']),
+                               float(j_loss['total_loss']), rtol=2e-5)
+  params, _ = convert.state_dict_to_flax(tt.model.state_dict())
+  j_params = jax.device_get(state.params)
+  for path, got in jax.tree_util.tree_leaves_with_path(params):
+    want = np.asarray(functools.reduce(lambda t, k: t[k.key], path,
+                                       j_params))
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6,
+                               err_msg=jax.tree_util.keystr(path))
+  for key, meta in jt.pack_metas.items():
+    tmeta = tt.metas[key]
+    assert tmeta.n_parts == meta.n_parts == tt.embed_pair.sparse.n_parts
+    jw, js = jpt.unpack_host(np.asarray(state.tables[key]), meta,
+                             tmeta.rows)
+    tw, ts = tpt.unpack_host(tt.tables[key].numpy(), tmeta)
+    names = ('w',) + tt.embed_pair.sparse.slot_names
+    for name, got, want in zip(names, [tw] + ts, [jw] + list(js)):
+      np.testing.assert_allclose(got, want, rtol=0,
+                                 atol=3e-6 if name == 'z' else 1e-6,
+                                 err_msg=name)
+      assert np.mean(got == want) > 0.9     # untouched rows are bit-equal
