@@ -18,8 +18,10 @@ Phases, in order; any failure exits nonzero before the result line:
              slots, dim 16, 620k-row table); K2 with every block math
              (sgd, momentum, Adagrad, 3-part Adam, compact Adam, FTRL) at
              the flagship shape; K3 with every block math at the DIN shape
-             and at dim 256; all bit-exact, with times from CUDA events
-             beside bounds, the plain versions' times and the library
+             and at dim 256; K2 and K3 with the EV maths (ev_add, ev_set)
+             on the [210,002, 1] aux table of the EV sample (phase 10's
+             shape); all bit-exact, with times from CUDA events beside
+             bounds, the plain versions' times and the library
              yardsticks;
   4. groups  K4 (group push) and K5 (group RMW) against their plain
              versions at the ported benchmarks' shapes (K4: 106,496 slots
@@ -48,11 +50,25 @@ Phases, in order; any failure exits nonzero before the result line:
              accum], 6.66 GB) the same way: K1 and K2 (Adagrad) once per
              step and table, K3 not at all; then its rate.
 K4 and K5 must launch 0 times in 6-8.
-  9. kernel-only K1, K2 (compact Adam and Adagrad) at the flagship shape and
-             K3 and K1 + K2 at the DIN shape, their kernels alone, timed by
-             torch.profiler on the inputs of phase 3, after the slices
-             because the profiler stays hooked into the process once it has
-             traced the card.
+  9. ckpt    the full-width Taobao DIN (K3), unshuffled: a Trainer fits 20
+             steps with saves at 10 and 20; a fresh Trainer on the same
+             model_dir, its step-20 checkpoint removed, restores step 10 and
+             fits to 20, and must equal the uninterrupted run bit for bit
+             (step, tables, model, dense optimizer); then a timed save and
+             restore, with the checkpoint's size;
+ 10. ev      samples/deepfm_ev_params.config at its published widths
+             through train_and_evaluate, cut to 40 steps with a save (and
+             TTL sweep) every 10 and steps_to_live 10, on generated data
+             whose ids move halfway: K1 + K2 and K3, each on the card and
+             the CPU; ev_add and ev_set once a step each, rows admitted,
+             slots masked and rows evicted above zero, counters exact card
+             against CPU (phase_ev says how the tables are held);
+ 11. kernel-only K1, K2 (compact Adam and Adagrad) at the flagship shape,
+             K3 and K1 + K2 at the DIN shape and K2 and K3 with the EV maths
+             at the EV shape, their kernels alone, timed by torch.profiler
+             on the inputs of phase 3, after the slices because the
+             profiler stays hooked into the process once it has traced the
+             card.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -1008,6 +1024,423 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
   return dict(counts, **tagged)
 
 
+SCRATCH = os.path.join(HERE, 'build', 'chip_smoke')
+
+# the EV phase: samples/deepfm_ev_params.config at its published widths,
+# cut in depth so that its sweeps fall inside the run. (field, published,
+# here)
+EV_STEPS = 40
+EV_CUTS = (('train_config.num_steps', 10000, EV_STEPS),
+           ('train_config.save_checkpoints_steps', 2000, 10),
+           ('uid ev_params.steps_to_live', 4000, 10))
+EV_BATCH = 1024
+EV_COLS = ('label', 'uid', 'iid', 'cate', 'tags', 'age', 'price', 'seq_cate')
+
+
+def write_ev_csv(path, seed=2026):
+  """EV_STEPS batches of the sample's columns, made from `seed`: uid ids
+  from 5,000 values and iid ids from 3,000, both moving to new ranges
+  halfway, so ids are admitted (filter_freq 2 and 3), masked before, and
+  the first half's rows go stale after (steps_to_live cut to 10)."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  half = EV_STEPS * EV_BATCH // 2
+  lines = []
+  for i in range(EV_STEPS * EV_BATCH):
+    shift = 0 if i < half else 1
+    lines.append('%d,u%d,i%d,c%d,t%d,%.4f,%.2f,c%d' % (
+        rng.integers(0, 2), rng.integers(0, 5000) + 5000 * shift,
+        rng.integers(0, 3000) + 3000 * shift, rng.integers(0, 1000),
+        rng.integers(0, 50), rng.random(), rng.random() * 100,
+        rng.integers(0, 1000)))
+  with open(path, 'w') as f:
+    f.write('\n'.join(lines) + '\n')
+
+
+def ev_config(data, model_dir):
+  """The EV sample as a user loads it, with EV_CUTS, the generated data
+  and `model_dir`."""
+  from easyrec_torch import main as main_lib
+  cfg = main_lib.load_config(
+      os.path.join(HERE, 'samples', 'deepfm_ev_params.config'),
+      {'train_input_path': data, 'eval_input_path': data,
+       'model_dir': model_dir, 'train_config.num_steps': EV_STEPS,
+       'train_config.save_checkpoints_steps': 10,
+       'train_config.log_step_count_steps': 10})
+  cols = [f.input_name for f in cfg.data_config.input_fields]
+  if tuple(cols) != EV_COLS or int(cfg.data_config.batch_size) != EV_BATCH:
+    fail('samples/deepfm_ev_params.config: columns %s, batch %d; the EV '
+         'phase writes %s at %d' % (cols, cfg.data_config.batch_size,
+                                    EV_COLS, EV_BATCH))
+  for fc in cfg.feature_config.features:
+    if fc.input_names[0] == 'uid':
+      ev = fc.ev_params
+      if int(ev.steps_to_live) != 4000:
+        fail('uid steps_to_live %d, 4000 expected' % ev.steps_to_live)
+      ev.steps_to_live = 10
+      fc.ev_params = ev
+  return cfg
+
+
+def ev_kernel_inputs(torch):
+  """The EV phase's shape for K2 and K3: the id pack of the first batch of
+  the EV data ([1024, 4] slots of the 210,002-row fused table: uid, iid,
+  cate and the raw age row, 1,024 times) with a gradient of ones."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import Trainer, to_device
+  data = os.path.join(SCRATCH, 'ev', 'train.csv')
+  write_ev_csv(data)
+  trainer = Trainer(ev_config(data, ''), device='cuda')
+  batch = next(iter(trainer.train_input()))
+  packs = emb_ops.pack_ids(trainer.layout, to_device(batch,
+                                                      torch.device('cuda')))
+  (key, meta), = trainer.metas.items()
+  return packs[key].reshape(-1), meta.rows
+
+
+def phase_kernels_ev(torch):
+  """K2 and K3 with the EV maths (ev_add on the admission counts, ev_set on
+  the last-seen steps) at the EV phase's shape, each bit-exact against its
+  plain version over the whole [rows, 1] aux table, with times and byte
+  bounds. Returns one result record a kernel and math."""
+  from easyrec_torch.features import ev as ev_lib
+  from easyrec_torch.ops import packed_table as pt
+
+  dev = torch.device('cuda')
+  ids, rows = ev_kernel_inputs(torch)
+  n = ids.shape[0]
+  ones = torch.ones((n, 1), device=dev)
+  sids, order, starts = pt.sort_segments(ids)
+  uids, gsum = pt.seg_sum(sids, order, starts, ones, rows, '1')
+  n_seg = int((starts[:n] < n).sum())
+  n_touched = int(((uids < rows) & (gsum[:, 0] != 0)).sum())
+  flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+  gen = torch.Generator(device=dev).manual_seed(77)
+  step = torch.tensor(17, dtype=torch.int32, device=dev)
+  log('EV kernel shape: aux table [%d, 1] f32, %d id slots, %d segments '
+      '(the raw age row %d slots), %d touched rows'
+      % (rows, n, n_seg, int((starts[1:] - starts[:n]).max()), n_touched))
+  results = []
+  for name, opt in (('ev_add', ev_lib.EV_ADD), ('ev_set', ev_lib.EV_SET)):
+    hypers = opt.hypers(None, step)
+    table = torch.randint(0, 40, (rows, 1), generator=gen,
+                          device=dev).to(torch.float32)
+    # the function reads a row only to add to it; both write touched rows
+    row_bytes = n_touched * 4 * (2 if name == 'ev_add' else 1)
+    for kernel in ('rmw_rows', 'rmw_fused'):
+      ref = table.clone()
+      if kernel == 'rmw_rows':
+        call = lambda: pt.rmw_rows(table, uids, gsum, hypers, opt)  # noqa
+        plain = lambda: pt.rmw_rows_plain(table, uids, gsum, hypers,  # noqa
+                                          opt)
+        pt.rmw_rows_plain(ref, uids, gsum, hypers, opt)
+        nbytes = n * 8 + 4 + n_seg * 4 + row_bytes
+      else:
+        call = lambda: pt.rmw_fused(table, sids, order, starts, ones,  # noqa
+                                    hypers, opt)
+        plain = lambda: pt.rmw_fused_plain(table, sids, order,  # noqa
+                                           starts, ones, hypers, opt)
+        pt.rmw_fused_plain(ref, sids, order, starts, ones, hypers, opt)
+        nbytes = n * 4 + 2 * n * 8 + 8 + n_seg * 8 + 4 + row_bytes
+      call()
+      torch.cuda.synchronize()
+      if not torch.equal(table.view(torch.int32), ref.view(torch.int32)):
+        fail('%s (%s) at the EV shape: %d rows differ from the plain '
+             'version' % (kernel, name, int((table != ref).sum())))
+      err = float((table - ref).abs().max())
+      ms = cuda_ms(torch, call, 20, flush)
+      plain_ms = cuda_ms(torch, plain, 3, flush)
+      bound, by = bound_ms(nbytes, n_touched + (n if kernel == 'rmw_fused'
+                                                else 0))
+      log('%s (%s, [%d, 1]): bit-exact against the plain version (tolerance '
+          '0); %.4f ms, bound %.6f ms (%d bytes / 3.35 TB/s), plain %.3f ms; '
+          'no single library call computes it'
+          % (kernel, name, rows, ms, bound, nbytes, plain_ms))
+      if kernel == 'rmw_rows':
+        queue_kernel_only(
+            'rmw_rows (EV shape, %s)' % name, ms, bound,
+            lambda table, uids, gsum, hypers, _o=opt: pt.rmw_rows(
+                table, uids, gsum, hypers, _o),
+            table=table, uids=uids, gsum=gsum, hypers=hypers)
+      else:
+        queue_kernel_only(
+            'rmw_fused (EV shape, %s)' % name, ms, bound,
+            lambda _o=opt, **t: pt.rmw_fused(
+                t['table'], t['sids'], t['order'], t['starts'], t['ones'],
+                t['hypers'], _o),
+            table=table, sids=sids, order=order, starts=starts, ones=ones,
+            hypers=hypers)
+      results.append(dict(
+          name='%s/%s' % (kernel, name), route='cuda',
+          source='easyrec_torch/csrc/%s.cu' % kernel,
+          replaces='easyrec_tpu/ops/packed_table.py:%s' % (
+              '701' if kernel == 'rmw_rows' else '1024'),
+          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+          bound_by=by, library_ms=None))
+  del flush
+  torch.cuda.empty_cache()
+  return results
+
+
+def ev_run_config(data, model_dir, use_bn):
+  cfg = ev_config(data, model_dir)
+  if not use_bn:
+    cfg.model_config.deepfm.dnn.use_bn = False
+    cfg.model_config.deepfm.final_dnn.use_bn = False
+  return cfg
+
+
+def ev_initial_state(torch, data, use_bn, nudge=False):
+  """The EV model's initial state, drawn on the CPU: every run of the EV
+  phase starts from it, restored from a step-0 checkpoint, since a
+  trainer draws its tables on its own device (the card's generator and the
+  CPU's give other weights). With `nudge`, every weight of the first dense
+  layer moves by one ulp: the yardstick of how far the run itself parts
+  under a change of rounding. Returns (state, layout stamp)."""
+  from easyrec_torch.train.trainer import Trainer
+  t = Trainer(ev_run_config(data, '', use_bn), device='cpu')
+  t.init_state()
+  if nudge:
+    with torch.no_grad():
+      w = t.model.get_parameter('dnn.dense_0.weight')
+      w.copy_(torch.nextafter(w, torch.full_like(w, float('inf'))))
+  return t.state_dict(), t.layout_stamp()
+
+
+def run_ev(torch, data, fused, device, use_bn, init, tag=''):
+  """One EV run (ev_config) through train_and_evaluate from `init`
+  (ev_initial_state, saved as step 0 of the run's model_dir, which
+  train_and_evaluate restores), with every launch counter set to 0 just
+  before and read just after: on the card the table's Adam, ev_add and
+  ev_set launch once a step each (K1 three times a step unfused), on the
+  CPU nothing. Returns (trainer, launches by kernel/math)."""
+  import shutil
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.train import checkpoints as ckpt_lib
+
+  os.environ['EASYREC_PACKED_FUSED'] = fused
+  tag = '%s_%s_%s%s' % (fused, device, 'bn' if use_bn else 'nobn', tag)
+  model_dir = os.path.join(SCRATCH, 'ev', 'model_' + tag)
+  shutil.rmtree(model_dir, ignore_errors=True)
+  cfg = ev_run_config(data, model_dir, use_bn)
+  state, stamp = init
+  ckpt_lib.CheckpointManager(model_dir, layout_stamp=stamp).save(state, 0)
+  kernels.reset_launches()
+  t0 = time.time()
+  result = main_lib.train_and_evaluate(cfg, device=device)
+  if device == 'cuda':
+    torch.cuda.synchronize()
+  wall = time.time() - t0
+  counts, tagged = kernels.launch_counts(), kernels.tagged_counts()
+  what = 'ev (%s, %s, BatchNorm %s)' % ('K3' if fused == '1' else 'K1 + K2',
+                                        device, 'on' if use_bn else 'off')
+  log('%s: %d steps in %.1f s through train_and_evaluate (input, sweeps, '
+      'saves and eval included); eval %s; launches %s, by math %s'
+      % (what, result['global_step'], wall, result.get('eval_metrics'),
+         counts, tagged))
+  if result['global_step'] != EV_STEPS:
+    fail('%s ran %d steps' % (what, result['global_step']))
+  steps = sorted(int(d) for d in os.listdir(
+      os.path.join(model_dir, 'checkpoints')) if d.isdigit())
+  if steps != [0, 10, 20, 30, 40]:
+    fail('%s: checkpoints %s, 0 (the initial state) 10 20 30 40 expected'
+         % (what, steps))
+  if device == 'cpu':
+    if any(counts.values()):
+      fail('%s: the CPU launched %s' % (what, counts))
+    return result['trainer'], {}
+  k = 'rmw_fused' if fused == '1' else 'rmw_rows'
+  want = {'%s/%s' % (k, m): EV_STEPS
+          for m in ('compact_adam', 'ev_add', 'ev_set')}
+  want_k1 = 0 if fused == '1' else 3 * EV_STEPS
+  if tagged != want or counts['seg_sum'] != want_k1:
+    fail('%s: launches %s and K1 %d, %s and K1 %d expected'
+         % (what, tagged, counts['seg_sum'], want, want_k1))
+  return result['trainer'], tagged
+
+
+def ev_table_diff(a, b):
+  """(weights apart by more than 1e-5, of how many, the largest gap) of
+  the EV table's weight columns in trainers a and b."""
+  (key, _), = a.ev_plan.items()
+  dim = a.metas[key].dim
+  diff = (a.tables[key][:, :dim].cpu() - b.tables[key][:, :dim].cpu()).abs()
+  return int((diff > 1e-5).sum()), diff.numel(), float(diff.max())
+
+
+def phase_ev(torch):
+  """samples/deepfm_ev_params.config through train_and_evaluate at its
+  published widths (uid and iid 100,000 buckets, cate 10,000, dim 16,
+  batch 1024, Adam), cut in depth (EV_CUTS), on write_ev_csv's data: once
+  with K1 + K2 and once with K3, each on the card and on the CPU (run_ev)
+  from one initial state. Rows admitted, id slots masked and trained rows
+  evicted must each be above zero, and card and CPU must agree exactly on
+  both counters, the masked slots and the sweeps. The table weights: the
+  same runs with the sample's BatchNorm off (the one change) within the
+  agree phase's tolerance; with it on, each within 2 lr a step, since the
+  run itself is unsteady in its rounding there (a CPU run from a start one
+  ulp away, measured here, parts as far). Returns the card's launches by
+  kernel/math of the published runs."""
+  data = os.path.join(SCRATCH, 'ev', 'train.csv')
+  for field, was, now in EV_CUTS:
+    log('ev: cut %s %d -> %d (depth; widths, filter_freq and the model as '
+        'published)' % (field, was, now))
+  launches = {}
+  lr_sum = 0.001 * EV_STEPS            # the sample's constant rate
+  inits = {bn: ev_initial_state(torch, data, bn) for bn in (True, False)}
+  for fused in ('0', '1'):
+    path = 'K3' if fused == '1' else 'K1 + K2'
+    for use_bn in (True, False):
+      card, tagged = run_ev(torch, data, fused, 'cuda', use_bn,
+                            inits[use_bn])
+      cpu, _ = run_ev(torch, data, fused, 'cpu', use_bn, inits[use_bn])
+      if use_bn:
+        for key, c in tagged.items():
+          launches[key] = launches.get(key, 0) + c
+      (key, ev), = card.ev_plan.items()
+      count = card.ev_state[key]['ev_count'][:, 0].cpu()
+      admitted = sum(int((count[a:b] >= ff).sum())
+                     for a, b, ff, _ in ev.row_segments if ff > 0)
+      masked = int(card.ev_masked)
+      swept = [(step, by_table[key]) for step, by_table in card.ev_swept]
+      evicted = sum(seen for _, (_, seen) in swept)
+      what = 'ev (%s, BatchNorm %s)' % (path, 'on' if use_bn else 'off')
+      log('%s: rows admitted %d (count >= filter_freq at the end), id slots '
+          'masked %d, rows evicted %d (trained rows swept); (step, (rows '
+          'swept, of them trained)) at each save %s'
+          % (what, admitted, masked, evicted, swept))
+      if admitted <= 0 or masked <= 0 or evicted <= 0:
+        fail('%s: admitted %d, masked %d, evicted %d: each must be above '
+             'zero' % (what, admitted, masked, evicted))
+      if masked != int(cpu.ev_masked) or card.ev_swept != cpu.ev_swept:
+        fail('%s: masked %d / %d or swept %s / %s differ card / CPU'
+             % (what, masked, int(cpu.ev_masked), card.ev_swept,
+                cpu.ev_swept))
+      for aux_name, t in card.ev_state[key].items():
+        if not torch.equal(t.cpu(), cpu.ev_state[key][aux_name]):
+          fail('%s: %s differs between the card and the CPU (%d rows)'
+               % (what, aux_name, int((t.cpu() != cpu.ev_state[key]
+                                       [aux_name]).sum())))
+      far, n, err = ev_table_diff(card, cpu)
+      yardstick = ''
+      if use_bn and fused == '0':
+        nudged, _ = run_ev(torch, data, fused, 'cpu', use_bn,
+                           ev_initial_state(torch, data, True, nudge=True),
+                           tag='_nudged')
+        n_far, _, n_err = ev_table_diff(nudged, cpu)
+        yardstick = ('; a CPU run from dense weights one ulp away parts '
+                     'from the CPU run on %d by more than 1e-5, the largest '
+                     'by %g' % (n_far, n_err))
+        del nudged
+      # the agree phase's rule and reason: the dense reductions add in
+      # other orders on the card and the CPU, and Adam turns a summed
+      # gradient that cancels into a step of about lr of either sign. With
+      # BatchNorm over mostly zero inputs (unadmitted ids read zero) the
+      # run itself is that unsteady (the yardstick above), so only the
+      # 2 lr bound holds there
+      if err > 2 * lr_sum or (not use_bn and far > n // 100):
+        fail('%s: table weights card vs CPU differ by up to %g, %d of %d '
+             'by more than 1e-5' % (what, err, far, n))
+      log('%s: card and CPU agree: ev_count, ev_last, masked slots and '
+          'sweeps exactly; table weights: %d of %d apart by more than 1e-5 '
+          '(%s), the largest by %g (at most 2 lr a step: %g)%s'
+          % (what, far, n, 'at most 1 in 100' if not use_bn
+             else 'not bounded with BatchNorm', err, 2 * lr_sum, yardstick))
+      del card, cpu
+  torch.cuda.empty_cache()
+  log('ev: launches by kernel and math over the published card runs: %s'
+      % launches)
+  return launches
+
+
+def phase_ckpt(torch):
+  """The Taobao DIN at full width (K3), unshuffled DummyInput: a Trainer
+  fits 20 steps on a model_dir with a save every 10; the step-20
+  checkpoint is removed, and a fresh Trainer on the same model_dir
+  restores step 10 and fits to 20. Its step, tables, model (dense
+  parameters, BatchNorm statistics) and dense optimizer state must equal
+  the uninterrupted run's bit for bit. Then a save and a restore of that
+  state on their own, timed, with the checkpoint's size."""
+  import shutil
+  from easyrec_torch.train import checkpoints as ckpt_lib
+  from easyrec_torch.train.trainer import Trainer
+  from easyrec_torch.utils import flagship
+  from easyrec_torch.ops import kernels
+
+  os.environ['EASYREC_PACKED_FUSED'] = '1'
+  model_dir = os.path.join(SCRATCH, 'din_ckpt')
+  shutil.rmtree(model_dir, ignore_errors=True)
+  cfg = flagship.taobao_din_config(model_dir=model_dir)
+  cfg.data_config.shuffle = False
+  cfg.train_config.num_steps = 20
+  cfg.train_config.save_checkpoints_steps = 10
+  kernels.reset_launches()
+  a = Trainer(cfg, device='cuda')
+  ra = a.fit(eval_at_end=False)
+  torch.cuda.synchronize()
+  counts = kernels.launch_counts()
+  ckpts = os.path.join(model_dir, 'checkpoints')
+  if sorted(os.listdir(ckpts)) != ['10', '20'] or counts['rmw_fused'] != 20:
+    fail('ckpt: checkpoints %s, K3 launches %d' % (os.listdir(ckpts),
+                                                   counts['rmw_fused']))
+  shutil.rmtree(os.path.join(ckpts, '20'))
+  kernels.reset_launches()
+  b = Trainer(cfg, device='cuda')
+  rb = b.fit(eval_at_end=False)
+  torch.cuda.synchronize()
+  if rb['global_step'] != 20 or len(rb['losses']) != 10 or \
+      kernels.launch_counts()['rmw_fused'] != 10:
+    fail('ckpt: the resumed run took %d steps to step %d'
+         % (len(rb['losses']), rb['global_step']))
+
+  def flat(tree, prefix=''):
+    out = {}
+    for k, v in tree.items():
+      if isinstance(v, dict):
+        out.update(flat(v, prefix + k + '/'))
+      else:
+        out[prefix + k] = v
+    return out
+
+  sa, sb = flat(a.state_dict()), flat(b.state_dict())
+  differ = sorted(k for k in sa if not torch.equal(
+      sa[k].view(torch.int32) if sa[k].dtype == torch.float32 else sa[k],
+      sb[k].view(torch.int32) if sb[k].dtype == torch.float32 else sb[k]))
+  log('ckpt: Taobao DIN, K3, 20 steps with saves at 10 and 20; a fresh '
+      'Trainer restored step 10 and trained to 20: losses %s (resumed) vs '
+      '%s; %d of %d state tensors differ from the uninterrupted run'
+      % (['%.6f' % x for x in rb['losses']],
+         ['%.6f' % x for x in ra['losses'][10:]], len(differ), len(sa)))
+  if differ or rb['losses'] != ra['losses'][10:]:
+    fail('ckpt: the resumed run differs from the uninterrupted one in %s'
+         % differ[:20])
+  timing_dir = os.path.join(SCRATCH, 'din_ckpt_timing')
+  shutil.rmtree(timing_dir, ignore_errors=True)
+  manager = ckpt_lib.CheckpointManager(timing_dir,
+                                       layout_stamp=a.layout_stamp())
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  manager.save(a.state_dict(), 20)
+  save_s = time.perf_counter() - t0
+  nbytes = os.path.getsize(os.path.join(manager.step_dir(20), 'state.pt'))
+  c = Trainer(cfg, device='cuda')
+  c.init_state()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  c.load_state_dict(manager.restore(20))
+  torch.cuda.synchronize()
+  restore_s = time.perf_counter() - t0
+  log('ckpt: save %.3f s, restore (read and copy to the card) %.3f s, '
+      'checkpoint %d bytes (the [%d, %d] table %d bytes)'
+      % (save_s, restore_s, nbytes, a.metas['emb16'].rows,
+         a.metas['emb16'].width, a.tables['emb16'].numel() * 4))
+  del a, b, c
+  shutil.rmtree(timing_dir, ignore_errors=True)
+  torch.cuda.empty_cache()
+
+
 def main():
   if not os.path.isdir(os.path.join(HERE, 'easyrec_torch')):
     fail('easyrec_torch/ is not beside chip_smoke.py: run it from the '
@@ -1041,6 +1474,7 @@ def main():
   # 3-7
   from easyrec_torch.utils import flagship
   results = phase_kernels(torch)
+  results += phase_kernels_ev(torch)
   groups = phase_groups(torch)
   phase_optimizers(torch)
   phase_agree(torch, 'DIN', flagship.taobao_din_config(
@@ -1053,12 +1487,15 @@ def main():
   adagrad = phase_slice(torch, card, 'flagship DeepFM, Adagrad tables',
                         flagship.criteo_deepfm_adagrad_config(), '0',
                         ('seg_sum', 'rmw_rows'), 'adagrad')
+  phase_ckpt(torch)
+  ev = phase_ev(torch)
   phase_kernel_only(torch)
-  # launches on the paths: K1 on the Adagrad DeepFM's (this slice's), each
-  # K2/K3 math on the path that runs it, 0 for a math no path runs
+  # launches on the paths: K1 on the Adagrad DeepFM's, each K2/K3 math on
+  # the path that runs it (the EV maths on the EV phase's), 0 for a math
+  # no path runs
   for r in results:
     r['launches'] = adagrad['seg_sum'] if r['name'] == 'seg_sum' else sum(
-        path.get(r['name'], 0) for path in (din, deepfm, adagrad))
+        path.get(r['name'], 0) for path in (din, deepfm, adagrad, ev))
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
           'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')

@@ -16,8 +16,12 @@ Field kinds:
   unported                  a field the port does not implement: it parses,
                             and `config_util.check_ported` raises
                             NotImplementedError naming it when it is set
-Fields a config sets that are not listed here are parsed and ignored, as the
-JAX package's permissive parse (allow_unknown_field) ignores unknown fields.
+Fields a config sets that are not listed here are parsed and dropped. Each
+of them changes nothing the port computes (reference-compat knobs, TF
+runtime settings, summaries); tests/test_torch_samples.py holds every
+samples/*.config to that, field by field, against the JAX package's parse.
+A field that would change what the port trains is listed, as `unported`
+until it is ported.
 """
 
 from __future__ import annotations
@@ -98,6 +102,7 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('feature_configs', 'msg:FeatureConfig', rep=True),
         _f('feature_config', 'msg:FeatureConfigV2'),
         _f('model_config', 'msg:EasyRecModel'),
+        _f('export_config', 'unported'),
         _f('fg_json_path', 'unported'),
     ),
     # train.proto
@@ -105,10 +110,17 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('optimizer_config', 'msg:Optimizer', rep=True),
         _f('gradient_clipping_by_norm', 'float', 0.0),
         _f('num_steps', 'int', 0),
-        _f('fine_tune_checkpoint', 'unported'),
+        _f('fine_tune_checkpoint', 'string', ''),
+        _f('fine_tune_ckpt_var_map', 'string', ''),
+        _f('save_checkpoints_steps', 'int', 1000),
+        _f('save_checkpoints_secs', 'int', 0),
+        _f('keep_checkpoint_max', 'int', 10),
         _f('log_step_count_steps', 'int', 10),
+        _f('force_restore_shape_compatible', 'bool', False),
         _f('freeze_gradient', 'unported', rep=True),
         _f('incr_save_config', 'unported'),
+        _f('enable_oss_stop_signal', 'unported'),
+        _f('dead_line', 'unported'),
         _f('compute_dtype', 'string', 'float32'),
         _f('random_seed', 'int', 2025),
     ),
@@ -209,6 +221,7 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
     'EvalConfig': (
         _f('num_examples', 'int', 0),
         _f('metrics_set', 'msg:EvalMetrics', rep=True),
+        _f('eval_online', 'unported'),
     ),
     'EvalMetrics': (
         _f('auc', 'msg:AUC', oneof='metric'),
@@ -235,8 +248,10 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('embedding_regularization', 'float', 0.0),
         _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
         _f('num_class', 'int', 1),
-        _f('ev_params', 'unported'),
+        _f('ev_params', 'msg:EVParams'),
         _f('kd', 'unported', rep=True),
+        _f('restore_filters', 'string', rep=True),
+        _f('loss_weight_strategy', 'unported'),
         _f('variational_dropout', 'unported'),
         _f('losses', 'unported', rep=True),
         _f('backbone', 'unported'),
@@ -339,10 +354,20 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('max_val', 'double', 0.0),
         _f('normalizer_fn', 'string', ''),
         _f('raw_input_dim', 'int', 1),
-        _f('ev_params', 'unported'),
+        _f('ev_params', 'msg:EVParams'),
         _f('max_multi_len', 'int', 0),
         _f('max_seq_len', 'int', 0),
         _f('sub_feature_type', 'enum:FeatureType', 'IdFeature'),
+        _f('kv_separator', 'unported'),
+        _f('expression', 'unported'),
+        _f('combo_input_seps', 'unported', rep=True),
+        _f('sequence_combiner', 'unported'),
+    ),
+    'EVParams': (
+        # use_cache, init_capacity and max_capacity size the reference's
+        # growing KV store; static hash tables have none (features/ev.py)
+        _f('filter_freq', 'int', 0),
+        _f('steps_to_live', 'int', 0),
     ),
     'FeatureConfigV2': (
         _f('features', 'msg:FeatureConfig', rep=True),

@@ -3,7 +3,8 @@
 //
 // Each functor is the counterpart of one block_math of easyrec_tpu/optim/
 // sparse.py (:89-251) and of its plain version in easyrec_torch/optim/
-// sparse.py (`block`, `compact_block`). kParts is the number of physical
+// sparse.py (`block`, `compact_block`), and of the EV aux tables' add and
+// set maths. kParts is the number of physical
 // parts of a row, [w | s1 | s2], each `dim` wide; x[p] is one element of
 // part p (for compact Adam x[1] carries the bf16 pair (m, v) as the bits of
 // an f32), g its summed gradient. The learning rate and Adam's bias
@@ -33,6 +34,8 @@ enum MathId : int {
   kAdam = 3,
   kCompactAdam = 4,
   kFtrl = 5,
+  kEvAdd = 6,
+  kEvSet = 7,
 };
 
 constexpr int kMaxConsts = 8;      // optim/sparse.py MAX_CONSTS
@@ -188,6 +191,29 @@ struct FtrlMath {
   }
 };
 
+// The EV aux tables' maths (easyrec_tpu/features/ev.py:202-206), one part
+// of dim 1. add_math, the admission count: c + g, g the row's occurrences
+// in the batch. set_math, the last-seen step: every touched row set to
+// hypers[0], the step as f32.
+struct EvAddMath {
+  static constexpr int kParts = 1;
+  __device__ EvAddMath(const float*, const Consts&) {}
+  __device__ __forceinline__ void operator()(float (&x)[kParts],
+                                             float g) const {
+    x[0] = __fadd_rn(x[0], g);
+  }
+};
+
+struct EvSetMath {
+  static constexpr int kParts = 1;
+  float step;
+  __device__ EvSetMath(const float* hyp, const Consts&) : step(hyp[0]) {}
+  __device__ __forceinline__ void operator()(float (&x)[kParts],
+                                             float) const {
+    x[0] = step;
+  }
+};
+
 template <typename M>
 struct MathTag {
   using type = M;
@@ -204,6 +230,8 @@ inline bool dispatch_math(int id, F f) {
     case kAdam: f(MathTag<AdamMath>{}); return true;
     case kCompactAdam: f(MathTag<CompactAdamMath>{}); return true;
     case kFtrl: f(MathTag<FtrlMath>{}); return true;
+    case kEvAdd: f(MathTag<EvAddMath>{}); return true;
+    case kEvSet: f(MathTag<EvSetMath>{}); return true;
     default: return false;
   }
 }

@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel _rmw_fused_pallas (easyrec_tpu/ops/
 // packed_table.py:1024, pallas_call at :1218) with each `math_fn` it takes
-// (the block maths of easyrec_tpu/optim/sparse.py:89-251, block_math.cuh's
-// functors here): the function of K1 (seg_sum.cu, f32 mode) followed by K2
+// (the block maths of easyrec_tpu/optim/sparse.py:89-251 and the EV aux
+// tables' add_math and set_math, easyrec_tpu/features/ev.py:202-206;
+// block_math.cuh's functors here): the function of K1 (seg_sum.cu, f32
+// mode) followed by K2
 // (rmw_rows.cu), with no [n, dim] array of gradient sums in device memory,
 // as the TPU kernel keeps its summed gradients out of HBM.
 //

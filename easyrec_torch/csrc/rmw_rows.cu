@@ -5,7 +5,9 @@
 // pallas_call at :989 pipelined and :1008) with each `math_fn` it takes:
 // the block_math of sparse_sgd, sparse_momentum, sparse_adagrad,
 // sparse_adam (3-part, and compact_math) and sparse_ftrl
-// (easyrec_tpu/optim/sparse.py:89-251), here the functors of
+// (easyrec_tpu/optim/sparse.py:89-251), and the EV aux tables' add_math
+// and set_math (easyrec_tpu/features/ev.py:202-206, on [rows, 1] tables:
+// a lane group of one lane, scalar loads), here the functors of
 // block_math.cuh.
 //
 // Inputs:

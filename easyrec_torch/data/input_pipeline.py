@@ -14,6 +14,7 @@ Batches are flat dicts of numpy arrays:
 from __future__ import annotations
 
 import csv
+import gzip
 import logging
 from typing import Dict, Iterator, Optional
 
@@ -46,7 +47,8 @@ class CSVReader(BaseReader):
 
   Chunks are cut every `chunk_rows` rows (the JAX package cuts them by the
   byte size of its CSV reader's blocks; a file smaller than one block is
-  one chunk in both).
+  one chunk in both). A path ending in `.gz` is read through gzip, as the
+  JAX package's CSV reader decompresses by suffix (:105-107).
   """
 
   def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
@@ -58,7 +60,8 @@ class CSVReader(BaseReader):
     names = self.field_names
     for path in paths:
       try:
-        f = open(path, newline='')
+        f = gzip.open(path, 'rt', newline='') if path.endswith('.gz') \
+            else open(path, newline='')
       except OSError as e:
         if dc.ignore_error:
           logging.warning('skipping bad file %s: %s', path, e)
@@ -138,7 +141,14 @@ def create_reader(data_config, input_path: str) -> BaseReader:
 
 
 class InputPipeline:
-  """Reader -> shuffle -> transforms -> padded batches."""
+  """Reader -> shuffle -> transforms -> padded batches.
+
+  `skip_rows` resumes a run by row count (the JAX package's data-offset
+  resume, :705, :774-784): that many raw rows are dropped, across chunks
+  and epochs, before any transform or shuffle. With shuffle on, the chunks
+  after the skip are permuted with other seeds than in the run that was
+  cut, so a resumed stream equals the uninterrupted one only unshuffled.
+  """
 
   def __init__(self,
                data_config,
@@ -146,7 +156,8 @@ class InputPipeline:
                input_path: str,
                mode: str = 'train',
                batch_size: Optional[int] = None,
-               drop_remainder: Optional[bool] = None):
+               drop_remainder: Optional[bool] = None,
+               skip_rows: int = 0):
     self.data_config = data_config
     self.mode = mode
     if batch_size is None:
@@ -164,13 +175,22 @@ class InputPipeline:
     self.num_epochs = data_config.num_epochs if mode == 'train' else 1
     self.shuffle = data_config.shuffle and mode == 'train'
     self._seed = 17
+    self.skip_rows = int(skip_rows)
 
   def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
     epoch = 0
     carry: Optional[Dict[str, np.ndarray]] = None
+    to_skip = self.skip_rows
     while True:
       epoch += 1
       for columns in self.reader.chunks(self._chunk_rows()):
+        if to_skip > 0:
+          n = len(next(iter(columns.values())))
+          if n <= to_skip:
+            to_skip -= n
+            continue
+          columns = {k: v[to_skip:] for k, v in columns.items()}
+          to_skip = 0
         carry = self._concat(carry, self._process_chunk(columns, epoch))
         n = carry['sample_weight'].shape[0]
         while n >= self.batch_size:

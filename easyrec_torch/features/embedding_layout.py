@@ -206,6 +206,11 @@ def merged_pad_dim(used: int):
 
 def init_stddev(spec: FeatureSpec, dim: int) -> float:
   config = spec.config
+  if config is not None and config.HasField('ev_params') and \
+      config.ev_params.filter_freq > 0:
+    # EV admission: an id has no embedding until admitted, so it starts at
+    # zero and reads the EV default everywhere (features/ev.py)
+    return 0.0
   if config is not None and config.HasField('initializer'):
     init = config.initializer
     which = init.WhichOneof('initializer_oneof')

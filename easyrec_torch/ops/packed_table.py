@@ -187,9 +187,13 @@ def sort_segments(ids: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """ids [N] int64 -> (sids [N] sorted ids, order [N] sorted slot ->
   original slot, starts [N+1]: first sorted slot of segment k, N for
-  unused k and for starts[N]). No host sync."""
+  unused k and for starts[N]). No host sync. The sort is stable, as the
+  JAX package's argsort: a segment's slots keep their batch order, which
+  fixes the order of its gradient sum on every device (PyTorch's unstable
+  sort of up to 4,096 keys on the card is a bitonic network that orders
+  equal keys otherwise than the CPU's)."""
   n = ids.shape[0]
-  sids, order = torch.sort(ids)
+  sids, order = torch.sort(ids, stable=True)
   first = torch.ones(n, dtype=torch.bool, device=ids.device)
   first[1:] = sids[1:] != sids[:-1]
   seg = torch.cumsum(first, 0) - 1

@@ -16,13 +16,16 @@ arithmetic in place, one torch op per optax op:
   rms_prop                       scale_by_rms(decay, eps), -lr, then
                                  trace(momentum)
 `gradient_clipping_by_norm` puts clip_by_global_norm ahead of the dense
-transform. `use_moving_average` is not ported and raises.
+transform. `use_moving_average` is not ported and raises. A dense
+optimizer's state (`state_dict`: the update count and each slot, keyed by
+parameter name) goes into checkpoints; convert.optax_to_dense_state maps the
+JAX package's optax state onto it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, ClassVar, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -41,13 +44,23 @@ def clip_by_global_norm(grads: List[torch.Tensor],
 
 
 class DenseOptimizer:
-  """An optax chain over a list of parameters, updated in place. The
-  update count lives on the parameters' device, and the learning rate is
+  """An optax chain over parameters, updated in place. The update count
+  lives on the parameters' device, and the learning rate is
   schedule(count) read BEFORE count is incremented, as optax's
-  scale_by_schedule reads it, so a step syncs nothing."""
+  scale_by_schedule reads it, so a step syncs nothing.
 
-  def __init__(self, params: List[torch.Tensor], schedule: Callable,
-               clip_norm: float = 0.0):
+  `params` is a mapping name -> parameter (model.named_parameters()), or a
+  list where no state_dict is needed: the state is keyed by name, never by
+  position. `slot_names` are the per-parameter state lists, each named as
+  the optax state field it repeats."""
+  slot_names: ClassVar[Tuple[str, ...]] = ()
+
+  def __init__(self, params, schedule: Callable, clip_norm: float = 0.0):
+    if isinstance(params, Mapping):
+      self.names: Optional[List[str]] = list(params)
+      params = params.values()
+    else:
+      self.names = None
     self.params = list(params)
     self.schedule = schedule
     self.clip_norm = float(clip_norm)
@@ -69,12 +82,48 @@ class DenseOptimizer:
   def _update(self, grads, neg_lr) -> None:
     raise NotImplementedError
 
+  def _named(self) -> List[str]:
+    if self.names is None:
+      raise ValueError('%s was built from a list of parameters: its state '
+                       'is keyed by name, so build it from a mapping'
+                       % type(self).__name__)
+    return self.names
+
+  def state_dict(self) -> Dict[str, object]:
+    """{'count': int32 scalar, slot: {parameter name: tensor}} for each of
+    slot_names; the tensors are the optimizer's own (not copies)."""
+    names = self._named()
+    out: Dict[str, object] = {'count': self.count}
+    for slot in self.slot_names:
+      out[slot] = dict(zip(names, getattr(self, slot)))
+    return out
+
+  @torch.no_grad()
+  def load_state_dict(self, state: Mapping[str, object]) -> None:
+    """Copy a state_dict in, by parameter name; KeyError names a missing
+    parameter, ValueError a shape that differs."""
+    names = self._named()
+    self.count = torch.as_tensor(state['count']).to(
+        device=self.count.device, dtype=torch.int32).clone()
+    for slot in self.slot_names:
+      saved = state[slot]
+      for name, t in zip(names, getattr(self, slot)):
+        if name not in saved:
+          raise KeyError('optimizer state %s has no parameter %r'
+                         % (slot, name))
+        if tuple(saved[name].shape) != tuple(t.shape):
+          raise ValueError('optimizer state %s[%r]: shape %s, parameter %s'
+                           % (slot, name, tuple(saved[name].shape),
+                              tuple(t.shape)))
+        t.copy_(saved[name])
+
 
 class DenseAdam(DenseOptimizer):
   """optax.adam, or optax.adamw with weight_decay. Per parameter:
   mu = (1-b1) g + b1 mu; nu = (1-b2) g^2 + b2 nu; with c = count + 1,
   u = (mu / (1 - b1^c)) / (sqrt(nu / (1 - b2^c)) + eps), plus
   weight_decay * p for adamw; p += -lr * u."""
+  slot_names = ('mu', 'nu')
 
   def __init__(self, params, schedule, b1: float = 0.9, b2: float = 0.999,
                eps: float = 1e-8, weight_decay: Optional[float] = None,
@@ -101,6 +150,7 @@ class DenseAdam(DenseOptimizer):
 class DenseAdagrad(DenseOptimizer):
   """optax.adagrad: s = g^2 + s; u = rsqrt(s + eps) g where s > 0, else 0;
   p += -lr * u."""
+  slot_names = ('sum_of_squares',)
 
   def __init__(self, params, schedule, initial_accumulator_value=0.1,
                eps: float = 1e-7, clip_norm: float = 0.0):
@@ -119,6 +169,7 @@ class DenseAdagrad(DenseOptimizer):
 class DenseMomentum(DenseOptimizer):
   """optax.sgd with momentum: t = g + momentum t; p += -lr * t. With
   weight_decay (momentumw) g + weight_decay * p takes g's place first."""
+  slot_names = ('trace',)
 
   def __init__(self, params, schedule, momentum: float = 0.9,
                weight_decay: Optional[float] = None, clip_norm: float = 0.0):
@@ -139,6 +190,7 @@ class DenseRMSProp(DenseOptimizer):
   """optax.rmsprop(decay, eps, momentum), eps inside the root: nu =
   (1-decay) g^2 + decay nu; u = -lr * (rsqrt(nu + eps) g); t = u +
   momentum t; p += t."""
+  slot_names = ('nu', 'trace')
 
   def __init__(self, params, schedule, decay: float = 0.9,
                eps: float = 1e-8, momentum: float = 0.0,

@@ -3,8 +3,10 @@
 Counterpart of easyrec_tpu/optim/sparse.py (:89-251): `dedup_sum` (:22),
 the bf16-pair moment encoding `pack_pair` / `unpack_pair` (:41-59) and the
 five sparse optimizers, SparseSGD, SparseMomentum, SparseAdagrad,
-SparseAdam (compact and 3-part, with weight_decay) and SparseFtrl. Each
-carries what the JAX package's SparseOptimizer carries:
+SparseAdam (compact and 3-part, with weight_decay) and SparseFtrl, and the
+two block maths of the EV aux tables (easyrec_tpu/features/ev.py:202-206),
+EvAdd and EvSet. Each carries what the JAX package's SparseOptimizer
+carries:
   - `name`, `slot_names` and `slot_init` (the fill of each slot column);
   - `hypers(lr, step)`, the device tensor the kernels read: [lr], or
     [lr, 1/(1-b1^t), 1/(1-b2^t)] for Adam;
@@ -33,8 +35,9 @@ _HI16 = 0xFFFF0000
 
 # math ids of csrc/block_math.cuh
 MATH_SGD, MATH_MOMENTUM, MATH_ADAGRAD, MATH_ADAM, MATH_COMPACT_ADAM, \
-    MATH_FTRL = range(6)
-MATH_NAMES = ('sgd', 'momentum', 'adagrad', 'adam', 'compact_adam', 'ftrl')
+    MATH_FTRL, MATH_EV_ADD, MATH_EV_SET = range(8)
+MATH_NAMES = ('sgd', 'momentum', 'adagrad', 'adam', 'compact_adam', 'ftrl',
+              'ev_add', 'ev_set')
 MAX_CONSTS = 8        # block_math.cuh kMaxConsts
 
 
@@ -348,3 +351,37 @@ class SparseFtrl(SparseOptimizer):
   def kernel_math(self, compact=False):
     return MATH_FTRL, list(self.constants) + \
         [1.0 if self.l2_shrinkage else 0.0]
+
+
+class _EvMath(SparseOptimizer):
+  """An EV aux table's block math: one part, dim 1, hypers [step as f32]."""
+
+  def hypers(self, lr, step: torch.Tensor) -> torch.Tensor:
+    return step.to(torch.float32).reshape(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvAdd(_EvMath):
+  """The admission count's block math, ev.py's add_math: c + g, the summed
+  gradient being the row's occurrences in the batch (a gradient of
+  ones)."""
+  name: ClassVar[str] = 'ev_add'
+
+  def block(self, parts, g, hyp):
+    return [parts[0] + g]
+
+  def kernel_math(self, compact=False):
+    return MATH_EV_ADD, []
+
+
+@dataclasses.dataclass(frozen=True)
+class EvSet(_EvMath):
+  """The last-seen step's block math, ev.py's set_math: every touched row
+  set to hypers[0], the step as f32 (exact up to 2^24 steps)."""
+  name: ClassVar[str] = 'ev_set'
+
+  def block(self, parts, g, hyp):
+    return [torch.zeros_like(parts[0]) + hyp[0]]
+
+  def kernel_math(self, compact=False):
+    return MATH_EV_SET, []

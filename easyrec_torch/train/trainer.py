@@ -1,11 +1,13 @@
 """Trainer: the train step, evaluation and the training loop.
 
 Counterpart of easyrec_tpu/train/trainer.py (Trainer.__init__, init_state
-:184, the step :298-401, evaluate :502, fit :640) on one device, without
-checkpoints. A step:
+:184, the step :298-401, evaluate :502, fit :640 with its checkpoints) on
+one device. A step:
   1. pulls the batch's rows by index_select on the tables' weight columns
      (no autograd on the tables themselves);
-  2. marks the pulled rows as requiring grad and runs the forward;
+  2. marks the pulled rows as requiring grad, zeroes the rows of id slots
+     that EV admission or TTL keeps out (features/ev.py, from the counters
+     as they were before this batch) and runs the forward;
   3. builds the loss: the model loss, l2 over the dense kernels, and the
      embedding regulariser over the pulled rows masked by sample_weight;
   4. runs backward();
@@ -13,7 +15,9 @@ checkpoints. A step:
      clip_by_global_norm where gradient_clipping_by_norm is set;
   6. runs the sparse update of each table (ops/packed_table.py) with the
      embedding optimizer's block math: kernels K1 and K2, or the fused
-     kernel K3 under EASYREC_PACKED_FUSED=1.
+     kernel K3 under EASYREC_PACKED_FUSED=1;
+  7. with ev_params, counts the batch's ids and stamps their step into the
+     EV aux tables through the same update (block maths ev_add, ev_set).
 The tables hold the embedding optimizer's slots beside the weights
 (packed_table.table_meta: one part per slot, Adam's moments as bf16 pairs
 unless EASYREC_PACKED_COMPACT=0). Everything the step needs per step (step
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from torch import nn
 from easyrec_torch.config import config_util, schema
 from easyrec_torch.data.input_pipeline import InputPipeline
 from easyrec_torch.device import resolve_device
+from easyrec_torch.features import ev as ev_lib
 from easyrec_torch.features import feature_spec as fs
 from easyrec_torch.metrics.metrics import MetricsCollection
 from easyrec_torch.models import base as model_base
@@ -41,6 +46,8 @@ from easyrec_torch.models import rank  # noqa: F401 (registers models)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.optim import builder as opt_builder
+from easyrec_torch.train import checkpoints as ckpt_lib
+from easyrec_torch.train.restore import fine_tune_restore
 
 
 def l2_of_kernels(model: nn.Module) -> torch.Tensor:
@@ -88,6 +95,7 @@ class Trainer:
     self.ctx = model_base.build_context(pipeline_config, self.specs)
     self.layout = self.ctx.layout
     self.seed = int(self.train_config.random_seed or 2025)
+    self.model_dir = pipeline_config.model_dir
 
     tc = self.train_config
     self.dense_pair, embed_override = opt_builder.build_optimizers(tc)
@@ -98,8 +106,11 @@ class Trainer:
     self.emb_reg = float(pipeline_config.model_config
                          .embedding_regularization)
     self.metrics = MetricsCollection(self.eval_config.metrics_set)
+    # EVParams admission / TTL (features/ev.py); None without ev_params
+    self.ev_plan = ev_lib.build_ev_plan(self.layout, self.specs)
     self.model: Optional[nn.Module] = None
     self.tables: Dict[str, torch.Tensor] = {}
+    self.ev_state: Dict[str, Dict[str, torch.Tensor]] = {}
 
   # -- state ---------------------------------------------------------------
 
@@ -121,8 +132,44 @@ class Trainer:
       self.layout.init_weights(key, self.seed, self.device, table)
       self.tables[key] = self.layout.fill_slots(
           key, table, pt.slot_fill(meta, slot_init))
-    self.dense_opt = self.dense_pair.dense(list(self.model.parameters()))
+    self.dense_opt = self.dense_pair.dense(
+        dict(self.model.named_parameters()))
+    self.ev_state = ev_lib.init_ev_state(self.layout, self.ev_plan,
+                                         self.device) \
+        if self.ev_plan else {}
+    # id slots EV has masked in this trainer's steps, and (step, rows
+    # swept by table) of its sweeps; neither is checkpointed
+    self.ev_masked = torch.zeros((), dtype=torch.int64, device=self.device)
+    self.ev_swept = []
     self.step = torch.zeros((), dtype=torch.int32, device=self.device)
+
+  def state_dict(self) -> Dict[str, Any]:
+    """Everything a checkpoint holds (train/checkpoints.py): the step, the
+    model's state_dict, the tables, the EV aux tables and the dense
+    optimizer's state; the trainer's own tensors, not copies."""
+    return {'step': self.step, 'model': self.model.state_dict(),
+            'tables': dict(self.tables),
+            'ev': {k: dict(v) for k, v in self.ev_state.items()},
+            'dense_opt': self.dense_opt.state_dict()}
+
+  @torch.no_grad()
+  def load_state_dict(self, state: Dict[str, Any]) -> None:
+    """Copy a state_dict (a checkpoint's, or one built by convert.py from
+    the JAX package's state) into the trainer, after init_state."""
+    self.step = torch.as_tensor(state['step']).to(
+        device=self.device, dtype=torch.int32).clone()
+    self.model.load_state_dict(state['model'])
+    for key, table in self.tables.items():
+      table.copy_(state['tables'][key])
+    for key, aux in self.ev_state.items():
+      for name, t in aux.items():
+        t.copy_(state['ev'][key][name])
+    self.dense_opt.load_state_dict(state['dense_opt'])
+
+  def layout_stamp(self) -> dict:
+    """The tables' geometry, stored with and checked against checkpoints
+    (train/checkpoints.layout_stamp)."""
+    return ckpt_lib.layout_stamp(self.metas, self.ev_state)
 
   # -- train step ----------------------------------------------------------
 
@@ -147,9 +194,12 @@ class Trainer:
     packs = emb_ops.pack_ids(self.layout, batch)
     pulled = {k: v.requires_grad_() for k, v in
               emb_ops.pull_embeddings(self.tables, packs, self.metas).items()}
+    used = ev_lib.mask_pulled(pulled, packs, self.ev_state, self.ev_plan,
+                              self.step, self.ev_masked) \
+        if self.ev_plan else pulled
     self.model.train()
-    outputs = self.model(batch, pulled)
-    total, loss_dict = self._regularised_loss(outputs, batch, pulled)
+    outputs = self.model(batch, used)
+    total, loss_dict = self._regularised_loss(outputs, batch, used)
     for p in self.dense_opt.params:
       p.grad = None
     total.backward()
@@ -162,6 +212,9 @@ class Trainer:
       for key, meta in self.metas.items():
         pt.apply_packed_update(self.tables[key], packs[key],
                                pulled[key].grad, hypers, sparse, meta)
+      if self.ev_plan:
+        ev_lib.update_ev_state(self.ev_state, packs, self.ev_plan,
+                               self.step)
       self.step += 1
     out = {k: v.detach() for k, v in loss_dict.items()}
     out['total_loss'] = total.detach()
@@ -169,11 +222,13 @@ class Trainer:
 
   # -- pipelines -----------------------------------------------------------
 
-  def train_input(self, batch_size=None) -> InputPipeline:
+  def train_input(self, batch_size=None, skip_rows: int = 0
+                  ) -> InputPipeline:
     return InputPipeline(self.data_config, self.feature_configs,
                          config_util.get_train_input_path(
                              self.pipeline_config),
-                         mode='train', batch_size=batch_size)
+                         mode='train', batch_size=batch_size,
+                         skip_rows=skip_rows)
 
   def eval_input(self, batch_size=None) -> InputPipeline:
     return InputPipeline(self.data_config, self.feature_configs,
@@ -218,21 +273,67 @@ class Trainer:
 
   # -- training loop -------------------------------------------------------
 
+  def save(self, manager: ckpt_lib.CheckpointManager, step: int,
+           force: bool = False) -> bool:
+    """The EV TTL sweep (features/ev.evict_stale), then a checkpoint of
+    step `step`; returns whether one was written."""
+    if self.ev_plan:
+      swept = ev_lib.evict_stale(self.tables, self.ev_state, self.ev_plan,
+                                 self.step)
+      self.ev_swept.append((step, swept))
+      logging.info('EV sweep at step %d: rows evicted %s', step, swept)
+    return manager.save(self.state_dict(), step, force=force)
+
   def fit(self, num_steps: Optional[int] = None,
           log_every: Optional[int] = None,
-          eval_at_end: bool = True) -> Dict:
-    """Train for num_steps (default train_config.num_steps; 0 = until the
-    input ends), then evaluate. Returns the step count, every step's total
-    loss and the eval metrics."""
+          eval_at_end: bool = True, checkpoint: bool = True) -> Dict:
+    """Train up to num_steps (default train_config.num_steps; 0 = until the
+    input ends), counting from the restored step, then evaluate.
+
+    With `checkpoint` and a model_dir (JAX trainer.py:640-724, :865-876,
+    :920-928): the latest checkpoint under model_dir/checkpoints is
+    restored, and the input resumes by dropping restored_step * batch_size
+    raw rows (the pipeline is built after the restore, so no batch of the
+    un-resumed stream is read); with none there, fine_tune_checkpoint, if
+    set, warm-starts the model and tables (train/restore.py). A checkpoint
+    is saved every save_checkpoints_steps steps or save_checkpoints_secs
+    seconds and once more at the end, each after the EV sweep. The JAX
+    package also writes data_offset.json, for streaming readers only; none
+    is ported, so the port writes none.
+
+    Returns the global step, the log history, this run's total losses (one
+    a step) and the eval metrics."""
     tc = self.train_config
     num_steps = num_steps or (tc.num_steps or None)
     log_every = log_every or max(int(tc.log_step_count_steps), 1)
+    save_every = int(tc.save_checkpoints_steps) or 1000
+    save_secs = int(tc.save_checkpoints_secs)
     self.init_state()
-    step = 0
+    manager = None
+    resumed = False
+    if checkpoint and self.model_dir:
+      manager = ckpt_lib.CheckpointManager(
+          self.model_dir, max_to_keep=int(tc.keep_checkpoint_max) or 10,
+          layout_stamp=self.layout_stamp())
+      restored = manager.restore_latest()
+      if restored is not None:
+        self.load_state_dict(restored)
+        resumed = True
+        logging.info('restored checkpoint at step %d', int(self.step))
+      del restored            # a host copy of every table
+    if not resumed and tc.fine_tune_checkpoint:
+      fine_tune_restore(
+          self, tc.fine_tune_checkpoint, var_map=tc.fine_tune_ckpt_var_map,
+          restore_filters=list(
+              self.pipeline_config.model_config.restore_filters),
+          force_shape_compat=tc.force_restore_shape_compatible)
+    step = int(self.step)
     losses: List[torch.Tensor] = []
     history = []
     t0, window = time.time(), 0
-    for batch in self.train_input():
+    last_save = time.time()
+    skip_rows = step * int(self.data_config.batch_size)
+    for batch in self.train_input(skip_rows=skip_rows):
       if num_steps and step >= num_steps:
         break
       loss_dict = self.train_step(to_device(batch, self.device))
@@ -246,6 +347,13 @@ class Trainer:
         history.append({'step': step, 'loss': loss_val,
                         'examples_per_sec': rate})
         t0, window = time.time(), 0
+      if manager is not None and (
+          step % save_every == 0 or
+          (save_secs and time.time() - last_save >= save_secs)):
+        last_save = time.time()
+        self.save(manager, step)
+    if manager is not None:
+      self.save(manager, step, force=True)
     result = {'global_step': step, 'history': history,
               'losses': torch.stack(losses).tolist() if losses else []}
     if eval_at_end and self.pipeline_config.WhichOneof('eval_path'):

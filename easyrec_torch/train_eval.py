@@ -1,7 +1,8 @@
 """Train CLI: python -m easyrec_torch.train_eval --pipeline_config_path ...
 
 Counterpart of easyrec_tpu/train_eval.py (:13-74) plus --device. Runs on
-CUDA unless --device cpu is given.
+CUDA unless --device cpu is given. With model_dir set in the config, it
+writes checkpoints there and a second call resumes from the latest one.
 """
 
 import argparse

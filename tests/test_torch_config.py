@@ -165,8 +165,11 @@ def test_optimizer_messages_match_protobuf(kind, extra, fields):
      'feature_type TagFeature'),
     ('data_config { input_type: OdpsInput }', 'input_type OdpsInput'),
     ('train_config { freeze_gradient: "dnn_0" }', 'freeze_gradient'),
-    ('train_config { fine_tune_checkpoint: "ckpt" }',
-     'fine_tune_checkpoint'),
+    ('train_config { dead_line: "20220508 23:59:59" }', 'dead_line'),
+    ('train_config { enable_oss_stop_signal: true }',
+     'enable_oss_stop_signal'),
+    ('export_config { exporter_type: "best" }', 'export_config'),
+    ('eval_config { eval_online: true }', 'eval_online'),
     ('eval_config { metrics_set { gauc {} } }', 'gauc'),
 ])
 def test_unported_parts_raise_naming_them(text, what):

@@ -535,3 +535,99 @@ def test_rmw_fused_kernel_matches_plain_for_every_math(cuda, which, dim):
   ids, grads = _mixed_segments(cuda, dim, 20_000, 32)
   ids[-5:] = 20_000
   _check_fused_against_plain(cuda, ids, grads, 20_000, opt, compact)
+
+
+EV_MATHS = {'ev_add': sparse.EvAdd(), 'ev_set': sparse.EvSet()}
+
+
+def _ev_inputs(device, rows, seed):
+  """The EV aux tables' update: a [rows, 1] table of counts or steps, the
+  ids of _mixed_segments (hot ids up to 3,000 slots, ids outside the
+  table) with a gradient of ones, every 13th slot zero (a zero-sum row
+  keeps its bytes)."""
+  ids, _ = _mixed_segments(device, 1, rows, seed)
+  ids[-5:] = rows
+  ones = torch.ones((ids.shape[0], 1), device=device)
+  ones[::13] = 0.0
+  gen = torch.Generator(device=device).manual_seed(seed)
+  table = torch.randint(0, 50, (rows, 1), generator=gen,
+                        device=device).to(torch.float32)
+  return ids, ones, table
+
+
+@pytest.mark.parametrize('mode', ['0', '1'])
+@pytest.mark.parametrize('which', sorted(EV_MATHS))
+def test_rmw_rows_kernel_ev_maths_at_dim_1(cuda, which, mode):
+  """K2 with ev_add and ev_set on a [rows, 1] aux table (a lane group of
+  one lane, scalar loads) after K1 in modes 0 and 1: bit-exact against
+  rmw_rows_plain over the whole table, hot ids, a sentinel tail and ids
+  outside the table included; only touched rows change."""
+  opt, rows = EV_MATHS[which], 20_000
+  ids, ones, table = _ev_inputs(cuda, rows, 40)
+  sids, order, starts = pt.sort_segments(ids)
+  uids, gsum = pt.seg_sum(sids, order, starts, ones, rows, mode)
+  assert int((uids == rows).sum()) > 0
+  hyp = opt.hypers(None, torch.tensor(37, dtype=torch.int32, device=cuda))
+  orig, ref = table.clone(), table.clone()
+  before = dict(kernels.tagged_counts())
+  pt.rmw_rows(table, uids, gsum, hyp, opt)
+  torch.cuda.synchronize()
+  tag = 'rmw_rows/' + which
+  assert kernels.tagged_counts()[tag] == before.get(tag, 0) + 1
+  pt.rmw_rows_plain(ref, uids, gsum, hyp, opt)
+  assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
+  live = uids < rows
+  touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
+  touched[uids[live & (gsum[:, 0] != 0)]] = True
+  changed = table[:, 0] != orig[:, 0]
+  assert not bool((changed & ~touched).any())
+  if which == 'ev_set':
+    assert bool((table[touched, 0] == 37.0).all())
+
+
+@pytest.mark.parametrize('which', sorted(EV_MATHS))
+def test_rmw_fused_kernel_ev_maths_at_dim_1(cuda, which):
+  """K3 with ev_add and ev_set at dim 1 against rmw_fused_plain, bit-exact,
+  on the same segments (f32 sums: a count up to 3,000 stays exact)."""
+  opt, rows = EV_MATHS[which], 20_000
+  ids, ones, table = _ev_inputs(cuda, rows, 41)
+  sids, order, starts = pt.sort_segments(ids)
+  hyp = opt.hypers(None, torch.tensor(37, dtype=torch.int32, device=cuda))
+  ref = table.clone()
+  before = dict(kernels.tagged_counts())
+  pt.rmw_fused(table, sids, order, starts, ones, hyp, opt)
+  torch.cuda.synchronize()
+  tag = 'rmw_fused/' + which
+  assert kernels.tagged_counts()[tag] == before.get(tag, 0) + 1
+  pt.rmw_fused_plain(ref, sids, order, starts, ones, hyp, opt)
+  assert torch.equal(table.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize('fused', ['0', '1'])
+def test_ev_train_step_launches_the_ev_maths(cuda, fused, monkeypatch):
+  """A DeepFM step with ev_params (filter_freq and steps_to_live on its id
+  features) updates its count and last-seen tables through K2 (or K3)
+  with ev_add and ev_set, once each a step, beside the table's Adam."""
+  monkeypatch.setenv('EASYREC_PACKED_FUSED', fused)
+  from easyrec_torch.train.trainer import Trainer, to_device
+  from easyrec_torch.utils import flagship
+  from easyrec_torch.utils.synthetic import synthetic_batch
+  cfg = flagship.criteo_deepfm_config(batch_size=128, hash_bucket_size=500,
+                                      num_dense=2, num_cat=3)
+  for fc in cfg.feature_config.features:
+    if fc.feature_type == 'IdFeature':
+      ev = fc.ev_params
+      ev.filter_freq, ev.steps_to_live = 2, 10
+      fc.ev_params = ev
+  trainer = Trainer(cfg, device='cuda')
+  trainer.init_state()
+  batch = to_device(synthetic_batch(trainer.specs, ['label'], 128), cuda)
+  kernels.reset_launches()
+  for _ in range(2):
+    trainer.train_step(batch)
+  k = 'rmw_fused' if fused == '1' else 'rmw_rows'
+  assert kernels.tagged_counts() == {k + '/compact_adam': 2,
+                                     k + '/ev_add': 2, k + '/ev_set': 2}
+  (key, aux), = trainer.ev_state.items()
+  assert float(aux['ev_count'].max()) >= 2
+  assert float(aux['ev_last'].max()) == 1.0
