@@ -33,10 +33,11 @@ Phases, in order; any failure exits nonzero before the result line:
              launch, K1-K3 must not;
   5. agree   a small DeepFM trains 3 steps on the card and on the CPU from
              the same weights and batches once per optimizer message (Adam
-             compact and 3-part, AdamW, Adagrad, momentum, momentumW,
-             RMSProp, FTRL), unfused (K1 + K2) and fused (K3), and a small
-             DIN (K3): losses and table weights must agree, and K2/K3 must
-             launch with the optimizer's block math;
+             compact and 3-part, Adam with use_moving_average, AdamW,
+             Adagrad, momentum, momentumW, RMSProp, FTRL), unfused (K1 +
+             K2) and fused (K3), and a small DIN (K3): losses, table
+             weights and EMA weights must agree, and K2/K3 must launch
+             with the optimizer's block math;
   6. din     the Taobao DIN config through easyrec_torch.main
              .train_and_evaluate at full width with EASYREC_PACKED_FUSED=1
              (num_steps cut to 20; eval runs DummyInput's cap of 50
@@ -69,6 +70,18 @@ K4 and K5 must launch 0 times in 6-8.
              on the inputs of phase 3, after the slices because the
              profiler stays hooked into the process once it has traced the
              card.
+ 12. serve   (run between 10 and 11: the profiler slows what follows it)
+             the flagship DeepFM at full width: train_and_evaluate on a
+             model_dir (20 steps, one save; the checkpoint and the 'final'
+             export timed, with their bytes), main.export of the
+             checkpoint (equal to the final export bit for bit), then
+             PredictorService on the card: load and warmup timed, 20
+             timed requests each of 1, 256 and 4096 raw rows (p50, p99,
+             rows/s), answers equal to the Trainer's eval forward, /status
+             counting them, K1-K5 launched 0 times; then the Taobao DIN
+             on a seeded CSV, exported and predicted by predict_csv with
+             reserved columns on the card and the CPU (probs within 1e-5,
+             reserved columns as in the input);
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -896,10 +909,30 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
     if not bool(torch.isfinite(runs['cuda'].tables[key]).all()):
       fail('small %s: table %s holds a value that is not finite'
            % (what, key))
+  ema = ''
+  if t.dense_opt.named_ema() is not None:
+    # use_moving_average: the EMA of the dense weights, held card against
+    # CPU by the same rule as the table weights (the EMA averages
+    # parameters that each move at most lr a step)
+    dense_lr = sum(float(t.dense_pair.schedule(torch.tensor(s)))
+                   for s in range(3))
+    cpu_ema = runs['cpu'].dense_opt.named_ema()
+    far, total, err = 0, 0, 0.0
+    for name, e in t.dense_opt.named_ema().items():
+      diff = (e.cpu() - cpu_ema[name]).abs()
+      far += int((diff > 1e-5).sum())
+      total += diff.numel()
+      err = max(err, float(diff.max()))
+    if far > total // 100 or err > 2 * dense_lr or not all(
+        bool(torch.isfinite(e).all()) for e in t.dense_opt.ema):
+      fail('small %s: EMA weights differ by up to %g, %d of %d by more '
+           'than 1e-5' % (what, err, far, total))
+    ema = ('; EMA weights (decay %g) within 1e-5 but %d of %d, largest '
+           'gap %g' % (t.dense_opt.ema_decay, far, total, err))
   log('agree: small %s, EASYREC_PACKED_FUSED=%s, 3 steps, card vs CPU '
       'losses %s vs %s; table weights within 1e-5 but %d (at most 1 in '
-      '100, each within 2 lr a step); card launches %s'
-      % (what, fused, losses['cuda'], losses['cpu'], far_all, tagged))
+      '100, each within 2 lr a step)%s; card launches %s'
+      % (what, fused, losses['cuda'], losses['cpu'], far_all, ema, tagged))
   return tagged
 
 
@@ -908,6 +941,8 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
 # without the learning rate, EASYREC_PACKED_COMPACT)
 AGREE_OPTIMIZERS = [
     ('adam', 'adam_optimizer {%s}', '1'),
+    ('adam, EMA 0.99', 'adam_optimizer {%s} use_moving_average: true '
+                       'moving_average_decay: 0.99', '1'),
     ('adam, 3-part', 'adam_optimizer {%s}', '0'),
     ('adamw', 'adamw_optimizer {%s weight_decay: 0.01}', '1'),
     ('adagrad', 'adagrad_optimizer {%s}', '1'),
@@ -1441,6 +1476,347 @@ def phase_ckpt(torch):
   torch.cuda.empty_cache()
 
 
+
+def dir_bytes(path):
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(path) for f in files)
+
+
+class Timed:
+  """Wraps fn (a module attribute, replaced for the phase): each call's
+  seconds and return value are recorded in `calls`."""
+
+  def __init__(self, owner, name):
+    self.owner, self.name = owner, name
+    self.fn = getattr(owner, name)
+    self.calls = []
+
+  def __enter__(self):
+    def timed(*args, **kwargs):
+      t0 = time.perf_counter()
+      out = self.fn(*args, **kwargs)
+      self.calls.append((time.perf_counter() - t0, out))
+      return out
+    setattr(self.owner, self.name, timed)
+    return self
+
+  def __exit__(self, *exc):
+    setattr(self.owner, self.name, self.fn)
+
+
+SERVE_SIZES = (1, 256, 4096)
+SERVE_REQUESTS = 20
+
+
+def serve_rows(n, seed):
+  """n raw flagship rows made from `seed`: F1-F13 as JSON numbers and
+  C1-C26 as strings, DummyInput's value ranges."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  dense = rng.random((n, 13))
+  ids = rng.integers(0, 100000, (n, 26))
+  return [dict({'F%d' % (j + 1): float(dense[i, j]) for j in range(13)},
+               **{'C%d' % (j + 1): 'id%d' % ids[i, j] for j in range(26)})
+          for i in range(n)]
+
+
+def trainer_outputs(torch, trainer, rows):
+  """The training Trainer's own eval forward on `rows`, transformed as the
+  Predictor transforms a request: {output: numpy}."""
+  import numpy as np
+  from easyrec_torch.features import transforms as tr
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import to_device
+  names = list(dict.fromkeys(n for fc in trainer.feature_configs
+                             for n in fc.input_names))
+  columns = {n: np.array([r.get(n, '') for r in rows], dtype=object)
+             for n in names}
+  packed = tr.apply_transforms(tr.build_transforms(trainer.specs), columns)
+  packed['sample_weight'] = np.ones(len(rows), np.float32)
+  batch = to_device({k: np.array(v) for k, v in packed.items()},
+                    trainer.device)
+  with torch.no_grad():
+    packs = emb_ops.pack_ids(trainer.layout, batch)
+    pulled = emb_ops.pull_embeddings(trainer.tables, packs, trainer.metas)
+    out = trainer.model.export_outputs(trainer.eval_forward(batch, pulled))
+  return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def phase_serve_deepfm(torch, smi):
+  """The flagship DeepFM at full width through the user's entry points:
+  train_and_evaluate on a model_dir (20 steps, one save at the end, the
+  'final' export of the logical [26,000,014, 32] table), main.export of
+  the step-20 checkpoint into a second directory (its variables must equal
+  the final export's bit for bit), then PredictorService on the card: load
+  and warmup timed, /healthz 200, 20 timed requests (after one untimed)
+  of 1, 256 and 4096 raw rows each, /status counting them, and every
+  answer equal to the training Trainer's own eval forward on the same
+  transformed rows (each request one chunk, as the Trainer's batch; held
+  bit for bit, and to 1e-6 if the card's kernels differ in their last
+  bits). K1-K5 must launch 0 times while it serves."""
+  import shutil
+  import numpy as np
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.export import saved_model as sm
+  from easyrec_torch.features import transforms as tr
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.serving.client import PredictClient
+  from easyrec_torch.serving.server import PredictorService
+  from easyrec_torch.train import checkpoints as ckpt_lib
+  from easyrec_torch.utils import flagship
+
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  root = os.path.join(SCRATCH, 'serve')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  model_dir = os.path.join(root, 'deepfm')
+  usage = shutil.disk_usage(root)
+  log('serve: disk under %s: %.1f GB free of %.1f GB before the flagship '
+      'checkpoint; %s' % (root, usage.free / 1e9, usage.total / 1e9, smi))
+  cfg = flagship.criteo_deepfm_config(model_dir=model_dir)
+  edits = {'train_config.num_steps': SLICE_STEPS,
+           'train_config.save_checkpoints_steps': SLICE_STEPS,
+           'train_config.log_step_count_steps': 10}
+  kernels.reset_launches()
+  t0 = time.time()
+  with Timed(ckpt_lib.CheckpointManager, 'save') as saves, \
+      Timed(sm, 'export_saved_model') as exports:
+    result = main_lib.train_and_evaluate(cfg, edit_config_json=edits,
+                                       device='cuda')
+  torch.cuda.synchronize()
+  wall = time.time() - t0
+  counts = kernels.launch_counts()
+  trainer = result['trainer']
+  ckpt = os.path.join(model_dir, 'checkpoints', str(SLICE_STEPS), 'state.pt')
+  final = result.get('export_dir')
+  if result['global_step'] != SLICE_STEPS or not final or \
+      [w for _, w in saves.calls] != [True, False] or \
+      len(exports.calls) != 1:
+    fail('serve: train_and_evaluate ran %d steps, saves %s, exports %d'
+         % (result['global_step'], saves.calls, len(exports.calls)))
+  if counts['seg_sum'] != SLICE_STEPS or counts['rmw_rows'] != SLICE_STEPS:
+    fail('serve: training launched %s' % counts)
+  (table_key, meta), = trainer.metas.items()
+  log('serve: flagship DeepFM, train_and_evaluate with model_dir: %d steps '
+      'in %.1f s (checkpoint, eval and export included); checkpoint of step '
+      '%d: %d bytes in %.3f s (torch.save of the [%d, %d] table and the '
+      'rest); final export: %d bytes in %.3f s (logical [%d, %d] f32 '
+      'weights %d bytes); %s'
+      % (result['global_step'], wall, SLICE_STEPS, os.path.getsize(ckpt),
+         saves.calls[0][0], meta.rows, meta.width, dir_bytes(final),
+         exports.calls[0][0], meta.rows, meta.dim, meta.rows * meta.dim * 4,
+         smi))
+
+  rows = {n: serve_rows(n, seed=n) for n in SERVE_SIZES}
+  want = {n: trainer_outputs(torch, trainer, rows[n]) for n in SERVE_SIZES}
+  del result, trainer
+  torch.cuda.empty_cache()
+
+  from easyrec_torch.train.trainer import Trainer
+  t0 = time.perf_counter()
+  with Timed(ckpt_lib.CheckpointManager, 'restore') as reads, \
+      Timed(Trainer, 'load_state_dict') as copies, \
+      Timed(sm, 'export_saved_model') as exports:
+    again = main_lib.export(cfg, export_dir=os.path.join(root, 'again'),
+                            checkpoint_path=os.path.dirname(ckpt),
+                            edit_config_json=edits, device='cuda')
+  torch.cuda.synchronize()
+  export_s = time.perf_counter() - t0
+  torch.cuda.empty_cache()
+  _, a = sm.load_serving_state(final)
+  _, b = sm.load_serving_state(again)
+  differ = [k for sec in ('model', 'tables') for k in a[sec]
+            if not torch.equal(a[sec][k], b[sec][k])]
+  if differ or int(a['step']) != int(b['step']) or \
+      sorted(a['tables']) != sorted(b['tables']):
+    fail('serve: main.export of the step-%d checkpoint differs from the '
+         'final export in %s' % (SLICE_STEPS, differ))
+  log('serve: main.export of the step-%d checkpoint in %.3f s (a Trainer on '
+      'the card; checkpoint restore %.3f s: read %.3f s, copy to the card '
+      '%.3f s; export %.3f s): its variables equal the final export\'s bit '
+      'for bit (%d tensors); %s'
+      % (SLICE_STEPS, export_s, reads.calls[0][0] + copies.calls[0][0],
+         reads.calls[0][0], copies.calls[0][0], exports.calls[0][0],
+         len(a['model']) + len(a['tables']), smi))
+  del a, b
+  shutil.rmtree(os.path.join(root, 'again'))
+  shutil.rmtree(os.path.join(model_dir, 'checkpoints'))
+
+  kernels.reset_launches()
+  t0 = time.perf_counter()
+  service = PredictorService(final, batch_size=max(SERVE_SIZES),
+                             device='cuda')
+  torch.cuda.synchronize()
+  load_s = time.perf_counter() - t0
+  if service.predictor.device.type != 'cuda' or any(
+      t.device.type != 'cuda' for t in service.predictor.tables.values()):
+    fail('serve: the Predictor is not on the card')
+  warm_s = service.warmup()
+  service.start()
+  try:
+    client = PredictClient('127.0.0.1:%d' % service.port, timeout=300)
+    conn_check = client._request('GET', '/healthz')
+    if conn_check != {'status': 'warm'}:
+      fail('serve: /healthz answered %s' % conn_check)
+    log('serve: Predictor load (variables read, table to the card) %.3f s, '
+        'warmup %.3f s, /healthz 200 %s; %s'
+        % (load_s, warm_s, conn_check, smi))
+    worst = 0.0
+    bit_equal = True
+    for n in SERVE_SIZES:
+      got = client.predict(rows[n])
+      times = []
+      for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        client.predict(rows[n])
+        times.append(time.perf_counter() - t0)
+      for key, ref in want[n].items():
+        served = np.float32([r[key] for r in got])
+        if served.shape != ref.shape or not np.isfinite(served).all():
+          fail('serve: %s of %d rows: shape %s, finite %s'
+               % (key, n, served.shape, np.isfinite(served).all()))
+        err = float(np.abs(served - ref).max())
+        worst = max(worst, err)
+        bit_equal &= served.tobytes() == ref.tobytes()
+      times = np.array(times) * 1e3
+      # where a request's time goes: the Predictor in this process (no
+      # HTTP, no JSON), and within it the host transforms alone
+      inner, host = [], []
+      for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        with service.lock:
+          service.predictor.predict(rows[n])
+        inner.append(time.perf_counter() - t0)
+        columns = {c: np.array([r.get(c, '') for r in rows[n]],
+                               dtype=object)
+                   for c in service.predictor.input_names}
+        t0 = time.perf_counter()
+        tr.apply_transforms(service.predictor.transforms, columns)
+        host.append(time.perf_counter() - t0)
+      log('serve: %d rows a request, %d requests: latency p50 %.3f ms, p99 '
+          '%.3f ms, mean %.3f ms, %.1f rows/s (HTTP on 127.0.0.1, JSON both '
+          'ways, one chunk of %d rows on the card); in process, '
+          'Predictor.predict p50 %.3f ms, of it the host transforms p50 '
+          '%.3f ms; %s'
+          % (n, SERVE_REQUESTS, np.percentile(times, 50),
+             np.percentile(times, 99), times.mean(),
+             n * SERVE_REQUESTS / (times.sum() / 1e3), n,
+             np.percentile(inner, 50) * 1e3, np.percentile(host, 50) * 1e3,
+             smi))
+    status = client.status()
+    client.close()
+  finally:
+    service.stop()
+  torch.cuda.synchronize()
+  launched = kernels.launch_counts()
+  n_req = len(SERVE_SIZES) * (SERVE_REQUESTS + 1)
+  n_rows = sum(SERVE_SIZES) * (SERVE_REQUESTS + 1)
+  if status['requests'] != n_req or status['rows'] != n_rows:
+    fail('serve: /status counts %d requests and %d rows, %d and %d sent'
+         % (status['requests'], status['rows'], n_req, n_rows))
+  if any(launched.values()):
+    fail('serve: K1-K5 launched %s while serving' % launched)
+  if worst > 1e-6:
+    fail('serve: answers differ from the Trainer\'s eval forward by %g'
+         % worst)
+  log('serve: answers against the training Trainer\'s eval forward on the '
+      'same rows: %s (largest difference %g); /status %d requests, %d rows; '
+      'launches while serving %s'
+      % ('bit-equal' if bit_equal else 'within 1e-6', worst,
+         status['requests'], status['rows'], launched))
+  del service
+  shutil.rmtree(root, ignore_errors=True)
+  torch.cuda.empty_cache()
+
+
+DIN_SERVE_ROWS = 4096 + 100
+
+
+def write_din_csv(path, n, seed=7):
+  """n rows of the Taobao DIN's columns made from `seed`: clk, the 15 id
+  features, price, and the two behaviour sequences (0 to 60 ids)."""
+  import numpy as np
+  from easyrec_torch.utils.flagship import _TAOBAO_ID_FEATURES
+  rng = np.random.default_rng(seed)
+  with open(path, 'w') as f:
+    for _ in range(n):
+      ids = ['%s%d' % (name[:2], rng.integers(0, max(buckets // 2, 2)))
+             for name, buckets in _TAOBAO_ID_FEATURES]
+      seqs = ['|'.join('%s%d' % (p, v) for v in rng.integers(
+          0, 5000, rng.integers(0, 61))) for p in ('ca', 'br')]
+      f.write(','.join(['%d' % rng.integers(0, 2)] + ids +
+                       ['%d' % rng.integers(0, 60)] + seqs) + '\n')
+
+
+def phase_serve_din(torch, smi):
+  """The Taobao DIN at full width on a seeded CSV (CSVInput):
+  train_and_evaluate (5 steps, K3) exports it; Predictor.predict_csv with
+  reserved columns on the card and on the CPU: probs within 1e-5 (f32,
+  the card's reduction orders against the CPU's), the reserved columns
+  equal to the input's, and no K1-K5 launch on the card."""
+  import csv
+  import shutil
+  import numpy as np
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.export.predictor import Predictor
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.utils import flagship
+
+  os.environ['EASYREC_PACKED_FUSED'] = '1'
+  root = os.path.join(SCRATCH, 'serve_din')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  data = os.path.join(root, 'din.csv')
+  write_din_csv(data, DIN_SERVE_ROWS)
+  cfg = flagship.taobao_din_config(model_dir=os.path.join(root, 'md'))
+  edits = {'data_config.input_type': 'CSVInput', 'train_input_path': data,
+           'eval_input_path': data, 'train_config.num_steps': 5}
+  result = main_lib.train_and_evaluate(cfg, edit_config_json=edits,
+                                     device='cuda')
+  export_dir = result['export_dir']
+  del result
+  torch.cuda.empty_cache()
+  reserved = ['user_id', 'adgroup_id', 'tag_brand_list']
+  outs = {}
+  for dev in ('cuda', 'cpu'):
+    kernels.reset_launches()
+    p = Predictor(export_dir, batch_size=4096, device=dev)
+    out = os.path.join(root, 'pred_%s.csv' % dev)
+    t0 = time.perf_counter()
+    n = p.predict_csv(data, out, reserved_cols=reserved)
+    dt = time.perf_counter() - t0
+    if dev == 'cuda':
+      torch.cuda.synchronize()
+      if any(kernels.launch_counts().values()):
+        fail('serve DIN: K1-K5 launched %s' % kernels.launch_counts())
+    with open(out) as f:
+      outs[dev] = (n, dt, list(csv.reader(f)))
+    del p
+  (ng, tg, g), (nc, tc, c) = outs['cuda'], outs['cpu']
+  with open(data) as f:
+    src = list(csv.reader(f))
+  header = reserved + ['logits', 'probs']
+  names = ['clk'] + [n for n, _ in flagship._TAOBAO_ID_FEATURES] + \
+      ['price', 'tag_category_list', 'tag_brand_list']
+  cols = [names.index(r) for r in reserved]
+  if ng != nc or ng != DIN_SERVE_ROWS or g[0] != header or c[0] != header:
+    fail('serve DIN: %d and %d rows, headers %s and %s' % (ng, nc, g[0],
+                                                          c[0]))
+  if [r[:3] for r in g[1:]] != [[s[i] for i in cols] for s in src] or \
+      [r[:3] for r in c[1:]] != [r[:3] for r in g[1:]]:
+    fail('serve DIN: the reserved columns differ from the input\'s')
+  pg = np.float64([r[4] for r in g[1:]])
+  pc = np.float64([r[4] for r in c[1:]])
+  err = float(np.abs(pg - pc).max())
+  if not np.isfinite(pg).all() or err > 1e-5:
+    fail('serve DIN: probs card against CPU differ by %g' % err)
+  log('serve: Taobao DIN predict_csv of %d rows with reserved columns %s: '
+      'card %.3f s, CPU %.3f s; probs card against CPU within %g, reserved '
+      'columns equal to the input\'s; %s'
+      % (ng, reserved, tg, tc, err, smi))
+  shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
   if not os.path.isdir(os.path.join(HERE, 'easyrec_torch')):
     fail('easyrec_torch/ is not beside chip_smoke.py: run it from the '
@@ -1489,6 +1865,8 @@ def main():
                         ('seg_sum', 'rmw_rows'), 'adagrad')
   phase_ckpt(torch)
   ev = phase_ev(torch)
+  phase_serve_deepfm(torch, smi)
+  phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: K1 on the Adagrad DeepFM's, each K2/K3 math on
   # the path that runs it (the EV maths on the EV phase's), 0 for a math

@@ -2,8 +2,9 @@
 
 Counterpart of easyrec_tpu/config/config_util.py: text-format load with the
 same automatic expansions (shared feature names, `name[1-3]` input-field and
-group-name ranges), plain dotted-path edits, and the train/eval input paths.
-Configs come back as `text_format.Message` trees; `check_ported` raises
+group-name ranges), plain dotted-path edits, the train/eval input paths, and
+save_pipeline_config, which writes a config back in text format. Configs
+come back as `text_format.Message` trees; `check_ported` raises
 NotImplementedError, naming the field, for anything the port does not run.
 """
 
@@ -11,11 +12,12 @@ from __future__ import annotations
 
 import glob as _glob
 import logging
+import os
 import re
 from typing import Dict, List, Optional, Union
 
 from easyrec_torch.config import schema
-from easyrec_torch.config.text_format import Message, parse
+from easyrec_torch.config.text_format import Message, parse, to_text
 
 EasyRecConfig = Message
 
@@ -30,7 +32,7 @@ def get_configs_from_pipeline_file(path: str,
   if path.endswith('.json'):
     raise NotImplementedError('json pipeline configs are not ported: %s'
                               % path)
-  with open(path, 'r') as f:
+  with open(path, 'r', encoding='utf-8') as f:
     return get_configs_from_pipeline_str(f.read(), auto_expand)
 
 
@@ -43,6 +45,18 @@ def get_configs_from_pipeline_str(content: str,
     auto_expand_input_fields(config)
     auto_expand_group_feature_names(config)
   return config
+
+
+def save_pipeline_config(config: Message, directory: str,
+                         filename: str = 'pipeline.config') -> str:
+  """Write `config` in text format as directory/filename (the JAX
+  package's save_pipeline_config, config_util.py:63-72); returns the
+  path."""
+  os.makedirs(directory, exist_ok=True)
+  path = os.path.join(directory, filename)
+  with open(path, 'w', encoding='utf-8') as f:
+    f.write(to_text(config))
+  return path
 
 
 def get_feature_configs(config: Message) -> List[Message]:

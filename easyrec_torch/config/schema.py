@@ -102,7 +102,7 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('feature_configs', 'msg:FeatureConfig', rep=True),
         _f('feature_config', 'msg:FeatureConfigV2'),
         _f('model_config', 'msg:EasyRecModel'),
-        _f('export_config', 'unported'),
+        _f('export_config', 'msg:ExportConfig'),
         _f('fg_json_path', 'unported'),
     ),
     # train.proto
@@ -119,8 +119,8 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('force_restore_shape_compatible', 'bool', False),
         _f('freeze_gradient', 'unported', rep=True),
         _f('incr_save_config', 'unported'),
-        _f('enable_oss_stop_signal', 'unported'),
-        _f('dead_line', 'unported'),
+        _f('enable_oss_stop_signal', 'bool', False),
+        _f('dead_line', 'string', ''),
         _f('compute_dtype', 'string', 'float32'),
         _f('random_seed', 'int', 2025),
     ),
@@ -140,6 +140,7 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('lazy_adam_optimizer', 'msg:LazyAdamOptimizer',
            oneof='optimizer'),
         _f('use_moving_average', 'bool', False),
+        _f('moving_average_decay', 'float', 0.9999),
         _f('embedding_learning_rate_multiplier', 'float', 0.0),
     ),
     'RMSPropOptimizer': (
@@ -205,6 +206,24 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
                    'cosine_decay_learning_rate', 'poly_decay_learning_rate',
                    'transformer_learning_rate'),
     ),
+    # export_config: the exporter, best-export metric and early stop, and
+    # the serving outputs; the TF placeholder knobs (batch_size,
+    # multi_placeholder, filter_inputs, placeholder_named_by_input,
+    # multi_value_fields, auto_multi_value) change nothing in either
+    # package and are not listed
+    'ExportConfig': (
+        _f('exporter_type', 'string', 'final'),
+        _f('best_exporter_metric', 'string', 'auc'),
+        _f('metric_bigger', 'bool', True),
+        _f('enable_early_stop', 'bool', False),
+        _f('early_stop_func', 'string', ''),
+        _f('early_stop_params', 'string', ''),
+        _f('max_check_steps', 'int', 10000),
+        _f('exports_to_keep', 'int', 1),
+        _f('export_features', 'bool', False),
+        _f('export_rtp_outputs', 'bool', False),
+        _f('asset_files', 'string', rep=True),
+    ),
     'ConstantLearningRate': (
         _f('learning_rate', 'float', 0.002),
     ),
@@ -221,7 +240,7 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
     'EvalConfig': (
         _f('num_examples', 'int', 0),
         _f('metrics_set', 'msg:EvalMetrics', rep=True),
-        _f('eval_online', 'unported'),
+        _f('eval_online', 'bool', False),
     ),
     'EvalMetrics': (
         _f('auc', 'msg:AUC', oneof='metric'),
@@ -328,6 +347,7 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('eval_batch_size', 'int', 4096),
         _f('drop_remainder', 'bool', False),
         _f('max_tag_len', 'int', 16),
+        _f('file_shard', 'bool', False),
     ),
     'Field': (
         _f('input_name', 'string', ''),

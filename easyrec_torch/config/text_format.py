@@ -1,17 +1,28 @@
-"""A reader of protobuf text format into plain Python `Message` objects.
+"""Protobuf text format to and from plain Python `Message` objects.
 
-Covers what pipeline configs use: scalars, strings with escapes (adjacent
-literals concatenate), enum identifiers, nested messages in `{}` or `<>`,
-repeated fields written once per value or as `[a, b]` lists, `#` comments,
-and `,`/`;` separators. Field types, defaults and repetition come from
-`schema.py`; fields that the schema does not list are parsed and dropped.
+The reader covers what pipeline configs use: scalars, strings with escapes
+(adjacent literals concatenate), enum identifiers, nested messages in `{}`
+or `<>`, repeated fields written once per value or as `[a, b]` lists, `#`
+comments, and `,`/`;` separators. Field types, defaults and repetition come
+from `schema.py`; fields that the schema does not list are parsed and
+dropped. The value of an `unported` field is kept as an `Opaque`: its
+tokens as written, and a canonical form to compare by.
+
+The writer, `to_text`, is the counterpart of protobuf's
+`text_format.MessageToString(..., as_utf8=True)` for what the reader
+holds: set fields only (the set member of a oneof), enums as bare
+identifiers, strings escaped as protobuf escapes them (non-ASCII kept as
+UTF-8), repeated fields one entry per value, floats in the shortest form
+that reads back as the same float32, and `Opaque` values token for token.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import math
 import re
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
@@ -86,6 +97,17 @@ class Message:
   def __repr__(self):
     return '%s(%s)' % (self._type, ', '.join(
         '%s=%r' % kv for kv in self._values.items()))
+
+
+@dataclasses.dataclass(frozen=True)
+class Opaque:
+  """The value of an `unported` field as the reader found it: `tokens`,
+  the source tokens of a scalar or of a `{...}` message (comments
+  dropped), written back by to_text; `canon`, a canonical form (strings
+  unescaped, lists flattened, messages as dicts of lists), which equality
+  compares, so two spellings of one value are equal."""
+  tokens: Tuple[str, ...] = dataclasses.field(compare=False)
+  canon: Any
 
 
 def _coerce(spec: schema.FieldSpec, value):
@@ -262,12 +284,12 @@ class _Parser:
       self.take()
       values = []
       while self.peek()[1] != ']':
-        values.append(self.value(spec, line))
+        values.append(self.value_of(spec, line))
         if self.peek()[1] == ',':
           self.take()
       self.take(']')
     else:
-      values = [self.value(spec, line)]
+      values = [self.value_of(spec, line)]
     if spec is None:
       return                      # not read by the port: dropped
     try:
@@ -284,7 +306,17 @@ class _Parser:
     except ValueError as e:
       raise ParseError('line %d: %s' % (line, e)) from None
 
+  def value_of(self, spec, line):
+    """One value of a field of `spec`: an Opaque for an unported field."""
+    if spec is None or spec.kind != 'unported':
+      return self.value(spec, line)
+    start = self.i
+    canon = self.value(None, line)
+    return Opaque(tuple(t[1] for t in self.toks[start:self.i]), canon)
+
   def value(self, spec, line):
+    """With no spec (inside an Opaque), strings and identifiers come back
+    tagged, ('str', s) and ('ident', name), so they compare apart."""
     kind, val, _ = self.peek()
     if val in ('{', '<'):
       self.take()
@@ -296,13 +328,13 @@ class _Parser:
       parts = []
       while self.peek()[0] == 'string':
         parts.append(_unescape(self.take()[1][1:-1]))
-      return ''.join(parts)
+      return ''.join(parts) if spec is not None else ('str', ''.join(parts))
     if kind == 'number':
       self.take()
       return _number(val)
     if kind == 'ident':
       self.take()
-      return val
+      return val if spec is not None else ('ident', val)
     raise ParseError('line %d: unexpected %r' % (line, val))
 
   def opaque_message(self, close) -> Dict[str, Any]:
@@ -335,3 +367,103 @@ class _Parser:
 def parse(text: str, type_name: str = 'EasyRecConfig') -> Message:
   """Parse text-format `text` into a Message of `type_name`."""
   return _Parser(text).message(Message(type_name))
+
+
+# ------------------------------------------------------------------ writer
+
+# protobuf's text_encoding._str_escapes (CEscape with as_utf8 on a str):
+# control characters as 3-digit octal but \t \n \r, quotes and the
+# backslash escaped, everything else (non-ASCII included) as it is
+_ESCAPES = {i: '\\%03o' % i for i in list(range(32)) + [127]}
+_ESCAPES.update({9: '\\t', 10: '\\n', 13: '\\r', 34: '\\"', 39: "\\'",
+                 92: '\\\\'})
+
+
+def _escape(text: str) -> str:
+  return text.translate(_ESCAPES)
+
+
+_FLOAT32_MAX = float(np.finfo(np.float32).max)
+
+
+def _float32_text(value: float) -> str:
+  """The shortest text that reads back as the same float32, as protobuf
+  writes a float field: numpy's shortest float32 form, checked by reading
+  it back through a double as protobuf's reader does (which takes a
+  double past the largest float32 to infinity); the double's own text
+  (exact for a float32) where that check fails."""
+  if math.isnan(value):
+    return 'nan'
+  if math.isinf(value):
+    return 'inf' if value > 0 else '-inf'
+  f32 = np.float32(value)
+  text = str(f32)
+  back = float(text)
+  if np.float32(back) != f32 or abs(back) > _FLOAT32_MAX:
+    text = repr(float(f32))
+  return text
+
+
+def _scalar_text(spec: schema.FieldSpec, value) -> str:
+  kind = spec.kind
+  if kind == 'string':
+    return '"%s"' % _escape(value)
+  if kind == 'bool':
+    return 'true' if value else 'false'
+  if kind == 'int':
+    return str(int(value))
+  if kind == 'float':
+    return _float32_text(float(value))
+  if kind == 'double':
+    value = float(value)
+    if math.isnan(value):
+      return 'nan'
+    if math.isinf(value):
+      return 'inf' if value > 0 else '-inf'
+    return repr(value)
+  if spec.enum_type:
+    return str(value)
+  raise ValueError('field %s of kind %s is not a scalar' % (spec.name, kind))
+
+
+def _write(msg: Message, indent: int, out: List[str]) -> None:
+  pad = '  ' * indent
+  for spec in schema.MESSAGES[msg.type_name]:
+    if spec.name not in msg._values:
+      continue
+    value = msg._values[spec.name]
+    for v in (value if spec.repeated else [value]):
+      if isinstance(v, Opaque):
+        sep = ' ' if v.tokens and v.tokens[0] in ('{', '<') else ': '
+        out.append('%s%s%s%s\n' % (pad, spec.name, sep, ' '.join(v.tokens)))
+      elif isinstance(v, Message):
+        out.append('%s%s {\n' % (pad, spec.name))
+        _write(v, indent + 1, out)
+        out.append('%s}\n' % pad)
+      else:
+        out.append('%s%s: %s\n' % (pad, spec.name, _scalar_text(spec, v)))
+
+
+def to_text(msg: Message) -> str:
+  """`msg` in protobuf text format (the counterpart of MessageToString
+  with as_utf8=True): the fields it holds, in schema order."""
+  out: List[str] = []
+  _write(msg, 0, out)
+  return ''.join(out)
+
+
+def canonical(msg: Message) -> Dict[str, Any]:
+  """A plain nested dict of what `msg` holds (empty repeated fields left
+  out, Opaque values by their canonical form), for comparing messages."""
+  out = {}
+  for spec in schema.MESSAGES[msg.type_name]:
+    if spec.name not in msg._values:
+      continue
+    value = msg._values[spec.name]
+    if spec.repeated and not value:
+      continue
+    items = [canonical(v) if isinstance(v, Message) else
+             (v.canon if isinstance(v, Opaque) else v)
+             for v in (value if spec.repeated else [value])]
+    out[spec.name] = items if spec.repeated else items[0]
+  return out

@@ -16,7 +16,12 @@ module imports nothing of JAX:
     _dense_from_config: a chain of scale_by_adam / scale_by_rss / trace /
     scale_by_rms states and scale_by_schedule's count, behind
     clip_by_global_norm's empty state where gradient_clipping_by_norm is
-    set) -> the port's DenseOptimizer.state_dict.
+    set, and param_ema's ParamEmaState where use_moving_average is) -> the
+    port's DenseOptimizer.state_dict;
+  - a JAX export's serving state (params, batch_stats, the logical
+    [rows, dim] tables and the step, as the tests read them from its orbax
+    `variables/`) -> the port's export bundle (jax_export_to_bundle), which
+    the port's Predictor and server load.
 `flax_names` gives each state_dict key the name the JAX package's
 train/restore.py _flatten gives the same variable ('inner/dnn/dense_0/
 kernel'), which fine-tune restore_filters and var maps are written against.
@@ -101,7 +106,8 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor],
   return trees['params'], trees['batch_stats']
 
 
-_OPTAX_SLOTS = ('mu', 'nu', 'sum_of_squares', 'trace')
+# slot fields of optax's states, and param_ema's ParamEmaState.ema
+_OPTAX_SLOTS = ('mu', 'nu', 'sum_of_squares', 'trace', 'ema')
 
 
 def _optax_fields(node):
@@ -126,9 +132,9 @@ def _optax_fields(node):
 def optax_to_dense_state(opt_state, slot_names, root: str = 'inner'
                          ) -> Dict[str, object]:
   """The JAX package's optax dense state, as numpy arrays -> the
-  state_dict of the port's DenseOptimizer with these `slot_names` (Adam's
-  mu/nu, Adagrad's sum_of_squares, momentum's trace, RMSProp's nu and
-  trace): 'count' from the chain's counts (scale_by_adam's and the
+  state_dict of the port's DenseOptimizer with these `slot_names` (its
+  state_slots: Adam's mu/nu, Adagrad's sum_of_squares, momentum's trace,
+  RMSProp's nu and trace, then param_ema's ema): 'count' from the chain's counts (scale_by_adam's and the
   schedule's, which move together), each slot's parameter tree through
   flax_to_state_dict (kernels transposed). ValueError when a slot is
   missing or the counts disagree."""
@@ -180,3 +186,50 @@ def table_to_jax_packed(table: np.ndarray, phys_rows: int,
   full[:rows] = table
   return np.ascontiguousarray(full.reshape(groups, 8, pack, cc)
                               .reshape(phys_rows, width))
+
+
+def jax_export_to_bundle(jax_export_dir: str, out_dir: str, params,
+                         batch_stats, tables, step) -> str:
+  """A JAX export -> a port export bundle in out_dir; returns out_dir.
+
+  `params`, `batch_stats`, `tables` ({key: logical [rows, dim] weights})
+  and `step` are the arrays of the JAX export's orbax variables/ as numpy
+  (read on the JAX side, e.g. by its load_serving_state). Its
+  pipeline.config is copied as it is, its export_meta.json with
+  'framework': 'easyrec_torch', and variables/variables.pt holds what the
+  port's export_saved_model writes: the model's state_dict
+  (flax_to_state_dict), each table cut to the rows of the port's layout
+  (the JAX package pads a table's rows: to a multiple of 8 in its plain
+  layout, to whole groups in its packed one) and the step."""
+  import json
+  import os
+  import shutil
+  from easyrec_torch.config import config_util
+  from easyrec_torch.export import saved_model as sm
+  from easyrec_torch.features import feature_spec as fs
+  from easyrec_torch.models import base as model_base
+  config = config_util.get_configs_from_pipeline_file(
+      os.path.join(jax_export_dir, sm.CONFIG_FILE))
+  specs = fs.build_feature_specs(config_util.get_feature_configs(config))
+  layout = model_base.build_context(config, specs).layout
+  out_tables = {}
+  for key, t in layout.tables.items():
+    table = np.asarray(tables[key], np.float32)
+    if table.shape[0] < t.rows or table.shape[1] != t.dim:
+      raise ValueError('JAX table %r is %s, the port\'s layout [%d, %d]'
+                       % (key, table.shape, t.rows, t.dim))
+    out_tables[key] = torch.from_numpy(np.ascontiguousarray(table[:t.rows]))
+  state = {'model': flax_to_state_dict(params, batch_stats),
+           'tables': out_tables,
+           'step': torch.tensor(int(np.asarray(step)), dtype=torch.int64)}
+  os.makedirs(os.path.join(out_dir, sm.VARIABLES_DIR), exist_ok=True)
+  shutil.copy(os.path.join(jax_export_dir, sm.CONFIG_FILE),
+              os.path.join(out_dir, sm.CONFIG_FILE))
+  with open(os.path.join(jax_export_dir, sm.EXPORT_META)) as f:
+    meta = json.load(f)
+  meta['framework'] = 'easyrec_torch'
+  with open(os.path.join(out_dir, sm.EXPORT_META), 'w') as f:
+    json.dump(meta, f, indent=2)
+  torch.save(state, os.path.join(out_dir, sm.VARIABLES_DIR,
+                                 sm.VARIABLES_FILE))
+  return out_dir

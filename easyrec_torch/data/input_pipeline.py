@@ -9,6 +9,10 @@ Batches are flat dicts of numpy arrays:
   feat.<name>.ids / .weights / .dense : packed feature arrays
   label.<name>                        : float32 labels
   sample_weight                       : [B] f32 (0 on padding)
+  raw.<name>                          : with raw_extra_fields, the
+                                        extra fields' values as strings
+                                        (host only; predict_csv's
+                                        reserved_cols)
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import csv
 import gzip
 import logging
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -29,9 +33,12 @@ from easyrec_torch.utils.registry import INPUTS
 class BaseReader:
   """Yields column chunks: dict[input_name -> np.ndarray]."""
 
-  def __init__(self, data_config, input_path: str):
+  def __init__(self, data_config, input_path: str, shard_index: int = 0,
+               shard_num: int = 1):
     self.data_config = data_config
     self.input_path = input_path
+    self.shard_index = int(shard_index)
+    self.shard_num = int(shard_num)
     self.field_names = [f.input_name for f in data_config.input_fields]
 
   def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
@@ -48,7 +55,10 @@ class CSVReader(BaseReader):
   Chunks are cut every `chunk_rows` rows (the JAX package cuts them by the
   byte size of its CSV reader's blocks; a file smaller than one block is
   one chunk in both). A path ending in `.gz` is read through gzip, as the
-  JAX package's CSV reader decompresses by suffix (:105-107).
+  JAX package's CSV reader decompresses by suffix (:105-107). With
+  shard_num > 1 (:118, :154-158) a reader takes the files paths[i::n]
+  under data_config.file_shard, else the rows whose index across all its
+  files is i modulo n.
   """
 
   def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
@@ -56,8 +66,12 @@ class CSVReader(BaseReader):
     if not paths:
       raise FileNotFoundError('no input files match %s' % self.input_path)
     dc = self.data_config
+    if dc.file_shard and self.shard_num > 1:
+      paths = paths[self.shard_index::self.shard_num]
+    row_shard = self.shard_num > 1 and not dc.file_shard
     sep = dc.separator or ','
     names = self.field_names
+    row = 0
     for path in paths:
       try:
         f = gzip.open(path, 'rt', newline='') if path.endswith('.gz') \
@@ -74,10 +88,13 @@ class CSVReader(BaseReader):
           header = next(reader)
           cols = [header.index(n) for n in names]
         rows = []
-        for row in reader:
-          if not row:
+        for fields in reader:
+          if not fields:
             continue
-          rows.append(row)
+          row += 1
+          if row_shard and (row - 1) % self.shard_num != self.shard_index:
+            continue
+          rows.append(fields)
           if len(rows) == chunk_rows:
             yield self._columns(rows, cols)
             rows = []
@@ -133,11 +150,13 @@ class DummyReader(BaseReader):
       yield dict(chunk)
 
 
-def create_reader(data_config, input_path: str) -> BaseReader:
+def create_reader(data_config, input_path: str, shard_index: int = 0,
+                  shard_num: int = 1) -> BaseReader:
   type_name = data_config.input_type
   if type_name not in INPUTS:
     raise NotImplementedError('input_type %s is not ported' % type_name)
-  return INPUTS.get(type_name)(data_config, input_path)
+  return INPUTS.get(type_name)(data_config, input_path, shard_index,
+                               shard_num)
 
 
 class InputPipeline:
@@ -148,6 +167,11 @@ class InputPipeline:
   and epochs, before any transform or shuffle. With shuffle on, the chunks
   after the skip are permuted with other seeds than in the run that was
   cut, so a resumed stream equals the uninterrupted one only unshuffled.
+  `shard_index` / `shard_num` pick this reader's share of the input
+  (CSVReader). With `raw_extra_fields`, the input fields `extra_fields`
+  pass through as raw.<name> strings; the JAX package's numeric
+  field.<name> columns feed metrics the port does not have, and are not
+  made.
   """
 
   def __init__(self,
@@ -157,7 +181,11 @@ class InputPipeline:
                mode: str = 'train',
                batch_size: Optional[int] = None,
                drop_remainder: Optional[bool] = None,
-               skip_rows: int = 0):
+               skip_rows: int = 0,
+               shard_index: int = 0,
+               shard_num: int = 1,
+               extra_fields: Optional[List[str]] = None,
+               raw_extra_fields: bool = False):
     self.data_config = data_config
     self.mode = mode
     if batch_size is None:
@@ -166,7 +194,8 @@ class InputPipeline:
     self.batch_size = int(batch_size)
     self.specs = fs.build_feature_specs(feature_configs)
     self.transforms = tr.build_transforms(self.specs)
-    self.reader = create_reader(data_config, input_path)
+    self.reader = create_reader(data_config, input_path, shard_index,
+                                shard_num)
     self.label_fields = list(data_config.label_fields)
     self.sample_weight_field = data_config.sample_weight or None
     if drop_remainder is None:
@@ -176,6 +205,9 @@ class InputPipeline:
     self.shuffle = data_config.shuffle and mode == 'train'
     self._seed = 17
     self.skip_rows = int(skip_rows)
+    self.extra_fields = [f for f in (extra_fields or [])
+                         if f in self.reader.field_names]
+    self.raw_extra_fields = bool(raw_extra_fields)
 
   def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
     epoch = 0
@@ -220,6 +252,9 @@ class InputPipeline:
       out['sample_weight'] = tr.to_float(columns[self.sample_weight_field])
     else:
       out['sample_weight'] = np.ones(n, dtype=np.float32)
+    if self.raw_extra_fields:
+      for fname in self.extra_fields:
+        out['raw.%s' % fname] = tr.to_numpy_str(columns[fname])
     if self.shuffle:
       rng = np.random.default_rng(self._seed * 1000003 + epoch)
       self._seed += 1

@@ -1,9 +1,9 @@
 """Model base: context, registry and the rank-model loss/prediction.
 
 Counterpart of easyrec_tpu/models/base.py: ModelContext (:29),
-build_context (:94), RankModel (:160) with its classification prediction
-and build_loss, and the _WithPrediction wrapper of models/rank.py (:416),
-folded into RankModel.forward.
+build_context (:94), RankModel (:160) with its classification prediction,
+build_loss and export_outputs (:449), and the _WithPrediction wrapper of
+models/rank.py (:416), folded into RankModel.forward.
 """
 
 from __future__ import annotations
@@ -108,6 +108,11 @@ class RankModel(nn.Module):
     return {'labels': batch['label.%s' % self.label_name],
             'probs': outputs['probs'],
             'weights': batch['sample_weight']}
+
+  def export_outputs(self, outputs) -> Dict[str, torch.Tensor]:
+    """The serving outputs (JAX models/base.py:449-457): probs, y and
+    logits, those present."""
+    return {k: outputs[k] for k in ('probs', 'y', 'logits') if k in outputs}
 
 
 def register_model(name: str):

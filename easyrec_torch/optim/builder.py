@@ -16,10 +16,13 @@ arithmetic in place, one torch op per optax op:
   rms_prop                       scale_by_rms(decay, eps), -lr, then
                                  trace(momentum)
 `gradient_clipping_by_norm` puts clip_by_global_norm ahead of the dense
-transform. `use_moving_average` is not ported and raises. A dense
-optimizer's state (`state_dict`: the update count and each slot, keyed by
-parameter name) goes into checkpoints; convert.optax_to_dense_state maps the
-JAX package's optax state onto it.
+transform. `use_moving_average` adds the JAX package's param_ema (:85-132)
+after it: an exponential moving average of the post-update parameters,
+started from the initial ones, which eval and export read
+(Trainer.eval_params). A dense optimizer's state (`state_dict`: the update
+count and each slot, the EMA as slot 'ema', keyed by parameter name) goes
+into checkpoints; convert.optax_to_dense_state maps the JAX package's optax
+state (ParamEmaState included) onto it.
 """
 
 from __future__ import annotations
@@ -66,6 +69,20 @@ class DenseOptimizer:
     self.clip_norm = float(clip_norm)
     dev = self.params[0].device if self.params else torch.device('cpu')
     self.count = torch.zeros((), dtype=torch.int32, device=dev)
+    self.ema_decay: Optional[float] = None
+    self.ema: Optional[List[torch.Tensor]] = None
+
+  def with_ema(self, decay: float) -> 'DenseOptimizer':
+    """Add param_ema: an EMA of the post-update parameters, started from
+    the parameters as they are now. Returns self."""
+    self.ema_decay = float(decay)
+    self.ema = [p.detach().clone() for p in self.params]
+    return self
+
+  @property
+  def state_slots(self) -> Tuple[str, ...]:
+    """The per-parameter state lists: slot_names, then 'ema' with an EMA."""
+    return self.slot_names + (('ema',) if self.ema is not None else ())
 
   def _zeros(self):
     return [torch.zeros_like(p) for p in self.params]
@@ -78,6 +95,18 @@ class DenseOptimizer:
       grads = clip_by_global_norm(grads, self.clip_norm)
     self._update(grads, -self.schedule(self.count))
     self.count = self.count + 1
+    if self.ema is not None:
+      # param_ema's decay * e + (1.0 - decay) * p, each constant rounded
+      # once to f32 as JAX rounds a weak-typed Python float
+      decay = self.ema_decay
+      for e, p in zip(self.ema, self.params):
+        e.copy_(decay * e + (1.0 - decay) * p)
+
+  def named_ema(self) -> Optional[Dict[str, torch.Tensor]]:
+    """{parameter name: EMA tensor}, or None without use_moving_average."""
+    if self.ema is None:
+      return None
+    return dict(zip(self._named(), self.ema))
 
   def _update(self, grads, neg_lr) -> None:
     raise NotImplementedError
@@ -91,10 +120,10 @@ class DenseOptimizer:
 
   def state_dict(self) -> Dict[str, object]:
     """{'count': int32 scalar, slot: {parameter name: tensor}} for each of
-    slot_names; the tensors are the optimizer's own (not copies)."""
+    state_slots; the tensors are the optimizer's own (not copies)."""
     names = self._named()
     out: Dict[str, object] = {'count': self.count}
-    for slot in self.slot_names:
+    for slot in self.state_slots:
       out[slot] = dict(zip(names, getattr(self, slot)))
     return out
 
@@ -105,7 +134,7 @@ class DenseOptimizer:
     names = self._named()
     self.count = torch.as_tensor(state['count']).to(
         device=self.count.device, dtype=torch.int32).clone()
-    for slot in self.slot_names:
+    for slot in self.state_slots:
       saved = state[slot]
       for name, t in zip(names, getattr(self, slot)):
         if name not in saved:
@@ -284,17 +313,19 @@ def build_optimizer(opt_config: Optional[Message],
     which, cfg = 'adam_optimizer', Message('AdamOptimizer')
   else:
     cfg = getattr(opt_config, which)
-  if opt_config is not None and opt_config.use_moving_average:
-    raise NotImplementedError('use_moving_average is not ported')
   schedule = schedules.build_schedule(
       cfg.learning_rate if cfg.HasField('learning_rate') else None)
   mult = opt_config.embedding_learning_rate_multiplier \
       if opt_config is not None and \
       opt_config.HasField('embedding_learning_rate_multiplier') else 1.0
+  make_dense = _dense_from_config(which, cfg, schedule, clip_norm)
+  if opt_config is not None and opt_config.use_moving_average:
+    plain, decay = make_dense, opt_config.moving_average_decay
+
+    def make_dense(ps):
+      return plain(ps).with_ema(decay)
   return OptimizerPair(sparse=_sparse_from_config(which, cfg),
-                       schedule=schedule,
-                       make_dense=_dense_from_config(which, cfg, schedule,
-                                                     clip_norm),
+                       schedule=schedule, make_dense=make_dense,
                        embedding_lr_multiplier=mult)
 
 

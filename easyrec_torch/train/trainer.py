@@ -1,8 +1,8 @@
 """Trainer: the train step, evaluation and the training loop.
 
 Counterpart of easyrec_tpu/train/trainer.py (Trainer.__init__, init_state
-:184, the step :298-401, evaluate :502, fit :640 with its checkpoints) on
-one device. A step:
+:184, the step :298-401, eval_params :405, evaluate :502, fit :640 with its
+checkpoints and hooks) on one device. A step:
   1. pulls the batch's rows by index_select on the tables' weight columns
      (no autograd on the tables themselves);
   2. marks the pulled rows as requiring grad, zeroes the rows of id slots
@@ -18,6 +18,10 @@ one device. A step:
      kernel K3 under EASYREC_PACKED_FUSED=1;
   7. with ev_params, counts the batch's ids and stamps their step into the
      EV aux tables through the same update (block maths ev_add, ev_set).
+Eval and export run the model in eval mode on eval_params(): the dense
+optimizer's EMA of the parameters under use_moving_average, through
+torch.func.functional_call, so neither the live parameters nor BatchNorm's
+buffers change.
 The tables hold the embedding optimizer's slots beside the weights
 (packed_table.table_meta: one part per slot, Adam's moments as bf16 pairs
 unless EASYREC_PACKED_COMPACT=0). Everything the step needs per step (step
@@ -27,7 +31,9 @@ step syncs the host only where the caller reads a loss.
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
@@ -47,6 +53,7 @@ from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.optim import builder as opt_builder
 from easyrec_torch.train import checkpoints as ckpt_lib
+from easyrec_torch.train import hooks
 from easyrec_torch.train.restore import fine_tune_restore
 
 
@@ -238,12 +245,29 @@ class Trainer:
 
   # -- evaluation ----------------------------------------------------------
 
+  def eval_params(self) -> Dict[str, torch.Tensor]:
+    """The parameters eval and export read (JAX trainer.py:405-410): the
+    EMA weights where the dense optimizer keeps them (use_moving_average),
+    else the live parameters; by parameter name."""
+    ema = self.dense_opt.named_ema()
+    return ema if ema is not None else dict(self.model.named_parameters())
+
+  def eval_forward(self, batch: Dict[str, torch.Tensor],
+                   pulled: Dict[str, torch.Tensor]):
+    """The model's outputs in eval mode on eval_params(). BatchNorm reads
+    its running statistics and updates nothing; the next train_step puts
+    the model back in train mode."""
+    self.model.eval()
+    ema = self.dense_opt.named_ema()
+    if ema is None:
+      return self.model(batch, pulled)
+    return torch.func.functional_call(self.model, ema, (batch, pulled))
+
   @torch.no_grad()
   def eval_step(self, batch: Dict[str, torch.Tensor], metric_states):
     packs = emb_ops.pack_ids(self.layout, batch)
     pulled = emb_ops.pull_embeddings(self.tables, packs, self.metas)
-    self.model.eval()
-    outputs = self.model(batch, pulled)
+    outputs = self.eval_forward(batch, pulled)
     loss, _ = self.model.build_loss(outputs, batch)
     mi = self.model.metric_inputs(outputs, batch)
     self.metrics.update_states(metric_states, mi['labels'], mi['probs'],
@@ -301,8 +325,19 @@ class Trainer:
     package also writes data_offset.json, for streaming readers only; none
     is ported, so the port writes none.
 
+    The hooks (JAX :739-760, :850-900; train/hooks.py): after each
+    periodic save, where eval_config.eval_online is set, a best exporter
+    exists (export_config.exporter_type 'best' or best_exporter_metric
+    set) or early stop is enabled, an eval of 20 batches feeds
+    online_eval_result.txt-<step>, the best export into
+    model_dir/best_export and the early stopper; train_config.dead_line
+    and the stop-signal file (enable_oss_stop_signal) are checked at log
+    cadence. A hook that stops training stops it before the next step.
+    With a model_dir, the final eval is written to eval_result.txt.
+
     Returns the global step, the log history, this run's total losses (one
     a step) and the eval metrics."""
+    from easyrec_torch.export.saved_model import export_saved_model
     tc = self.train_config
     num_steps = num_steps or (tc.num_steps or None)
     log_every = log_every or max(int(tc.log_step_count_steps), 1)
@@ -327,14 +362,34 @@ class Trainer:
           restore_filters=list(
               self.pipeline_config.model_config.restore_filters),
           force_shape_compat=tc.force_restore_shape_compatible)
+
+    ec = self.pipeline_config.export_config
+    has_eval = bool(self.pipeline_config.WhichOneof('eval_path'))
+    stopper = hooks.EarlyStopper(ec) \
+        if self.pipeline_config.HasField('export_config') else None
+    best_exporter = None
+    if has_eval and self.model_dir and (
+        ec.exporter_type == 'best' or ec.HasField('best_exporter_metric')):
+      best_exporter = hooks.BestExporter(
+          self.model_dir, metric=ec.best_exporter_metric or 'auc',
+          bigger=ec.metric_bigger)
+    deadline = hooks.DeadlineStopper(tc.dead_line) if tc.dead_line else None
+    stop_signal = hooks.StopSignalFile(
+        self.model_dir, enabled=tc.enable_oss_stop_signal) \
+        if self.model_dir else None
+    want_periodic_eval = has_eval and (
+        self.eval_config.eval_online or best_exporter is not None or
+        (stopper is not None and stopper.enabled))
+
     step = int(self.step)
     losses: List[torch.Tensor] = []
     history = []
     t0, window = time.time(), 0
     last_save = time.time()
+    stop_training = False
     skip_rows = step * int(self.data_config.batch_size)
     for batch in self.train_input(skip_rows=skip_rows):
-      if num_steps and step >= num_steps:
+      if stop_training or (num_steps and step >= num_steps):
         break
       loss_dict = self.train_step(to_device(batch, self.device))
       losses.append(loss_dict['total_loss'])
@@ -347,16 +402,48 @@ class Trainer:
         history.append({'step': step, 'loss': loss_val,
                         'examples_per_sec': rate})
         t0, window = time.time(), 0
+        if deadline is not None and deadline.should_stop():
+          logging.warning('dead_line reached; stopping training')
+          stop_training = True
+        if stop_signal is not None and stop_signal.should_stop():
+          logging.warning('stop-signal file found; stopping training')
+          stop_training = True
       if manager is not None and (
           step % save_every == 0 or
           (save_secs and time.time() - last_save >= save_secs)):
         last_save = time.time()
         self.save(manager, step)
+        if want_periodic_eval:
+          online = self.evaluate(max_batches=20)
+          logging.info('online eval @%d: %s', step, online)
+          if self.eval_config.eval_online:
+            with open(os.path.join(self.model_dir,
+                                   'online_eval_result.txt-%d' % step),
+                      'w') as f:
+              json.dump({k: float(v) for k, v in online.items()}, f)
+          if best_exporter is not None:
+            best_exporter.maybe_export(
+                step, online, lambda d: export_saved_model(self, d))
+          if stopper is not None and stopper.should_stop(step, online):
+            if stopper.custom_fn is not None:
+              logging.info('early stopping at step %d (early_stop_func '
+                           'returned True)', step)
+            else:
+              logging.info('early stopping at step %d (no %s improvement '
+                           'for %d steps)', step, stopper.metric,
+                           stopper.max_check_steps)
+            stop_training = True
     if manager is not None:
       self.save(manager, step, force=True)
     result = {'global_step': step, 'history': history,
               'losses': torch.stack(losses).tolist() if losses else []}
-    if eval_at_end and self.pipeline_config.WhichOneof('eval_path'):
+    if eval_at_end and has_eval:
       result['eval_metrics'] = self.evaluate()
       logging.info('eval: %s', result['eval_metrics'])
+      if self.model_dir:
+        os.makedirs(self.model_dir, exist_ok=True)
+        with open(os.path.join(self.model_dir, 'eval_result.txt'),
+                  'w') as f:
+          json.dump({k: float(v) for k, v in result['eval_metrics'].items()},
+                    f)
     return result

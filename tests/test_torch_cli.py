@@ -1,9 +1,9 @@
 """The port's user surface on the CPU: the train CLI learns the fixture
 data, CUDA is the default device and its absence raises, and importing and
 running the port (every module, the ported benchmarks included, then the
-DeepFM, the DeepFM with Adagrad tables and the fused Taobao DIN) loads
-nothing of JAX, protobuf, pandas,
-pyarrow, the JAX package or its benchmarks/ scripts."""
+DeepFM with its evaluate, export, predict, Predictor and server, the
+DeepFM with Adagrad tables and the fused Taobao DIN) loads nothing of JAX,
+protobuf, pandas, pyarrow, the JAX package or its benchmarks/ scripts."""
 
 import os
 import re
@@ -68,6 +68,20 @@ from easyrec_torch.utils import flagship
 result = main.train_and_evaluate(sys.argv[1], device='cpu',
                                  edit_config_json={'train_config.num_steps': 3})
 assert result['global_step'] == 3
+from easyrec_torch.export.predictor import Predictor
+from easyrec_torch.serving.client import PredictClient
+from easyrec_torch.serving.server import PredictorService
+main.evaluate(sys.argv[1], device='cpu')
+main.export(sys.argv[1], device='cpu',
+            export_dir=os.path.join(os.path.dirname(sys.argv[1]), 'again'))
+main.predict(sys.argv[1], device='cpu')
+assert Predictor(result['export_dir'], device='cpu').predict([{}])
+service = PredictorService(result['export_dir'], device='cpu')
+service.start()
+client = PredictClient('127.0.0.1:%d' % service.port)
+assert client.predict([{'c1': 'u1'}])
+client.close()
+service.stop()
 result = main.train_and_evaluate(
     flagship.criteo_deepfm_adagrad_config(batch_size=64,
                                           hash_bucket_size=1000),

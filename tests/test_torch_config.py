@@ -165,11 +165,6 @@ def test_optimizer_messages_match_protobuf(kind, extra, fields):
      'feature_type TagFeature'),
     ('data_config { input_type: OdpsInput }', 'input_type OdpsInput'),
     ('train_config { freeze_gradient: "dnn_0" }', 'freeze_gradient'),
-    ('train_config { dead_line: "20220508 23:59:59" }', 'dead_line'),
-    ('train_config { enable_oss_stop_signal: true }',
-     'enable_oss_stop_signal'),
-    ('export_config { exporter_type: "best" }', 'export_config'),
-    ('eval_config { eval_online: true }', 'eval_online'),
     ('eval_config { metrics_set { gauc {} } }', 'gauc'),
 ])
 def test_unported_parts_raise_naming_them(text, what):
@@ -177,6 +172,25 @@ def test_unported_parts_raise_naming_them(text, what):
   cfg = t_config.get_configs_from_pipeline_str(base + text)
   with pytest.raises(NotImplementedError, match=what):
     t_config.check_ported(cfg)
+
+
+@pytest.mark.parametrize('text,what', [
+    ('train_config { dead_line: "20220508 23:59:59" }', 'dead_line'),
+    ('train_config { enable_oss_stop_signal: true }',
+     'enable_oss_stop_signal'),
+    ('export_config { exporter_type: "best" }', 'export_config'),
+    ('eval_config { eval_online: true }', 'eval_online'),
+])
+def test_hook_and_export_fields_are_ported(text, what):
+  """The fields of the in-train hooks and the exporter, unported until
+  the serving slice, read as the protobuf parse reads them and pass
+  check_ported."""
+  base = 'model_config { model_class: "DeepFM" }\n'
+  cfg = t_config.get_configs_from_pipeline_str(base + text)
+  _assert_same(cfg, j_config.get_configs_from_pipeline_str(base + text),
+               'config')
+  assert what in text_format.to_text(cfg)
+  t_config.check_ported(cfg)
 
 
 def test_a_read_empty_repeated_field_is_not_set():

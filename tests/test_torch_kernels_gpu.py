@@ -631,3 +631,43 @@ def test_ev_train_step_launches_the_ev_maths(cuda, fused, monkeypatch):
   (key, aux), = trainer.ev_state.items()
   assert float(aux['ev_count'].max()) >= 2
   assert float(aux['ev_last'].max()) == 1.0
+
+
+def test_predictor_on_the_card_matches_the_cpu(cuda, tmp_path):
+  """A bundle of the fixture DeepFM with BatchNorm and an EMA, trained 3
+  steps on the CPU and exported: the Predictor on the card answers the
+  CPU Predictor's rows within 1e-5 (f32, the card's matmul and reduction
+  orders differ from the CPU's), with no launch of K1-K5 (its gather is
+  index_select)."""
+  from easyrec_torch.export.predictor import Predictor
+  from easyrec_torch.export.saved_model import export_saved_model
+  from easyrec_torch.train.trainer import Trainer, to_device
+  from easyrec_torch.utils import flagship
+  from easyrec_torch.utils.synthetic import synthetic_batch
+  cfg = flagship.criteo_deepfm_config(batch_size=128, hash_bucket_size=500,
+                                      num_dense=3, num_cat=4)
+  opt = cfg.train_config.optimizer_config[0]
+  opt.use_moving_average = True
+  opt.moving_average_decay = 0.99
+  trainer = Trainer(cfg, device='cpu')
+  trainer.init_state()
+  for s in range(3):
+    trainer.train_step(to_device(synthetic_batch(trainer.specs, ['label'],
+                                                 128, seed=s),
+                                 torch.device('cpu')))
+  export_dir = export_saved_model(trainer, str(tmp_path))
+  rng = np.random.default_rng(0)
+  rows = [dict({'F%d' % i: str(rng.random() * 1000) for i in (1, 2, 3)},
+               **{'C%d' % i: 'id%d' % rng.integers(0, 900)
+                  for i in (1, 2, 3, 4)}) for _ in range(300)]
+  want = Predictor(export_dir, batch_size=128, device='cpu').predict(rows)
+  kernels.reset_launches()
+  card = Predictor(export_dir, batch_size=128, device='cuda')
+  assert all(t.is_cuda for t in card.tables.values())
+  got = card.predict(rows)
+  torch.cuda.synchronize()
+  assert sum(kernels.launch_counts().values()) == 0
+  for key in ('probs', 'logits'):
+    np.testing.assert_allclose([float(r[key]) for r in got],
+                               [float(r[key]) for r in want],
+                               rtol=1e-5, atol=1e-5)

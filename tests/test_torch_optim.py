@@ -418,7 +418,8 @@ def test_sparse_from_config_matches_jax(kind):
 def test_pairing_and_moving_average():
   """With two optimizers the first drives the tables (with its embedding
   learning-rate multiplier) and the second the dense weights;
-  use_moving_average still raises, naming itself."""
+  use_moving_average adds the EMA of the parameters, at
+  moving_average_decay, started from the initial parameters."""
   text = ('train_config { optimizer_config { adagrad_optimizer { %s } '
           'embedding_learning_rate_multiplier: 0.5 } '
           'optimizer_config { adam_optimizer { %s } } }' % (LR, LR))
@@ -429,6 +430,16 @@ def test_pairing_and_moving_average():
   assert isinstance(dense.dense([torch.zeros(2)]), t_builder.DenseAdam)
   tc = t_config.get_configs_from_pipeline_str(
       'train_config { optimizer_config { adam_optimizer {} '
-      'use_moving_average: true } }').train_config
-  with pytest.raises(NotImplementedError, match='use_moving_average'):
-    t_builder.build_optimizers(tc)
+      'use_moving_average: true moving_average_decay: 0.9 } }').train_config
+  dense, _ = t_builder.build_optimizers(tc)
+  p = torch.ones(2, requires_grad=True)
+  opt = dense.dense({'p': p})
+  assert isinstance(opt, t_builder.DenseAdam)
+  assert opt.ema_decay == np.float32(0.9)
+  assert opt.state_slots == ('mu', 'nu', 'ema')
+  assert torch.equal(opt.named_ema()['p'], torch.ones(2))
+  p.grad = torch.ones(2)
+  opt.step()
+  assert torch.equal(opt.named_ema()['p'],
+                     opt.ema_decay * torch.ones(2) +
+                     (1.0 - opt.ema_decay) * p.detach())

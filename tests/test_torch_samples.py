@@ -17,6 +17,7 @@ import torch
 
 from easyrec_torch.config import config_util as t_config
 from easyrec_torch.config import schema
+from easyrec_torch.config import text_format as t_text
 from easyrec_torch.data import input_pipeline as t_input
 from easyrec_torch.train.trainer import Trainer as TTrainer
 from easyrec_torch.train.trainer import to_device
@@ -30,17 +31,19 @@ SAMPLES = sorted(glob.glob(os.path.join(REPO, 'samples', '*.config')))
 # Fields a sample sets that the port's schema does not hold, each with why
 # it changes nothing the port computes.
 IGNORED = {
-    # the EMA's decay; use_moving_average, which would read it, raises in
-    # the port's optimizer builder (optim/builder.py)
-    'Optimizer.moving_average_decay',
+    # export_config's TF placeholder knobs: they shape the reference's
+    # SavedModel signature, and neither the JAX package nor the port
+    # reads them
+    'ExportConfig.batch_size', 'ExportConfig.multi_placeholder',
+    'ExportConfig.filter_inputs', 'ExportConfig.placeholder_named_by_input',
+    'ExportConfig.multi_value_fields', 'ExportConfig.auto_multi_value',
 }
 
 # The samples check_ported accepts. Among those it rejects,
-# dead_line_stop (train_config.dead_line), best_exporter_early_stop
-# (export_config) and seq_text_cnn_combiner (sequence_combiner, which would
-# otherwise fail by name at its first forward) set nothing else the port
-# lacks.
-PORTED = ['deepfm_adamw', 'deepfm_ema', 'deepfm_ev_params', 'deepfm_gzip_csv',
+# seq_text_cnn_combiner (sequence_combiner, which would otherwise fail by
+# name at its first forward) sets nothing else the port lacks.
+PORTED = ['best_exporter_early_stop', 'dead_line_stop', 'deepfm_adamw',
+          'deepfm_ema', 'deepfm_ev_params', 'deepfm_gzip_csv',
           'deepfm_momentumw', 'deepfm_with_embed', 'multi_opt_seq_din',
           'raw_boundaries']
 
@@ -103,22 +106,25 @@ def _passes(path):
 
 def test_samples_that_pass_check_ported():
   assert [_name(p) for p in SAMPLES if _passes(p)] == PORTED
-  assert len(PORTED) == 8
-  for name, what in (('dead_line_stop', 'dead_line'),
-                     ('best_exporter_early_stop', 'export_config'),
-                     ('seq_text_cnn_combiner', 'sequence_combiner')):
+  assert len(PORTED) == 10
+  for name, field in (('dead_line_stop', 'dead_line'),
+                      ('best_exporter_early_stop', 'export_config')):
     cfg = t_config.get_configs_from_pipeline_file(
         os.path.join(REPO, 'samples', name + '.config'))
-    with pytest.raises(NotImplementedError, match=what):
-      t_config.check_ported(cfg)
+    assert field in t_text.to_text(cfg)
+    t_config.check_ported(cfg)
+  cfg = t_config.get_configs_from_pipeline_file(
+      os.path.join(REPO, 'samples', 'seq_text_cnn_combiner.config'))
+  with pytest.raises(NotImplementedError, match='sequence_combiner'):
+    t_config.check_ported(cfg)
 
 
 @pytest.mark.parametrize('name', PORTED)
 def test_ported_samples_train_a_step(name, tmp_path):
   """Each sample check_ported accepts, on data of its declared columns
   (tests/test_samples.py's generator), model_dir cleared: its train input
-  (the gzip sample through gzip) feeds one step on the CPU; deepfm_ema
-  stops at its optimizer, use_moving_average, by name."""
+  (the gzip sample through gzip) feeds one step on the CPU; deepfm_ema's
+  EMA of the dense parameters moves with it."""
   cfg = t_config.get_configs_from_pipeline_file(
       os.path.join(REPO, 'samples', name + '.config'))
   cols = [f.input_name for f in cfg.data_config.input_fields]
@@ -132,15 +138,19 @@ def test_ported_samples_train_a_step(name, tmp_path):
   cfg.train_input_path = cfg.eval_input_path = train
   cfg.model_dir = ''
   cfg.data_config.batch_size = 32
-  if name == 'deepfm_ema':
-    with pytest.raises(NotImplementedError, match='use_moving_average'):
-      TTrainer(cfg, device='cpu')
-    return
   trainer = TTrainer(cfg, device='cpu')
   trainer.init_state()
+  before = {k: v.detach().clone()
+            for k, v in trainer.model.named_parameters()}
   batch = next(iter(trainer.train_input()))
   loss = trainer.train_step(to_device(batch, torch.device('cpu')))
   assert np.isfinite(float(loss['total_loss']))
+  ema = trainer.dense_opt.named_ema()
+  assert (ema is not None) == (name == 'deepfm_ema')
+  if ema is not None:
+    decay = trainer.dense_opt.ema_decay
+    for k, p in trainer.model.named_parameters():
+      assert torch.equal(ema[k], decay * before[k] + (1.0 - decay) * p), k
 
 
 def test_gzip_csv_reads_as_the_csv(tmp_path):
