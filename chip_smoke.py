@@ -82,6 +82,21 @@ K4 and K5 must launch 0 times in 6-8.
              on a seeded CSV, exported and predicted by predict_csv with
              reserved columns on the card and the CPU (probs within 1e-5,
              reserved columns as in the input);
+ 13. bst     (run after 8, before 9) the Taobao BST (MultiTowerBST, the
+             two histories concatenated into hidden 32, 4 heads, 51
+             tokens): a small BST (batch 256, histories of 8) trains 3
+             steps on the card and the CPU from one state, unfused and
+             fused, under EASYREC_ATTN_IMPL=stock, at the agree phase's
+             rule; the full-width BST's eval forward under the default
+             vpu_bf16 (and stock) card against CPU from one state, within
+             1% of the logits' scale (bf16 payloads round apart where the
+             two devices' f32 values straddle a rounding boundary); then
+             the full-width BST through train_and_evaluate, unfused (K1 +
+             K2, compact Adam) as phase 6 drives the DIN, with its rate and
+             peak memory; then a 5-step BST on a seeded CSV exported, and a
+             Predictor on the card whose answers at 1 and 4,096 rows must
+             bit-equal the training Trainer's eval forward, with no K1-K5
+             launch.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -1817,6 +1832,146 @@ def phase_serve_din(torch, smi):
   shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_bst_agree(torch):
+  """The agree phase for a small Taobao BST, unfused (K1 + K2) and fused
+  (K3), under EASYREC_ATTN_IMPL=stock: the vpu_bf16 payloads of the card
+  and the CPU round apart where their f32 values straddle a bf16
+  boundary, which a loss rule of 1e-5 would read as disagreement (that
+  forward is held on its own, in phase_bst_forward)."""
+  from easyrec_torch.utils import flagship
+  os.environ['EASYREC_ATTN_IMPL'] = 'stock'
+  try:
+    for fused in ('0', '1'):
+      phase_agree(torch, 'BST (stock attention)',
+                  flagship.taobao_bst_config(batch_size=256, seq_len=8),
+                  fused)
+  finally:
+    os.environ.pop('EASYREC_ATTN_IMPL', None)
+
+
+BF16_TOL = 1e-2
+
+
+def phase_bst_forward(torch, smi):
+  """The full-width Taobao BST's eval forward (batch 1024) on the card
+  and the CPU from one state, under vpu_bf16 (the default) and stock:
+  logits within BF16_TOL of their scale under vpu_bf16, within 1e-5
+  under stock, and the two impls apart on the card (the bf16 payloads are
+  in effect)."""
+  import numpy as np
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import Trainer, to_device
+  from easyrec_torch.utils import flagship
+  from easyrec_torch.utils.synthetic import synthetic_batch
+
+  cfg = flagship.taobao_bst_config(batch_size=1024)
+  runs = {}
+  for name in ('cpu', 'cuda'):
+    runs[name] = Trainer(cfg, device=name)
+    runs[name].init_state()
+  runs['cuda'].model.load_state_dict(runs['cpu'].model.state_dict())
+  for key, table in runs['cpu'].tables.items():
+    runs['cuda'].tables[key].copy_(table)
+  batch = synthetic_batch(runs['cpu'].specs, ['clk'], 1024, seed=9)
+  logits = {}
+  try:
+    for impl in ('vpu_bf16', 'stock'):
+      os.environ['EASYREC_ATTN_IMPL'] = impl
+      for name, t in runs.items():
+        b = to_device(batch, torch.device(name))
+        with torch.no_grad():
+          pulled = emb_ops.pull_embeddings(
+              t.tables, emb_ops.pack_ids(t.layout, b), t.metas)
+          logits[impl, name] = t.eval_forward(b, pulled)['logits'] \
+              .cpu().numpy()
+  finally:
+    os.environ.pop('EASYREC_ATTN_IMPL', None)
+  scale = float(np.abs(logits['vpu_bf16', 'cpu']).max())
+  err = float(np.abs(logits['vpu_bf16', 'cuda'] -
+                     logits['vpu_bf16', 'cpu']).max())
+  err_stock = float(np.abs(logits['stock', 'cuda'] -
+                           logits['stock', 'cpu']).max())
+  apart = float(np.abs(logits['vpu_bf16', 'cuda'] -
+                       logits['stock', 'cuda']).max())
+  if not all(np.isfinite(v).all() for v in logits.values()) or \
+      err > BF16_TOL * scale or err_stock > 1e-5 * max(1.0, scale) or \
+      apart == 0.0:
+    fail('BST forward: vpu_bf16 card against CPU %g (tolerance %g), stock '
+         '%g, vpu_bf16 against stock on the card %g'
+         % (err, BF16_TOL * scale, err_stock, apart))
+  log('BST forward, full width, batch 1024, card against CPU from one '
+      'state: vpu_bf16 logits within %g (tolerance %g = %g of their scale '
+      '%g), stock within %g; vpu_bf16 against stock on the card %g; %s'
+      % (err, BF16_TOL * scale, BF16_TOL, scale, err_stock, apart, smi))
+  del runs
+  torch.cuda.empty_cache()
+
+
+def phase_serve_bst(torch, smi):
+  """The Taobao BST at full width on a seeded CSV: train_and_evaluate (5
+  steps, K1 + K2) exports it; a Predictor on the card answers 1 and 4,096
+  of the CSV's rows, each one chunk, bit-equal to the training Trainer's
+  eval forward on the same rows, with no K1-K5 launch."""
+  import csv
+  import shutil
+  import numpy as np
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.export.predictor import Predictor
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.utils import flagship
+
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  root = os.path.join(SCRATCH, 'serve_bst')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  data = os.path.join(root, 'bst.csv')
+  write_din_csv(data, DIN_SERVE_ROWS, seed=8)
+  cfg = flagship.taobao_bst_config(model_dir=os.path.join(root, 'md'))
+  edits = {'data_config.input_type': 'CSVInput', 'train_input_path': data,
+           'eval_input_path': data, 'train_config.num_steps': 5}
+  result = main_lib.train_and_evaluate(cfg, edit_config_json=edits,
+                                     device='cuda')
+  export_dir = result['export_dir']
+  names = [f.input_name for f in cfg.data_config.input_fields]
+  with open(data) as f:
+    rows = [dict(zip(names, r)) for r in csv.reader(f)]
+  sizes = (1, 4096)
+  want = {n: trainer_outputs(torch, result['trainer'], rows[:n])
+          for n in sizes}
+  del result
+  torch.cuda.empty_cache()
+  kernels.reset_launches()
+  t0 = time.perf_counter()
+  p = Predictor(export_dir, batch_size=4096, device='cuda')
+  load_s = time.perf_counter() - t0
+  worst, bit_equal, times = 0.0, True, {}
+  for n in sizes:
+    got = p.predict(rows[:n])
+    t0 = time.perf_counter()
+    p.predict(rows[:n])
+    times[n] = (time.perf_counter() - t0) * 1e3
+    for key, ref in want[n].items():
+      served = np.float32([r[key] for r in got])
+      if served.shape != ref.shape or not np.isfinite(served).all():
+        fail('serve BST: %s of %d rows: shape %s' % (key, n, served.shape))
+      worst = max(worst, float(np.abs(served - ref).max()))
+      bit_equal &= served.tobytes() == ref.tobytes()
+  torch.cuda.synchronize()
+  if any(kernels.launch_counts().values()):
+    fail('serve BST: K1-K5 launched %s' % kernels.launch_counts())
+  if not bit_equal:
+    fail('serve BST: the Predictor\'s answers differ from the Trainer\'s '
+         'eval forward by up to %g' % worst)
+  log('serve: Taobao BST export, Predictor on the card (load %.3f s): '
+      'answers at %s rows bit-equal to the training Trainer\'s eval '
+      'forward; Predictor.predict %s ms; no K1-K5 launch; %s'
+      % (load_s, sizes, ', '.join('%d rows %.3f' % (n, times[n])
+                                  for n in sizes), smi))
+  del p
+  shutil.rmtree(root, ignore_errors=True)
+  torch.cuda.empty_cache()
+
+
 def main():
   if not os.path.isdir(os.path.join(HERE, 'easyrec_torch')):
     fail('easyrec_torch/ is not beside chip_smoke.py: run it from the '
@@ -1863,17 +2018,24 @@ def main():
   adagrad = phase_slice(torch, card, 'flagship DeepFM, Adagrad tables',
                         flagship.criteo_deepfm_adagrad_config(), '0',
                         ('seg_sum', 'rmw_rows'), 'adagrad')
+  phase_bst_agree(torch)
+  phase_bst_forward(torch, smi)
+  bst = phase_slice(torch, card, 'Taobao BST', flagship.taobao_bst_config(),
+                    '0', ('seg_sum', 'rmw_rows'), 'compact_adam')
+  phase_serve_bst(torch, smi)
   phase_ckpt(torch)
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
-  # launches on the paths: K1 on the Adagrad DeepFM's, each K2/K3 math on
-  # the path that runs it (the EV maths on the EV phase's), 0 for a math
-  # no path runs
+  # launches on the paths: each kernel and math on the first path of
+  # these that runs it (K1 and K2's compact Adam on the BST's, this
+  # slice's main path; K3 on the DIN's, Adagrad on the Adagrad DeepFM's,
+  # the EV maths on the EV phase's), 0 for a math no path runs
   for r in results:
-    r['launches'] = adagrad['seg_sum'] if r['name'] == 'seg_sum' else sum(
-        path.get(r['name'], 0) for path in (din, deepfm, adagrad, ev))
+    r['launches'] = next((path[r['name']] for path in
+                          (bst, din, deepfm, adagrad, ev)
+                          if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
           'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')

@@ -21,8 +21,9 @@ from easyrec_torch.config.text_format import Message, parse, to_text
 
 EasyRecConfig = Message
 
-_PORTED_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN')
-_PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature', 'SequenceFeature')
+_PORTED_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST')
+_PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature', 'TagFeature',
+                         'SequenceFeature')
 _PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput')
 
 

@@ -287,7 +287,13 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('final_dnn', 'msg:DNN'),
         _f('l2_regularization', 'float', 1e-4),
         _f('din_towers', 'msg:DINTower', rep=True),
-        _f('bst_towers', 'unported', rep=True),
+        _f('bst_towers', 'msg:BSTTower', rep=True),
+    ),
+    'BSTTower': (
+        _f('input', 'string', ''),
+        _f('seq_len', 'int', 5),
+        _f('multi_head_size', 'int', 4),
+        _f('pre_ln', 'bool', False),
     ),
     'DINTower': (
         _f('input', 'string', ''),
@@ -378,10 +384,26 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('max_multi_len', 'int', 0),
         _f('max_seq_len', 'int', 0),
         _f('sub_feature_type', 'enum:FeatureType', 'IdFeature'),
-        _f('kv_separator', 'unported'),
+        _f('kv_separator', 'string', ''),
+        _f('seq_multi_sep', 'string', ''),
         _f('expression', 'unported'),
         _f('combo_input_seps', 'unported', rep=True),
-        _f('sequence_combiner', 'unported'),
+        _f('sequence_combiner', 'msg:SequenceCombiner'),
+    ),
+    'SequenceCombiner': (
+        _f('attention', 'msg:AttentionCombiner', oneof='combiner'),
+        _f('multi_head_attention', 'msg:MultiHeadAttentionCombiner',
+           oneof='combiner'),
+        _f('text_cnn', 'msg:TextCnnCombiner', oneof='combiner'),
+    ),
+    'AttentionCombiner': (),
+    'MultiHeadAttentionCombiner': (),
+    'TextCnnCombiner': (
+        _f('filter_sizes', 'int', rep=True),
+        _f('num_filters', 'int', rep=True),
+        # the JAX package's _combine_sequence reads neither
+        _f('pad_sequence_length', 'unported'),
+        _f('mlp', 'unported'),
     ),
     'EVParams': (
         # use_cache, init_capacity and max_capacity size the reference's
@@ -396,19 +418,20 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('group_name', 'string', ''),
         _f('feature_names', 'string', rep=True),
         _f('wide_deep', 'enum:WideOrDeep', 'DEEP'),
-        _f('sequence_features', 'unported', rep=True),
+        _f('sequence_features', 'msg:SeqAttGroupConfig', rep=True),
     ),
     'SeqAttGroupConfig': (
         _f('group_name', 'string', ''),
         _f('seq_att_map', 'msg:SeqAttMap', rep=True),
-        _f('seq_dnn', 'unported'),
+        _f('seq_dnn', 'msg:DNN'),
         _f('need_key_feature', 'bool', True),
         _f('allow_key_transform', 'bool', False),
+        _f('transform_dnn', 'bool', False),
     ),
     'SeqAttMap': (
         _f('key', 'string', rep=True),
         _f('hist_seq', 'string', rep=True),
-        _f('aux_hist_seq', 'unported', rep=True),
+        _f('aux_hist_seq', 'string', rep=True),
     ),
 }
 

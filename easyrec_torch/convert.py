@@ -3,9 +3,13 @@
 The JAX side is given as numpy arrays (np.asarray of its leaves), so this
 module imports nothing of JAX:
   - flax `params` / `batch_stats` trees (nested dicts under the model's
-    'inner' scope) <-> a torch state_dict: a Dense `kernel` [in, out]
-    becomes nn.Linear.weight [out, in]; BatchNorm `scale`/`bias` become
-    weight/bias and `mean`/`var` running_mean/running_var;
+    'inner' scope) <-> a torch state_dict: every `kernel` becomes `weight`
+    with its axes reversed (a Dense [in, out] is nn.Linear's [out, in], a
+    Conv [W, Cin, Cout] nn.Conv1d's [Cout, Cin, W], a DenseGeneral [in, H,
+    Dh] or [H, Dh, out] the port's DenseGeneral weight); BatchNorm's and
+    LayerNorm's `scale`/`bias` become weight/bias, BatchNorm's
+    `mean`/`var` running_mean/running_var, and a `position_emb` table keeps
+    its name and shape;
   - a packed table [G*8, W] of any optimizer (easyrec_tpu/ops/
     packed_table.py layout: groups of 8 physical rows, `pack` logical rows
     per physical row, each logical row its `parts` parts of dim columns,
@@ -34,7 +38,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-_LEAF_TO_TORCH = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias'}
+_LEAF_TO_TORCH = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
+                  'position_emb': 'position_emb'}
 _STAT_TO_TORCH = {'mean': 'running_mean', 'var': 'running_var'}
 _STAT_TO_FLAX = {v: k for k, v in _STAT_TO_TORCH.items()}
 
@@ -69,20 +74,18 @@ def flax_names(state_dict, root: str = 'inner'
                ) -> Dict[str, Tuple[str, str]]:
   """state_dict key -> (section, name): section 'params' or 'batch_stats'
   and the flax path joined by '/', as the JAX package's train/restore.py
-  _flatten names it. A module with running statistics is a BatchNorm
-  (weight -> scale); any other 'weight' is a Dense kernel. Keys with no
-  flax counterpart (BatchNorm's num_batches_tracked) are left out."""
-  bn = {k.rsplit('.', 1)[0] for k in state_dict
-        if k.endswith('.running_mean')}
+  _flatten names it. A 'weight' of one axis is a norm's scale (BatchNorm,
+  LayerNorm); any other is a kernel. Keys with no flax counterpart
+  (BatchNorm's num_batches_tracked) are left out."""
   out = {}
-  for name in state_dict:
+  for name, value in state_dict.items():
     mod, leaf = name.rsplit('.', 1) if '.' in name else ('', name)
     if leaf in _STAT_TO_FLAX:
       section, key = 'batch_stats', _STAT_TO_FLAX[leaf]
     elif leaf == 'weight':
-      section, key = 'params', 'scale' if mod in bn else 'kernel'
-    elif leaf == 'bias':
-      section, key = 'params', 'bias'
+      section, key = 'params', 'scale' if value.ndim == 1 else 'kernel'
+    elif leaf in ('bias', 'position_emb'):
+      section, key = 'params', leaf
     else:
       continue
     path = ([root] if root else []) + (mod.split('.') if mod else []) + [key]
@@ -210,7 +213,9 @@ def jax_export_to_bundle(jax_export_dir: str, out_dir: str, params,
   from easyrec_torch.models import base as model_base
   config = config_util.get_configs_from_pipeline_file(
       os.path.join(jax_export_dir, sm.CONFIG_FILE))
-  specs = fs.build_feature_specs(config_util.get_feature_configs(config))
+  specs = fs.build_feature_specs(
+      config_util.get_feature_configs(config),
+      max_tag_len=config.data_config.max_tag_len or 16)
   layout = model_base.build_context(config, specs).layout
   out_tables = {}
   for key, t in layout.tables.items():

@@ -192,7 +192,8 @@ class InputPipeline:
       batch_size = data_config.batch_size if mode == 'train' else \
           (data_config.eval_batch_size or data_config.batch_size)
     self.batch_size = int(batch_size)
-    self.specs = fs.build_feature_specs(feature_configs)
+    self.specs = fs.build_feature_specs(
+        feature_configs, max_tag_len=data_config.max_tag_len or 16)
     self.transforms = tr.build_transforms(self.specs)
     self.reader = create_reader(data_config, input_path, shard_index,
                                 shard_num)

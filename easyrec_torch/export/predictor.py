@@ -45,7 +45,9 @@ class Predictor:
       self.meta = json.load(f)
     self.batch_size = int(batch_size)
     self.feature_configs = config_util.get_feature_configs(self.config)
-    self.specs = fs.build_feature_specs(self.feature_configs)
+    self.specs = fs.build_feature_specs(
+        self.feature_configs,
+        max_tag_len=self.config.data_config.max_tag_len or 16)
     self.transforms = tr.build_transforms(self.specs)
     self.ctx = model_base.build_context(self.config, self.specs)
     self.layout = self.ctx.layout

@@ -78,7 +78,7 @@ class EmbeddingLayout:
     plans: Dict[str, List[Tuple[str, str, FeatureSpec]]] = {}
     for fname in deep:
       spec = specs[fname]
-      if spec.kind == 'dense':
+      if spec.kind == 'dense' or spec.seq_is_dense:
         continue
       if spec.embedding_dim <= 0:
         raise ValueError('feature %s has no embedding_dim but is used in a '

@@ -6,9 +6,12 @@ packs into static shapes:
   categorical -> ids[B, K] int32 + weights[B, K] f32   (K = packing width)
   dense       -> dense[B, D] f32
   sequence    -> ids[B, L] int32 + mask[B, L] f32       (L = max_seq_len)
+                 or, numeric, dense[B, L, N] f32 + mask[B, L] f32
 A RawFeature with an embedding becomes a weighted-id lookup (ids = iota,
-weights = values). The port builds specs for IdFeature, RawFeature and the
-id sequences of SequenceFeature.
+weights = values); a TagFeature is K = max_multi_len weighted ids, zero
+weight on padding. The port builds specs for IdFeature, RawFeature,
+TagFeature and SequenceFeature (ids, boundary-bucketed values or numeric
+values).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+# default packing width for multi-value (tag) features
+DEFAULT_MAX_TAG_LEN = 16
 DEFAULT_MAX_SEQ_LEN = 50
 
 
@@ -31,6 +36,7 @@ class FeatureSpec:
   combiner: str = 'sum'
   value_dim: int = 1             # D of a dense feature
   is_weighted: bool = False      # raw-as-embedding: weights carry values
+  seq_is_dense: bool = False     # numeric sequence: values, not ids
   config: Optional[object] = None   # the FeatureConfig message
 
   @property
@@ -75,19 +81,29 @@ def table_rows(config) -> int:
       feature_output_name(config))
 
 
-def build_feature_spec(config) -> FeatureSpec:
+def build_feature_spec(config,
+                       max_tag_len: int = DEFAULT_MAX_TAG_LEN) -> FeatureSpec:
   """Build the static spec for one feature config."""
   name = feature_output_name(config)
   ftype = config.feature_type
   table_name = config.embedding_name or name
   emb_dim = int(config.embedding_dim)
   combiner = config.combiner or 'sum'
+  multi_len = int(config.max_multi_len) or max_tag_len
 
   if ftype == 'IdFeature':
     return FeatureSpec(
         name=name, kind='categorical', num_ids=1,
         table_name=table_name, rows=table_rows(config),
         embedding_dim=emb_dim, combiner=combiner, config=config)
+
+  if ftype == 'TagFeature':
+    return FeatureSpec(
+        name=name, kind='categorical', num_ids=multi_len,
+        table_name=table_name, rows=table_rows(config),
+        embedding_dim=emb_dim, combiner=combiner,
+        is_weighted=bool(config.kv_separator) or len(config.input_names) > 1,
+        config=config)
 
   if ftype == 'RawFeature':
     raw_dim = max(int(config.raw_input_dim), 1)
@@ -108,16 +124,17 @@ def build_feature_spec(config) -> FeatureSpec:
                        config=config)
 
   if ftype == 'SequenceFeature':
+    seq_len = int(config.max_seq_len) or DEFAULT_MAX_SEQ_LEN
     if config.sub_feature_type == 'RawFeature' and \
         not list(config.boundaries):
-      raise NotImplementedError('numeric sequence feature %s is not ported'
-                                % name)
-    if config.hash_bucket_size <= 0:
-      raise NotImplementedError('sequence feature %s: only hashed ids '
-                                '(hash_bucket_size) are ported' % name)
+      # numeric sequence: each position is raw_input_dim floats split by
+      # seq_multi_sep
+      return FeatureSpec(
+          name=name, kind='sequence', num_ids=seq_len, seq_is_dense=True,
+          value_dim=max(int(config.raw_input_dim), 1),
+          embedding_dim=emb_dim, config=config)
     return FeatureSpec(
-        name=name, kind='sequence',
-        num_ids=int(config.max_seq_len) or DEFAULT_MAX_SEQ_LEN,
+        name=name, kind='sequence', num_ids=seq_len,
         table_name=table_name, rows=table_rows(config),
         embedding_dim=emb_dim, combiner=combiner, config=config)
 
@@ -125,16 +142,19 @@ def build_feature_spec(config) -> FeatureSpec:
                             % (ftype, name))
 
 
-def build_feature_specs(configs) -> Dict[str, FeatureSpec]:
-  """Specs for all features; validates shared-embedding consistency."""
+def build_feature_specs(configs, max_tag_len: int = DEFAULT_MAX_TAG_LEN
+                        ) -> Dict[str, FeatureSpec]:
+  """Specs for all features; validates shared-embedding consistency.
+  `max_tag_len` (DatasetConfig.max_tag_len) packs a TagFeature without
+  max_multi_len."""
   specs: Dict[str, FeatureSpec] = {}
   table_shape: Dict[str, tuple] = {}
   for config in configs:
-    spec = build_feature_spec(config)
+    spec = build_feature_spec(config, max_tag_len=max_tag_len)
     if spec.name in specs:
       raise ValueError('duplicate feature name %s' % spec.name)
     specs[spec.name] = spec
-    if spec.kind in ('categorical', 'sequence'):
+    if spec.kind in ('categorical', 'sequence') and not spec.seq_is_dense:
       shape = (spec.rows, spec.embedding_dim)
       prev = table_shape.get(spec.table_name)
       if prev is not None and prev != shape:

@@ -1,8 +1,8 @@
 """Host-side feature transforms: raw columns -> packed numpy arrays.
 
 Counterpart of easyrec_tpu/features/transforms.py for the feature types the
-port runs: IdTransform (:136), RawTransform (:272) and the hashed-id branch
-of SequenceTransform (:493). Columns are numpy arrays: object arrays of str
+port runs: IdTransform (:136), TagTransform (:184), RawTransform (:272) and
+SequenceTransform (:493). Columns are numpy arrays: object arrays of str
 for STRING fields, float64 for FLOAT/DOUBLE, int64 for integer fields.
 """
 
@@ -62,6 +62,17 @@ def _lookup_ids(col, config) -> np.ndarray:
                                 int(config.hash_bucket_size))
   if config.num_buckets > 0:
     return np.clip(to_int(col), 0, int(config.num_buckets) - 1)
+  if list(config.boundaries):
+    # numeric values bucketized by boundaries (a sequence of sub_feature_
+    # type RawFeature with boundaries)
+    vals = np.zeros(len(col), dtype=np.float64)
+    for i, v in enumerate(to_numpy_str(col)):
+      try:
+        vals[i] = float(v)
+      except ValueError:
+        pass
+    bounds = np.asarray(config.boundaries, dtype=np.float64)
+    return np.searchsorted(bounds, vals, side='right').astype(np.int64)
   if config.vocab_list or config.vocab_file:
     vocab = list(config.vocab_list)
     if not vocab:
@@ -99,6 +110,95 @@ class IdTransform(BaseTransform):
     return {
         spec.ids_key: ids.astype(np.int32)[:, None],
         spec.weights_key: weights[:, None],
+    }
+
+
+def _split_lookup(strs, sep: str, k: int, config):
+  """'a|b|c' rows -> (ids [n, k] by the vocab scheme, counts [n]): the
+  non-empty pieces in order, at most k a row."""
+  n = strs.shape[0]
+  ids = np.zeros((n, k), dtype=np.int64)
+  counts = np.zeros(n, dtype=np.int32)
+  flat, pos = [], []
+  for i, s in enumerate(strs):
+    j = 0
+    for piece in (s.split(sep) if s else []):
+      if piece and j < k:
+        flat.append(piece)
+        pos.append((i, j))
+        j += 1
+    counts[i] = j
+  if flat:
+    looked = _lookup_ids(np.array(flat, dtype=object), config)
+    for (i, j), h in zip(pos, looked):
+      ids[i, j] = h
+  return ids, counts
+
+
+class TagTransform(BaseTransform):
+  """Multi-value tags 'a|b|c' -> ids [B, K] + weights [B, K], K =
+  max_multi_len; weighted 'a:0.5|b:2' under kv_separator (a weight that is
+  not a number reads 1.0), or the weights 'w1|w2' of a second input
+  column."""
+
+  def __call__(self, columns):
+    spec, config = self.spec, self.config
+    col = columns[config.input_names[0]]
+    sep = config.separator or '|'
+    k = spec.num_ids
+    if config.kv_separator:
+      strs = to_numpy_str(col)
+      n = strs.shape[0]
+      ids = np.zeros((n, k), dtype=np.int64)
+      weights = np.zeros((n, k), dtype=np.float32)
+      kv = config.kv_separator
+      keys_flat, wts_flat, pos = [], [], []
+      for i, s in enumerate(strs):
+        if not s:
+          continue
+        j = 0
+        for piece in s.split(sep):
+          if not piece or j >= k:
+            continue
+          if kv in piece:
+            key, _, wstr = piece.partition(kv)
+            try:
+              w = float(wstr)
+            except ValueError:
+              w = 1.0
+          else:
+            key, w = piece, 1.0
+          keys_flat.append(key)
+          wts_flat.append(w)
+          pos.append((i, j))
+          j += 1
+      if keys_flat:
+        looked = _lookup_ids(np.array(keys_flat, dtype=object), config)
+        for (i, j), h, w in zip(pos, looked, wts_flat):
+          ids[i, j] = h
+          weights[i, j] = w
+    else:
+      if config.hash_bucket_size > 0:
+        ids, counts = hashing.split_hash(
+            to_numpy_str(col), sep, int(config.hash_bucket_size), k)
+      else:
+        ids, counts = _split_lookup(to_numpy_str(col), sep, k, config)
+      weights = (np.arange(k)[None, :] < counts[:, None]).astype(np.float32)
+      if len(config.input_names) > 1:
+        wstrs = to_numpy_str(columns[config.input_names[1]])
+        wvals = np.zeros_like(weights)
+        for i, s in enumerate(wstrs):
+          if not s:
+            continue
+          for j, piece in enumerate(s.split(sep)[:k]):
+            try:
+              wvals[i, j] = float(piece)
+            except ValueError:
+              wvals[i, j] = 1.0
+        weights = weights * wvals
+    return {
+        spec.ids_key: ids.astype(np.int32),
+        spec.weights_key: weights,
     }
 
 
@@ -157,15 +257,40 @@ class RawTransform(BaseTransform):
 
 
 class SequenceTransform(BaseTransform):
-  """Behaviour sequences 'i1|i2|...' -> ids[B, L] + mask[B, L]: hashed
-  pieces in order, truncated to L, padded with id 0 and mask 0."""
+  """Behaviour sequences 'i1|i2|...' -> ids[B, L] + mask[B, L]: the
+  pieces in order (hashed, or by num_buckets, boundaries or vocab),
+  truncated to L, padded with id 0 and mask 0. A numeric sequence gives
+  dense[B, L, N] + mask[B, L]: positions split by `separator`, each
+  position's N values by `seq_multi_sep`."""
 
   def __call__(self, columns):
     spec, config = self.spec, self.config
     col = to_numpy_str(columns[config.input_names[0]])
-    ids, counts = hashing.split_hash(col, config.separator or '|',
-                                     int(config.hash_bucket_size),
-                                     spec.num_ids)
+    sep = config.separator or '|'
+    L = spec.num_ids
+    if spec.seq_is_dense:
+      n = col.shape[0]
+      sub_sep = config.seq_multi_sep or None
+      N = spec.value_dim
+      vals = np.zeros((n, L, N), dtype=np.float32)
+      mask = np.zeros((n, L), dtype=np.float32)
+      for i, s in enumerate(col):
+        if not s:
+          continue
+        for j, piece in enumerate(s.split(sep)[:L]):
+          subs = piece.split(sub_sep) if sub_sep else [piece]
+          for d, sub in enumerate(subs[:N]):
+            try:
+              vals[i, j, d] = float(sub)
+            except ValueError:
+              pass
+          mask[i, j] = 1.0
+      return {spec.dense_key: vals, spec.mask_key: mask}
+    if config.hash_bucket_size > 0:
+      ids, counts = hashing.split_hash(col, sep,
+                                       int(config.hash_bucket_size), L)
+    else:
+      ids, counts = _split_lookup(col, sep, L, config)
     mask = (np.arange(spec.num_ids)[None, :] < counts[:, None]).astype(
         np.float32)
     return {
@@ -176,6 +301,7 @@ class SequenceTransform(BaseTransform):
 
 _TRANSFORMS = {
     'IdFeature': IdTransform,
+    'TagFeature': TagTransform,
     'RawFeature': RawTransform,
     'SequenceFeature': SequenceTransform,
 }

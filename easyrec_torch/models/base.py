@@ -31,8 +31,7 @@ class ModelContext:
   def __post_init__(self):
     self.input_layer = emb_ops.InputLayer(self.layout, self.specs)
     self.groups = {g.group_name: g for g in self.model_config.feature_groups}
-    self.seq_att_groups = {g.group_name: g
-                           for g in self.model_config.seq_att_groups}
+    self.seq_att_groups = seq_att_groups(self.model_config)
 
   def group_features(self, name: str) -> List[str]:
     if name not in self.groups:
@@ -41,20 +40,32 @@ class ModelContext:
     return list(self.groups[name].feature_names)
 
 
+def seq_att_groups(model_config) -> Dict[str, object]:
+  """The seq_att groups by name, then the sequence_features sub-groups of
+  the feature groups under their own name or their group's, where that
+  name is not taken yet (JAX ModelContext.__post_init__, :37-43)."""
+  groups = {g.group_name: g for g in model_config.seq_att_groups}
+  for g in model_config.feature_groups:
+    for sg in g.sequence_features:
+      groups.setdefault(sg.group_name or g.group_name, sg)
+  return groups
+
+
 def _group_names(model_config, roles) -> List[str]:
-  """Features of the groups in `roles`, then, for the deep role, the keys
-  and histories of the seq_att groups: the JAX package's order
-  (ModelContext.deep_feature_names, :53), which fixes the fused tables'
-  row offsets."""
+  """Features of the groups in `roles`, then, for the deep role, the keys,
+  histories and aux histories of the seq_att groups and sub-groups: the
+  JAX package's order (ModelContext.deep_feature_names, :53), which fixes
+  the fused tables' row offsets."""
   names = []
   for g in model_config.feature_groups:
     if g.wide_deep in roles:
       names.extend(g.feature_names)
   if 'DEEP' in roles:
-    for g in model_config.seq_att_groups:
+    for g in seq_att_groups(model_config).values():
       for m in g.seq_att_map:
         names.extend(m.key)
         names.extend(m.hist_seq)
+        names.extend(m.aux_hist_seq)
   return list(dict.fromkeys(names))
 
 

@@ -1,8 +1,13 @@
 """Embedding ops: id packing, fused gather, combiners, input-layer assembly.
 
 Counterpart of easyrec_tpu/ops/embedding.py (single device): `pack_ids`
-(:21), `pull_embeddings` (:56), `combine` (:241) and the parts of
-`InputLayer` (:268-422) that DeepFM and MultiTowerDIN use. The pull
+(:21), `pull_embeddings` (:56), `combine` (:241) and `InputLayer`
+(:268-422) without its sampled-negative views. A sequence in a flat
+feature group is reduced by its SequenceCombiner (`_combine_sequence`,
+:361): the masked mean, or an attention, multi-head attention or TextCNN
+whose parameters flax creates inside the calling model; here the model
+owns them (models/seq_input.build_group_input) and is passed as
+`owner`. The pull
 happens OUTSIDE the differentiated forward: the backward pass produces
 gradients of the pulled rows [B, totK, dim], which the sparse update then
 applies to the table.
@@ -63,6 +68,20 @@ def combine(rows: torch.Tensor, weights: torch.Tensor,
   raise ValueError('unknown combiner %r' % combiner)
 
 
+def sequence_combiner(spec):
+  """The SequenceCombiner a sequence feature names (attention,
+  multi_head_attention, text_cnn), or None for the masked mean."""
+  cfg = spec.config
+  if cfg is not None and cfg.HasField('sequence_combiner'):
+    return cfg.sequence_combiner.WhichOneof('combiner')
+  return None
+
+
+def sequence_dim(spec) -> int:
+  """Width of one step of a sequence: its values or its embedding."""
+  return spec.value_dim if spec.seq_is_dense else spec.embedding_dim
+
+
 class InputLayer:
   """Assembles per-feature embeddings from the fused pulls."""
 
@@ -83,34 +102,63 @@ class InputLayer:
     return combine(rows, batch['feat.%s.weights' % fname], combiner)
 
   def sequence_embedding(self, pulled, batch, fname: str):
-    """([B, L, dim] rows x mask, mask [B, L]) of one id sequence."""
+    """([B, L, dim] rows x mask, mask [B, L]) of one id sequence, or the
+    [B, L, N] values x mask of a numeric one."""
+    spec = self.specs[fname]
+    mask = batch['feat.%s.mask' % fname]
+    if spec.seq_is_dense:
+      return batch[spec.dense_key] * mask[:, :, None], mask
     key, use = self.layout.feature_use[(fname, 'deep')]
     rows = pulled[key][:, use.start:use.start + use.k]
     if use.col_dim:
       rows = rows[..., use.col_start:use.col_start + use.col_dim]
-    mask = batch['feat.%s.mask' % fname]
     return rows * mask[:, :, None], mask
 
   def dense_feature(self, batch, fname: str) -> torch.Tensor:
     return batch['feat.%s.dense' % fname]
 
   def group_embeddings(self, pulled, batch, feature_names,
-                       role: str = 'deep'):
-    """Per-feature [B, d_f] tensors of a group (dense features pass)."""
+                       role: str = 'deep', owner=None):
+    """Per-feature [B, d_f] tensors of a group (dense features pass; a
+    sequence is reduced by its combiner, held by `owner`)."""
     outs = []
     for f in feature_names:
       kind = self.specs[f].kind
-      if kind == 'sequence':
-        raise NotImplementedError('sequence feature %s in a flat feature '
-                                  'group is not ported' % f)
-      outs.append(self.dense_feature(batch, f) if kind == 'dense'
-                  else self.feature_embedding(pulled, batch, f, role))
+      if kind == 'dense':
+        outs.append(self.dense_feature(batch, f))
+      elif kind == 'sequence':
+        seq, mask = self.sequence_embedding(pulled, batch, f)
+        outs.append(self.combine_sequence(owner, f, seq, mask))
+      else:
+        outs.append(self.feature_embedding(pulled, batch, f, role))
     return outs
 
+  def combine_sequence(self, owner, fname: str, seq: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """[B, L, d] sequence -> [B, d'] by the feature's SequenceCombiner,
+    whose module `owner` holds as seqcomb_<f>_att | _mha | _cnn; without
+    one, the masked mean."""
+    which = sequence_combiner(self.specs[fname])
+    if which == 'attention':
+      scores = getattr(owner, 'seqcomb_%s_att' % fname)(seq)[..., 0]
+      scores = torch.where(mask > 0, scores,
+                           torch.full_like(scores, -1e9))
+      w = torch.softmax(scores, dim=-1)
+      w = w * (mask.sum(dim=1, keepdim=True) > 0)
+      return torch.einsum('bl,bld->bd', w, seq)
+    if which == 'multi_head_attention':
+      out = getattr(owner, 'seqcomb_%s_mha' % fname)(seq, mask)
+      denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+      return (out * mask[:, :, None]).sum(dim=1) / denom
+    if which == 'text_cnn':
+      return getattr(owner, 'seqcomb_%s_cnn' % fname)(seq, mask)
+    denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+    return seq.sum(dim=1) / denom
+
   def group_concat(self, pulled, batch, feature_names,
-                   role: str = 'deep') -> torch.Tensor:
+                   role: str = 'deep', owner=None) -> torch.Tensor:
     """[B, sum(d_f)] concatenation of a feature group."""
-    outs = self.group_embeddings(pulled, batch, feature_names, role)
+    outs = self.group_embeddings(pulled, batch, feature_names, role, owner)
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
   def group_stack(self, pulled, batch, feature_names,

@@ -58,13 +58,15 @@ from easyrec_torch.train.restore import fine_tune_restore
 
 
 def l2_of_kernels(model: nn.Module) -> torch.Tensor:
-  """Sum of squares of the Dense kernels, in the JAX package's leaf order
-  (sorted parameter paths). BatchNorm weights — flax's `scale` — are not
-  kernels and stay out, as in trainer.py:50-56."""
+  """Sum of squares of the kernels (Dense, DenseGeneral, Conv: every
+  `weight` of two or more axes), in the JAX package's leaf order (sorted
+  parameter paths). Norm weights — flax's `scale` — and position tables
+  are not kernels and stay out, as in trainer.py:50-56."""
   total = None
-  for _, m in sorted(((n, m) for n, m in model.named_modules()
-                      if isinstance(m, nn.Linear)), key=lambda nm: nm[0]):
-    sq = torch.sum(m.weight * m.weight)
+  for name, p in sorted(model.named_parameters()):
+    if name.rsplit('.', 1)[-1] != 'weight' or p.ndim < 2:
+      continue
+    sq = torch.sum(p * p)
     total = sq if total is None else total + sq
   return total
 
@@ -98,7 +100,9 @@ class Trainer:
     self.train_config = pipeline_config.train_config
     self.eval_config = pipeline_config.eval_config
     self.feature_configs = config_util.get_feature_configs(pipeline_config)
-    self.specs = fs.build_feature_specs(self.feature_configs)
+    self.specs = fs.build_feature_specs(
+        self.feature_configs,
+        max_tag_len=self.data_config.max_tag_len or 16)
     self.ctx = model_base.build_context(pipeline_config, self.specs)
     self.layout = self.ctx.layout
     self.seed = int(self.train_config.random_seed or 2025)

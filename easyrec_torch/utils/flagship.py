@@ -1,4 +1,4 @@
-"""The benchmark models: a Criteo-shaped DeepFM and the Taobao DIN.
+"""The benchmark models: a Criteo-shaped DeepFM and the Taobao DIN and BST.
 
 Counterpart of easyrec_tpu/utils/flagship.py:
   - criteo_deepfm_config: the reference's headline deepfm_on_criteo config,
@@ -15,6 +15,9 @@ Counterpart of easyrec_tpu/utils/flagship.py:
     MultiTowerDIN over 15 id features plus price (num_buckets 50) and two
     behaviour sequences of max_seq_len 50, dim 16, batch 4096: one fused
     dim-16 table of about 620k rows.
+  - taobao_bst_config (:224-243): bst_on_taobao, the same schema and
+    tables, MultiTowerBST whose transformer runs over the two histories
+    (hidden 32, 4 heads, FFN 128) with the target at their head.
 """
 
 from __future__ import annotations
@@ -245,5 +248,28 @@ def taobao_din_config(batch_size: int = 4096, seq_len: int = 50,
     final_dnn { hidden_units: [128, 96, 64, 32, 16] }
     l2_regularization: 5e-7
   }""" % _tower_groups()
+  return _taobao_pipeline(model, ['clk'], batch_size, seq_len,
+                          embedding_dim, model_dir)
+
+
+def taobao_bst_config(batch_size: int = 4096, seq_len: int = 50,
+                      embedding_dim: int = 16, model_dir: str = ''):
+  """MultiTowerBST on the Taobao schema (bst_on_taobao.config): the two
+  histories concatenate into hidden 32, 4 heads, the target at the head of
+  seq_len + 1 tokens."""
+  model = """  model_class: "MultiTowerBST"
+%s
+  seq_att_groups {
+    group_name: "bst"
+    seq_att_map { key: "brand" hist_seq: "tag_brand_list" }
+    seq_att_map { key: "cate_id" hist_seq: "tag_category_list" }
+  }
+  multi_tower {
+    towers { input: "user" dnn { hidden_units: [256, 128, 96, 64] } }
+    towers { input: "item" dnn { hidden_units: [256, 128, 96, 64] } }
+    bst_towers { input: "bst" seq_len: %d multi_head_size: 4 }
+    final_dnn { hidden_units: [128, 96, 64, 32, 16] }
+    l2_regularization: 5e-7
+  }""" % (_tower_groups(), seq_len)
   return _taobao_pipeline(model, ['clk'], batch_size, seq_len,
                           embedding_dim, model_dir)

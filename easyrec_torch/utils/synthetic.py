@@ -1,7 +1,7 @@
 """Synthetic packed batches straight from feature specs.
 
-Counterpart of easyrec_tpu/utils/synthetic.py for the feature kinds the port
-runs (categorical, dense and id sequences). Batches are the same flat numpy
+Counterpart of easyrec_tpu/utils/synthetic.py (categorical, dense, id and
+numeric sequences). Batches are the same flat numpy
 dicts the input pipeline yields, so benchmarks can time the train step
 without the host CSV path.
 """
@@ -29,6 +29,10 @@ def synthetic_batch(specs: Dict[str, FeatureSpec],
     if spec.kind == 'dense':
       batch[spec.dense_key] = rng.random(
           (batch_size, spec.value_dim)).astype(np.float32)
+    elif spec.kind == 'sequence' and spec.seq_is_dense:
+      batch[spec.dense_key] = rng.random(
+          (batch_size, spec.num_ids, spec.value_dim)).astype(np.float32)
+      batch[spec.mask_key] = np.ones((batch_size, spec.num_ids), np.float32)
     elif spec.kind == 'sequence':
       # lengths uniform in 1..L; padded positions carry id 0, mask 0
       lens = rng.integers(1, spec.num_ids + 1, batch_size)

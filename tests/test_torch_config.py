@@ -161,8 +161,8 @@ def test_optimizer_messages_match_protobuf(kind, extra, fields):
 
 @pytest.mark.parametrize('text,what', [
     ('model_config { model_class: "DIN" }', "model_class 'DIN'"),
-    ('feature_configs { input_names: "t" feature_type: TagFeature }',
-     'feature_type TagFeature'),
+    ('feature_configs { input_names: "t" feature_type: ComboFeature }',
+     'feature_type ComboFeature'),
     ('data_config { input_type: OdpsInput }', 'input_type OdpsInput'),
     ('train_config { freeze_gradient: "dnn_0" }', 'freeze_gradient'),
     ('eval_config { metrics_set { gauc {} } }', 'gauc'),

@@ -21,6 +21,7 @@ from easyrec_torch import convert
 from easyrec_torch.config import config_util as t_config
 from easyrec_torch.data import input_pipeline as t_input
 from easyrec_torch.features import feature_spec as t_fs
+from easyrec_torch.features import transforms as t_tr
 from easyrec_torch.layers import attention as t_att
 from easyrec_torch.models import base as t_base
 from easyrec_torch.models import rank as t_rank  # noqa: F401 (registers)
@@ -35,6 +36,7 @@ from easyrec_torch.utils import synthetic as t_synth
 from easyrec_tpu.config import config_util as j_config
 from easyrec_tpu.data import input_pipeline as j_input
 from easyrec_tpu.features import feature_spec as j_fs
+from easyrec_tpu.features import transforms as j_tr
 from easyrec_tpu.layers import attention as j_att
 from easyrec_tpu.models import base as j_base
 from easyrec_tpu.models import zoo  # noqa: F401 (registers)
@@ -252,6 +254,39 @@ def test_specs_layout_and_synthetic_batches_match():
     np.testing.assert_array_equal(t_packs[k].numpy(), np.asarray(j_packs[k]))
 
 
+# The small DIN's config with each sequence part that was refused before
+# the sequence family was ported, keyed by the part's name.
+SEQ_PART_CONFIGS = {
+    'bst_towers': lambda c: c.replace(
+        'MultiTowerDIN', 'MultiTowerBST').replace(
+            'din_towers { input: "din" dnn { hidden_units: [8, 1] } }',
+            'bst_towers { input: "din" seq_len: 8 multi_head_size: 4 }'),
+    'aux_hist_seq': lambda c: c.replace(
+        'seq_att_map { key: "cate_id" hist_seq: "tag_category_list" }',
+        'seq_att_map { key: "cate_id" hist_seq: "tag_category_list" '
+        'aux_hist_seq: "tag_brand_list" }'),
+    'sequence_features': lambda c: c.replace(
+        'feature_names: "user_id"\n                   wide_deep: DEEP',
+        'feature_names: "user_id"\n                   wide_deep: DEEP\n'
+        '  sequence_features { group_name: "s" seq_att_map { key: "brand" '
+        'hist_seq: "tag_brand_list" } }'),
+    'seq_dnn': lambda c: c.replace(
+        'group_name: "din"',
+        'group_name: "din" seq_dnn { hidden_units: [4, 1] }'),
+}
+
+
+def _train_one_step(text):
+  cfg = t_config.get_configs_from_pipeline_str(text)
+  t_config.check_ported(cfg)
+  trainer = TTrainer(cfg, device='cpu')
+  trainer.init_state()
+  batch = synthetic_batch(trainer.specs, ['clk'], 64, seed=0)
+  loss = trainer.train_step(to_device(batch, torch.device('cpu')))
+  assert np.isfinite(float(loss['total_loss']))
+  return trainer
+
+
 @pytest.mark.parametrize('text,what', [
     ('multi_tower { bst_towers { input: "din" } }', 'bst_towers'),
     ('seq_att_groups { seq_att_map { aux_hist_seq: "s" } }', 'aux_hist_seq'),
@@ -260,10 +295,20 @@ def test_specs_layout_and_synthetic_batches_match():
     ('seq_att_groups { seq_dnn { hidden_units: [4, 1] } }', 'seq_dnn'),
 ])
 def test_unported_sequence_parts_raise_naming_them(text, what):
+  """Each sequence part check_ported refused by name before the sequence
+  family was ported: it now passes check_ported, and the small DIN with it
+  builds the part's modules and trains a step on the CPU."""
   cfg = t_config.get_configs_from_pipeline_str(
       'model_config { model_class: "MultiTowerDIN" %s }' % text)
-  with pytest.raises(NotImplementedError, match=what):
-    t_config.check_ported(cfg)
+  t_config.check_ported(cfg)
+  full = SEQ_PART_CONFIGS[what](CONFIG % {'bn': 'false'})
+  assert full != CONFIG % {'bn': 'false'}
+  names = dict(_train_one_step(full).model.named_modules())
+  want = {'bst_towers': 'bst_din.block_0.mha.query',
+          'aux_hist_seq': 'din_din.att_dnn',
+          'sequence_features': 'seq_dnn_user_s.att_dnn',
+          'seq_dnn': 'seq_dnn_din.dense_1'}[what]
+  assert want in names, sorted(names)
 
 
 @pytest.mark.parametrize('feature,what', [
@@ -272,17 +317,38 @@ def test_unported_sequence_parts_raise_naming_them(text, what):
     ('feature_type: SequenceFeature num_buckets: 10', 'hashed ids'),
 ])
 def test_unported_sequence_features_raise(feature, what):
-  cfg = t_config.get_configs_from_pipeline_str(
-      'feature_configs { input_names: "s" embedding_dim: 4 %s }' % feature)
-  with pytest.raises(NotImplementedError, match=what):
-    t_fs.build_feature_specs(t_config.get_feature_configs(cfg))
+  """The two sequence specs the port refused before the sequence family:
+  a numeric sequence (values [B, L, N] and a mask, no table) and an id
+  sequence by num_buckets (a table of num_buckets rows), each equal to
+  the JAX package's spec and batch."""
+  text = 'feature_configs { input_names: "s" embedding_dim: 4 %s }' % feature
+  t_cfg = t_config.get_configs_from_pipeline_str(text)
+  j_cfg = j_config.get_configs_from_pipeline_str(text)
+  t = t_fs.build_feature_specs(t_config.get_feature_configs(t_cfg))['s']
+  j = j_fs.build_feature_specs(j_config.get_feature_configs(j_cfg))['s']
+  assert (t.kind, t.num_ids, t.rows, t.seq_is_dense, t.value_dim) == \
+      (j.kind, j.num_ids, j.rows, j.seq_is_dense, j.value_dim)
+  assert t.seq_is_dense == (what == 'numeric sequence')
+  col = np.array(['', '3', '1|7|12', '|'.join(['2'] * 60), '4||x'], object)
+  got = t_tr.build_transform(t)({'s': col})
+  want = j_tr.build_transform(j)({'s': col})
+  assert sorted(got) == sorted(want)
+  for k in want:
+    np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_multi_tower_bst_is_not_ported():
+  """MultiTowerBST, refused before the sequence family was ported, passes
+  check_ported, and the small DIN's config as a BST (the two histories
+  concatenated, hidden 32) trains a step."""
   cfg = t_config.get_configs_from_pipeline_str(
       'model_config { model_class: "MultiTowerBST" }')
-  with pytest.raises(NotImplementedError, match='MultiTowerBST'):
-    t_config.check_ported(cfg)
+  t_config.check_ported(cfg)
+  trainer = _train_one_step(
+      SEQ_PART_CONFIGS['bst_towers'](CONFIG % {'bn': 'true'}))
+  bst = trainer.model.bst_din
+  assert bst.position_emb.shape == (9, 32)
+  assert bst.block_0.mha.query.weight.shape == (8, 4, 32)
 
 
 # ------------------------------------------------------------ forward

@@ -671,3 +671,45 @@ def test_predictor_on_the_card_matches_the_cpu(cuda, tmp_path):
     np.testing.assert_allclose([float(r[key]) for r in got],
                                [float(r[key]) for r in want],
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('fused', ['0', '1'])
+def test_bst_trains_on_the_card_as_on_the_cpu(cuda, fused, monkeypatch):
+  """A small Taobao BST (two dim-16 histories of length 8, hidden 32, 4
+  heads) trained 3 steps on the card and on the CPU from one state, under
+  EASYREC_ATTN_IMPL=stock: losses within 1e-5 relative, table weights
+  within 1e-5 but 1 in 100 (each within 2 lr a step: chip_smoke.py's
+  agree rule, for gradient sums that cancel to rounding noise), K1 + K2
+  or K3 once a step."""
+  monkeypatch.setenv('EASYREC_PACKED_FUSED', fused)
+  monkeypatch.setenv('EASYREC_ATTN_IMPL', 'stock')
+  from easyrec_torch.train.trainer import Trainer, to_device
+  from easyrec_torch.utils import flagship
+  from easyrec_torch.utils.synthetic import synthetic_batch
+  cfg = flagship.taobao_bst_config(batch_size=256, seq_len=8)
+  runs = {}
+  for name in ('cpu', 'cuda'):
+    runs[name] = Trainer(cfg, device=name)
+    runs[name].init_state()
+  runs['cuda'].model.load_state_dict(runs['cpu'].model.state_dict())
+  for key, table in runs['cpu'].tables.items():
+    runs['cuda'].tables[key].copy_(table)
+  kernels.reset_launches()
+  losses = {}
+  for name, t in runs.items():
+    losses[name] = [float(t.train_step(to_device(
+        synthetic_batch(t.specs, ['clk'], 256, seed=s),
+        torch.device(name)))['total_loss']) for s in range(3)]
+  np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-5)
+  n = len(runs['cuda'].tables)
+  want = {'seg_sum': 0, 'rmw_rows': 0, 'rmw_fused': 3 * n} if fused == '1' \
+      else {'seg_sum': 3 * n, 'rmw_rows': 3 * n, 'rmw_fused': 0}
+  want.update(group_push=0, group_rmw=0)
+  assert kernels.launch_counts() == want
+  lr_sum = sum(float(runs['cpu'].embed_pair.schedule(torch.tensor(s)))
+               for s in range(3))
+  for key, table in runs['cpu'].tables.items():
+    dim = runs['cpu'].metas[key].dim
+    diff = (runs['cuda'].tables[key][:, :dim].cpu() - table[:, :dim]).abs()
+    assert int((diff > 1e-5).sum()) <= diff.numel() // 100
+    assert float(diff.max()) <= 2 * lr_sum

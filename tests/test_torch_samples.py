@@ -39,13 +39,14 @@ IGNORED = {
     'ExportConfig.multi_value_fields', 'ExportConfig.auto_multi_value',
 }
 
-# The samples check_ported accepts. Among those it rejects,
-# seq_text_cnn_combiner (sequence_combiner, which would otherwise fail by
-# name at its first forward) sets nothing else the port lacks.
-PORTED = ['best_exporter_early_stop', 'dead_line_stop', 'deepfm_adamw',
-          'deepfm_ema', 'deepfm_ev_params', 'deepfm_gzip_csv',
-          'deepfm_momentumw', 'deepfm_with_embed', 'multi_opt_seq_din',
-          'raw_boundaries']
+# The samples check_ported accepts.
+PORTED = ['best_exporter_early_stop', 'dead_line_stop', 'deepfm',
+          'deepfm_adamw', 'deepfm_ema', 'deepfm_ev_params',
+          'deepfm_gzip_csv', 'deepfm_momentumw', 'deepfm_sample_weight',
+          'deepfm_seq_attn', 'deepfm_vocab', 'deepfm_with_embed',
+          'din_kv_tags_seq_combiner', 'multi_opt_seq_din', 'multi_tower_bst',
+          'multi_tower_din', 'multi_tower_plain', 'raw_boundaries',
+          'seq_text_cnn_combiner', 'share_embedding_not_used']
 
 
 def _name(path):
@@ -106,17 +107,20 @@ def _passes(path):
 
 def test_samples_that_pass_check_ported():
   assert [_name(p) for p in SAMPLES if _passes(p)] == PORTED
-  assert len(PORTED) == 10
+  assert len(PORTED) == 20
   for name, field in (('dead_line_stop', 'dead_line'),
                       ('best_exporter_early_stop', 'export_config')):
     cfg = t_config.get_configs_from_pipeline_file(
         os.path.join(REPO, 'samples', name + '.config'))
     assert field in t_text.to_text(cfg)
     t_config.check_ported(cfg)
+  # the text_cnn sequence combiner, which failed by name before the
+  # sequence family was ported, passes
   cfg = t_config.get_configs_from_pipeline_file(
       os.path.join(REPO, 'samples', 'seq_text_cnn_combiner.config'))
-  with pytest.raises(NotImplementedError, match='sequence_combiner'):
-    t_config.check_ported(cfg)
+  assert cfg.feature_config.features[-1].sequence_combiner.WhichOneof(
+      'combiner') == 'text_cnn'
+  t_config.check_ported(cfg)
 
 
 @pytest.mark.parametrize('name', PORTED)
