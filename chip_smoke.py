@@ -17,7 +17,9 @@ Phases, in order; any failure exits nonzero before the result line:
              per example at batch 4096, two padding segments of ~100k
              slots, dim 16, 620k-row table); K2 with every block math
              (sgd, momentum, Adagrad, 3-part Adam, compact Adam, FTRL) at
-             the flagship shape; K3 with every block math at the DIN shape
+             the flagship shape; K1 in every mode and K2 (compact Adam) at
+             the Taobao MMoE's (116 id slots per example at batch 4096,
+             dim 16, so K2 runs four lanes a row); K3 with every block math at the DIN shape
              and at dim 256; K2 and K3 with the EV maths (ev_add, ev_set)
              on the [210,002, 1] aux table of the EV sample (phase 10's
              shape); all bit-exact, with times from CUDA events beside
@@ -67,9 +69,11 @@ K4 and K5 must launch 0 times in 6-8.
  11. kernel-only K1, K2 (compact Adam and Adagrad) at the flagship shape,
              K3 and K1 + K2 at the DIN shape and K2 and K3 with the EV maths
              at the EV shape, their kernels alone, timed by torch.profiler
-             on the inputs of phase 3, after the slices because the
-             profiler stays hooked into the process once it has traced the
-             card.
+             on the inputs of phase 3 (the kernels launched inside each
+             call's window, never the L2 flush before it; a sum above the
+             wrapper's event time is logged as not measured), after the
+             slices because the profiler stays hooked into the process
+             once it has traced the card.
  12. serve   (run between 10 and 11: the profiler slows what follows it)
              the flagship DeepFM at full width: train_and_evaluate on a
              model_dir (20 steps, one save; the checkpoint and the 'final'
@@ -97,6 +101,24 @@ K4 and K5 must launch 0 times in 6-8.
              Predictor on the card whose answers at 1 and 4,096 rows must
              bit-equal the training Trainer's eval forward, with no K1-K5
              launch.
+ 14. mt      (run after 13, before 9) the multi-task family: a small form
+             of SimpleMultiTask, MMoE, ESMM, DBMTL and PLE on the Taobao
+             schema (batch 256, histories of 8, labels clk and buy) trains
+             3 steps on the card and the CPU from one state, unfused and
+             fused, at the agree phase's rule; its eval (`auc`, each
+             `auc_<task>`, ESMM's `auc_ctcvr` too, and the loss) is held
+             card against CPU from the shared state before the steps and
+             from the card's trained state after them;
+ 15. mmoe    the full-width Taobao MMoE (flagship.taobao_mmoe_config,
+             mmoe_on_taobao: 4 experts and two towers of [256, 192, 128,
+             64] over a 288-wide input) through train_and_evaluate, unfused
+             (K1 + K2, compact Adam, once a step each), with its rate,
+             launches a step, peak memory, `auc`, `auc_ctr` and `auc_cvr`;
+             this slice's main path;
+ 16. serve mmoe  a 5-step MMoE on a seeded CSV with clk and buy exported,
+             PredictorService on the card answering 1 and 4,096 rows over
+             HTTP, every output bit-equal to the training Trainer's eval
+             forward, with no K1-K5 launch.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -160,43 +182,6 @@ def bound_ms(nbytes, nops):
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def kernel_ms(torch, fn, reps, flush):
-  """Device time of the kernels fn() launches, per call, from
-  torch.profiler: {kernel name: ms per call} summed over its launches,
-  with the L2 flush before each call (and the flush's own kernel) left
-  out of the sum. The wrapper's host gaps between its launches are not in
-  it. Returns {} where the profiler records no device time."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-
-  def device_us(body):
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      body()
-      torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-      if e.device_type == DeviceType.CUDA:
-        for name in ('self_device_time_total', 'self_cuda_time_total'):
-          t = getattr(e, name, None)
-          if t is not None:
-            out[e.key] = out.get(e.key, 0.0) + float(t)
-            break
-    return out
-
-  fn()
-  torch.cuda.synchronize()
-  skip = set(device_us(flush.zero_))
-
-  def body():
-    for _ in range(reps):
-      flush.zero_()
-      fn()
-
-  return {k: v / 1e3 / reps for k, v in device_us(body).items()
-          if k not in skip and v > 0}
-
-
 # wrapper calls whose kernels torch.profiler times after the slices: once
 # the profiler has traced the card it stays hooked into the process, so the
 # step rates are taken first. (label, event ms, bound ms, call, a function
@@ -217,11 +202,12 @@ def phase_kernel_only(torch):
   """The queued wrapper calls again, on their inputs remade on the card,
   under torch.profiler: the kernels' own device time beside the event
   time of the whole wrapper and the bound."""
+  from easyrec_torch.tools.time_update import kernel_times
   flush = torch.empty(64 << 20, dtype=torch.float32, device='cuda')
   for label, event_ms, bound, call, make in KERNEL_ONLY:
     dev = make()
-    total = log_kernel_ms(label, kernel_ms(torch, lambda: call(**dev), 20,
-                                           flush), event_ms)
+    total = log_kernel_ms(label, kernel_times(torch, lambda: call(**dev),
+                                              20, flush), event_ms)
     if total is not None:
       log('%s: kernels only %.2f x the bound (%.4f ms)'
           % (label, total / bound, bound))
@@ -233,12 +219,19 @@ def phase_kernel_only(torch):
 
 def log_kernel_ms(what, by_name, event_ms):
   """One line: the kernels' summed device time beside the event time of
-  the whole wrapper, and each kernel's share."""
+  the whole wrapper, and each kernel's share. A sum above the event time
+  is not the kernels' alone: it is logged as not measured."""
   if not by_name:
     log('%s: kernel-only time not measured (the profiler recorded no '
         'device time); event time %.4f ms' % (what, event_ms))
     return None
   total = sum(by_name.values())
+  if total > event_ms:
+    log('%s: kernel-only time not measured (the profiler\'s sum %.4f ms '
+        'exceeds the event time of the wrapper %.4f ms; %s)'
+        % (what, total, event_ms, '; '.join(
+            '%s %.4f' % (k[:60], v) for k, v in by_name.items())))
+    return None
   log('%s: kernels only %.4f ms a call (profiler), event time of the '
       'wrapper %.4f ms; %s' % (what, total, event_ms, '; '.join(
           '%s %.4f' % (k[:60], v) for k, v in sorted(
@@ -321,22 +314,11 @@ def phase_kernels(torch):
   results = []
 
   # -- K1: segmented gradient sum, every EASYREC_GG_BF16 mode, bit-exact
-  err1 = 0.0
-  for mode in ('0', 'mix', '1'):
-    uk, sk = pt.seg_sum(sids, order, starts, grads, meta.sentinel, mode)
-    up, sp = pt.seg_sum_plain(sids, order, starts, grads, meta.sentinel,
-                              mode)
-    torch.cuda.synchronize()
-    if not torch.equal(uk, up):
-      fail('seg_sum mode %s: unique ids differ from the plain version'
-           % mode)
-    if not torch.equal(sk.view(torch.int32), sp.view(torch.int32)):
-      fail('seg_sum mode %s: sums differ from the plain version (max %g)'
-           % (mode, float((sk - sp).abs().max())))
-    err1 = max(err1, float((sk - sp).abs().max()))
-    log('seg_sum mode %-3s: %d segments, bit-exact against the plain '
-        'version (tolerance 0: the same f32 additions in the same order)'
-        % (mode, n_seg))
+  err1 = check_seg_sum(torch, pt, sids, order, starts, grads, meta.sentinel,
+                       'flagship shape')
+  log('seg_sum: %d segments, bit-exact against the plain version in modes '
+      '0, mix and 1 (tolerance 0: the same f32 additions in the same order)'
+      % n_seg)
   k1_ms = cuda_ms(torch, lambda: pt.seg_sum(sids, order, starts, grads,
                                             meta.sentinel, '1'), 20, flush)
   k1_plain = cuda_ms(torch, lambda: pt.seg_sum_plain(
@@ -373,7 +355,6 @@ def phase_kernels(torch):
   live = uids < meta.rows
   touched_slot = live & (gsum != 0).any(dim=1)
   n_touched = int(touched_slot.sum())
-  rows = uids[touched_slot]
   log('rmw_rows inputs: %d touched rows, %d live untouched (zero-sum) '
       'slots, %d sentinel slots' % (n_touched,
                                     int((live & ~touched_slot).sum()),
@@ -385,25 +366,7 @@ def phase_kernels(torch):
     width = table.shape[1]
     hypers = opt.hypers(torch.tensor(1e-3, device=dev),
                         torch.tensor(3, dtype=torch.int32, device=dev))
-    before = table.index_select(0, rows)
-    ref = table.clone()
-    pt.rmw_rows(table, uids, gsum, hypers, opt)
-    pt.rmw_rows_plain(ref, uids, gsum, hypers, opt)
-    torch.cuda.synchronize()
-    # the plain version writes only the touched rows, so equal tables
-    # leave every untouched and sentinel row byte-identical too
-    if not torch.equal(table.view(torch.int32), ref.view(torch.int32)):
-      bad = int((table.view(torch.int32) != ref.view(torch.int32))
-                .any(dim=1).sum())
-      fail('rmw_rows (%s): %d rows differ from the plain version'
-           % (name, bad))
-    err = float((table[:, :dim] - ref[:, :dim]).abs().max())
-    del ref
-    after = table.index_select(0, rows)
-    if not bool((after.view(torch.int32) != before.view(torch.int32))
-                .any(dim=1).all()):
-      fail('rmw_rows (%s): a touched row kept its bytes' % name)
-    del before, after
+    err = check_rmw_rows(torch, pt, table, uids, gsum, hypers, opt, name)
     ms = cuda_ms(torch, lambda: pt.rmw_rows(table, uids, gsum, hypers,
                                             opt), 20, flush)
     plain = cuda_ms(torch, lambda: pt.rmw_rows_plain(table, uids, gsum,
@@ -444,8 +407,118 @@ def phase_kernels(torch):
   for r in k3:
     if r['name'] == 'rmw_fused/compact_adam':
       r['max_abs_err'] = max(r['max_abs_err'], err3f)
-  results[0]['max_abs_err'] = max(err1, k3[0].pop('seg_sum_din_err'))
+  err1m, err2m = phase_kernel_mmoe(torch)
+  results[0]['max_abs_err'] = max(err1, k3[0].pop('seg_sum_din_err'), err1m)
+  for r in results:
+    if r['name'] == 'rmw_rows/compact_adam':
+      r['max_abs_err'] = max(r['max_abs_err'], err2m)
   return results + k3
+
+
+def check_rmw_rows(torch, pt, table, uids, gsum, hypers, opt, what):
+  """K2 and its plain version from the same table: equal bit for bit
+  (the plain version writes only the touched rows, so equal tables leave
+  every untouched and sentinel row byte-identical too), and every touched
+  row changed. Returns the largest |w| difference."""
+  dim = gsum.shape[1]
+  rows = uids[(uids < table.shape[0]) & (gsum != 0).any(dim=1)]
+  before = table.index_select(0, rows)
+  ref = table.clone()
+  pt.rmw_rows(table, uids, gsum, hypers, opt)
+  pt.rmw_rows_plain(ref, uids, gsum, hypers, opt)
+  torch.cuda.synchronize()
+  if not torch.equal(table.view(torch.int32), ref.view(torch.int32)):
+    bad = int((table.view(torch.int32) != ref.view(torch.int32))
+              .any(dim=1).sum())
+    fail('rmw_rows (%s): %d rows differ from the plain version'
+         % (what, bad))
+  err = float((table[:, :dim] - ref[:, :dim]).abs().max())
+  del ref
+  after = table.index_select(0, rows)
+  if not bool((after.view(torch.int32) != before.view(torch.int32))
+              .any(dim=1).all()):
+    fail('rmw_rows (%s): a touched row kept its bytes' % what)
+  return err
+
+
+def check_seg_sum(torch, pt, sids, order, starts, grads, sentinel, what):
+  """K1 in every EASYREC_GG_BF16 mode against its plain version: the
+  unique ids equal and the sums bit for bit (the same f32 additions in
+  the same order). Returns the largest difference of the sums."""
+  err = 0.0
+  for mode in ('0', 'mix', '1'):
+    uk, sk = pt.seg_sum(sids, order, starts, grads, sentinel, mode)
+    up, sp = pt.seg_sum_plain(sids, order, starts, grads, sentinel, mode)
+    torch.cuda.synchronize()
+    if not (torch.equal(uk, up) and
+            torch.equal(sk.view(torch.int32), sp.view(torch.int32))):
+      fail('seg_sum mode %s (%s): differs from the plain version (max %g)'
+           % (mode, what, float((sk - sp).abs().max())))
+    err = max(err, float((sk - sp).abs().max()))
+  return err
+
+
+def taobao_pack(torch, cfg):
+  """A trainer of `cfg` on the card and the pack of one synthetic batch
+  of it: (trainer, table key, TableMeta, the flat id slots)."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import Trainer, to_device
+  from easyrec_torch.utils.synthetic import synthetic_batch
+
+  trainer = Trainer(cfg, device='cuda')
+  bs = int(trainer.data_config.batch_size)
+  batch = synthetic_batch(trainer.specs, list(trainer.ctx.label_fields), bs,
+                          seed=0)
+  packs = emb_ops.pack_ids(trainer.layout, to_device(batch,
+                                                     torch.device('cuda')))
+  (key, meta), = trainer.metas.items()
+  return trainer, key, meta, packs[key].reshape(-1)
+
+
+def phase_kernel_mmoe(torch):
+  """K1 in every mode and K2's compact Adam at the shape the main path,
+  the full-width Taobao MMoE, gives them: the pack of one synthetic batch
+  of it, at its dim 16 (so K2 runs four lanes a row, eight rows a warp),
+  each bit-exact against its plain version; K2 on the sums of mode 1, the
+  path's default. Returns (K1's, K2's) largest difference."""
+  from easyrec_torch.ops import packed_table as pt
+  from easyrec_torch.utils import flagship
+
+  dev = torch.device('cuda')
+  trainer, key, meta, ids = taobao_pack(torch, flagship.taobao_mmoe_config())
+  n = ids.shape[0]
+  gen = torch.Generator(device=dev).manual_seed(2468)
+  grads = torch.randn((n, meta.dim), generator=gen, device=dev) * 1e-3
+  grads[::97] = 0.0
+  sids, order, starts = pt.sort_segments(ids)
+  n_seg = int((starts[:n] < n).sum())
+  err1 = check_seg_sum(torch, pt, sids, order, starts, grads, meta.sentinel,
+                       'MMoE shape')
+  flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+  k1_ms = cuda_ms(torch, lambda: pt.seg_sum(sids, order, starts, grads,
+                                            meta.sentinel, '1'), 20, flush)
+  uids, gsum = pt.seg_sum(sids, order, starts, grads, meta.sentinel, '1')
+  name, opt, compact, _ = next(m for m in block_maths()
+                               if m[0] == 'compact_adam')
+  table = math_table(torch, trainer.layout, key, meta.rows, meta.dim, opt,
+                     compact, gen)
+  hypers = opt.hypers(torch.tensor(1e-3, device=dev),
+                      torch.tensor(3, dtype=torch.int32, device=dev))
+  err2 = check_rmw_rows(torch, pt, table, uids, gsum, hypers, opt,
+                        '%s, MMoE shape' % name)
+  n_touched = int(((uids < meta.rows) & (gsum != 0).any(dim=1)).sum())
+  k2_ms = cuda_ms(torch, lambda: pt.rmw_rows(table, uids, gsum, hypers,
+                                             opt), 20, flush)
+  log('K1 and K2 at the MMoE shape: table %s [%d, %d] f32, %d id slots, '
+      '%d segments, %d touched rows, dim %d; seg_sum bit-exact against the '
+      'plain version in modes 0, mix and 1, rmw_rows (compact_adam) '
+      'bit-exact and every touched row changed (tolerance 0); seg_sum '
+      '(mode 1) %.4f ms, rmw_rows %.4f ms'
+      % (key, meta.rows, meta.width, n, n_seg, n_touched, meta.dim, k1_ms,
+         k2_ms))
+  del trainer, table, grads, flush, uids, gsum
+  torch.cuda.empty_cache()
+  return err1, err2
 
 
 def queue_k2(torch, pt, layout, key, meta, name, opt, compact, ms, bound,
@@ -519,20 +592,11 @@ def phase_kernel_din(torch):
   slots), at the DIN's dim 16 and at dim 256 (the widest compact Adam the
   JAX package's fused kernel takes). Returns one result record a math at
   dim 16, the compact Adam's first."""
-  from easyrec_torch.ops import embedding as emb_ops
   from easyrec_torch.ops import packed_table as pt
-  from easyrec_torch.train.trainer import Trainer, to_device
   from easyrec_torch.utils import flagship
-  from easyrec_torch.utils.synthetic import synthetic_batch
 
   dev = torch.device('cuda')
-  trainer = Trainer(flagship.taobao_din_config(), device='cuda')
-  bs = int(trainer.data_config.batch_size)
-  batch = synthetic_batch(trainer.specs, list(trainer.ctx.label_fields), bs,
-                          seed=0)
-  packs = emb_ops.pack_ids(trainer.layout, to_device(batch, dev))
-  (key, meta), = trainer.metas.items()
-  ids = packs[key].reshape(-1)
+  trainer, key, meta, ids = taobao_pack(torch, flagship.taobao_din_config())
   n = ids.shape[0]
   log('K3 DIN shape: table %s [%d, %d] f32, %d id slots, dim %d'
       % (key, meta.rows, meta.width, n, meta.dim))
@@ -545,18 +609,8 @@ def phase_kernel_din(torch):
     grads = torch.randn((n, dim), generator=gen, device=dev) * 1e-3
     grads[::97] = 0.0
     if dim == meta.dim:
-      err1 = 0.0
-      for mode in ('0', 'mix', '1'):
-        uk, sk = pt.seg_sum(sids, order, starts, grads, meta.sentinel, mode)
-        up, sp = pt.seg_sum_plain(sids, order, starts, grads, meta.sentinel,
-                                  mode)
-        torch.cuda.synchronize()
-        if not (torch.equal(uk, up) and
-                torch.equal(sk.view(torch.int32), sp.view(torch.int32))):
-          fail('seg_sum mode %s at the DIN shape: differs from the plain '
-               'version (max %g)' % (mode, float((sk - sp).abs().max())))
-        err1 = max(err1, float((sk - sp).abs().max()))
-      del uk, sk, up, sp
+      err1 = check_seg_sum(torch, pt, sids, order, starts, grads,
+                           meta.sentinel, 'DIN shape')
       log('seg_sum at the DIN shape: bit-exact against the plain version '
           'in modes 0, mix and 1 (tolerance 0)')
     for name, opt, compact, ops in maths:
@@ -858,8 +912,16 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
   weights and batches. The CPU path runs the kernels' plain versions,
   whose agreement with the JAX package the CPU tests hold. On the card
   the update must go through K2 (or K3 under EASYREC_PACKED_FUSED=1) with
-  the embedding optimizer's block math, once a step and table. Returns the
-  card's launches by kernel and math."""
+  the embedding optimizer's block math, once a step and table. A model
+  with per-task metrics (metric_task_names) is also evaluated on two
+  synthetic batches, card against CPU: from the shared state before
+  training, and after the 3 steps from the card's trained state copied
+  into the CPU trainer. Each time `auc` and every `auc_<task>` within
+  1e-3 (8192-bin histograms: a probability at a bin edge may land one bin
+  over) and the loss within 1e-5 relative. Each side's eval of its own
+  trained state is logged beside them, not held: the two sides' weights
+  part by what the rule below allows. Returns the card's launches by
+  kernel and math."""
   from easyrec_torch.ops import kernels
   from easyrec_torch.optim.sparse import MATH_NAMES
   from easyrec_torch.train.trainer import Trainer, to_device
@@ -876,6 +938,10 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
   runs['cuda'].model.load_state_dict(runs['cpu'].model.state_dict())
   for key, table in runs['cpu'].tables.items():
     runs['cuda'].tables[key].copy_(table)
+  tasks = runs['cpu'].model.metric_task_names()
+  keys = ['auc'] + ['auc_%s' % k for k in tasks]
+  if tasks:
+    hold_evals(eval_both(runs, bs, keys, what, fused), keys, what)
   kernels.reset_launches()
   losses = {}
   for name, t in runs.items():
@@ -948,7 +1014,47 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
       'losses %s vs %s; table weights within 1e-5 but %d (at most 1 in '
       '100, each within 2 lr a step)%s; card launches %s'
       % (what, fused, losses['cuda'], losses['cpu'], far_all, ema, tagged))
+  if tasks:
+    eval_both(runs, bs, keys, what + ' after 3 steps, each side its own '
+              'state', fused)
+    runs['cpu'].model.load_state_dict(t.model.state_dict())
+    for key, table in runs['cpu'].tables.items():
+      table.copy_(t.tables[key])
+    hold_evals(eval_both(runs, bs, keys, what + ' after 3 steps, the '
+                         'card\'s state on both', fused), keys,
+               what + ' after 3 steps')
   return tagged
+
+
+def hold_evals(evals, keys, what):
+  """Each of `keys` within 1e-3 card against CPU, the loss within 1e-5
+  relative."""
+  for k in keys:
+    a, b = evals['cpu'][k], evals['cuda'][k]
+    if abs(a - b) > 1e-3:
+      fail('small %s: eval %s card %r, CPU %r' % (what, k, b, a))
+  a, b = evals['cpu']['loss'], evals['cuda']['loss']
+  if abs(a - b) > 1e-5 * max(1.0, abs(a)):
+    fail('small %s: eval loss card %r, CPU %r' % (what, b, a))
+
+
+def eval_both(runs, bs, keys, what, fused):
+  """Each trainer of `runs` evaluates the same two synthetic batches;
+  each of `keys` must be reported in [0, 1] with a finite loss. Returns
+  the results by device."""
+  from easyrec_torch.utils.synthetic import synthetic_batch
+  evals = {}
+  for name, t in runs.items():
+    evals[name] = t.evaluate(eval_iter=[
+        synthetic_batch(t.specs, list(t.ctx.label_fields), bs, seed=50 + i)
+        for i in range(2)])
+    if not all(0.0 <= evals[name].get(k, -1.0) <= 1.0 for k in keys) or \
+        not math.isfinite(evals[name]['loss']):
+      fail('small %s: eval on %s reports %s, %s expected'
+           % (what, name, evals[name], keys))
+  log('agree: small %s, EASYREC_PACKED_FUSED=%s, eval of 2 batches, card '
+      '%s; CPU %s' % (what, fused, evals['cuda'], evals['cpu']))
+  return evals
 
 
 # the optimizer messages the agree phase trains a small DeepFM with, each
@@ -1002,7 +1108,8 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
   every launch counter set to 0 just before and read just after: each
   kernel of `path_kernels` must launch once per step and table, every
   other kernel not at all, and K2 or K3 only with the block math
-  `path_math`. Then the steady-state train-step rate over pre-built
+  `path_math`; the eval must report `auc` and `auc_<task>` for each of
+  the model's metric_task_names(). Then the steady-state train-step rate over pre-built
   synthetic batches. Returns the launches by kernel and by kernel/math."""
   from easyrec_torch import main as main_lib
   from easyrec_torch.ops import kernels
@@ -1034,9 +1141,11 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
                                         SLICE_STEPS))
   if not all(math.isfinite(x) for x in losses):
     fail('%s: a loss is not finite' % what)
-  auc = result.get('eval_metrics', {}).get('auc')
-  if auc is None or not 0.0 <= auc <= 1.0:
-    fail('%s: eval AUC missing or out of range: %r' % (what, auc))
+  tasks = result['trainer'].model.metric_task_names()
+  for key in ['auc'] + ['auc_%s' % t for t in tasks]:
+    auc = result.get('eval_metrics', {}).get(key)
+    if auc is None or not 0.0 <= auc <= 1.0:
+      fail('%s: eval %s missing or out of range: %r' % (what, key, auc))
   n_tables = len(result['trainer'].tables)
   for name, c in counts.items():
     want = SLICE_STEPS * n_tables if name in path_kernels else 0
@@ -1049,7 +1158,9 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
     fail('%s: K2/K3 launched with the block maths %s, %s expected'
          % (what, tagged, want))
   peak = torch.cuda.max_memory_allocated()
-  log('%s peak device memory: %.3f GB' % (what, peak / 1e9))
+  log('%s peak device memory: %.3f GB; launches a step: %s'
+      % (what, peak / 1e9, {k: c / SLICE_STEPS for k, c in counts.items()
+                            if c}))
 
   trainer = result['trainer']
   batches = [to_device(synthetic_batch(trainer.specs,
@@ -1747,9 +1858,10 @@ def phase_serve_deepfm(torch, smi):
 DIN_SERVE_ROWS = 4096 + 100
 
 
-def write_din_csv(path, n, seed=7):
-  """n rows of the Taobao DIN's columns made from `seed`: clk, the 15 id
-  features, price, and the two behaviour sequences (0 to 60 ids)."""
+def write_din_csv(path, n, seed=7, labels=1):
+  """n rows of the Taobao schema's columns made from `seed`: `labels` 0/1
+  labels (the DIN's clk; the MMoE's clk and buy), the 15 id features,
+  price, and the two behaviour sequences (0 to 60 ids)."""
   import numpy as np
   from easyrec_torch.utils.flagship import _TAOBAO_ID_FEATURES
   rng = np.random.default_rng(seed)
@@ -1759,8 +1871,8 @@ def write_din_csv(path, n, seed=7):
              for name, buckets in _TAOBAO_ID_FEATURES]
       seqs = ['|'.join('%s%d' % (p, v) for v in rng.integers(
           0, 5000, rng.integers(0, 61))) for p in ('ca', 'br')]
-      f.write(','.join(['%d' % rng.integers(0, 2)] + ids +
-                       ['%d' % rng.integers(0, 60)] + seqs) + '\n')
+      f.write(','.join(['%d' % rng.integers(0, 2) for _ in range(labels)] +
+                       ids + ['%d' % rng.integers(0, 60)] + seqs) + '\n')
 
 
 def phase_serve_din(torch, smi):
@@ -1972,6 +2084,177 @@ def phase_serve_bst(torch, smi):
   torch.cuda.empty_cache()
 
 
+# the small forms of the multi-task family on the Taobao schema, labels
+# clk and buy (the MMoE's is flagship.taobao_mmoe_config at a small batch
+# and short histories): every model message, ESMM's groups, DBMTL's
+# relation DAG over a sequence sub-group, PLE's two CGC layers
+MT_BLOCKS = {
+    'SimpleMultiTask': """  model_class: "SimpleMultiTask"
+%(all)s
+  simple_multi_task {
+    task_towers { tower_name: "ctr" label_name: "clk"
+                  dnn { hidden_units: [128, 64] } }
+    task_towers { tower_name: "cvr" label_name: "buy"
+                  dnn { hidden_units: [128, 64] } }
+  }""",
+    'ESMM': """  model_class: "ESMM"
+%(two)s
+  esmm {
+    groups { input: "user" dnn { hidden_units: [128, 64] } }
+    groups { input: "item" dnn { hidden_units: [128, 64] } }
+    ctr_tower { tower_name: "ctr" label_name: "clk"
+                dnn { hidden_units: [64, 32] } }
+    cvr_tower { tower_name: "cvr" label_name: "buy"
+                dnn { hidden_units: [64, 32] } }
+  }""",
+    'DBMTL': """  model_class: "DBMTL"
+  feature_groups {
+    group_name: "all"
+    %(ids)s
+    wide_deep: DEEP
+    sequence_features {
+      group_name: "seq"
+      seq_att_map { key: "brand" hist_seq: "tag_brand_list" }
+      seq_att_map { key: "cate_id" hist_seq: "tag_category_list" }
+    }
+  }
+  dbmtl {
+    bottom_dnn { hidden_units: [256, 128] }
+    expert_dnn { hidden_units: [64, 32] }
+    num_expert: 3
+    task_towers { tower_name: "ctr" label_name: "clk"
+                  dnn { hidden_units: [64, 32] } }
+    task_towers { tower_name: "cvr" label_name: "buy"
+                  dnn { hidden_units: [64, 32] }
+                  relation_tower_names: "ctr"
+                  relation_dnn { hidden_units: [32] } }
+  }""",
+    'PLE': """  model_class: "PLE"
+%(all)s
+  ple {
+    extraction_networks {
+      network_name: "layer1" expert_num_per_task: 2 share_num: 2
+      task_expert_net { hidden_units: [128, 64] }
+      share_expert_net { hidden_units: [128, 64] }
+    }
+    extraction_networks {
+      network_name: "layer2" expert_num_per_task: 2 share_num: 2
+      task_expert_net { hidden_units: [64] }
+    }
+    task_towers { tower_name: "ctr" label_name: "clk"
+                  dnn { hidden_units: [32] } }
+    task_towers { tower_name: "cvr" label_name: "buy"
+                  dnn { hidden_units: [32] } }
+  }""",
+}
+
+
+def multi_task_config(model, batch_size, seq_len):
+  from easyrec_torch.utils import flagship as fl
+  if model == 'MMoE':
+    return fl.taobao_mmoe_config(batch_size=batch_size, seq_len=seq_len)
+  ids = [n for n, _ in fl._TAOBAO_ID_FEATURES] + ['price']
+  names = lambda fs: '\n    '.join(  # noqa: E731
+      'feature_names: "%s"' % f for f in fs)
+  groups = {'all': '  feature_groups {\n    group_name: "all"\n    %s\n'
+                   '    wide_deep: DEEP\n  }' % names(
+                       ids + ['tag_category_list', 'tag_brand_list']),
+            'two': fl._tower_groups(), 'ids': names(ids)}
+  return fl._taobao_pipeline(MT_BLOCKS[model] % groups, ['clk', 'buy'],
+                             batch_size, seq_len, 16, '')
+
+
+def phase_multi_task(torch):
+  """The agree phase for a small form of each multi-task model (batch
+  256, histories of 8, labels clk and buy), unfused (K1 + K2) and fused
+  (K3), with the per-task eval: ESMM must report auc_ctcvr."""
+  for model in ('SimpleMultiTask', 'MMoE', 'ESMM', 'DBMTL', 'PLE'):
+    for fused in ('0', '1'):
+      phase_agree(torch, 'Taobao %s' % model,
+                  multi_task_config(model, 256, 8), fused)
+
+
+def phase_serve_mmoe(torch, smi):
+  """The Taobao MMoE at full width on a seeded CSV with clk and buy:
+  train_and_evaluate (5 steps, K1 + K2) exports it; PredictorService on
+  the card answers 1 and 4,096 of the CSV's rows over HTTP, each request
+  one chunk, every output (logits_ and probs_ of ctr and cvr) bit-equal
+  to the training Trainer's eval forward on the same rows, with no K1-K5
+  launch."""
+  import csv
+  import shutil
+  import numpy as np
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.serving.client import PredictClient
+  from easyrec_torch.serving.server import PredictorService
+  from easyrec_torch.utils import flagship
+
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  root = os.path.join(SCRATCH, 'serve_mmoe')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  data = os.path.join(root, 'mmoe.csv')
+  write_din_csv(data, DIN_SERVE_ROWS, seed=9, labels=2)
+  cfg = flagship.taobao_mmoe_config(model_dir=os.path.join(root, 'md'))
+  edits = {'data_config.input_type': 'CSVInput', 'train_input_path': data,
+           'eval_input_path': data, 'train_config.num_steps': 5}
+  result = main_lib.train_and_evaluate(cfg, edit_config_json=edits,
+                                     device='cuda')
+  export_dir = result['export_dir']
+  names = [f.input_name for f in cfg.data_config.input_fields]
+  with open(data) as f:
+    rows = [dict(zip(names, r)) for r in csv.reader(f)]
+  sizes = (1, 4096)
+  want = {n: trainer_outputs(torch, result['trainer'], rows[:n])
+          for n in sizes}
+  outputs = sorted(want[1])
+  if outputs != ['logits_ctr', 'logits_cvr', 'probs_ctr', 'probs_cvr']:
+    fail('serve MMoE: the export outputs %s' % outputs)
+  del result
+  torch.cuda.empty_cache()
+  kernels.reset_launches()
+  t0 = time.perf_counter()
+  service = PredictorService(export_dir, batch_size=max(sizes),
+                             device='cuda')
+  load_s = time.perf_counter() - t0
+  service.warmup()
+  service.start()
+  worst, bit_equal, times = 0.0, True, {}
+  try:
+    client = PredictClient('127.0.0.1:%d' % service.port, timeout=300)
+    for n in sizes:
+      t0 = time.perf_counter()
+      got = client.predict(rows[:n])
+      times[n] = (time.perf_counter() - t0) * 1e3
+      if any(sorted(r) != outputs for r in got):
+        fail('serve MMoE: answers carry %s' % sorted(got[0]))
+      for key, ref in want[n].items():
+        served = np.float32([r[key] for r in got])
+        if served.shape != ref.shape or not np.isfinite(served).all():
+          fail('serve MMoE: %s of %d rows: shape %s' % (key, n,
+                                                        served.shape))
+        worst = max(worst, float(np.abs(served - ref).max()))
+        bit_equal &= served.tobytes() == ref.tobytes()
+    client.close()
+  finally:
+    service.stop()
+  torch.cuda.synchronize()
+  if any(kernels.launch_counts().values()):
+    fail('serve MMoE: K1-K5 launched %s' % kernels.launch_counts())
+  if not bit_equal:
+    fail('serve MMoE: the served answers differ from the Trainer\'s eval '
+         'forward by up to %g' % worst)
+  log('serve: Taobao MMoE export, PredictorService on the card (load %.3f '
+      's): %s at %s rows bit-equal to the training Trainer\'s eval forward; '
+      'a request over HTTP %s ms; no K1-K5 launch; %s'
+      % (load_s, outputs, sizes, ', '.join('%d rows %.3f' % (n, times[n])
+                                           for n in sizes), smi))
+  del service
+  shutil.rmtree(root, ignore_errors=True)
+  torch.cuda.empty_cache()
+
+
 def main():
   if not os.path.isdir(os.path.join(HERE, 'easyrec_torch')):
     fail('easyrec_torch/ is not beside chip_smoke.py: run it from the '
@@ -2023,18 +2306,22 @@ def main():
   bst = phase_slice(torch, card, 'Taobao BST', flagship.taobao_bst_config(),
                     '0', ('seg_sum', 'rmw_rows'), 'compact_adam')
   phase_serve_bst(torch, smi)
+  phase_multi_task(torch)
+  mmoe = phase_slice(torch, card, 'Taobao MMoE', flagship.taobao_mmoe_config(),
+                     '0', ('seg_sum', 'rmw_rows'), 'compact_adam')
+  phase_serve_mmoe(torch, smi)
   phase_ckpt(torch)
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the BST's, this
+  # these that runs it (K1 and K2's compact Adam on the MMoE's, this
   # slice's main path; K3 on the DIN's, Adagrad on the Adagrad DeepFM's,
   # the EV maths on the EV phase's), 0 for a math no path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (bst, din, deepfm, adagrad, ev)
+                          (mmoe, bst, din, deepfm, adagrad, ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

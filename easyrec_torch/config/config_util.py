@@ -21,7 +21,16 @@ from easyrec_torch.config.text_format import Message, parse, to_text
 
 EasyRecConfig = Message
 
-_PORTED_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST')
+_RANK_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST')
+_MULTI_TASK_MODELS = ('SimpleMultiTask', 'MMoE', 'ESMM', 'DBMTL', 'PLE')
+_PORTED_MODELS = _RANK_MODELS + _MULTI_TASK_MODELS
+# the loss types a task tower computes as the JAX package's
+# MultiTaskModel._tower_loss does; it falls back to cross entropy for any
+# other, which the port refuses instead
+_TOWER_LOSSES = ('CLASSIFICATION', 'CROSS_ENTROPY_LOSS',
+                 'BINARY_CROSS_ENTROPY_LOSS', 'SOFTMAX_CROSS_ENTROPY',
+                 'L2_LOSS', 'SIGMOID_L2_LOSS', 'BINARY_FOCAL_LOSS',
+                 'F1_REWEIGHTED_LOSS', 'ORDER_CALIBRATE_LOSS')
 _PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature', 'TagFeature',
                          'SequenceFeature')
 _PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput')
@@ -194,6 +203,15 @@ def _unported_fields(msg: Message, path: str):
             sub, '%s[%d]' % (where, i) if spec.repeated else where)
 
 
+def task_towers(model_config: Message) -> List[Message]:
+  """The task towers of a multi-task model message, in config order
+  (ESMM's ctr_tower, then cvr_tower)."""
+  which = model_config.WhichOneof('model')
+  if which == 'esmm':
+    return [model_config.esmm.ctr_tower, model_config.esmm.cvr_tower]
+  return list(getattr(model_config, which).task_towers) if which else []
+
+
 def check_ported(config: Message) -> None:
   """Raise NotImplementedError naming the first part of `config` that the
   port does not run: an unported field, model class, feature type, input
@@ -204,7 +222,13 @@ def check_ported(config: Message) -> None:
   if mc.model_class not in _PORTED_MODELS:
     raise NotImplementedError('model_class %r is not ported (ported: %s)'
                               % (mc.model_class, ', '.join(_PORTED_MODELS)))
-  if mc.loss_type != 'CLASSIFICATION' or mc.num_class != 1:
+  if mc.model_class in _MULTI_TASK_MODELS:
+    for tower in task_towers(mc):
+      for lt in [tower.loss_type] + [l.loss_type for l in tower.losses]:
+        if lt not in _TOWER_LOSSES:
+          raise NotImplementedError('loss_type %s of task tower %s is not '
+                                    'ported' % (lt, tower.tower_name))
+  elif mc.loss_type != 'CLASSIFICATION' or mc.num_class != 1:
     raise NotImplementedError('loss_type %s with num_class %d is not ported'
                               % (mc.loss_type, mc.num_class))
   for fc in get_feature_configs(config):

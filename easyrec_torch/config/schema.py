@@ -257,12 +257,16 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('feature_groups', 'msg:FeatureGroupConfig', rep=True),
         _f('deepfm', 'msg:DeepFM', oneof='model'),
         _f('multi_tower', 'msg:MultiTower', oneof='model'),
+        _f('mmoe', 'msg:MMoE', oneof='model'),
+        _f('esmm', 'msg:ESMM', oneof='model'),
+        _f('dbmtl', 'msg:DBMTL', oneof='model'),
+        _f('simple_multi_task', 'msg:SimpleMultiTask', oneof='model'),
+        _f('ple', 'msg:PLE', oneof='model'),
         *_unported('model', 'model_params', 'dummy', 'wide_and_deep',
                    'fm', 'dcn', 'autoint', 'dlrm', 'cmbf',
                    'uniter', 'multi_tower_recall', 'dssm', 'mind',
                    'dropoutnet', 'metric_learning', 'pdn', 'dssm_senet',
-                   'dat', 'mmoe', 'esmm', 'dbmtl', 'simple_multi_task',
-                   'ple', 'rocket_launching'),
+                   'dat', 'rocket_launching'),
         _f('seq_att_groups', 'msg:SeqAttGroupConfig', rep=True),
         _f('embedding_regularization', 'float', 0.0),
         _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
@@ -298,6 +302,108 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
     'DINTower': (
         _f('input', 'string', ''),
         _f('dnn', 'msg:DNN'),
+    ),
+    # the multi-task family; the JAX MMoE message has no
+    # loss_weight_strategy, so a config's mmoe.loss_weight_strategy is
+    # dropped by both packages' parsers
+    'ExpertTower': (
+        _f('expert_name', 'string', ''),
+        _f('dnn', 'msg:DNN'),
+    ),
+    'MMoE': (
+        _f('experts', 'msg:ExpertTower', rep=True),
+        _f('expert_dnn', 'msg:DNN'),
+        _f('num_expert', 'int', 0),
+        _f('task_towers', 'msg:TaskTower', rep=True),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'ESMM': (
+        _f('groups', 'msg:Tower', rep=True),
+        _f('ctr_tower', 'msg:TaskTower'),
+        _f('cvr_tower', 'msg:TaskTower'),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'DBMTL': (
+        _f('bottom_cmbf', 'unported'),
+        _f('bottom_uniter', 'unported'),
+        _f('bottom_dnn', 'msg:DNN'),
+        _f('expert_dnn', 'msg:DNN'),
+        _f('num_expert', 'int', 0),
+        _f('task_towers', 'msg:BayesTaskTower', rep=True),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'SimpleMultiTask': (
+        _f('task_towers', 'msg:TaskTower', rep=True),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'ExtractionNetwork': (
+        _f('network_name', 'string', ''),
+        _f('expert_num_per_task', 'int', 0),
+        _f('share_num', 'int', 0),
+        _f('task_expert_net', 'msg:DNN'),
+        _f('share_expert_net', 'msg:DNN'),
+    ),
+    'PLE': (
+        _f('extraction_networks', 'msg:ExtractionNetwork', rep=True),
+        _f('task_towers', 'msg:TaskTower', rep=True),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    # a tower's metrics_set: per-task AUC is computed for every tower
+    # whatever it lists; a metric of it that is not ported is refused.
+    # task_space_indicator_name and _value only carry a column along in
+    # the JAX package's batches, and its loss reads neither
+    'TaskTower': (
+        _f('tower_name', 'string', ''),
+        _f('label_name', 'string', ''),
+        _f('metrics_set', 'msg:EvalMetrics', rep=True),
+        _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
+        _f('num_class', 'int', 1),
+        _f('dnn', 'msg:DNN'),
+        _f('weight', 'float', 1.0),
+        _f('task_space_indicator_label', 'string', ''),
+        _f('in_task_space_weight', 'float', 1.0),
+        _f('out_task_space_weight', 'float', 1.0),
+        _f('losses', 'msg:Loss', rep=True),
+        _f('use_sample_weight', 'bool', True),
+    ),
+    'BayesTaskTower': (
+        _f('tower_name', 'string', ''),
+        _f('label_name', 'string', ''),
+        _f('metrics_set', 'msg:EvalMetrics', rep=True),
+        _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
+        _f('num_class', 'int', 1),
+        _f('dnn', 'msg:DNN'),
+        _f('relation_tower_names', 'string', rep=True),
+        _f('relation_dnn', 'msg:DNN'),
+        _f('weight', 'float', 1.0),
+        _f('task_space_indicator_label', 'string', ''),
+        _f('in_task_space_weight', 'float', 1.0),
+        _f('out_task_space_weight', 'float', 1.0),
+        _f('losses', 'msg:Loss', rep=True),
+        _f('use_sample_weight', 'bool', True),
+    ),
+    # a task tower's loss list; loss_name and learn_loss_weight are read
+    # only by the model-level `losses` (unported), not by a tower's
+    'Loss': (
+        _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
+        _f('weight', 'float', 1.0),
+        _f('f1_reweighted_loss', 'msg:F1ReweighedLoss', oneof='loss_param'),
+        _f('binary_focal_loss', 'msg:BinaryFocalLoss', oneof='loss_param'),
+        *_unported('loss_param', 'softmax_loss', 'circle_loss',
+                   'multi_simi_loss', 'pairwise_loss', 'pairwise_focal_loss',
+                   'pairwise_logistic_loss', 'jrc_loss',
+                   'pairwise_hinge_loss', 'listwise_rank_loss',
+                   'listwise_distill_loss', 'ziln_loss'),
+    ),
+    'F1ReweighedLoss': (
+        _f('f1_beta_square', 'float', 1.0),
+        _f('label_smoothing', 'float', 0.0),
+    ),
+    'BinaryFocalLoss': (
+        _f('gamma', 'float', 2.0),
+        _f('alpha', 'float', 0.0),
+        _f('ohem_ratio', 'float', 1.0),
+        _f('label_smoothing', 'float', 0.0),
     ),
     # common.proto
     'Tower': (

@@ -3,13 +3,15 @@
 The JAX side is given as numpy arrays (np.asarray of its leaves), so this
 module imports nothing of JAX:
   - flax `params` / `batch_stats` trees (nested dicts under the model's
-    'inner' scope) <-> a torch state_dict: every `kernel` becomes `weight`
-    with its axes reversed (a Dense [in, out] is nn.Linear's [out, in], a
-    Conv [W, Cin, Cout] nn.Conv1d's [Cout, Cin, W], a DenseGeneral [in, H,
-    Dh] or [H, Dh, out] the port's DenseGeneral weight); BatchNorm's and
-    LayerNorm's `scale`/`bias` become weight/bias, BatchNorm's
-    `mean`/`var` running_mean/running_var, and a `position_emb` table keeps
-    its name and shape;
+    flax root: 'inner' for a rank model, none for a multi-task model;
+    BaseModel.flax_root) <-> a torch state_dict: every `kernel` becomes
+    `weight` with its axes reversed (a Dense [in, out] is nn.Linear's
+    [out, in], a Conv [W, Cin, Cout] nn.Conv1d's [Cout, Cin, W], a
+    DenseGeneral [in, H, Dh] or [H, Dh, out] the port's DenseGeneral
+    weight); BatchNorm's and LayerNorm's `scale`/`bias` become weight/bias,
+    BatchNorm's `mean`/`var` running_mean/running_var, and a
+    `position_emb` table and the batched experts' `w_<i>` [E, D, U] and
+    `b_<i>` [E, U] keep their names and shapes;
   - a packed table [G*8, W] of any optimizer (easyrec_tpu/ops/
     packed_table.py layout: groups of 8 physical rows, `pack` logical rows
     per physical row, each logical row its `parts` parts of dim columns,
@@ -33,6 +35,7 @@ kernel'), which fine-tune restore_filters and var maps are written against.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Tuple
 
 import numpy as np
@@ -42,6 +45,8 @@ _LEAF_TO_TORCH = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
                   'position_emb': 'position_emb'}
 _STAT_TO_TORCH = {'mean': 'running_mean', 'var': 'running_var'}
 _STAT_TO_FLAX = {v: k for k, v in _STAT_TO_TORCH.items()}
+# leaves that keep their flax name and layout: the batched experts' layers
+_SAME_LEAF = re.compile(r'^[wb]_\d+$')
 
 
 def _flatten(tree, prefix=()):
@@ -58,7 +63,8 @@ def flax_to_state_dict(params, batch_stats=None,
   sd = {}
   for path, leaf in _flatten(params[root] if root else params):
     arr = np.array(leaf, np.float32)
-    name = _LEAF_TO_TORCH[path[-1]]
+    name = path[-1] if _SAME_LEAF.match(path[-1]) else \
+        _LEAF_TO_TORCH[path[-1]]
     if path[-1] == 'kernel':
       arr = arr.T
     sd['.'.join(path[:-1] + (name,))] = torch.from_numpy(
@@ -84,7 +90,7 @@ def flax_names(state_dict, root: str = 'inner'
       section, key = 'batch_stats', _STAT_TO_FLAX[leaf]
     elif leaf == 'weight':
       section, key = 'params', 'scale' if value.ndim == 1 else 'kernel'
-    elif leaf in ('bias', 'position_emb'):
+    elif leaf in ('bias', 'position_emb') or _SAME_LEAF.match(leaf):
       section, key = 'params', leaf
     else:
       continue
@@ -211,6 +217,8 @@ def jax_export_to_bundle(jax_export_dir: str, out_dir: str, params,
   from easyrec_torch.export import saved_model as sm
   from easyrec_torch.features import feature_spec as fs
   from easyrec_torch.models import base as model_base
+  from easyrec_torch.models import multi_task, rank  # noqa: F401
+  from easyrec_torch.utils.registry import MODELS
   config = config_util.get_configs_from_pipeline_file(
       os.path.join(jax_export_dir, sm.CONFIG_FILE))
   specs = fs.build_feature_specs(
@@ -224,7 +232,8 @@ def jax_export_to_bundle(jax_export_dir: str, out_dir: str, params,
       raise ValueError('JAX table %r is %s, the port\'s layout [%d, %d]'
                        % (key, table.shape, t.rows, t.dim))
     out_tables[key] = torch.from_numpy(np.ascontiguousarray(table[:t.rows]))
-  state = {'model': flax_to_state_dict(params, batch_stats),
+  root = MODELS.get(config.model_config.model_class).flax_root
+  state = {'model': flax_to_state_dict(params, batch_stats, root=root),
            'tables': out_tables,
            'step': torch.tensor(int(np.asarray(step)), dtype=torch.int64)}
   os.makedirs(os.path.join(out_dir, sm.VARIABLES_DIR), exist_ok=True)

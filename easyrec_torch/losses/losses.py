@@ -1,8 +1,13 @@
-"""Losses. Counterpart of easyrec_tpu/losses/losses.py for the
-classification loss the port runs (sigmoid_cross_entropy, :24). Per-sample
-weights (0 marks padded rows) reduce to a weighted mean."""
+"""Losses. Counterpart of easyrec_tpu/losses/losses.py for the losses the
+port runs: the rank models' sigmoid_cross_entropy (:24) and the task
+towers' softmax_cross_entropy (:34), l2_loss (:42), sigmoid_l2_loss (:47),
+binary_focal_loss (:51) with _ohem_mean (:84) and f1_reweighted_loss
+(:72). Per-sample weights (0 marks padded rows) reduce to a weighted
+mean."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -12,9 +17,79 @@ def weighted_mean(values: torch.Tensor, weights: torch.Tensor):
   return (values * weights).sum() / torch.clamp(weights.sum(), min=1e-9)
 
 
+def _smooth(labels: torch.Tensor, label_smoothing: float) -> torch.Tensor:
+  if label_smoothing > 0:
+    return labels * (1 - label_smoothing) + 0.5 * label_smoothing
+  return labels
+
+
+def _sigmoid_ce(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+  return torch.clamp(logits, min=0) - logits * labels + \
+      torch.log1p(torch.exp(-torch.abs(logits)))
+
+
 def sigmoid_cross_entropy(labels: torch.Tensor, logits: torch.Tensor,
                           weights: torch.Tensor) -> torch.Tensor:
-  labels = labels.to(logits.dtype)
-  per = torch.clamp(logits, min=0) - logits * labels + \
-      torch.log1p(torch.exp(-torch.abs(logits)))
+  return weighted_mean(_sigmoid_ce(labels.to(logits.dtype), logits), weights)
+
+
+def softmax_cross_entropy(labels: torch.Tensor, logits: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+  """labels: class ids [B] (a float label is truncated); logits [B, C]."""
+  logp = torch.log_softmax(logits, dim=-1)
+  per = -torch.gather(logp, -1, labels.to(torch.int64)[:, None])[:, 0]
   return weighted_mean(per, weights)
+
+
+def l2_loss(labels: torch.Tensor, preds: torch.Tensor,
+            weights: torch.Tensor) -> torch.Tensor:
+  per = 0.5 * torch.square(preds - labels.to(preds.dtype))
+  return weighted_mean(per, weights)
+
+
+def sigmoid_l2_loss(labels: torch.Tensor, logits: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+  return l2_loss(labels, torch.sigmoid(logits), weights)
+
+
+def binary_focal_loss(labels: torch.Tensor, logits: torch.Tensor,
+                      weights: torch.Tensor, gamma: float = 2.0,
+                      alpha: Optional[float] = None,
+                      label_smoothing: float = 0.0,
+                      ohem_ratio: float = 1.0) -> torch.Tensor:
+  labels = _smooth(labels.to(logits.dtype), label_smoothing)
+  p = torch.sigmoid(logits)
+  ce = _sigmoid_ce(labels, logits)
+  p_t = p * labels + (1 - p) * (1 - labels)
+  mod = torch.pow(1.0 - p_t, gamma)
+  if alpha is not None:
+    mod = mod * (alpha * labels + (1 - alpha) * (1 - labels))
+  if ohem_ratio < 1.0:
+    return _ohem_mean(mod * ce, weights.to(logits.dtype).expand_as(logits),
+                      ohem_ratio)
+  return weighted_mean(mod * ce, weights)
+
+
+def f1_reweighted_loss(labels: torch.Tensor, logits: torch.Tensor,
+                       weights: torch.Tensor, f1_beta_square: float = 1.0,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+  labels = _smooth(labels.to(logits.dtype), label_smoothing)
+  p = torch.sigmoid(logits)
+  per = -(f1_beta_square * labels * torch.log(p + 1e-9) +
+          (1 - labels) * torch.log(1 - p + 1e-9) * (1 - p))
+  return weighted_mean(per, weights)
+
+
+def _ohem_mean(per: torch.Tensor, weights: torch.Tensor,
+               ohem_ratio: float) -> torch.Tensor:
+  """Online hard example mining: the mean of the largest ceil(ratio *
+  n_valid) weighted losses among the valid ones (weight > 0, loss > 0),
+  by a stable sort of the whole array as the JAX package's static-shape
+  form does."""
+  flat = (per * weights).reshape(-1)
+  valid = ((weights > 0) & (per > 0)).reshape(-1).to(flat.dtype)
+  order = torch.sort(-flat, stable=True).indices
+  sorted_loss, sorted_valid = flat[order], valid[order]
+  n_keep = torch.ceil(valid.sum() * ohem_ratio)
+  keep = sorted_valid * (torch.cumsum(sorted_valid, 0) <= n_keep)
+  return (sorted_loss * keep).sum() / torch.clamp(keep.sum(), min=1.0)

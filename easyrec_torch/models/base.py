@@ -1,9 +1,14 @@
 """Model base: context, registry and the rank-model loss/prediction.
 
 Counterpart of easyrec_tpu/models/base.py: ModelContext (:29),
-build_context (:94), RankModel (:160) with its classification prediction,
-build_loss and export_outputs (:449), and the _WithPrediction wrapper of
-models/rank.py (:416), folded into RankModel.forward.
+build_context (:94), BaseModel (:125), RankModel (:160) with its
+classification prediction, build_loss and export_outputs (:449), and the
+_WithPrediction wrapper of models/rank.py (:416), folded into
+RankModel.forward. A model's forward returns a dict of outputs; a rank
+model's are `logits` and `probs`, a multi-task model's (models/
+multi_task.py) `logits_<tower>` and `probs_<tower>`, and the trainer,
+export and serving read them through build_loss, metric_inputs,
+metric_inputs_per_task and export_outputs.
 """
 
 from __future__ import annotations
@@ -90,14 +95,47 @@ def build_context(pipeline_config, specs) -> ModelContext:
                                         .label_fields))
 
 
-class RankModel(nn.Module):
-  """Binary classification ranking base: subclasses compute raw logits
-  [B, 1] from (batch, pulled); forward adds the prediction."""
+class BaseModel(nn.Module):
+  """One model family: forward(batch, pulled) -> {output: tensor}, its
+  loss and its metric inputs.
+
+  `flax_root` is the scope the JAX package's parameters of the model sit
+  under: 'inner' for a rank model (its _WithPrediction wrapper), none for
+  a multi-task model; convert.py and fine-tune restore name variables
+  with it."""
+
+  flax_root = 'inner'
 
   def __init__(self, ctx: ModelContext):
     super().__init__()
     self.ctx = ctx
     self.config = ctx.model_config
+
+  def build_loss(self, outputs, batch) -> Tuple[torch.Tensor, Dict]:
+    """(total loss, {name: loss}) of a batch."""
+    raise NotImplementedError
+
+  def metric_inputs(self, outputs, batch) -> Dict[str, torch.Tensor]:
+    """labels, probs and weights of the headline metrics."""
+    raise NotImplementedError
+
+  def metric_task_names(self) -> List[str]:
+    """The tasks evaluate() reports an `auc_<task>` for."""
+    return []
+
+  def metric_inputs_per_task(self, outputs, batch
+                             ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{task: metric inputs} of metric_task_names()."""
+    return {}
+
+  def export_outputs(self, outputs) -> Dict[str, torch.Tensor]:
+    """The outputs an export serves."""
+    raise NotImplementedError
+
+
+class RankModel(BaseModel):
+  """Binary classification ranking base: subclasses compute raw logits
+  [B, 1] from (batch, pulled); forward adds the prediction."""
 
   @property
   def label_name(self) -> str:
@@ -130,7 +168,7 @@ def register_model(name: str):
   return MODELS.register(name)
 
 
-def create_model(ctx: ModelContext, generator=None, device=None) -> RankModel:
+def create_model(ctx: ModelContext, generator=None, device=None) -> BaseModel:
   name = ctx.model_config.model_class
   if name not in MODELS:
     raise NotImplementedError('model_class %r is not ported' % name)

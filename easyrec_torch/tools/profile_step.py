@@ -1,12 +1,13 @@
 """Where the time of a benchmark model's train step goes, on the GPU.
 
     python -m easyrec_torch.tools.profile_step
-        [--model deepfm|deepfm_adagrad|din|bst] [--steps 10] [--top 25]
+        [--model deepfm|deepfm_adagrad|din|bst|mmoe] [--steps 10] [--top 25]
 
 Builds the trainer of the flagship Criteo DeepFM (K1 + K2; deepfm_adagrad:
 its Adagrad-tables configuration), of the Taobao DIN
-(EASYREC_PACKED_FUSED=1, K3) or of the Taobao BST (K1 + K2; its attention
-under EASYREC_ATTN_IMPL, default vpu_bf16), all from
+(EASYREC_PACKED_FUSED=1, K3), of the Taobao BST (K1 + K2; its attention
+under EASYREC_ATTN_IMPL, default vpu_bf16) or of the Taobao MMoE (K1 +
+K2; two labels, four experts, two towers), all from
 easyrec_torch/utils/flagship.py, on the card at batch 4096, warms it up
 for 5 steps on pre-built synthetic batches already on the device, then
 runs --steps steps without and then under torch.profiler and prints, with
@@ -36,7 +37,8 @@ MODELS = {'deepfm': ('criteo_deepfm_config', '0', 'flagship DeepFM'),
           'deepfm_adagrad': ('criteo_deepfm_adagrad_config', '0',
                              'flagship DeepFM, Adagrad tables'),
           'din': ('taobao_din_config', '1', 'Taobao DIN'),
-          'bst': ('taobao_bst_config', '0', 'Taobao BST')}
+          'bst': ('taobao_bst_config', '0', 'Taobao BST'),
+          'mmoe': ('taobao_mmoe_config', '0', 'Taobao MMoE')}
 
 def _device_us(evt) -> float:
   for name in ('self_device_time_total', 'self_cuda_time_total'):

@@ -18,7 +18,8 @@ chip_smoke.py's, with compact Adam:
 The wrapper is `rmw_rows` / `rmw_fused`, or in trees before they took
 every block math `rmw_adam` / `rmw_fused_adam`. It is timed with CUDA
 events over --reps calls, each after a 256 MB write that flushes L2, and
-again under torch.profiler for the device time of its kernels alone.
+again under torch.profiler for the device time of its kernels alone (the
+kernels launched inside each call's window, never the flush's).
 Prints one JSON line with the tree, the card's name and power limit and
 both times in ms a call. Needs a GPU.
 """
@@ -32,34 +33,54 @@ import subprocess
 import sys
 
 
-def _kernels_ms(torch, fn, reps, flush):
-  """Device time of fn()'s kernels a call under torch.profiler, the
-  flush's own kernel left out; None where no device time is recorded."""
+KERNEL_RANGE = 'time_update.call'
+
+
+def kernel_times(torch, fn, reps, flush):
+  """Device time of the kernels fn() launches, per call, from
+  torch.profiler: {kernel name: ms per call} summed over its launches.
+  Each call runs inside a record_function range that opens after the L2
+  flush has finished (a synchronize). A device event counts when the
+  CUDA API call that launched it (the host event of the same correlation
+  id: cudaLaunchKernel, cudaMemsetAsync, ...) starts inside a range, on
+  the host's clock, so the flush's kernel never does, whatever the
+  profiler names it and however the device's clock is offset from the
+  host's. The wrapper's host gaps between its launches are not in the
+  sum. Returns {} where the profiler records no device time, not every
+  range, or a device event without its launching call."""
   from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
+  from torch.profiler import ProfilerActivity, profile, record_function
 
-  def device_us(body):
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      body()
-      torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-      if e.device_type == DeviceType.CUDA:
-        t = getattr(e, 'self_device_time_total',
-                    getattr(e, 'self_cuda_time_total', 0.0))
-        out[e.key] = out.get(e.key, 0.0) + float(t)
-    return out
-
-  skip = set(device_us(flush.zero_))
-
-  def body():
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
     for _ in range(reps):
       flush.zero_()
-      fn()
-
-  total = sum(v for k, v in device_us(body).items() if k not in skip)
-  return total / 1e3 / reps if total > 0 else None
+      torch.cuda.synchronize()
+      with record_function(KERNEL_RANGE):
+        fn()
+        torch.cuda.synchronize()
+  events = prof.events()
+  host = [e for e in events if e.device_type == DeviceType.CPU]
+  ranges = [(e.time_range.start, e.time_range.end) for e in host
+            if e.name == KERNEL_RANGE]
+  # the CUDA API calls, by correlation id (operators number themselves
+  # from another counter, so only the API calls are looked up)
+  launched = {e.id: e.time_range.start for e in host
+              if e.name.startswith('cu')}
+  # the range's own device-side annotation is not a kernel
+  device = [e for e in events if e.device_type == DeviceType.CUDA and
+            e.name != KERNEL_RANGE]
+  if len(ranges) != reps or not device or \
+      any(e.id not in launched for e in device):
+    return {}
+  out = {}
+  for e in device:
+    if any(lo <= launched[e.id] <= hi for lo, hi in ranges):
+      out[e.name] = out.get(e.name, 0.0) + (e.time_range.end -
+                                            e.time_range.start)
+  return {k: v / 1e3 / reps for k, v in out.items() if v > 0}
 
 
 def main(argv=None) -> int:
@@ -133,7 +154,8 @@ def main(argv=None) -> int:
     end.record()
     end.synchronize()
     total += start.elapsed_time(end)
-  kernels_ms = _kernels_ms(torch, call, args.reps, flush)
+  kernels_ms = sum(kernel_times(torch, call, args.reps, flush).values()) \
+      or None
   smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                         '--format=csv,noheader'], capture_output=True,
                        text=True, timeout=60).stdout.strip()

@@ -3,9 +3,10 @@ shape-compatible clip/pad.
 
 Counterpart of easyrec_tpu/train/restore.py (_parse_var_map :28, _fit_shape
 :53, fine_tune_restore :95-216). Variables are matched by the names the JAX
-package gives them (its _flatten, :20-25): 'inner/<module path>/kernel',
+package gives them (its _flatten, :20-25): '<root>/<module path>/kernel',
 '.../bias', '.../scale' for params, '.../mean', '.../var' for batch stats,
-and the table key for a table. The port's state_dict keys are translated
+and the table key for a table; the root is the model's flax_root ('inner'
+for a rank model, none for a multi-task model). The port's state_dict keys are translated
 to those names (convert.flax_names) before any rename or filter applies, so
 one config selects the same variables on both sides.
 """
@@ -100,16 +101,18 @@ def fine_tune_restore(trainer, ckpt_path: str, var_map: str = '',
     return fitted
 
   saved_model = saved['model']
+  root = trainer.model.flax_root
   by_name = {}
   # in _flatten's order (sorted paths), so where the map sends two names
   # onto one the same one wins on both sides
   for key, (section, name) in sorted(
-      convert.flax_names(saved_model).items(),
+      convert.flax_names(saved_model, root).items(),
       key=lambda kv: (kv[1][0], kv[1][1].split('/'))):
     by_name[(section, rename.get(name, name))] = saved_model[key]
   current = trainer.model.state_dict()
   with torch.no_grad():
-    for key, (section, name) in convert.flax_names(current).items():
+    for key, (section, name) in convert.flax_names(current,
+                                                   root).items():
       value = by_name.get((section, name))
       if value is None:
         continue

@@ -46,9 +46,9 @@ from easyrec_torch.data.input_pipeline import InputPipeline
 from easyrec_torch.device import resolve_device
 from easyrec_torch.features import ev as ev_lib
 from easyrec_torch.features import feature_spec as fs
-from easyrec_torch.metrics.metrics import MetricsCollection
+from easyrec_torch.metrics import metrics as metrics_lib
 from easyrec_torch.models import base as model_base
-from easyrec_torch.models import rank  # noqa: F401 (registers models)
+from easyrec_torch.models import multi_task, rank  # noqa: F401 (registers)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.optim import builder as opt_builder
@@ -59,12 +59,14 @@ from easyrec_torch.train.restore import fine_tune_restore
 
 def l2_of_kernels(model: nn.Module) -> torch.Tensor:
   """Sum of squares of the kernels (Dense, DenseGeneral, Conv: every
-  `weight` of two or more axes), in the JAX package's leaf order (sorted
-  parameter paths). Norm weights — flax's `scale` — and position tables
-  are not kernels and stay out, as in trainer.py:50-56."""
+  `weight` of two or more axes; the batched experts' `w_<i>`), in the JAX
+  package's leaf order (sorted parameter paths). Norm weights — flax's
+  `scale` — biases and position tables are not kernels and stay out, as
+  in trainer.py:50-56."""
   total = None
   for name, p in sorted(model.named_parameters()):
-    if name.rsplit('.', 1)[-1] != 'weight' or p.ndim < 2:
+    leaf = name.rsplit('.', 1)[-1]
+    if not (leaf == 'weight' and p.ndim >= 2 or leaf.startswith('w_')):
       continue
     sq = torch.sum(p * p)
     total = sq if total is None else total + sq
@@ -116,7 +118,7 @@ class Trainer:
     self.l2_reg = _model_l2_reg(pipeline_config.model_config)
     self.emb_reg = float(pipeline_config.model_config
                          .embedding_regularization)
-    self.metrics = MetricsCollection(self.eval_config.metrics_set)
+    self.metrics = metrics_lib.MetricsCollection(self.eval_config.metrics_set)
     # EVParams admission / TTL (features/ev.py); None without ev_params
     self.ev_plan = ev_lib.build_ev_plan(self.layout, self.specs)
     self.model: Optional[nn.Module] = None
@@ -269,6 +271,9 @@ class Trainer:
 
   @torch.no_grad()
   def eval_step(self, batch: Dict[str, torch.Tensor], metric_states):
+    """One eval batch: the headline metrics' states, and each task's AUC
+    state `auc_task_<name>` where the task's probs are one per row (JAX
+    trainer.py:439-450); returns the loss."""
     packs = emb_ops.pack_ids(self.layout, batch)
     pulled = emb_ops.pull_embeddings(self.tables, packs, self.metas)
     outputs = self.eval_forward(batch, pulled)
@@ -276,6 +281,12 @@ class Trainer:
     mi = self.model.metric_inputs(outputs, batch)
     self.metrics.update_states(metric_states, mi['labels'], mi['probs'],
                                mi['weights'])
+    for name, tmi in self.model.metric_inputs_per_task(outputs,
+                                                       batch).items():
+      key = 'auc_task_%s' % name
+      if key in metric_states and tmi['probs'].ndim == 1:
+        metrics_lib.update_auc(metric_states[key], tmi['labels'],
+                               tmi['probs'], tmi['weights'])
     return loss
 
   def evaluate(self, eval_iter: Optional[Iterable] = None,
@@ -289,12 +300,20 @@ class Trainer:
           int(self.data_config.batch_size)
       max_batches = max(1, -(-int(self.eval_config.num_examples) // bs))
     states = self.metrics.init_states(self.device)
+    # per-task AUC beside the first task's `auc` (JAX trainer.py:520-527,
+    # :618-622)
+    for name in self.model.metric_task_names():
+      states['auc_task_%s' % name] = metrics_lib.init_auc_state(self.device)
     losses: List[torch.Tensor] = []
     for n, batch in enumerate(eval_iter, 1):
       losses.append(self.eval_step(to_device(batch, self.device), states))
       if max_batches and n >= max_batches:
         break
     results = self.metrics.results(states)
+    for key, state in states.items():
+      if key.startswith('auc_task_'):
+        results['auc_%s' % key[len('auc_task_'):]] = \
+            metrics_lib.auc_result(state)
     if losses:
       results['loss'] = float(np.mean([float(x) for x in losses]))
     return results

@@ -18,6 +18,11 @@ Counterpart of easyrec_tpu/utils/flagship.py:
   - taobao_bst_config (:224-243): bst_on_taobao, the same schema and
     tables, MultiTowerBST whose transformer runs over the two histories
     (hidden 32, 4 heads, FFN 128) with the target at their head.
+  - taobao_mmoe_config (:246-282): mmoe_on_taobao, the same schema with
+    two labels (clk, buy) and tables; all 18 features in one DEEP group
+    `all` (the sequences through their default sum combiner: 288 wide), 4
+    experts of [256, 192, 128, 64], towers ctr (clk) and cvr (buy) of
+    [256, 192, 128, 64].
 """
 
 from __future__ import annotations
@@ -272,4 +277,42 @@ def taobao_bst_config(batch_size: int = 4096, seq_len: int = 50,
     l2_regularization: 5e-7
   }""" % (_tower_groups(), seq_len)
   return _taobao_pipeline(model, ['clk'], batch_size, seq_len,
+                          embedding_dim, model_dir)
+
+
+def taobao_mmoe_config(batch_size: int = 4096, seq_len: int = 50,
+                       embedding_dim: int = 16, model_dir: str = ''):
+  """MMoE (ctr+cvr towers) on the Taobao schema (mmoe_on_taobao.config)."""
+  all_feats = ([n for n, _ in _TAOBAO_ID_FEATURES] + ['price'] +
+               ['tag_category_list', 'tag_brand_list'])
+  model = """  model_class: "MMoE"
+  feature_groups {
+    group_name: "all"
+    %s
+    wide_deep: DEEP
+  }
+  mmoe {
+    expert_dnn { hidden_units: [256, 192, 128, 64] }
+    num_expert: 4
+    task_towers {
+      tower_name: "ctr"
+      label_name: "clk"
+      dnn { hidden_units: [256, 192, 128, 64] }
+      num_class: 1
+      weight: 1.0
+      loss_type: CLASSIFICATION
+      metrics_set { auc {} }
+    }
+    task_towers {
+      tower_name: "cvr"
+      label_name: "buy"
+      dnn { hidden_units: [256, 192, 128, 64] }
+      num_class: 1
+      weight: 1.0
+      loss_type: CLASSIFICATION
+      metrics_set { auc {} }
+    }
+    l2_regularization: 1e-6
+  }""" % '\n    '.join('feature_names: "%s"' % f for f in all_feats)
+  return _taobao_pipeline(model, ['clk', 'buy'], batch_size, seq_len,
                           embedding_dim, model_dir)

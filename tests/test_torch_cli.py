@@ -92,6 +92,11 @@ result = main.train_and_evaluate(flagship.taobao_din_config(batch_size=64),
                                  device='cpu',
                                  edit_config_json={'train_config.num_steps': 2})
 assert result['global_step'] == 2
+os.environ['EASYREC_PACKED_FUSED'] = '0'
+result = main.train_and_evaluate(flagship.taobao_mmoe_config(batch_size=64),
+                                 device='cpu',
+                                 edit_config_json={'train_config.num_steps': 2})
+assert result['global_step'] == 2 and 'auc_cvr' in result['eval_metrics']
 banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas', 'pyarrow',
           'easyrec_tpu', 'benchmarks')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned or

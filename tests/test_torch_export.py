@@ -171,15 +171,16 @@ def test_opaque_fields_are_written_token_for_token():
   """An unported field keeps its tokens, so its JAX parse is unchanged;
   two spellings of one value compare equal."""
   text = ('train_config { freeze_gradient: "dnn/.*" freeze_gradient: '
-          '\'a\\tb\' }\nmodel_config { model_class: "DBMTL" dbmtl { '
-          'bottom_dnn { hidden_units: [8, 4] } task_towers { tower_name: '
-          '"t" # comment\n loss_type: L2_LOSS weight: 1e-3 } } }\n')
+          '\'a\\tb\' }\nmodel_config { model_class: "DBMTL" model_params { '
+          'l2_regularization: 1e-4 task_towers { tower_name: '
+          '"t" # comment\n dnn { hidden_units: [8, 4] } '
+          'loss_type: L2_LOSS weight: 1e-3 } } }\n')
   t = t_config.get_configs_from_pipeline_str(text)
   written = t_text.to_text(t)
   assert 'hidden_units : [ 8 , 4 ]' in written
   a = j_config.get_configs_from_pipeline_str(text)
   b = j_config.get_configs_from_pipeline_str(written)
-  assert a.model_config.dbmtl == b.model_config.dbmtl
+  assert a.model_config.model_params == b.model_config.model_params
   assert list(a.train_config.freeze_gradient) == \
       list(b.train_config.freeze_gradient) == ['dnn/.*', 'a\tb']
   again = pb_text.MessageToString(a, as_utf8=True)
