@@ -114,11 +114,29 @@ K4 and K5 must launch 0 times in 6-8.
              64] over a 288-wide input) through train_and_evaluate, unfused
              (K1 + K2, compact Adam, once a step each), with its rate,
              launches a step, peak memory, `auc`, `auc_ctr` and `auc_cvr`;
-             this slice's main path;
  16. serve mmoe  a 5-step MMoE on a seeded CSV with clk and buy exported,
              PredictorService on the card answering 1 and 4,096 rows over
              HTTP, every output bit-equal to the training Trainer's eval
              forward, with no K1-K5 launch.
+ 17. zoo     (run after 16, before 9) the classic rank zoo: a small form of
+             WideAndDeep, DCN, AutoInt, DLRM, FM, RocketLaunching and a
+             DeepFM with deepfm_multi_loss's Uncertainty-weighted terms on
+             the flagship Criteo schema (3 raw and 6 id features of 1,000
+             buckets, batch 256) trains 3 steps on the card and the CPU
+             from one state, unfused and fused, at the agree phase's rule;
+             its eval (`auc`, `max_f1`, the loss) is held card against CPU
+             from the shared state and from the card's trained state;
+ 18. dlrm    the full-width Criteo DLRM (flagship.criteo_dlrm_config:
+             benchmarks/quality.py's DLRM on the flagship schema, one
+             [26,000,014, 16] table, bot_dnn [64, 32, 16], top_dnn [256,
+             128, 64]) through train_and_evaluate, unfused (K1 + K2,
+             compact Adam, once a step each), with its rate, launches a
+             step, id slots a step and peak memory; this slice's main
+             path;
+ 19. serve dlrm  a 5-step DLRM at full width exported, PredictorService on
+             the card answering 1 and 4,096 raw rows over HTTP, logits and
+             probs bit-equal to the training Trainer's eval forward, with
+             no K1-K5 launch.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -407,11 +425,14 @@ def phase_kernels(torch):
   for r in k3:
     if r['name'] == 'rmw_fused/compact_adam':
       r['max_abs_err'] = max(r['max_abs_err'], err3f)
-  err1m, err2m = phase_kernel_mmoe(torch)
-  results[0]['max_abs_err'] = max(err1, k3[0].pop('seg_sum_din_err'), err1m)
+  # the main paths' own shapes: the MMoE's and the DLRM's dim-16 tables
+  errs = [phase_kernel_path(torch, flagship.taobao_mmoe_config(), 'MMoE'),
+          phase_kernel_path(torch, flagship.criteo_dlrm_config(), 'DLRM')]
+  results[0]['max_abs_err'] = max([err1, k3[0].pop('seg_sum_din_err')] +
+                                  [e1 for e1, _ in errs])
   for r in results:
     if r['name'] == 'rmw_rows/compact_adam':
-      r['max_abs_err'] = max(r['max_abs_err'], err2m)
+      r['max_abs_err'] = max([r['max_abs_err']] + [e2 for _, e2 in errs])
   return results + k3
 
 
@@ -458,7 +479,7 @@ def check_seg_sum(torch, pt, sids, order, starts, grads, sentinel, what):
   return err
 
 
-def taobao_pack(torch, cfg):
+def synthetic_pack(torch, cfg):
   """A trainer of `cfg` on the card and the pack of one synthetic batch
   of it: (trainer, table key, TableMeta, the flat id slots)."""
   from easyrec_torch.ops import embedding as emb_ops
@@ -475,47 +496,51 @@ def taobao_pack(torch, cfg):
   return trainer, key, meta, packs[key].reshape(-1)
 
 
-def phase_kernel_mmoe(torch):
-  """K1 in every mode and K2's compact Adam at the shape the main path,
-  the full-width Taobao MMoE, gives them: the pack of one synthetic batch
-  of it, at its dim 16 (so K2 runs four lanes a row, eight rows a warp),
-  each bit-exact against its plain version; K2 on the sums of mode 1, the
+def phase_kernel_path(torch, cfg, what):
+  """K1 in every mode and K2's compact Adam at the shape a main path at
+  full width (`cfg`) gives them: the pack of one synthetic batch of it,
+  at its dim 16 (so K2 runs four lanes a row, eight rows a warp), each
+  bit-exact against its plain version; K2 on the sums of mode 1, the
   path's default. Returns (K1's, K2's) largest difference."""
   from easyrec_torch.ops import packed_table as pt
-  from easyrec_torch.utils import flagship
 
   dev = torch.device('cuda')
-  trainer, key, meta, ids = taobao_pack(torch, flagship.taobao_mmoe_config())
-  n = ids.shape[0]
+  trainer, key, meta, ids = synthetic_pack(torch, cfg)
+  n, dim = ids.shape[0], meta.dim
   gen = torch.Generator(device=dev).manual_seed(2468)
-  grads = torch.randn((n, meta.dim), generator=gen, device=dev) * 1e-3
+  grads = torch.randn((n, dim), generator=gen, device=dev) * 1e-3
   grads[::97] = 0.0
   sids, order, starts = pt.sort_segments(ids)
   n_seg = int((starts[:n] < n).sum())
   err1 = check_seg_sum(torch, pt, sids, order, starts, grads, meta.sentinel,
-                       'MMoE shape')
+                       '%s shape' % what)
   flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
   k1_ms = cuda_ms(torch, lambda: pt.seg_sum(sids, order, starts, grads,
                                             meta.sentinel, '1'), 20, flush)
+  k1_bound, _ = bound_ms((n + 1) * 8 + n * 8 + n * dim * 4 + n_seg * 8 +
+                         n * 8 + n * dim * 4, n * dim)
   uids, gsum = pt.seg_sum(sids, order, starts, grads, meta.sentinel, '1')
-  name, opt, compact, _ = next(m for m in block_maths()
-                               if m[0] == 'compact_adam')
-  table = math_table(torch, trainer.layout, key, meta.rows, meta.dim, opt,
+  name, opt, compact, ops = next(m for m in block_maths()
+                                 if m[0] == 'compact_adam')
+  table = math_table(torch, trainer.layout, key, meta.rows, dim, opt,
                      compact, gen)
   hypers = opt.hypers(torch.tensor(1e-3, device=dev),
                       torch.tensor(3, dtype=torch.int32, device=dev))
   err2 = check_rmw_rows(torch, pt, table, uids, gsum, hypers, opt,
-                        '%s, MMoE shape' % name)
+                        '%s, %s shape' % (name, what))
   n_touched = int(((uids < meta.rows) & (gsum != 0).any(dim=1)).sum())
   k2_ms = cuda_ms(torch, lambda: pt.rmw_rows(table, uids, gsum, hypers,
                                              opt), 20, flush)
-  log('K1 and K2 at the MMoE shape: table %s [%d, %d] f32, %d id slots, '
+  k2_bound, _ = bound_ms(n * 8 + opt.n_hypers * 4 + n_seg * dim * 4 +
+                         n_touched * table.shape[1] * 4 * 2,
+                         n_touched * dim * ops)
+  log('K1 and K2 at the %s shape: table %s [%d, %d] f32, %d id slots, '
       '%d segments, %d touched rows, dim %d; seg_sum bit-exact against the '
       'plain version in modes 0, mix and 1, rmw_rows (compact_adam) '
       'bit-exact and every touched row changed (tolerance 0); seg_sum '
-      '(mode 1) %.4f ms, rmw_rows %.4f ms'
-      % (key, meta.rows, meta.width, n, n_seg, n_touched, meta.dim, k1_ms,
-         k2_ms))
+      '(mode 1) %.4f ms (bound %.4f ms), rmw_rows %.4f ms (bound %.4f ms)'
+      % (what, key, meta.rows, meta.width, n, n_seg, n_touched, dim, k1_ms,
+         k1_bound, k2_ms, k2_bound))
   del trainer, table, grads, flush, uids, gsum
   torch.cuda.empty_cache()
   return err1, err2
@@ -596,7 +621,7 @@ def phase_kernel_din(torch):
   from easyrec_torch.utils import flagship
 
   dev = torch.device('cuda')
-  trainer, key, meta, ids = taobao_pack(torch, flagship.taobao_din_config())
+  trainer, key, meta, ids = synthetic_pack(torch, flagship.taobao_din_config())
   n = ids.shape[0]
   log('K3 DIN shape: table %s [%d, %d] f32, %d id slots, dim %d'
       % (key, meta.rows, meta.width, n, meta.dim))
@@ -913,11 +938,13 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
   whose agreement with the JAX package the CPU tests hold. On the card
   the update must go through K2 (or K3 under EASYREC_PACKED_FUSED=1) with
   the embedding optimizer's block math, once a step and table. A model
-  with per-task metrics (metric_task_names) is also evaluated on two
-  synthetic batches, card against CPU: from the shared state before
-  training, and after the 3 steps from the card's trained state copied
-  into the CPU trainer. Each time `auc` and every `auc_<task>` within
-  1e-3 (8192-bin histograms: a probability at a bin edge may land one bin
+  with per-task metrics (metric_task_names), or whose metrics_set holds
+  more than `auc`, is also evaluated on two synthetic batches, card
+  against CPU: from the
+  shared state before training, and after the 3 steps from the card's
+  trained state copied into the CPU trainer. Each time `auc`, every other
+  metric of its metrics_set (`max_f1`) and every `auc_<task>` within 1e-3
+  (8192-bin histograms: a probability at a bin edge may land one bin
   over) and the loss within 1e-5 relative. Each side's eval of its own
   trained state is logged beside them, not held: the two sides' weights
   part by what the rule below allows. Returns the card's launches by
@@ -939,8 +966,9 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
   for key, table in runs['cpu'].tables.items():
     runs['cuda'].tables[key].copy_(table)
   tasks = runs['cpu'].model.metric_task_names()
-  keys = ['auc'] + ['auc_%s' % k for k in tasks]
-  if tasks:
+  keys = list(runs['cpu'].metrics.configs) + ['auc_%s' % k for k in tasks]
+  evaluate = bool(tasks) or keys != ['auc']
+  if evaluate:
     hold_evals(eval_both(runs, bs, keys, what, fused), keys, what)
   kernels.reset_launches()
   losses = {}
@@ -1014,7 +1042,7 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
       'losses %s vs %s; table weights within 1e-5 but %d (at most 1 in '
       '100, each within 2 lr a step)%s; card launches %s'
       % (what, fused, losses['cuda'], losses['cpu'], far_all, ema, tagged))
-  if tasks:
+  if evaluate:
     eval_both(runs, bs, keys, what + ' after 3 steps, each side its own '
               'state', fused)
     runs['cpu'].model.load_state_dict(t.model.state_dict())
@@ -1158,9 +1186,11 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
     fail('%s: K2/K3 launched with the block maths %s, %s expected'
          % (what, tagged, want))
   peak = torch.cuda.max_memory_allocated()
-  log('%s peak device memory: %.3f GB; launches a step: %s'
-      % (what, peak / 1e9, {k: c / SLICE_STEPS for k, c in counts.items()
-                            if c}))
+  log('%s peak device memory: %.3f GB; launches a step: %s; id slots a '
+      'step: %s' % (what, peak / 1e9,
+                    {k: c / SLICE_STEPS for k, c in counts.items() if c},
+                    {k: t.tot_k * bs for k, t in
+                     result['trainer'].layout.tables.items()}))
 
   trainer = result['trainer']
   batches = [to_device(synthetic_batch(trainer.specs,
@@ -2174,44 +2204,18 @@ def phase_multi_task(torch):
                   multi_task_config(model, 256, 8), fused)
 
 
-def phase_serve_mmoe(torch, smi):
-  """The Taobao MMoE at full width on a seeded CSV with clk and buy:
-  train_and_evaluate (5 steps, K1 + K2) exports it; PredictorService on
-  the card answers 1 and 4,096 of the CSV's rows over HTTP, each request
-  one chunk, every output (logits_ and probs_ of ctr and cvr) bit-equal
-  to the training Trainer's eval forward on the same rows, with no K1-K5
-  launch."""
-  import csv
-  import shutil
+def serve_bit_equal(torch, what, export_dir, rows, want, smi):
+  """PredictorService on the card over `export_dir` answers each of
+  want's row counts (the first n of `rows`, one request, one chunk) over
+  HTTP: every output of the export bit-equal to `want[n]`, the training
+  Trainer's eval forward on the same rows, with no K1-K5 launch."""
   import numpy as np
-  from easyrec_torch import main as main_lib
   from easyrec_torch.ops import kernels
   from easyrec_torch.serving.client import PredictClient
   from easyrec_torch.serving.server import PredictorService
-  from easyrec_torch.utils import flagship
 
-  os.environ['EASYREC_PACKED_FUSED'] = '0'
-  root = os.path.join(SCRATCH, 'serve_mmoe')
-  shutil.rmtree(root, ignore_errors=True)
-  os.makedirs(root)
-  data = os.path.join(root, 'mmoe.csv')
-  write_din_csv(data, DIN_SERVE_ROWS, seed=9, labels=2)
-  cfg = flagship.taobao_mmoe_config(model_dir=os.path.join(root, 'md'))
-  edits = {'data_config.input_type': 'CSVInput', 'train_input_path': data,
-           'eval_input_path': data, 'train_config.num_steps': 5}
-  result = main_lib.train_and_evaluate(cfg, edit_config_json=edits,
-                                     device='cuda')
-  export_dir = result['export_dir']
-  names = [f.input_name for f in cfg.data_config.input_fields]
-  with open(data) as f:
-    rows = [dict(zip(names, r)) for r in csv.reader(f)]
-  sizes = (1, 4096)
-  want = {n: trainer_outputs(torch, result['trainer'], rows[:n])
-          for n in sizes}
-  outputs = sorted(want[1])
-  if outputs != ['logits_ctr', 'logits_cvr', 'probs_ctr', 'probs_cvr']:
-    fail('serve MMoE: the export outputs %s' % outputs)
-  del result
+  sizes = sorted(want)
+  outputs = sorted(want[sizes[0]])
   torch.cuda.empty_cache()
   kernels.reset_launches()
   t0 = time.perf_counter()
@@ -2228,12 +2232,12 @@ def phase_serve_mmoe(torch, smi):
       got = client.predict(rows[:n])
       times[n] = (time.perf_counter() - t0) * 1e3
       if any(sorted(r) != outputs for r in got):
-        fail('serve MMoE: answers carry %s' % sorted(got[0]))
+        fail('serve %s: answers carry %s' % (what, sorted(got[0])))
       for key, ref in want[n].items():
         served = np.float32([r[key] for r in got])
         if served.shape != ref.shape or not np.isfinite(served).all():
-          fail('serve MMoE: %s of %d rows: shape %s' % (key, n,
-                                                        served.shape))
+          fail('serve %s: %s of %d rows: shape %s' % (what, key, n,
+                                                      served.shape))
         worst = max(worst, float(np.abs(served - ref).max()))
         bit_equal &= served.tobytes() == ref.tobytes()
     client.close()
@@ -2241,18 +2245,147 @@ def phase_serve_mmoe(torch, smi):
     service.stop()
   torch.cuda.synchronize()
   if any(kernels.launch_counts().values()):
-    fail('serve MMoE: K1-K5 launched %s' % kernels.launch_counts())
+    fail('serve %s: K1-K5 launched %s' % (what, kernels.launch_counts()))
   if not bit_equal:
-    fail('serve MMoE: the served answers differ from the Trainer\'s eval '
-         'forward by up to %g' % worst)
-  log('serve: Taobao MMoE export, PredictorService on the card (load %.3f '
-      's): %s at %s rows bit-equal to the training Trainer\'s eval forward; '
-      'a request over HTTP %s ms; no K1-K5 launch; %s'
-      % (load_s, outputs, sizes, ', '.join('%d rows %.3f' % (n, times[n])
-                                           for n in sizes), smi))
+    fail('serve %s: the served answers differ from the Trainer\'s eval '
+         'forward by up to %g' % (what, worst))
+  log('serve: %s export, PredictorService on the card (load %.3f s): %s at '
+      '%s rows bit-equal to the training Trainer\'s eval forward; a '
+      'request over HTTP %s ms; no K1-K5 launch; %s'
+      % (what, load_s, outputs, sizes,
+         ', '.join('%d rows %.3f' % (n, times[n]) for n in sizes), smi))
   del service
-  shutil.rmtree(root, ignore_errors=True)
   torch.cuda.empty_cache()
+
+
+def phase_serve_mmoe(torch, smi):
+  """The Taobao MMoE at full width on a seeded CSV with clk and buy:
+  train_and_evaluate (5 steps, K1 + K2) exports it; PredictorService on
+  the card answers 1 and 4,096 of the CSV's rows over HTTP, each request
+  one chunk, every output (logits_ and probs_ of ctr and cvr) bit-equal
+  to the training Trainer's eval forward on the same rows, with no K1-K5
+  launch."""
+  import csv
+  import shutil
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.utils import flagship
+
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  root = os.path.join(SCRATCH, 'serve_mmoe')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  data = os.path.join(root, 'mmoe.csv')
+  write_din_csv(data, DIN_SERVE_ROWS, seed=9, labels=2)
+  cfg = flagship.taobao_mmoe_config(model_dir=os.path.join(root, 'md'))
+  edits = {'data_config.input_type': 'CSVInput', 'train_input_path': data,
+           'eval_input_path': data, 'train_config.num_steps': 5}
+  result = main_lib.train_and_evaluate(cfg, edit_config_json=edits,
+                                     device='cuda')
+  names = [f.input_name for f in cfg.data_config.input_fields]
+  with open(data) as f:
+    rows = [dict(zip(names, r)) for r in csv.reader(f)]
+  want = {n: trainer_outputs(torch, result['trainer'], rows[:n])
+          for n in (1, 4096)}
+  outputs = sorted(want[1])
+  if outputs != ['logits_ctr', 'logits_cvr', 'probs_ctr', 'probs_cvr']:
+    fail('serve MMoE: the export outputs %s' % outputs)
+  export_dir = result['export_dir']
+  del result
+  serve_bit_equal(torch, 'Taobao MMoE', export_dir, rows, want, smi)
+  shutil.rmtree(root, ignore_errors=True)
+
+
+# the classic rank zoo, small, on the flagship Criteo schema (3 raw and 6 id
+# features of 1,000 buckets, dim 16, batch 256; _criteo_pipeline fills in
+# the groups' features): every model message of the slice, with
+# deepfm_multi_loss's Uncertainty-weighted terms on the DeepFM
+ZOO_BLOCKS = {
+    'WideAndDeep': """  model_class: "WideAndDeep"
+  feature_groups { group_name: "deep" %(dense)s %(cat)s wide_deep: DEEP }
+  feature_groups { group_name: "wide" %(cat)s wide_deep: WIDE }
+  wide_and_deep { dnn { hidden_units: [128, 64] }
+                  final_dnn { hidden_units: [64] } }""",
+    'DCN': """  model_class: "DCN"
+  feature_groups { group_name: "all" %(dense)s %(cat)s wide_deep: DEEP }
+  dcn { deep_tower { input: "all" dnn { hidden_units: [128, 64] } }
+        cross_tower { input: "all" cross_num: 3 }
+        final_dnn { hidden_units: [64] } }""",
+    'AutoInt': """  model_class: "AutoInt"
+  feature_groups { group_name: "all" %(dense)s %(cat)s wide_deep: DEEP }
+  autoint { multi_head_num: 2 multi_head_size: 16
+            interacting_layer_num: 2 }""",
+    'DLRM': """  model_class: "DLRM"
+  feature_groups { group_name: "dense" %(dense)s wide_deep: DEEP }
+  feature_groups { group_name: "sparse" %(cat)s wide_deep: DEEP }
+  dlrm { bot_dnn { hidden_units: [64, 32, 16] }
+         top_dnn { hidden_units: [128, 64] } }""",
+    'FM': """  model_class: "FM"
+  feature_groups { group_name: "deep" %(cat)s wide_deep: DEEP }
+  feature_groups { group_name: "wide" %(cat)s wide_deep: WIDE }
+  fm {}""",
+    'RocketLaunching': """  model_class: "RocketLaunching"
+  feature_groups { group_name: "all" %(dense)s %(cat)s wide_deep: DEEP }
+  rocket_launching {
+    share_dnn { hidden_units: [128] }
+    booster_dnn { hidden_units: [64, 32] }
+    light_dnn { hidden_units: [64] }
+    feature_based_distillation: true }""",
+    'DeepFM, Uncertainty losses': """  model_class: "DeepFM"
+  feature_groups { group_name: "deep" %(dense)s %(cat)s wide_deep: DEEP }
+  feature_groups { group_name: "wide" %(cat)s wide_deep: WIDE }
+  deepfm { dnn { hidden_units: [128, 64] } final_dnn { hidden_units: [64] } }
+  losses { loss_type: CLASSIFICATION weight: 1.0 }
+  losses { loss_type: BINARY_FOCAL_LOSS weight: 1.0
+           binary_focal_loss { gamma: 2.0 alpha: 0.85 } }
+  loss_weight_strategy: Uncertainty""",
+}
+
+
+def zoo_config(model):
+  from easyrec_torch.config.text_format import parse
+  from easyrec_torch.utils import flagship as fl
+  cfg = fl._criteo_pipeline(ZOO_BLOCKS[model], 256, 1000, 16, 3, 6, '')
+  cfg.eval_config.metrics_set = list(parse(
+      'metrics_set { auc {} } metrics_set { max_f1 {} }',
+      'EvalConfig').metrics_set)
+  return cfg
+
+
+def phase_zoo(torch):
+  """The agree phase for a small form of each model of the rank zoo
+  (batch 256), unfused (K1 + K2) and fused (K3), with its eval: `auc`
+  and `max_f1` card against CPU."""
+  for model in ZOO_BLOCKS:
+    for fused in ('0', '1'):
+      phase_agree(torch, 'Criteo %s' % model, zoo_config(model), fused)
+
+
+def phase_serve_dlrm(torch, smi):
+  """The Criteo DLRM at full width: train_and_evaluate on a model_dir (5
+  steps, K1 + K2, the 'final' export of its [26,000,014, 16] table);
+  PredictorService on the card answers 1 and 4,096 raw flagship rows over
+  HTTP, logits and probs bit-equal to the training Trainer's eval forward
+  on the same rows, with no K1-K5 launch."""
+  import shutil
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.utils import flagship
+
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  root = os.path.join(SCRATCH, 'serve_dlrm')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  cfg = flagship.criteo_dlrm_config(model_dir=os.path.join(root, 'md'))
+  result = main_lib.train_and_evaluate(
+      cfg, edit_config_json={'train_config.num_steps': 5}, device='cuda')
+  rows = serve_rows(4096, seed=13)
+  want = {n: trainer_outputs(torch, result['trainer'], rows[:n])
+          for n in (1, 4096)}
+  if sorted(want[1]) != ['logits', 'probs']:
+    fail('serve DLRM: the export outputs %s' % sorted(want[1]))
+  export_dir = result['export_dir']
+  del result
+  serve_bit_equal(torch, 'Criteo DLRM', export_dir, rows, want, smi)
+  shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -2310,18 +2443,22 @@ def main():
   mmoe = phase_slice(torch, card, 'Taobao MMoE', flagship.taobao_mmoe_config(),
                      '0', ('seg_sum', 'rmw_rows'), 'compact_adam')
   phase_serve_mmoe(torch, smi)
+  phase_zoo(torch)
+  dlrm = phase_slice(torch, card, 'Criteo DLRM', flagship.criteo_dlrm_config(),
+                     '0', ('seg_sum', 'rmw_rows'), 'compact_adam')
+  phase_serve_dlrm(torch, smi)
   phase_ckpt(torch)
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the MMoE's, this
+  # these that runs it (K1 and K2's compact Adam on the DLRM's, this
   # slice's main path; K3 on the DIN's, Adagrad on the Adagrad DeepFM's,
   # the EV maths on the EV phase's), 0 for a math no path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (mmoe, bst, din, deepfm, adagrad, ev)
+                          (dlrm, mmoe, bst, din, deepfm, adagrad, ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

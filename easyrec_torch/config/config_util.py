@@ -21,7 +21,9 @@ from easyrec_torch.config.text_format import Message, parse, to_text
 
 EasyRecConfig = Message
 
-_RANK_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST')
+_RANK_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST',
+                'WideAndDeep', 'DCN', 'AutoInt', 'DLRM', 'FM',
+                'RocketLaunching')
 _MULTI_TASK_MODELS = ('SimpleMultiTask', 'MMoE', 'ESMM', 'DBMTL', 'PLE')
 _PORTED_MODELS = _RANK_MODELS + _MULTI_TASK_MODELS
 # the loss types a task tower computes as the JAX package's
@@ -31,9 +33,19 @@ _TOWER_LOSSES = ('CLASSIFICATION', 'CROSS_ENTROPY_LOSS',
                  'BINARY_CROSS_ENTROPY_LOSS', 'SOFTMAX_CROSS_ENTROPY',
                  'L2_LOSS', 'SIGMOID_L2_LOSS', 'BINARY_FOCAL_LOSS',
                  'F1_REWEIGHTED_LOSS', 'ORDER_CALIBRATE_LOSS')
+# the types of a rank model's `losses` terms that the JAX package's
+# RankModel._single_loss computes on a classification model (base.py:
+# 214-299). SIGMOID_L2_LOSS reads the prediction `y` that only a
+# SIGMOID_L2_LOSS model makes, so the JAX package raises a KeyError on it
+# under classification; the pairwise, listwise, JRC and ZILN types are
+# not ported
+_RANK_LOSSES = ('CLASSIFICATION', 'CROSS_ENTROPY_LOSS',
+                'BINARY_CROSS_ENTROPY_LOSS', 'L2_LOSS', 'BINARY_FOCAL_LOSS',
+                'F1_REWEIGHTED_LOSS')
 _PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature', 'TagFeature',
                          'SequenceFeature')
-_PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput')
+_PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput',
+                       'TFRecordInput', 'BatchTFRecordInput')
 
 
 def get_configs_from_pipeline_file(path: str,
@@ -228,9 +240,18 @@ def check_ported(config: Message) -> None:
         if lt not in _TOWER_LOSSES:
           raise NotImplementedError('loss_type %s of task tower %s is not '
                                     'ported' % (lt, tower.tower_name))
-  elif mc.loss_type != 'CLASSIFICATION' or mc.num_class != 1:
-    raise NotImplementedError('loss_type %s with num_class %d is not ported'
-                              % (mc.loss_type, mc.num_class))
+  else:
+    if mc.loss_type != 'CLASSIFICATION' or mc.num_class != 1:
+      raise NotImplementedError('loss_type %s with num_class %d is not '
+                                'ported' % (mc.loss_type, mc.num_class))
+    for i, loss in enumerate(mc.losses):
+      if loss.loss_type not in _RANK_LOSSES:
+        raise NotImplementedError('loss_type %s of model_config.losses[%d] '
+                                  'is not ported' % (loss.loss_type, i))
+    if mc.loss_weight_strategy == 'Random':
+      # its eval weights are a draw of the JAX package's PRNGKey(0)
+      raise NotImplementedError('model_config.loss_weight_strategy Random '
+                                'is not ported')
   for fc in get_feature_configs(config):
     if fc.feature_type not in _PORTED_FEATURE_TYPES:
       raise NotImplementedError('feature_type %s (feature %s) is not ported'

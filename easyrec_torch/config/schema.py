@@ -54,6 +54,8 @@ ENUMS: Dict[str, Tuple[str, ...]] = {
                  'PAIRWISE_HINGE_LOSS', 'JRC_LOSS', 'ORDER_CALIBRATE_LOSS',
                  'BINARY_CROSS_ENTROPY_LOSS', 'KL_DIVERGENCE_LOSS',
                  'LISTWISE_RANK_LOSS', 'LISTWISE_DISTILL_LOSS', 'ZILN_LOSS'),
+    'LossWeightStrategy': ('Fixed', 'Uncertainty', 'Random'),
+    'Similarity': ('COSINE', 'INNER_PRODUCT', 'EUCLID'),
 }
 
 
@@ -244,14 +246,16 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
     ),
     'EvalMetrics': (
         _f('auc', 'msg:AUC', oneof='metric'),
+        _f('max_f1', 'msg:Max_F1', oneof='metric'),
         *_unported('metric', 'recall_at_topk', 'mean_absolute_error',
-                   'mean_squared_error', 'accuracy', 'max_f1',
+                   'mean_squared_error', 'accuracy',
                    'root_mean_squared_error', 'gauc', 'session_auc',
                    'recall', 'precision', 'precision_at_topk'),
     ),
     'AUC': (
         _f('num_thresholds', 'int', 200),
     ),
+    'Max_F1': (),
     'EasyRecModel': (
         _f('model_class', 'string', ''),
         _f('feature_groups', 'msg:FeatureGroupConfig', rep=True),
@@ -262,11 +266,16 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('dbmtl', 'msg:DBMTL', oneof='model'),
         _f('simple_multi_task', 'msg:SimpleMultiTask', oneof='model'),
         _f('ple', 'msg:PLE', oneof='model'),
-        *_unported('model', 'model_params', 'dummy', 'wide_and_deep',
-                   'fm', 'dcn', 'autoint', 'dlrm', 'cmbf',
+        _f('wide_and_deep', 'msg:WideAndDeep', oneof='model'),
+        _f('fm', 'msg:FMModel', oneof='model'),
+        _f('dcn', 'msg:DCN', oneof='model'),
+        _f('autoint', 'msg:AutoInt', oneof='model'),
+        _f('dlrm', 'msg:DLRM', oneof='model'),
+        _f('rocket_launching', 'msg:RocketLaunching', oneof='model'),
+        *_unported('model', 'model_params', 'dummy', 'cmbf',
                    'uniter', 'multi_tower_recall', 'dssm', 'mind',
                    'dropoutnet', 'metric_learning', 'pdn', 'dssm_senet',
-                   'dat', 'rocket_launching'),
+                   'dat'),
         _f('seq_att_groups', 'msg:SeqAttGroupConfig', rep=True),
         _f('embedding_regularization', 'float', 0.0),
         _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
@@ -274,9 +283,9 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('ev_params', 'msg:EVParams'),
         _f('kd', 'unported', rep=True),
         _f('restore_filters', 'string', rep=True),
-        _f('loss_weight_strategy', 'unported'),
+        _f('loss_weight_strategy', 'enum:LossWeightStrategy', 'Fixed'),
         _f('variational_dropout', 'unported'),
-        _f('losses', 'unported', rep=True),
+        _f('losses', 'msg:Loss', rep=True),
         _f('backbone', 'unported'),
         _f('label_name', 'string', ''),
     ),
@@ -285,6 +294,49 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('final_dnn', 'msg:DNN'),
         _f('wide_output_dim', 'int', 1),
         _f('l2_regularization', 'float', 1e-4),
+    ),
+    'WideAndDeep': (
+        _f('wide_output_dim', 'int', 1),
+        _f('dnn', 'msg:DNN'),
+        _f('final_dnn', 'msg:DNN'),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'FMModel': (
+        # use_variant is read by neither package's FM model
+        _f('use_variant', 'bool', False),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'CrossTower': (
+        _f('input', 'string', ''),
+        _f('cross_num', 'int', 3),
+    ),
+    'DCN': (
+        _f('deep_tower', 'msg:Tower'),
+        _f('cross_tower', 'msg:CrossTower'),
+        _f('final_dnn', 'msg:DNN'),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'AutoInt': (
+        _f('multi_head_num', 'int', 1),
+        _f('multi_head_size', 'int', 0),
+        _f('interacting_layer_num', 'int', 1),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'DLRM': (
+        _f('top_dnn', 'msg:DNN'),
+        _f('bot_dnn', 'msg:DNN'),
+        _f('arch_interaction_op', 'string', 'dot'),
+        _f('arch_interaction_itself', 'bool', False),
+        _f('arch_with_dense_feature', 'bool', False),
+        _f('l2_regularization', 'float', 1e-5),
+    ),
+    'RocketLaunching': (
+        _f('share_dnn', 'msg:DNN'),
+        _f('booster_dnn', 'msg:DNN'),
+        _f('light_dnn', 'msg:DNN'),
+        _f('l2_regularization', 'float', 1e-4),
+        _f('feature_based_distillation', 'bool', False),
+        _f('feature_distillation_function', 'enum:Similarity', 'COSINE'),
     ),
     'MultiTower': (
         _f('towers', 'msg:Tower', rep=True),
@@ -382,11 +434,13 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('losses', 'msg:Loss', rep=True),
         _f('use_sample_weight', 'bool', True),
     ),
-    # a task tower's loss list; loss_name and learn_loss_weight are read
-    # only by the model-level `losses` (unported), not by a tower's
+    # a loss list, of a task tower or of a rank model (`losses`);
+    # loss_name and learn_loss_weight are read only by a rank model's
     'Loss': (
         _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
         _f('weight', 'float', 1.0),
+        _f('loss_name', 'string', ''),
+        _f('learn_loss_weight', 'bool', False),
         _f('f1_reweighted_loss', 'msg:F1ReweighedLoss', oneof='loss_param'),
         _f('binary_focal_loss', 'msg:BinaryFocalLoss', oneof='loss_param'),
         *_unported('loss_param', 'softmax_loss', 'circle_loss',
@@ -460,6 +514,7 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('drop_remainder', 'bool', False),
         _f('max_tag_len', 'int', 16),
         _f('file_shard', 'bool', False),
+        _f('data_compression_type', 'string', ''),
     ),
     'Field': (
         _f('input_name', 'string', ''),

@@ -10,8 +10,11 @@ module imports nothing of JAX:
     DenseGeneral [in, H, Dh] or [H, Dh, out] the port's DenseGeneral
     weight); BatchNorm's and LayerNorm's `scale`/`bias` become weight/bias,
     BatchNorm's `mean`/`var` running_mean/running_var, and a
-    `position_emb` table and the batched experts' `w_<i>` [E, D, U] and
-    `b_<i>` [E, U] keep their names and shapes;
+    `position_emb` table, FM's `global_bias`, the batched experts' `w_<i>`
+    [E, D, U] and `b_<i>` [E, U] and CrossNet's `w_<i>` [d, 1] and `b_<i>`
+    [d] keep their names and shapes; a rank model's `loss_uncertainty`,
+    which flax keeps at the top of the tree beside `inner`, is the
+    model's parameter of that name;
   - a packed table [G*8, W] of any optimizer (easyrec_tpu/ops/
     packed_table.py layout: groups of 8 physical rows, `pack` logical rows
     per physical row, each logical row its `parts` parts of dim columns,
@@ -42,7 +45,10 @@ import numpy as np
 import torch
 
 _LEAF_TO_TORCH = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
-                  'position_emb': 'position_emb'}
+                  'position_emb': 'position_emb',
+                  'global_bias': 'global_bias'}
+# parameters flax keeps at the top of a rank model's tree, beside its root
+_ROOT_LEAVES = ('loss_uncertainty',)
 _STAT_TO_TORCH = {'mean': 'running_mean', 'var': 'running_var'}
 _STAT_TO_FLAX = {v: k for k, v in _STAT_TO_TORCH.items()}
 # leaves that keep their flax name and layout: the batched experts' layers
@@ -61,6 +67,10 @@ def flax_to_state_dict(params, batch_stats=None,
                        root: str = 'inner') -> Dict[str, torch.Tensor]:
   """flax params (+ batch_stats) -> a state_dict of the port's model."""
   sd = {}
+  if root:
+    for name in _ROOT_LEAVES:
+      if name in params:
+        sd[name] = torch.from_numpy(np.array(params[name], np.float32))
   for path, leaf in _flatten(params[root] if root else params):
     arr = np.array(leaf, np.float32)
     name = path[-1] if _SAME_LEAF.match(path[-1]) else \
@@ -86,11 +96,15 @@ def flax_names(state_dict, root: str = 'inner'
   out = {}
   for name, value in state_dict.items():
     mod, leaf = name.rsplit('.', 1) if '.' in name else ('', name)
+    if not mod and leaf in _ROOT_LEAVES:
+      out[name] = ('params', leaf)
+      continue
     if leaf in _STAT_TO_FLAX:
       section, key = 'batch_stats', _STAT_TO_FLAX[leaf]
     elif leaf == 'weight':
       section, key = 'params', 'scale' if value.ndim == 1 else 'kernel'
-    elif leaf in ('bias', 'position_emb') or _SAME_LEAF.match(leaf):
+    elif leaf in ('bias', 'position_emb', 'global_bias') or \
+        _SAME_LEAF.match(leaf):
       section, key = 'params', leaf
     else:
       continue

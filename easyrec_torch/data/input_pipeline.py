@@ -1,9 +1,10 @@
 """Input pipeline: file readers -> feature transforms -> static batches.
 
 Counterpart of easyrec_tpu/data/input_pipeline.py for the readers the port
-runs: CSVReader (:101) and DummyReader (:658), under the same InputPipeline
-(:685). Every batch has batch_size rows; a short tail is zero-padded with
-sample_weight 0. Samplers and streaming readers are not ported.
+runs: CSVReader (:101), TFRecordReader (:206-276) and DummyReader (:658),
+under the same InputPipeline (:685). Every batch has batch_size rows; a
+short tail is zero-padded with sample_weight 0. Samplers and streaming
+readers are not ported.
 
 Batches are flat dicts of numpy arrays:
   feat.<name>.ids / .weights / .dense : packed feature arrays
@@ -128,6 +129,76 @@ def _typed_column(raw, field) -> np.ndarray:
                      for v in raw], dtype=np.bool_)
   dflt = int(float(field.default_val or 0))
   return np.array([int(v) if v != '' else dflt for v in raw], dtype=np.int64)
+
+
+_TFRECORD_DTYPES = {'INT32': np.int32, 'INT64': np.int64,
+                    'FLOAT': np.float32, 'DOUBLE': np.float64,
+                    'BOOL': np.bool_}
+
+
+@INPUTS.register('TFRecordInput')
+@INPUTS.register('BatchTFRecordInput')
+class TFRecordReader(BaseReader):
+  """tf.Example TFRecord files (data/tfrecord.py reads them without
+  TensorFlow), GZIP by data_config.data_compression_type or a .gz
+  suffix; files and rows shard as CSVReader's do. A STRING field holds its
+  bytes (several joined by '|') or its numbers as text; a numeric field
+  its one value, or its default where it has none. A numeric feature of
+  several values (the JAX package's arrow list column) is not ported."""
+
+  def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
+    from easyrec_torch.data import tfrecord
+    paths = config_util.expand_input_paths(self.input_path)
+    if not paths:
+      raise FileNotFoundError('no input files match %s' % self.input_path)
+    dc = self.data_config
+    if dc.file_shard and self.shard_num > 1:
+      paths = paths[self.shard_index::self.shard_num]
+    row_shard = self.shard_num > 1 and not dc.file_shard
+    row = 0
+    for path in paths:
+      buf = []
+      for payload in tfrecord.read_records(
+          path, compression=dc.data_compression_type or ''):
+        row += 1
+        if row_shard and (row - 1) % self.shard_num != self.shard_index:
+          continue
+        buf.append(payload)
+        if len(buf) >= chunk_rows:
+          yield self._columns(buf)
+          buf = []
+      if buf:
+        yield self._columns(buf)
+
+  def _columns(self, payloads) -> Dict[str, np.ndarray]:
+    from easyrec_torch.data import tfrecord
+    cols = tfrecord.example_to_columns(payloads, self.field_names)
+    out = {}
+    for f in self.data_config.input_fields:
+      vals = cols[f.input_name]
+      dflt = f.default_val if f.HasField('default_val') else None
+      if f.input_type == 'STRING':
+        out[f.input_name] = np.asarray(
+            ['|'.join(map(str, v)) if isinstance(v, list) else
+             (str(v) if v not in ('', None) else (dflt or ''))
+             for v in vals], dtype=object)
+        continue
+      dt = _TFRECORD_DTYPES[f.input_type]
+      try:
+        dv = dt(float(dflt or 0))
+      except (TypeError, ValueError):
+        dv = dt(0)
+      if any(isinstance(v, list) and len(v) > 1 for v in vals):
+        raise NotImplementedError(
+            'TFRecord field %s holds several numbers in a row: multi-value '
+            'numeric fields are not ported' % f.input_name)
+
+      def scalar(v):
+        if isinstance(v, list):
+          return v[0] if v else dv
+        return dv if v in ('', None) else v
+      out[f.input_name] = np.asarray([scalar(v) for v in vals], dtype=dt)
+    return out
 
 
 @INPUTS.register('DummyInput')

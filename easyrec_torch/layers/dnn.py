@@ -99,6 +99,11 @@ class BatchNorm(nn.Module):
     return (x - mean) * mul + self.bias
 
 
+def has_dnn(msg, name: str) -> bool:
+  """Whether the DNN field `name` of a config message is set with units."""
+  return msg.HasField(name) and len(getattr(msg, name).hidden_units) > 0
+
+
 class DNN(nn.Module):
   """Config-driven dense stack (protos DNN semantics)."""
 

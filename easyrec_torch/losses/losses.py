@@ -2,8 +2,8 @@
 port runs: the rank models' sigmoid_cross_entropy (:24) and the task
 towers' softmax_cross_entropy (:34), l2_loss (:42), sigmoid_l2_loss (:47),
 binary_focal_loss (:51) with _ohem_mean (:84) and f1_reweighted_loss
-(:72). Per-sample weights (0 marks padded rows) reduce to a weighted
-mean."""
+(:72), and loss_by_type, which picks one of them by a config's LossType.
+Per-sample weights (0 marks padded rows) reduce to a weighted mean."""
 
 from __future__ import annotations
 
@@ -78,6 +78,32 @@ def f1_reweighted_loss(labels: torch.Tensor, logits: torch.Tensor,
   per = -(f1_beta_square * labels * torch.log(p + 1e-9) +
           (1 - labels) * torch.log(1 - p + 1e-9) * (1 - p))
   return weighted_mean(per, weights)
+
+
+def loss_by_type(loss_type: str, params, labels: torch.Tensor,
+                 logits: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+  """A binary task's loss term by its LossType name and loss_param message
+  (None for the defaults), as the JAX package's RankModel._single_loss
+  (models/base.py:214-248) and MultiTaskModel._tower_loss compute these
+  types: L2 on the logits, binary focal, F1-reweighted, else the sigmoid
+  cross entropy."""
+  if loss_type == 'L2_LOSS':
+    return l2_loss(labels, logits, weights)
+  if loss_type == 'BINARY_FOCAL_LOSS':
+    kw = {}
+    if params is not None:
+      kw = dict(gamma=params.gamma,
+                alpha=params.alpha if params.HasField('alpha') else None,
+                label_smoothing=params.label_smoothing,
+                ohem_ratio=params.ohem_ratio)
+    return binary_focal_loss(labels, logits, weights, **kw)
+  if loss_type == 'F1_REWEIGHTED_LOSS':
+    kw = {}
+    if params is not None:
+      kw = dict(f1_beta_square=params.f1_beta_square,
+                label_smoothing=params.label_smoothing)
+    return f1_reweighted_loss(labels, logits, weights, **kw)
+  return sigmoid_cross_entropy(labels, logits, weights)
 
 
 def _ohem_mean(per: torch.Tensor, weights: torch.Tensor,

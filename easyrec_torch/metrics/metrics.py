@@ -1,9 +1,10 @@
 """Streaming evaluation metrics.
 
-Counterpart of easyrec_tpu/metrics/metrics.py for AUC: a histogram of
-AUC_BINS score buckets per class accumulated on the device (:16-53) and a
-rank-sum with tie correction on the host, under the part of
-MetricsCollection (:273) that AUC needs.
+Counterpart of easyrec_tpu/metrics/metrics.py for AUC and max-F1: a
+histogram of AUC_BINS score buckets per class accumulated on the device
+(:16-53), read on the host as a rank-sum with tie correction (AUC) or as
+the best F1 over the bins' thresholds (max_f1_result, :53-66), under the
+part of MetricsCollection (:273-352) that they need.
 """
 
 from __future__ import annotations
@@ -42,14 +43,33 @@ def auc_result(state) -> float:
   return float(u / (total_pos * total_neg))
 
 
+def max_f1_result(state) -> float:
+  """The largest F1 over the thresholds at the bins' lower edges (a score
+  in a bin at or above the threshold's predicts positive)."""
+  pos = state['pos'].detach().cpu().numpy().astype(np.float64)
+  neg = state['neg'].detach().cpu().numpy().astype(np.float64)
+  total_pos = pos.sum()
+  if total_pos == 0:
+    return 0.0
+  tp = np.cumsum(pos[::-1])[::-1]
+  fp = np.cumsum(neg[::-1])[::-1]
+  fn = total_pos - tp
+  f1 = 2 * tp / np.maximum(2 * tp + fp + fn, 1e-9)
+  return float(f1.max())
+
+
+_RESULTS = {'auc': auc_result, 'max_f1': max_f1_result}
+
+
 class MetricsCollection:
-  """Streaming metrics from EvalConfig.metrics_set (AUC only)."""
+  """Streaming metrics from EvalConfig.metrics_set (AUC and max-F1, both
+  read from one histogram)."""
 
   def __init__(self, metrics_configs):
     self.configs = []
     for m in metrics_configs:
       which = m.WhichOneof('metric')
-      if which != 'auc':
+      if which not in _RESULTS:
         raise NotImplementedError('eval metric %s is not ported' % which)
       self.configs.append(which)
 
@@ -62,4 +82,5 @@ class MetricsCollection:
     return states
 
   def results(self, states) -> Dict[str, float]:
-    return {'auc': auc_result(states['auc_hist'])} if self.configs else {}
+    return {which: _RESULTS[which](states['auc_hist'])
+            for which in self.configs}

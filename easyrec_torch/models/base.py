@@ -2,13 +2,16 @@
 
 Counterpart of easyrec_tpu/models/base.py: ModelContext (:29),
 build_context (:94), BaseModel (:125), RankModel (:160) with its
-classification prediction, build_loss and export_outputs (:449), and the
-_WithPrediction wrapper of models/rank.py (:416), folded into
-RankModel.forward. A model's forward returns a dict of outputs; a rank
-model's are `logits` and `probs`, a multi-task model's (models/
-multi_task.py) `logits_<tower>` and `probs_<tower>`, and the trainer,
-export and serving read them through build_loss, metric_inputs,
-metric_inputs_per_task and export_outputs.
+classification prediction, the model-level loss terms (_single_loss
+:214-299 for the ported types, in losses.loss_by_type; _loss_configs
+:325-339; build_loss :399-439 with the Uncertainty weighting) and
+export_outputs (:449), and the _WithPrediction wrapper of models/rank.py
+(:416-440), folded into RankModel.forward with its `loss_uncertainty`
+parameter. A model's forward returns a dict of outputs; a rank model's
+are `logits` and `probs`, a multi-task model's (models/multi_task.py)
+`logits_<tower>` and `probs_<tower>`, and the trainer, export and serving
+read them through build_loss, metric_inputs, metric_inputs_per_task and
+export_outputs.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
+from easyrec_torch.config import schema
 from easyrec_torch.features.embedding_layout import EmbeddingLayout
 from easyrec_torch.losses import losses as L
 from easyrec_torch.ops import embedding as emb_ops
@@ -75,10 +79,14 @@ def _group_names(model_config, roles) -> List[str]:
 
 
 def wide_output_dim(model_config) -> int:
-  """Wide embedding dim of the active model message (default 1)."""
+  """Wide embedding dim of the active model message, where it has one
+  (DeepFM, WideAndDeep; default 1)."""
   which = model_config.WhichOneof('model')
-  if which == 'deepfm':
-    return max(int(model_config.deepfm.wide_output_dim), 1)
+  if which is None:
+    return 1
+  sub = getattr(model_config, which)
+  if schema.has_field(sub.type_name, 'wide_output_dim'):
+    return max(int(sub.wide_output_dim), 1)
   return 1
 
 
@@ -135,7 +143,21 @@ class BaseModel(nn.Module):
 
 class RankModel(BaseModel):
   """Binary classification ranking base: subclasses compute raw logits
-  [B, 1] from (batch, pulled); forward adds the prediction."""
+  [B, 1] from (batch, pulled), or raw_outputs with more; forward adds the
+  prediction.
+
+  With `loss_weight_strategy: Uncertainty` and more than one loss term,
+  the model holds `loss_uncertainty` (zeros, one per term), which flax
+  keeps beside `inner`, not under it (convert.py maps it there), and
+  forward passes it on as `uncertainty_w`."""
+
+  def __init__(self, ctx: ModelContext, device=None):
+    super().__init__(ctx)
+    cfg = self.config
+    n_terms = max(len(cfg.losses), 1)       # kd is not ported
+    if n_terms > 1 and cfg.loss_weight_strategy == 'Uncertainty':
+      self.loss_uncertainty = nn.Parameter(torch.zeros(n_terms,
+                                                       device=device))
 
   @property
   def label_name(self) -> str:
@@ -144,14 +166,59 @@ class RankModel(BaseModel):
   def raw_logits(self, batch, pulled) -> torch.Tensor:
     raise NotImplementedError
 
+  def raw_outputs(self, batch, pulled) -> Dict[str, object]:
+    """{'raw_logits': [B, 1], and any other output of the model}."""
+    return {'raw_logits': self.raw_logits(batch, pulled)}
+
   def forward(self, batch, pulled) -> Dict[str, torch.Tensor]:
-    logits = self.raw_logits(batch, pulled)[..., 0]
-    return {'logits': logits, 'probs': torch.sigmoid(logits)}
+    out = self.raw_outputs(batch, pulled)
+    logits = out.pop('raw_logits')[..., 0]
+    out.update(logits=logits, probs=torch.sigmoid(logits))
+    if hasattr(self, 'loss_uncertainty'):
+      out['uncertainty_w'] = self.loss_uncertainty
+    return out
+
+  def _loss_configs(self) -> List[Dict]:
+    """[{type, weight, params, learn, name}] of the model's loss terms:
+    its `losses`, else its loss_type at weight 1."""
+    out = []
+    for loss in self.config.losses:
+      which = loss.WhichOneof('loss_param')
+      out.append({'type': loss.loss_type, 'weight': float(loss.weight),
+                  'params': getattr(loss, which) if which else None,
+                  'learn': bool(loss.learn_loss_weight),
+                  'name': loss.loss_name or loss.loss_type})
+    return out or [{'type': self.config.loss_type, 'weight': 1.0,
+                    'params': None, 'learn': False,
+                    'name': self.config.loss_type}]
 
   def build_loss(self, outputs, batch) -> Tuple[torch.Tensor, Dict]:
-    value = L.sigmoid_cross_entropy(batch['label.%s' % self.label_name],
-                                    outputs['logits'], batch['sample_weight'])
-    return value, {'CLASSIFICATION': value}
+    """The weighted sum of the loss terms; under Uncertainty each learned
+    term is exp(-u) * L + u / 2 (its exp(-u) halved for L2), and where
+    some term sets learn_loss_weight only those are learned, the rest
+    keep their fixed weight."""
+    labels = batch['label.%s' % self.label_name]
+    weights = batch['sample_weight']
+    losses, terms = {}, []
+    for cfg in self._loss_configs():
+      # a classification model's terms (config_util.check_ported refuses
+      # the other types)
+      value = L.loss_by_type(cfg['type'], cfg['params'], labels,
+                             outputs['logits'], weights)
+      losses[cfg['name']] = value
+      terms.append((value, cfg))
+    u = outputs.get('uncertainty_w')
+    if u is None:
+      return sum(cfg['weight'] * v for v, cfg in terms), losses
+    explicit = any(cfg['learn'] for _, cfg in terms)
+    total = 0.0
+    for i, (value, cfg) in enumerate(terms):
+      if explicit and not cfg['learn']:
+        total = total + cfg['weight'] * value
+        continue
+      scale = 0.5 if cfg['type'] == 'L2_LOSS' else 1.0
+      total = total + scale * torch.exp(-u[i]) * value + 0.5 * u[i]
+    return total, losses
 
   def metric_inputs(self, outputs, batch) -> Dict[str, torch.Tensor]:
     return {'labels': batch['label.%s' % self.label_name],

@@ -24,16 +24,12 @@ from typing import Dict, List
 import torch
 
 from easyrec_torch.config.config_util import task_towers
-from easyrec_torch.layers.dnn import DNN, Dense
+from easyrec_torch.layers.dnn import DNN, Dense, has_dnn
 from easyrec_torch.layers.multi_task import CGCLayer, MMoE as MMoELayer
 from easyrec_torch.losses import losses as L
 from easyrec_torch.models.base import BaseModel, ModelContext, register_model
 from easyrec_torch.models.seq_input import (build_group_input, group_input,
                                             group_input_fn)
-
-
-def _has_dnn(msg, name: str) -> bool:
-  return msg.HasField(name) and len(getattr(msg, name).hidden_units) > 0
 
 
 class MultiTaskModel(BaseModel):
@@ -57,7 +53,7 @@ class MultiTaskModel(BaseModel):
   def _add_head(self, tower, in_features: int, name: str) -> None:
     """_tower_head's modules: `<name>_dnn` where the tower has a dnn, and
     `<name>_logits`."""
-    if _has_dnn(tower, 'dnn'):
+    if has_dnn(tower, 'dnn'):
       dnn = DNN.from_config(tower.dnn, in_features, **self.kw)
       self.add_module('%s_dnn' % name, dnn)
       in_features = dnn.out_features
@@ -118,29 +114,14 @@ class MultiTaskModel(BaseModel):
 
   @staticmethod
   def _tower_loss(lt, params, tower, label, logits, w) -> torch.Tensor:
-    if lt == 'L2_LOSS':
-      return L.l2_loss(label, logits, w)
     if lt == 'SIGMOID_L2_LOSS':
       squeezed = logits[..., 0] if logits.ndim > 1 else logits
       return L.l2_loss(label, torch.sigmoid(squeezed), w)
-    if lt == 'BINARY_FOCAL_LOSS':
-      kw = {}
-      if params is not None:
-        kw = dict(gamma=params.gamma,
-                  alpha=params.alpha if params.HasField('alpha') else None,
-                  label_smoothing=params.label_smoothing,
-                  ohem_ratio=params.ohem_ratio)
-      return L.binary_focal_loss(label, logits, w, **kw)
-    if lt == 'F1_REWEIGHTED_LOSS':
-      kw = {}
-      if params is not None:
-        kw = dict(f1_beta_square=params.f1_beta_square,
-                  label_smoothing=params.label_smoothing)
-      return L.f1_reweighted_loss(label, logits, w, **kw)
     # the cross entropies (config_util.check_ported refuses other types)
-    if int(tower.num_class) > 1:
+    if int(tower.num_class) > 1 and lt not in (
+        'L2_LOSS', 'BINARY_FOCAL_LOSS', 'F1_REWEIGHTED_LOSS'):
       return L.softmax_cross_entropy(label, logits, w)
-    return L.sigmoid_cross_entropy(label, logits, w)
+    return L.loss_by_type(lt, params, label, logits, w)
 
   # -- metrics and export -------------------------------------------------
 
@@ -306,7 +287,7 @@ class DBMTL(MultiTaskModel):
     cfg = ctx.model_config.dbmtl
     self.group = next(iter(ctx.groups))
     width = build_group_input(self, ctx, self.group, **self.kw)
-    if _has_dnn(cfg, 'bottom_dnn'):
+    if has_dnn(cfg, 'bottom_dnn'):
       self.bottom_dnn = DNN.from_config(cfg.bottom_dnn, width, **self.kw)
       width = self.bottom_dnn.out_features
     self.use_mmoe = int(cfg.num_expert) > 0
@@ -319,15 +300,15 @@ class DBMTL(MultiTaskModel):
     for tower in self.towers:
       name = tower.tower_name
       w = width
-      if _has_dnn(tower, 'dnn'):
+      if has_dnn(tower, 'dnn'):
         dnn = DNN.from_config(tower.dnn, w, **self.kw)
         self.add_module('%s_dnn' % name, dnn)
         w = dnn.out_features
       rel = [r for r in tower.relation_tower_names if r in widths]
-      concat = bool(rel) or _has_dnn(tower, 'relation_dnn')
+      concat = bool(rel) or has_dnn(tower, 'relation_dnn')
       if concat:
         w += sum(widths[r] for r in rel)
-        if _has_dnn(tower, 'relation_dnn'):
+        if has_dnn(tower, 'relation_dnn'):
           dnn = DNN.from_config(tower.relation_dnn, w, **self.kw)
           self.add_module('%s_relation' % name, dnn)
           w = dnn.out_features

@@ -83,7 +83,7 @@ def _add(owner: nn.Module, name: str, make):
   return getattr(owner, name)
 
 
-def _build_flat_part(owner: nn.Module, ctx, feature_names,
+def build_flat_part(owner: nn.Module, ctx, feature_names,
                      generator=None, device=None) -> int:
   """Build on `owner` the combiner modules of the sequences among a
   group's `feature_names`; returns the width of the group's concatenated
@@ -154,7 +154,7 @@ def build_group_input(owner: nn.Module, ctx, group_name: str,
   """Build on `owner` everything group_input renders for `group_name`
   (once per group); returns the width of its output."""
   g = ctx.groups[group_name]
-  width = _build_flat_part(owner, ctx, ctx.group_features(group_name),
+  width = build_flat_part(owner, ctx, ctx.group_features(group_name),
                            generator, device)
   for sg, scope in zip(g.sequence_features,
                        seq_scopes(group_name, g.sequence_features)):

@@ -62,7 +62,7 @@ def l2_of_kernels(model: nn.Module) -> torch.Tensor:
   `weight` of two or more axes; the batched experts' `w_<i>`), in the JAX
   package's leaf order (sorted parameter paths). Norm weights — flax's
   `scale` — biases and position tables are not kernels and stay out, as
-  in trainer.py:50-56."""
+  in trainer.py:50-56. None for a model without kernels (FM)."""
   total = None
   for name, p in sorted(model.named_parameters()):
     leaf = name.rsplit('.', 1)[-1]
@@ -188,8 +188,9 @@ class Trainer:
 
   def _regularised_loss(self, outputs, batch, pulled):
     total, loss_dict = self.model.build_loss(outputs, batch)
-    if self.l2_reg > 0:
-      total = total + self.l2_reg * l2_of_kernels(self.model)
+    l2 = l2_of_kernels(self.model) if self.l2_reg > 0 else None
+    if l2 is not None:
+      total = total + self.l2_reg * l2
     if self.emb_reg > 0:
       # padded tail rows (sample_weight 0) stay out of the regulariser
       valid = (batch['sample_weight'] > 0).to(torch.float32)

@@ -1,4 +1,5 @@
-"""The benchmark models: a Criteo-shaped DeepFM and the Taobao DIN and BST.
+"""The benchmark models: a Criteo-shaped DeepFM and DLRM, and the Taobao DIN,
+BST and MMoE.
 
 Counterpart of easyrec_tpu/utils/flagship.py:
   - criteo_deepfm_config: the reference's headline deepfm_on_criteo config,
@@ -6,6 +7,10 @@ Counterpart of easyrec_tpu/utils/flagship.py:
     feature, batch 4096. All features feed both the deep and the wide
     group, so the wide weights merge into the deep table: one fused table
     of 26,000,014 rows, physical dim 32.
+  - criteo_dlrm_config: the DLRM of benchmarks/quality.py (:150-160) on
+    the same schema: groups `dense` (the 13 raw features) and `sparse`
+    (the 26 id features), no wide group, so one table of 26,000,014 rows
+    at dim 16.
   - criteo_deepfm_adagrad_config: the same model and tables trained with
     the two-optimizer pairing of samples/multi_optimizer_freeze.config
     (:7-17), without its freeze_gradient: an Adagrad (constant lr 0.05,
@@ -31,15 +36,16 @@ from easyrec_torch.config.config_util import get_configs_from_pipeline_str
 from easyrec_torch.config.text_format import parse
 
 
-def criteo_deepfm_config(batch_size: int = 4096,
-                         hash_bucket_size: int = 1000000,
-                         embedding_dim: int = 16,
-                         num_dense: int = 13,
-                         num_cat: int = 26,
-                         model_dir: str = ''):
+def _criteo_pipeline(model_block: str, batch_size: int,
+                     hash_bucket_size: int, embedding_dim: int,
+                     num_dense: int, num_cat: int, model_dir: str):
+  """The flagship Criteo schema and training settings around a
+  model_config body; its groups name the features by
+  `%(dense)s` (F1..F13) and `%(cat)s` (C1..C26), each a run of
+  feature_names lines."""
   fields = ['input_fields { input_name: "label" input_type: FLOAT }']
   features = []
-  deep, wide = [], []
+  dense, cat = [], []
   for i in range(1, num_dense + 1):
     fields.append(
         'input_fields { input_name: "F%d" input_type: FLOAT }' % i)
@@ -47,8 +53,7 @@ def criteo_deepfm_config(batch_size: int = 4096,
         'features { input_names: "F%d" feature_type: RawFeature '
         'embedding_dim: %d min_val: 0.0 max_val: 1000.0 }' %
         (i, embedding_dim))
-    deep.append('feature_names: "F%d"' % i)
-    wide.append('feature_names: "F%d"' % i)
+    dense.append('feature_names: "F%d"' % i)
   for i in range(1, num_cat + 1):
     fields.append(
         'input_fields { input_name: "C%d" input_type: STRING }' % i)
@@ -56,8 +61,9 @@ def criteo_deepfm_config(batch_size: int = 4096,
         'features { input_names: "C%d" feature_type: IdFeature '
         'embedding_dim: %d hash_bucket_size: %d }' %
         (i, embedding_dim, hash_bucket_size))
-    deep.append('feature_names: "C%d"' % i)
-    wide.append('feature_names: "C%d"' % i)
+    cat.append('feature_names: "C%d"' % i)
+  body = model_block % {'dense': '\n    '.join(dense),
+                        'cat': '\n    '.join(cat)}
   text = """
 train_input_path: "synthetic"
 eval_input_path: "synthetic"
@@ -90,26 +96,75 @@ feature_config {
   %s
 }
 model_config {
-  model_class: "DeepFM"
+%s
+  embedding_regularization: 1e-5
+}
+""" % (model_dir, batch_size, '\n  '.join(fields), '\n  '.join(features),
+       body)
+  return get_configs_from_pipeline_str(text)
+
+
+_DEEPFM = """  model_class: "DeepFM"
   feature_groups {
     group_name: "deep"
-    %s
+    %(dense)s
+    %(cat)s
     wide_deep: DEEP
   }
   feature_groups {
     group_name: "wide"
-    %s
+    %(dense)s
+    %(cat)s
     wide_deep: WIDE
   }
   deepfm {
     dnn { hidden_units: [256, 128, 64] }
     final_dnn { hidden_units: [256, 128, 64] }
+  }"""
+
+# benchmarks/quality.py:150-160 (the DLRM of its Criteo runs)
+_DLRM = """  model_class: "DLRM"
+  feature_groups {
+    group_name: "dense"
+    %(dense)s
+    wide_deep: DEEP
   }
-  embedding_regularization: 1e-5
-}
-""" % (model_dir, batch_size, '\n  '.join(fields), '\n  '.join(features),
-       '\n    '.join(deep), '\n    '.join(wide))
-  return get_configs_from_pipeline_str(text)
+  feature_groups {
+    group_name: "sparse"
+    %(cat)s
+    wide_deep: DEEP
+  }
+  dlrm {
+    bot_dnn { hidden_units: [64, 32, 16] }
+    top_dnn { hidden_units: [256, 128, 64] }
+  }"""
+
+
+def criteo_deepfm_config(batch_size: int = 4096,
+                         hash_bucket_size: int = 1000000,
+                         embedding_dim: int = 16,
+                         num_dense: int = 13,
+                         num_cat: int = 26,
+                         model_dir: str = ''):
+  return _criteo_pipeline(_DEEPFM, batch_size, hash_bucket_size,
+                          embedding_dim, num_dense, num_cat, model_dir)
+
+
+def criteo_dlrm_config(batch_size: int = 4096,
+                       hash_bucket_size: int = 1000000,
+                       embedding_dim: int = 16,
+                       num_dense: int = 13,
+                       num_cat: int = 26,
+                       model_dir: str = ''):
+  """The DLRM that benchmarks/quality.py trains on Criteo (its model block,
+  :150-160: groups `dense` and `sparse`, bot_dnn [64, 32, 16], top_dnn
+  [256, 128, 64], embedding_regularization 1e-5) on the flagship's
+  schema and settings (criteo_deepfm_config's: 13 raw features embedded
+  at dim 16 after min/max normalisation, 26 id features of 1M buckets,
+  batch 4096, Adam with exponential decay). No wide group: one fused
+  table of 26,000,014 rows at dim 16."""
+  return _criteo_pipeline(_DLRM, batch_size, hash_bucket_size,
+                          embedding_dim, num_dense, num_cat, model_dir)
 
 
 _ADAGRAD_TABLES = """

@@ -4,7 +4,8 @@ with the same value, or listed in the port's schema as unported (so
 check_ported names it), or on IGNORED below, fields that change nothing the
 port computes. The samples that pass check_ported are counted and named,
 each trains a step on the CPU (the gzip CSV sample through its gzip
-reader), and a gzip copy of a CSV reads as the CSV does."""
+reader, the TFRecord sample through its TFRecord reader), and a gzip copy
+of a CSV reads as the CSV does."""
 
 import glob
 import gzip
@@ -40,25 +41,37 @@ IGNORED = {
 }
 
 # The samples check_ported accepts.
-PORTED = ['best_exporter_early_stop', 'dbmtl', 'dbmtl_seq_group_attention',
-          'dbmtl_seq_numeric_boundary', 'dead_line_stop', 'deepfm',
-          'deepfm_adamw', 'deepfm_ema', 'deepfm_ev_params',
-          'deepfm_gzip_csv', 'deepfm_momentumw', 'deepfm_sample_weight',
-          'deepfm_seq_attn', 'deepfm_vocab', 'deepfm_with_embed',
-          'din_kv_tags_seq_combiner', 'esmm', 'esmm_seq', 'mmoe',
-          'mmoe_seq_aux_hist', 'mmoe_uncertainty_weight',
+PORTED = ['autoint', 'autoint_seq_group', 'best_exporter_early_stop',
+          'dbmtl', 'dbmtl_seq_group_attention', 'dbmtl_seq_numeric_boundary',
+          'dcn_max_f1', 'dcn_seq_group', 'dcn_v2', 'dead_line_stop',
+          'deepfm', 'deepfm_adamw', 'deepfm_ema', 'deepfm_ev_params',
+          'deepfm_focal_f1', 'deepfm_gzip_csv', 'deepfm_momentumw',
+          'deepfm_multi_loss', 'deepfm_sample_weight', 'deepfm_seq_attn',
+          'deepfm_tfrecord', 'deepfm_vocab', 'deepfm_with_embed',
+          'din_kv_tags_seq_combiner', 'dlrm', 'esmm', 'esmm_seq', 'fm',
+          'mmoe', 'mmoe_seq_aux_hist', 'mmoe_uncertainty_weight',
           'multi_opt_seq_din', 'multi_tower_bst', 'multi_tower_din',
           'multi_tower_plain', 'ple', 'ple_seq_group', 'raw_boundaries',
+          'rocket_launching', 'rocket_logit_distill', 'rocket_seq',
           'seq_text_cnn_combiner', 'share_embedding_not_used',
-          'simple_multi_task']
+          'simple_multi_task', 'wide_and_deep', 'wide_and_deep_no_final']
 
-# The multi-task samples that wait for the rest of the rank zoo, with the
-# part check_ported names.
+# The multi-task samples that wait for the backbone slice, with the part
+# check_ported names.
 MULTI_TASK_REFUSED = {
     'dbmtl_cmbf': 'model_config.dbmtl.bottom_cmbf',
     'dbmtl_uniter': 'model_config.dbmtl.bottom_uniter',
     'dbmtl_variational_dropout': 'model_config.variational_dropout',
     'esmm_variational_dropout': 'model_config.variational_dropout',
+}
+
+# Rank samples refused by name: variational dropout, which the JAX package
+# reads only inside its backbone (its MultiTower trains as if it were
+# unset), and the loss types that are not ported.
+RANK_REFUSED = {
+    'multi_tower_variational_dropout': 'model_config.variational_dropout',
+    'deepfm_ziln': 'loss_type ZILN_LOSS',
+    'losses_pairwise': r'model_config.losses\[0\].pairwise_logistic_loss',
 }
 
 
@@ -120,8 +133,8 @@ def _passes(path):
 
 def test_samples_that_pass_check_ported():
   assert [_name(p) for p in SAMPLES if _passes(p)] == PORTED
-  assert len(PORTED) == 31
-  for name, part in MULTI_TASK_REFUSED.items():
+  assert len(PORTED) == 46
+  for name, part in dict(MULTI_TASK_REFUSED, **RANK_REFUSED).items():
     with pytest.raises(NotImplementedError, match=part):
       t_config.check_ported(t_config.get_configs_from_pipeline_file(
           os.path.join(REPO, 'samples', name + '.config')))
@@ -153,7 +166,9 @@ def test_ported_samples_train_a_step(name, tmp_path):
   assert set(cols) <= set(STANDARD_COLS) | set(MM_COLS) | {'seq_price'}
   train = str(tmp_path / 'train.csv')
   _write_csv(train, cols, 64, seed=11)
-  if cfg.train_input_path.endswith('.gz'):
+  if cfg.data_config.input_type == 'TFRecordInput':
+    train = _csv_to_tfrecord(train, cfg.data_config.input_fields)
+  elif cfg.train_input_path.endswith('.gz'):
     with open(train, 'rb') as src, gzip.open(train + '.gz', 'wb') as g:
       shutil.copyfileobj(src, g)
     train += '.gz'
@@ -170,12 +185,38 @@ def test_ported_samples_train_a_step(name, tmp_path):
   model = cfg.model_config.WhichOneof('model')
   if model in ('mmoe', 'esmm', 'dbmtl', 'simple_multi_task', 'ple'):
     assert len(loss) == 3, sorted(loss)
+  if model == 'rocket_launching':
+    # light and booster cross entropies and the hint; no light hidden
+    # layer of the samples has its booster partner's width, so none
+    # distills features
+    assert sorted(loss) == ['booster_ce', 'hint_loss', 'light_ce',
+                            'total_loss']
+  if name == 'deepfm_multi_loss':
+    assert sorted(loss) == ['BINARY_FOCAL_LOSS', 'CLASSIFICATION',
+                            'total_loss']
+    assert tuple(trainer.model.loss_uncertainty.shape) == (2,)
   ema = trainer.dense_opt.named_ema()
   assert (ema is not None) == (name == 'deepfm_ema')
   if ema is not None:
     decay = trainer.dense_opt.ema_decay
     for k, p in trainer.model.named_parameters():
       assert torch.equal(ema[k], decay * before[k] + (1.0 - decay) * p), k
+
+
+def _csv_to_tfrecord(path, fields):
+  """The generator's CSV as tf.Example records (the JAX package's writer,
+  floats as float_list, strings as bytes_list), as tests/test_samples.py
+  converts it."""
+  from easyrec_tpu.data import tfrecord
+  kinds = [(f.input_name, f.input_type) for f in fields]
+  with open(path) as f:
+    rows = [{name: float(v) if kind == 'FLOAT' else v
+             for (name, kind), v in zip(kinds, line.rstrip('\n').split(','))}
+            for line in f]
+  dst = path[:-len('.csv')] + '.tfrecord'
+  tfrecord.write_records(dst, (tfrecord.columns_to_example(r)
+                               for r in rows))
+  return dst
 
 
 def test_gzip_csv_reads_as_the_csv(tmp_path):
