@@ -131,16 +131,33 @@ K4 and K5 must launch 0 times in 6-8.
              [26,000,014, 16] table, bot_dnn [64, 32, 16], top_dnn [256,
              128, 64]) through train_and_evaluate, unfused (K1 + K2,
              compact Adam, once a step each), with its rate, launches a
-             step, id slots a step and peak memory; this slice's main
-             path;
+             step, id slots a step and peak memory;
  19. serve dlrm  a 5-step DLRM at full width exported, PredictorService on
              the card answering 1 and 4,096 raw rows over HTTP, logits and
              probs bit-equal to the training Trainer's eval forward, with
              no K1-K5 launch.
+ 20. backbone (run after 19, before 9) the backbone DSL: each of the 20
+             backbone samples and the three variational_dropout samples,
+             small (batch 256, the sample's own features and tables),
+             trains 3 steps on the card and the CPU from one state,
+             unfused, and dlrm_backbone and aitm_backbone fused as well,
+             at the agree phase's rule, their dropout rates set to 0 and
+             the attention under EASYREC_ATTN_IMPL=stock (as phase 13);
+             cl4srec_backbone, whose SeqAugment draws in training, has
+             its eval held card against CPU from the shared state and its
+             3 steps on each side launching K2 and finite;
+ 21. dlrm backbone  the full-width Criteo DLRM built by the backbone DSL
+             (flagship.criteo_dlrm_backbone_config, samples/
+             dlrm_backbone.config's blocks on phase 18's schema and table)
+             through train_and_evaluate, unfused (K1 + K2, compact Adam,
+             once a step each), with its rate, launches a step and peak
+             memory; this slice's main path;
+ 22. serve dlrm backbone  as 19, for the backbone DLRM.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import math
 import os
@@ -932,7 +949,7 @@ def phase_experimental(torch):
   return {'correct': ok}
 
 
-def phase_agree(torch, what, cfg, fused, compact='1'):
+def phase_agree(torch, what, cfg, fused, compact='1', draws=False):
   """A small model: 3 steps on the card and on the CPU from the same
   weights and batches. The CPU path runs the kernels' plain versions,
   whose agreement with the JAX package the CPU tests hold. On the card
@@ -947,8 +964,12 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
   (8192-bin histograms: a probability at a bin edge may land one bin
   over) and the loss within 1e-5 relative. Each side's eval of its own
   trained state is logged beside them, not held: the two sides' weights
-  part by what the rule below allows. Returns the card's launches by
-  kernel and math."""
+  part by what the rule below allows. A model whose training draws random
+  numbers (`draws`: the card and the CPU draw from generators of their
+  own) is evaluated from the shared state, then trains its 3 steps on
+  each side, which must launch as above and give finite losses; its
+  losses and tables are not held. Returns the card's launches by kernel
+  and math."""
   from easyrec_torch.ops import kernels
   from easyrec_torch.optim.sparse import MATH_NAMES
   from easyrec_torch.train.trainer import Trainer, to_device
@@ -967,7 +988,7 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
     runs['cuda'].tables[key].copy_(table)
   tasks = runs['cpu'].model.metric_task_names()
   keys = list(runs['cpu'].metrics.configs) + ['auc_%s' % k for k in tasks]
-  evaluate = bool(tasks) or keys != ['auc']
+  evaluate = bool(tasks) or keys != ['auc'] or draws
   if evaluate:
     hold_evals(eval_both(runs, bs, keys, what, fused), keys, what)
   kernels.reset_launches()
@@ -989,6 +1010,15 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
   if tagged != want:
     fail('small %s: the card launched %s, %s expected' % (what, tagged,
                                                           want))
+  if draws:
+    if not all(math.isfinite(x) for v in losses.values() for x in v):
+      fail('small %s: a loss is not finite: card %s, CPU %s'
+           % (what, losses['cuda'], losses['cpu']))
+    log('agree: small %s, EASYREC_PACKED_FUSED=%s, training draws random '
+        'numbers on each side: eval of the shared state held; 3 steps, '
+        'card losses %s, CPU %s (not held); card launches %s'
+        % (what, fused, losses['cuda'], losses['cpu'], tagged))
+    return tagged
   for a, b in zip(losses['cpu'], losses['cuda']):
     if not math.isfinite(b) or abs(a - b) > 1e-5 * max(1.0, abs(a)):
       fail('small %s: losses differ on the card %s and the CPU %s'
@@ -1056,32 +1086,75 @@ def phase_agree(torch, what, cfg, fused, compact='1'):
 
 def hold_evals(evals, keys, what):
   """Each of `keys` within 1e-3 card against CPU, the loss within 1e-5
-  relative."""
+  relative. The AUC and max_f1 are read from 8192-bin histograms of the
+  probabilities: where a model's probabilities crowd into a few bins (a
+  barely trained tower: 512 rows in 8 bins), one row a rounding error from
+  a bin edge landing one bin over moves them by more than 1e-3. Such a
+  part is held instead by the probabilities it reads: every row's within
+  1e-5 card against CPU, and at least one row in another bin on the two
+  sides, which is then the whole of the part."""
+  from easyrec_torch.metrics.metrics import AUC_BINS
   for k in keys:
     a, b = evals['cpu'][k], evals['cuda'][k]
-    if abs(a - b) > 1e-3:
-      fail('small %s: eval %s card %r, CPU %r' % (what, k, b, a))
+    if abs(a - b) <= 1e-3:
+      continue
+    probs = 'auc' if k == 'max_f1' else k
+    pa, pb = evals['cpu']['probs'][probs], evals['cuda']['probs'][probs]
+    err = float((pa - pb).abs().max())
+    moved = int(((pa * AUC_BINS).floor() != (pb * AUC_BINS).floor()).sum())
+    if err > 1e-5 or not moved:
+      fail('small %s: eval %s card %r, CPU %r (probabilities within %g, '
+           '%d rows a bin apart)' % (what, k, b, a, err, moved))
+    log('agree: small %s: eval %s card %r, CPU %r, apart by %d of %d rows '
+        'landing in a neighbouring bin of %d (%d bins hold every row); '
+        'the probabilities within %g card against CPU'
+        % (what, k, b, a, moved, pa.numel(), AUC_BINS,
+           len(set((pa * AUC_BINS).floor().tolist())), err))
   a, b = evals['cpu']['loss'], evals['cuda']['loss']
   if abs(a - b) > 1e-5 * max(1.0, abs(a)):
     fail('small %s: eval loss card %r, CPU %r' % (what, b, a))
 
 
+def eval_probs(torch, t, batches):
+  """The probabilities `t`'s eval reads for `auc` and each `auc_<task>`,
+  over `batches`, on the CPU."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import to_device
+  out = {}
+  with torch.no_grad():
+    for batch in batches:
+      b = to_device(batch, t.device)
+      pulled = emb_ops.pull_embeddings(
+          t.tables, emb_ops.pack_ids(t.layout, b), t.metas)
+      outputs = t.eval_forward(b, pulled)
+      parts = {'auc': t.model.metric_inputs(outputs, b)['probs']}
+      for task, mi in t.model.metric_inputs_per_task(outputs, b).items():
+        parts['auc_%s' % task] = mi['probs']
+      for k, v in parts.items():
+        out.setdefault(k, []).append(v.float().cpu())
+  return {k: torch.cat(v) for k, v in out.items()}
+
+
 def eval_both(runs, bs, keys, what, fused):
   """Each trainer of `runs` evaluates the same two synthetic batches;
   each of `keys` must be reported in [0, 1] with a finite loss. Returns
-  the results by device."""
+  the results by device, with the probabilities they read (`probs`)."""
+  import torch
   from easyrec_torch.utils.synthetic import synthetic_batch
   evals = {}
   for name, t in runs.items():
-    evals[name] = t.evaluate(eval_iter=[
-        synthetic_batch(t.specs, list(t.ctx.label_fields), bs, seed=50 + i)
-        for i in range(2)])
+    batches = [synthetic_batch(t.specs, list(t.ctx.label_fields), bs,
+                               seed=50 + i) for i in range(2)]
+    evals[name] = t.evaluate(eval_iter=batches)
     if not all(0.0 <= evals[name].get(k, -1.0) <= 1.0 for k in keys) or \
         not math.isfinite(evals[name]['loss']):
       fail('small %s: eval on %s reports %s, %s expected'
            % (what, name, evals[name], keys))
+    evals[name]['probs'] = eval_probs(torch, t, batches)
   log('agree: small %s, EASYREC_PACKED_FUSED=%s, eval of 2 batches, card '
-      '%s; CPU %s' % (what, fused, evals['cuda'], evals['cpu']))
+      '%s; CPU %s' % (what, fused,
+                      {k: v for k, v in evals['cuda'].items() if k != 'probs'},
+                      {k: v for k, v in evals['cpu'].items() if k != 'probs'}))
   return evals
 
 
@@ -1148,7 +1221,12 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
   bs = int(cfg.data_config.batch_size)
   edits = {'train_config.num_steps': SLICE_STEPS,
            'train_config.log_step_count_steps': 5}
+  # earlier phases' tensors the collector has not freed yet (a served
+  # export's tables in a reference cycle) would count in this path's peak
+  gc.collect()
+  torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
+  held = torch.cuda.memory_allocated()
   kernels.reset_launches()
   t0 = time.time()
   result = main_lib.train_and_evaluate(cfg, edit_config_json=edits,
@@ -1186,11 +1264,12 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
     fail('%s: K2/K3 launched with the block maths %s, %s expected'
          % (what, tagged, want))
   peak = torch.cuda.max_memory_allocated()
-  log('%s peak device memory: %.3f GB; launches a step: %s; id slots a '
-      'step: %s' % (what, peak / 1e9,
-                    {k: c / SLICE_STEPS for k, c in counts.items() if c},
-                    {k: t.tot_k * bs for k, t in
-                     result['trainer'].layout.tables.items()}))
+  log('%s peak device memory: %.3f GB (%.3f GB held before it started); '
+      'launches a step: %s; id slots a step: %s'
+      % (what, peak / 1e9, held / 1e9,
+         {k: c / SLICE_STEPS for k, c in counts.items() if c},
+         {k: t.tot_k * bs for k, t in
+          result['trainer'].layout.tables.items()}))
 
   trainer = result['trainer']
   batches = [to_device(synthetic_batch(trainer.specs,
@@ -2360,12 +2439,14 @@ def phase_zoo(torch):
       phase_agree(torch, 'Criteo %s' % model, zoo_config(model), fused)
 
 
-def phase_serve_dlrm(torch, smi):
-  """The Criteo DLRM at full width: train_and_evaluate on a model_dir (5
-  steps, K1 + K2, the 'final' export of its [26,000,014, 16] table);
-  PredictorService on the card answers 1 and 4,096 raw flagship rows over
-  HTTP, logits and probs bit-equal to the training Trainer's eval forward
-  on the same rows, with no K1-K5 launch."""
+def phase_serve_dlrm(torch, smi, what='Criteo DLRM',
+                     config='criteo_dlrm_config'):
+  """A Criteo DLRM at full width (flagship's `config`: the zoo's, or the
+  backbone DSL's): train_and_evaluate on a model_dir (5 steps, K1 + K2,
+  the 'final' export of its [26,000,014, 16] table); PredictorService on
+  the card answers 1 and 4,096 raw flagship rows over HTTP, logits and
+  probs bit-equal to the training Trainer's eval forward on the same rows,
+  with no K1-K5 launch."""
   import shutil
   from easyrec_torch import main as main_lib
   from easyrec_torch.utils import flagship
@@ -2374,18 +2455,71 @@ def phase_serve_dlrm(torch, smi):
   root = os.path.join(SCRATCH, 'serve_dlrm')
   shutil.rmtree(root, ignore_errors=True)
   os.makedirs(root)
-  cfg = flagship.criteo_dlrm_config(model_dir=os.path.join(root, 'md'))
+  cfg = getattr(flagship, config)(model_dir=os.path.join(root, 'md'))
   result = main_lib.train_and_evaluate(
       cfg, edit_config_json={'train_config.num_steps': 5}, device='cuda')
   rows = serve_rows(4096, seed=13)
   want = {n: trainer_outputs(torch, result['trainer'], rows[:n])
           for n in (1, 4096)}
   if sorted(want[1]) != ['logits', 'probs']:
-    fail('serve DLRM: the export outputs %s' % sorted(want[1]))
+    fail('serve %s: the export outputs %s' % (what, sorted(want[1])))
   export_dir = result['export_dir']
   del result
-  serve_bit_equal(torch, 'Criteo DLRM', export_dir, rows, want, smi)
+  serve_bit_equal(torch, what, export_dir, rows, want, smi)
   shutil.rmtree(root, ignore_errors=True)
+
+
+# the backbone samples (tests/test_torch_samples.py's BACKBONE) and the
+# three variational_dropout samples, whose models ignore it; the dropout
+# rates the agree runs set to 0 (the card and the CPU draw apart), and
+# the sample whose training still draws (SeqAugment)
+BACKBONE_SAMPLES = (
+    'aitm_backbone', 'autodis_numeric', 'bst_backbone', 'cdn_backbone',
+    'cin_backbone', 'cl4srec_backbone', 'contrastive_backbone',
+    'dcn_backbone', 'deepfm_backbone', 'dlrm_autodis', 'dlrm_backbone',
+    'dlrm_narydis', 'dlrm_periodic', 'dlrm_senet_backbone',
+    'fibinet_backbone', 'highway_backbone', 'masknet_backbone',
+    'periodic_numeric', 'ppnet_backbone', 'wide_and_deep_backbone',
+    'dbmtl_variational_dropout', 'esmm_variational_dropout',
+    'multi_tower_variational_dropout')
+BACKBONE_NO_DROPOUT = (('hidden_dropout_prob: 0.1',
+                        'hidden_dropout_prob: 0.0'),
+                       ('input_layer { dropout_rate: 0.1 }',
+                        'input_layer {}'))
+BACKBONE_DRAWS = ('cl4srec_backbone',)
+BACKBONE_FUSED = ('dlrm_backbone', 'aitm_backbone')
+
+
+def backbone_sample_config(name):
+  """samples/<name>.config at batch 256 on DummyInput over its own
+  input_fields, no model_dir, its dropout rates 0."""
+  from easyrec_torch.config import config_util
+  with open(os.path.join(HERE, 'samples', name + '.config')) as f:
+    text = f.read()
+  for old, new in BACKBONE_NO_DROPOUT:
+    text = text.replace(old, new)
+  cfg = config_util.get_configs_from_pipeline_str(text)
+  cfg.data_config.batch_size = 256
+  cfg.data_config.input_type = 'DummyInput'
+  cfg.model_dir = ''
+  return cfg
+
+
+def phase_backbone(torch):
+  """The agree phase for each backbone sample and variational_dropout
+  sample, small, unfused (K1 + K2), and fused (K3) for BACKBONE_FUSED;
+  BACKBONE_DRAWS by the agree phase's rule for models that draw. Under
+  EASYREC_ATTN_IMPL=stock, as phase_bst_agree and for its reason (the
+  BST samples' attention)."""
+  os.environ['EASYREC_ATTN_IMPL'] = 'stock'
+  try:
+    for name in BACKBONE_SAMPLES:
+      for fused in ('0', '1') if name in BACKBONE_FUSED else ('0',):
+        phase_agree(torch, 'backbone sample %s' % name,
+                    backbone_sample_config(name), fused,
+                    draws=name in BACKBONE_DRAWS)
+  finally:
+    os.environ.pop('EASYREC_ATTN_IMPL', None)
 
 
 def main():
@@ -2447,18 +2581,25 @@ def main():
   dlrm = phase_slice(torch, card, 'Criteo DLRM', flagship.criteo_dlrm_config(),
                      '0', ('seg_sum', 'rmw_rows'), 'compact_adam')
   phase_serve_dlrm(torch, smi)
+  phase_backbone(torch)
+  backbone = phase_slice(torch, card, 'Criteo DLRM, backbone DSL',
+                         flagship.criteo_dlrm_backbone_config(), '0',
+                         ('seg_sum', 'rmw_rows'), 'compact_adam')
+  phase_serve_dlrm(torch, smi, 'Criteo DLRM, backbone DSL',
+                   'criteo_dlrm_backbone_config')
   phase_ckpt(torch)
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the DLRM's, this
-  # slice's main path; K3 on the DIN's, Adagrad on the Adagrad DeepFM's,
-  # the EV maths on the EV phase's), 0 for a math no path runs
+  # these that runs it (K1 and K2's compact Adam on the backbone DLRM's,
+  # this slice's main path; K3 on the DIN's, Adagrad on the Adagrad
+  # DeepFM's, the EV maths on the EV phase's), 0 for a math no path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (dlrm, mmoe, bst, din, deepfm, adagrad, ev)
+                          (backbone, dlrm, mmoe, bst, din, deepfm, adagrad,
+                           ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

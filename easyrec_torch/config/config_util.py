@@ -23,8 +23,11 @@ EasyRecConfig = Message
 
 _RANK_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST',
                 'WideAndDeep', 'DCN', 'AutoInt', 'DLRM', 'FM',
-                'RocketLaunching')
-_MULTI_TASK_MODELS = ('SimpleMultiTask', 'MMoE', 'ESMM', 'DBMTL', 'PLE')
+                'RocketLaunching', 'RankModel')
+_MULTI_TASK_MODELS = ('SimpleMultiTask', 'MMoE', 'ESMM', 'DBMTL', 'PLE',
+                      'MultiTaskModel')
+# the models a backbone DSL builds (models/backbone_model.py)
+_BACKBONE_MODELS = ('RankModel', 'MultiTaskModel')
 _PORTED_MODELS = _RANK_MODELS + _MULTI_TASK_MODELS
 # the loss types a task tower computes as the JAX package's
 # MultiTaskModel._tower_loss does; it falls back to cross entropy for any
@@ -224,16 +227,41 @@ def task_towers(model_config: Message) -> List[Message]:
   return list(getattr(model_config, which).task_towers) if which else []
 
 
+def _keras_layers(backbone: Message):
+  """(where, KerasLayer) of every keras layer of a backbone."""
+  pkgs = [('packages[%d]' % i, p) for i, p in enumerate(backbone.packages)]
+  for scope, pkg in [('', backbone)] + pkgs:
+    for bi, block in enumerate(pkg.blocks):
+      where = '%sblocks[%d]' % (scope + '.' if scope else '', bi)
+      layers = [(where + '.layers[%d]' % li, lp)
+                for li, lp in enumerate(block.layers)] + [(where, block)]
+      for lw, holder in layers:
+        which = holder.WhichOneof('layer')
+        if which == 'keras_layer':
+          yield lw, holder.keras_layer
+        elif which in ('recurrent', 'repeat'):
+          yield lw, getattr(holder, which).keras_layer
+
+
 def check_ported(config: Message) -> None:
   """Raise NotImplementedError naming the first part of `config` that the
-  port does not run: an unported field, model class, feature type, input
-  type, loss or compute dtype."""
-  for where in _unported_fields(config, ''):
-    raise NotImplementedError('config field %s is not ported' % where)
+  port does not run: an unported field, model class, backbone layer,
+  feature type, input type, loss or compute dtype."""
   mc = config.model_config
   if mc.model_class not in _PORTED_MODELS:
     raise NotImplementedError('model_class %r is not ported (ported: %s)'
                               % (mc.model_class, ', '.join(_PORTED_MODELS)))
+  for where in _unported_fields(config, ''):
+    raise NotImplementedError('config field %s is not ported' % where)
+  if mc.model_class in _BACKBONE_MODELS:
+    if not mc.HasField('backbone'):
+      raise ValueError('model_class %s needs a backbone' % mc.model_class)
+    from easyrec_torch.layers.keras_registry import has_layer
+    for where, layer in _keras_layers(mc.backbone):
+      if not has_layer(layer.class_name):
+        raise NotImplementedError(
+            'keras layer class %r (model_config.backbone.%s) is not ported'
+            % (layer.class_name, where))
   if mc.model_class in _MULTI_TASK_MODELS:
     for tower in task_towers(mc):
       for lt in [tower.loss_type] + [l.loss_type for l in tower.losses]:

@@ -56,6 +56,7 @@ ENUMS: Dict[str, Tuple[str, ...]] = {
                  'LISTWISE_RANK_LOSS', 'LISTWISE_DISTILL_LOSS', 'ZILN_LOSS'),
     'LossWeightStrategy': ('Fixed', 'Uncertainty', 'Random'),
     'Similarity': ('COSINE', 'INNER_PRODUCT', 'EUCLID'),
+    'NullValue': ('NULL_VALUE',),
 }
 
 
@@ -272,7 +273,8 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('autoint', 'msg:AutoInt', oneof='model'),
         _f('dlrm', 'msg:DLRM', oneof='model'),
         _f('rocket_launching', 'msg:RocketLaunching', oneof='model'),
-        *_unported('model', 'model_params', 'dummy', 'cmbf',
+        _f('model_params', 'msg:ModelParams', oneof='model'),
+        *_unported('model', 'dummy', 'cmbf',
                    'uniter', 'multi_tower_recall', 'dssm', 'mind',
                    'dropoutnet', 'metric_learning', 'pdn', 'dssm_senet',
                    'dat'),
@@ -284,9 +286,9 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('kd', 'unported', rep=True),
         _f('restore_filters', 'string', rep=True),
         _f('loss_weight_strategy', 'enum:LossWeightStrategy', 'Fixed'),
-        _f('variational_dropout', 'unported'),
+        _f('variational_dropout', 'msg:VariationalDropoutLayer'),
         _f('losses', 'msg:Loss', rep=True),
-        _f('backbone', 'unported'),
+        _f('backbone', 'msg:BackboneTower'),
         _f('label_name', 'string', ''),
     ),
     'DeepFM': (
@@ -459,10 +461,349 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('ohem_ratio', 'float', 1.0),
         _f('label_smoothing', 'float', 0.0),
     ),
+    # models.proto: the backbone models' parameters and variational dropout
+    'ModelParams': (
+        _f('l2_regularization', 'float', 0.0),
+        _f('outputs', 'string', rep=True),
+        _f('task_towers', 'msg:BayesTaskTower', rep=True),
+        _f('user_tower_idx_in_output', 'int', 0),
+        _f('item_tower_idx_in_output', 'int', 1),
+        _f('simi_func', 'enum:Similarity', 'COSINE'),
+        _f('temperature', 'float', 1.0),
+        _f('scale_simi', 'bool', False),
+    ),
+    'VariationalDropoutLayer': (
+        _f('regularization_lambda', 'float', 0.01),
+        _f('embedding_wise_variational_dropout', 'bool', False),
+    ),
+    # layers.proto:238-380, the backbone DSL
+    'BackboneTower': (
+        _f('packages', 'msg:BlockPackage', rep=True),
+        _f('blocks', 'msg:Block', rep=True),
+        _f('concat_blocks', 'string', rep=True),
+        _f('output_blocks', 'string', rep=True),
+        _f('top_mlp', 'msg:MLP'),
+    ),
+    'BlockPackage': (
+        _f('name', 'string', ''),
+        _f('blocks', 'msg:Block', rep=True),
+        _f('concat_blocks', 'string', rep=True),
+        _f('output_blocks', 'string', rep=True),
+    ),
+    'Block': (
+        _f('name', 'string', ''),
+        _f('inputs', 'msg:BlockInput', rep=True),
+        _f('input_concat_axis', 'int', -1),
+        _f('merge_inputs_into_list', 'bool', False),
+        _f('extra_input_fn', 'string', ''),
+        _f('layers', 'msg:Layer', rep=True),
+        _f('input_layer', 'msg:InputLayer', oneof='layer'),
+        _f('lambda', 'msg:Lambda', oneof='layer'),
+        _f('keras_layer', 'msg:KerasLayer', oneof='layer'),
+        _f('recurrent', 'msg:RecurrentLayer', oneof='layer'),
+        _f('repeat', 'msg:RepeatLayer', oneof='layer'),
+        _f('raw_input', 'msg:RawInputLayer', oneof='layer'),
+        _f('embedding_layer', 'msg:EmbeddingLayer', oneof='layer'),
+    ),
+    # reset_input is read by neither package's backbone
+    'BlockInput': (
+        _f('feature_group_name', 'string', '', oneof='name'),
+        _f('block_name', 'string', '', oneof='name'),
+        _f('package_name', 'string', '', oneof='name'),
+        _f('use_package_input', 'bool', False, oneof='name'),
+        _f('input_fn', 'string', ''),
+        _f('input_slice', 'string', ''),
+        _f('ignore_input', 'bool', False),
+        _f('reset_input', 'msg:InputLayer'),
+        _f('package_input', 'string', ''),
+        _f('package_input_fn', 'string', ''),
+    ),
+    'Layer': (
+        _f('lambda', 'msg:Lambda', oneof='layer'),
+        _f('keras_layer', 'msg:KerasLayer', oneof='layer'),
+        _f('recurrent', 'msg:RecurrentLayer', oneof='layer'),
+        _f('repeat', 'msg:RepeatLayer', oneof='layer'),
+    ),
+    'Lambda': (
+        _f('expression', 'string', ''),
+    ),
+    'RecurrentLayer': (
+        _f('num_steps', 'int', 1),
+        _f('fixed_input_index', 'int', 0),
+        _f('keras_layer', 'msg:KerasLayer'),
+    ),
+    'RepeatLayer': (
+        _f('num_repeat', 'int', 1),
+        _f('output_concat_axis', 'int', 0),
+        _f('keras_layer', 'msg:KerasLayer'),
+        _f('input_slice', 'string', ''),
+        _f('input_fn', 'string', ''),
+    ),
+    # wide_output_dim and concat_seq_feature are read by neither package's
+    # backbone
+    'InputLayer': (
+        _f('do_batch_norm', 'bool', False),
+        _f('do_layer_norm', 'bool', False),
+        _f('dropout_rate', 'float', 0.0),
+        _f('feature_dropout_rate', 'float', 0.0),
+        _f('only_output_feature_list', 'bool', False),
+        _f('only_output_3d_tensor', 'bool', False),
+        _f('output_2d_tensor_and_feature_list', 'bool', False),
+        _f('output_seq_and_normal_feature', 'bool', False),
+        _f('wide_output_dim', 'int', 0),
+        _f('concat_seq_feature', 'bool', True),
+    ),
+    'RawInputLayer': (),
+    'EmbeddingLayer': (
+        _f('embedding_dim', 'int', 0),
+        _f('vocab_size', 'int', 0),
+        _f('combiner', 'string', 'weight'),
+        _f('concat', 'bool', True),
+    ),
+    # OverlapFeature and MappedDotProduct have no layer in either
+    # package's registry
+    'KerasLayer': (
+        _f('class_name', 'string', ''),
+        _f('st_params', 'msg:Struct', oneof='params'),
+        _f('periodic_embedding', 'msg:PeriodicEmbedding', oneof='params'),
+        _f('auto_dis_embedding', 'msg:AutoDisEmbedding', oneof='params'),
+        _f('nary_dis_embedding', 'msg:NaryDisEmbedding', oneof='params'),
+        _f('fm', 'msg:FM', oneof='params'),
+        _f('mask_block', 'msg:MaskBlock', oneof='params'),
+        _f('masknet', 'msg:MaskNet', oneof='params'),
+        _f('senet', 'msg:SENet', oneof='params'),
+        _f('bilinear', 'msg:Bilinear', oneof='params'),
+        _f('fibinet', 'msg:FiBiNet', oneof='params'),
+        _f('mlp', 'msg:MLP', oneof='params'),
+        _f('din', 'msg:DINEncoder', oneof='params'),
+        _f('bst', 'msg:BSTEncoder', oneof='params'),
+        _f('mmoe', 'msg:MMoELayer', oneof='params'),
+        _f('seq_aug', 'msg:SequenceAugment', oneof='params'),
+        _f('ppnet', 'msg:PPNet', oneof='params'),
+        _f('text_cnn', 'msg:TextCNN', oneof='params'),
+        _f('highway', 'msg:HighWayTower', oneof='params'),
+        *_unported('params', 'overlap', 'dot_product'),
+        _f('attention', 'msg:Attention', oneof='params'),
+        _f('multi_head_attention', 'msg:MultiHeadAttention',
+           oneof='params'),
+        _f('transformer', 'msg:Transformer', oneof='params'),
+        _f('text_encoder', 'msg:TextEncoder', oneof='params'),
+        _f('gate', 'msg:WeightedGate', oneof='params'),
+        _f('aitm', 'msg:AITMTower', oneof='params'),
+        _f('cin', 'msg:CIN', oneof='params'),
+    ),
+    # google/protobuf/struct.proto, the free-form st_params: its map
+    # `fields` is a list of key/value entries
+    'Struct': (
+        _f('fields', 'msg:StructFieldsEntry', rep=True),
+    ),
+    'StructFieldsEntry': (
+        _f('key', 'string', ''),
+        _f('value', 'msg:Value'),
+    ),
+    'Value': (
+        _f('null_value', 'enum:NullValue', 'NULL_VALUE', oneof='kind'),
+        _f('number_value', 'double', 0.0, oneof='kind'),
+        _f('string_value', 'string', '', oneof='kind'),
+        _f('bool_value', 'bool', False, oneof='kind'),
+        _f('struct_value', 'msg:Struct', oneof='kind'),
+        _f('list_value', 'msg:ListValue', oneof='kind'),
+    ),
+    'ListValue': (
+        _f('values', 'msg:Value', rep=True),
+    ),
+    # layers.proto:16-236, the layers' parameters
+    'HighWayTower': (
+        _f('input', 'string', ''),
+        _f('emb_size', 'int', 0),
+        _f('activation', 'string', 'relu'),
+        _f('dropout_rate', 'float', 0.0),
+        _f('init_gate_bias', 'float', -3.0),
+        _f('num_layers', 'int', 1),
+    ),
+    'PeriodicEmbedding': (
+        _f('embedding_dim', 'int', 0),
+        _f('sigma', 'float', 0.0),
+        _f('add_linear_layer', 'bool', True),
+        _f('linear_activation', 'string', 'relu'),
+        _f('output_3d_tensor', 'bool', False),
+        _f('output_tensor_list', 'bool', False),
+    ),
+    'AutoDisEmbedding': (
+        _f('embedding_dim', 'int', 0),
+        _f('num_bins', 'int', 0),
+        _f('keep_prob', 'float', 0.8),
+        _f('temperature', 'float', 0.0),
+        _f('output_3d_tensor', 'bool', False),
+        _f('output_tensor_list', 'bool', False),
+    ),
+    # num_replicas is read by neither package's NaryDisEmbedding
+    'NaryDisEmbedding': (
+        _f('embedding_dim', 'int', 0),
+        _f('carries', 'int', rep=True),
+        _f('multiplier', 'float', 1.0),
+        _f('intra_ary_pooling', 'string', 'sum'),
+        _f('inter_ary_pooling', 'string', 'concat'),
+        _f('output_3d_tensor', 'bool', False),
+        _f('output_tensor_list', 'bool', False),
+        _f('num_replicas', 'int', 1),
+    ),
+    'SENet': (
+        _f('reduction_ratio', 'int', 4),
+        _f('num_squeeze_group', 'int', 2),
+        _f('use_skip_connection', 'bool', True),
+        _f('use_output_layer_norm', 'bool', True),
+    ),
+    'Bilinear': (
+        _f('type', 'string', 'interaction'),
+        _f('use_plus', 'bool', True),
+        _f('num_output_units', 'int', 0),
+    ),
+    'FiBiNet': (
+        _f('bilinear', 'msg:Bilinear'),
+        _f('senet', 'msg:SENet'),
+        _f('mlp', 'msg:MLP'),
+    ),
+    'MaskBlock': (
+        _f('reduction_factor', 'float', 0.0),
+        _f('output_size', 'int', 0),
+        _f('aggregation_size', 'int', 0),
+        _f('input_layer_norm', 'bool', False),
+        _f('projection_dim', 'int', 0),
+    ),
+    'MaskNet': (
+        _f('mask_blocks', 'msg:MaskBlock', rep=True),
+        _f('use_parallel', 'bool', True),
+        _f('mlp', 'msg:MLP'),
+        _f('input_layer_norm', 'bool', True),
+    ),
+    'MMoELayer': (
+        _f('num_task', 'int', 0),
+        _f('expert_mlp', 'msg:MLP'),
+        _f('num_expert', 'int', 0),
+    ),
+    'WeightedGate': (
+        _f('weight_index', 'int', 0),
+        _f('mlp', 'msg:MLP'),
+    ),
+    'GateNN': (
+        _f('output_dim', 'int', 0),
+        _f('hidden_dim', 'int', 0),
+        _f('activation', 'string', 'relu'),
+        _f('use_bn', 'bool', False),
+        _f('dropout_rate', 'float', 0.0),
+    ),
+    'PPNet': (
+        _f('mlp', 'msg:MLP'),
+        _f('gate_params', 'msg:GateNN'),
+        _f('mode', 'string', 'eager'),
+        _f('full_gate_input', 'bool', True),
+    ),
+    'TextCNN': (
+        _f('filter_sizes', 'int', rep=True),
+        _f('num_filters', 'int', rep=True),
+        _f('pad_sequence_length', 'int', 0),
+        _f('activation', 'string', 'relu'),
+        _f('mlp', 'msg:MLP'),
+    ),
+    'AITMTower': (
+        _f('project_dim', 'int', 0),
+        _f('transfer_mlp', 'msg:MLP'),
+        _f('stop_gradient', 'bool', True),
+    ),
+    'CIN': (
+        _f('hidden_feature_sizes', 'int', rep=True),
+    ),
+    # layers.proto's FM (the model's message is FMModel)
+    'FM': (
+        _f('use_variant', 'bool', False),
+        _f('l2_regularization', 'float', 1e-4),
+    ),
+    'Attention': (
+        _f('use_scale', 'bool', False),
+        _f('scale_by_dim', 'bool', False),
+        _f('score_mode', 'string', 'dot'),
+        _f('dropout', 'float', 0.0),
+        _f('seed', 'int', 0),
+        _f('return_attention_scores', 'bool', False),
+        _f('use_causal_mask', 'bool', False),
+    ),
+    'MultiHeadAttention': (
+        _f('num_heads', 'int', 0),
+        _f('key_dim', 'int', 0),
+        _f('value_dim', 'int', 0),
+        _f('dropout', 'float', 0.0),
+        _f('use_bias', 'bool', True),
+        _f('return_attention_scores', 'bool', False),
+        _f('use_causal_mask', 'bool', False),
+        _f('output_shape', 'int', 0),
+        _f('attention_axes', 'int', rep=True),
+        _f('kernel_initializer', 'string', 'glorot_uniform'),
+        _f('bias_initializer', 'string', 'zeros'),
+    ),
+    'Transformer': (
+        _f('hidden_size', 'int', 0),
+        _f('num_hidden_layers', 'int', 0),
+        _f('num_attention_heads', 'int', 0),
+        _f('intermediate_size', 'int', 0),
+        _f('hidden_act', 'string', 'relu'),
+        _f('hidden_dropout_prob', 'float', 0.1),
+        _f('vocab_size', 'int', 0),
+        _f('max_position_embeddings', 'int', 512),
+        _f('use_position_embeddings', 'bool', False),
+        _f('output_all_token_embeddings', 'bool', True),
+        _f('attention_probs_dropout_prob', 'float', 0.0),
+    ),
+    'TextEncoder': (
+        _f('transformer', 'msg:Transformer'),
+        _f('separator', 'string', ' '),
+        _f('vocab_file', 'string', ''),
+        _f('default_token_id', 'int', 0),
+    ),
+    'BSTEncoder': (
+        _f('hidden_size', 'int', 0),
+        _f('num_hidden_layers', 'int', 0),
+        _f('num_attention_heads', 'int', 0),
+        _f('intermediate_size', 'int', 0),
+        _f('hidden_act', 'string', 'gelu'),
+        _f('hidden_dropout_prob', 'float', 0.1),
+        _f('attention_probs_dropout_prob', 'float', 0.1),
+        _f('max_position_embeddings', 'int', 512),
+        _f('use_position_embeddings', 'bool', True),
+        _f('initializer_range', 'float', 0.02),
+        _f('output_all_token_embeddings', 'bool', True),
+        _f('target_item_position', 'string', 'head'),
+        _f('reserve_target_position', 'bool', True),
+        _f('pre_ln', 'bool', False),
+    ),
+    'DINEncoder': (
+        _f('attention_dnn', 'msg:MLP'),
+        _f('need_target_feature', 'bool', True),
+        _f('attention_normalizer', 'string', 'softmax'),
+    ),
+    'SequenceAugment': (
+        _f('mask_rate', 'float', 0.6),
+        _f('crop_rate', 'float', 0.2),
+        _f('reorder_rate', 'float', 0.6),
+    ),
     # common.proto
     'Tower': (
         _f('input', 'string', ''),
         _f('dnn', 'msg:DNN'),
+    ),
+    # add_to_outputs is read by neither package's MLP
+    'MLP': (
+        _f('hidden_units', 'int', rep=True),
+        _f('dropout_ratio', 'float', rep=True),
+        _f('activation', 'string', 'relu'),
+        _f('use_bn', 'bool', True),
+        _f('use_final_bn', 'bool', True),
+        _f('final_activation', 'string', 'relu'),
+        _f('use_bias', 'bool', False),
+        _f('initializer', 'string', 'he_uniform'),
+        _f('use_bn_after_activation', 'bool', False),
+        _f('use_final_bias', 'bool', False),
+        _f('add_to_outputs', 'bool', False),
     ),
     'DNN': (
         _f('hidden_units', 'int', rep=True),

@@ -8,11 +8,17 @@ module imports nothing of JAX:
     `weight` with its axes reversed (a Dense [in, out] is nn.Linear's
     [out, in], a Conv [W, Cin, Cout] nn.Conv1d's [Cout, Cin, W], a
     DenseGeneral [in, H, Dh] or [H, Dh, out] the port's DenseGeneral
-    weight); BatchNorm's and LayerNorm's `scale`/`bias` become weight/bias,
-    BatchNorm's `mean`/`var` running_mean/running_var, and a
-    `position_emb` table, FM's `global_bias`, the batched experts' `w_<i>`
-    [E, D, U] and `b_<i>` [E, U] and CrossNet's `w_<i>` [d, 1] and `b_<i>`
-    [d] keep their names and shapes; a rank model's `loss_uncertainty`,
+    weight, an EinsumDense kernel the port's EinsumDense weight);
+    BatchNorm's and LayerNorm's `scale`/`bias` become weight/bias (a
+    scalar `scale`, keras Attention's, a weight of no axes), BatchNorm's
+    `mean`/`var` running_mean/running_var, and the parameters flax makes
+    by self.param keep their names and shapes: a `position_emb` table,
+    FM's `global_bias`, the batched experts' `w_<i>` [E, D, U] and `b_<i>`
+    [E, U], CrossNet's `w_<i>` [d, 1] and `b_<i>` [d], CIN's `w_<i>`,
+    Bilinear's `w`, Dice's `alpha`, the numeric embeddings' `coef`,
+    `linear_w`, `linear_b`, `meta_embedding`, `proj_w`, `proj_mat` and
+    `emb_carry<i>`, VariationalDropout's `logit_p` and an Embed's
+    `embedding`; a rank model's `loss_uncertainty`,
     which flax keeps at the top of the tree beside `inner`, is the
     model's parameter of that name;
   - a packed table [G*8, W] of any optimizer (easyrec_tpu/ops/
@@ -44,15 +50,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-_LEAF_TO_TORCH = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
-                  'position_emb': 'position_emb',
-                  'global_bias': 'global_bias'}
+_LEAF_TO_TORCH = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias'}
 # parameters flax keeps at the top of a rank model's tree, beside its root
 _ROOT_LEAVES = ('loss_uncertainty',)
 _STAT_TO_TORCH = {'mean': 'running_mean', 'var': 'running_var'}
 _STAT_TO_FLAX = {v: k for k, v in _STAT_TO_TORCH.items()}
-# leaves that keep their flax name and layout: the batched experts' layers
-_SAME_LEAF = re.compile(r'^[wb]_\d+$')
+# leaves that keep their flax name and layout (see the module docstring)
+_SAME_LEAF = re.compile(r'^([wb]_\d+|w|position_emb|global_bias|alpha|coef|'
+                        r'linear_[wb]|meta_embedding|proj_w|proj_mat|'
+                        r'emb_carry\d+|logit_p|embedding)$')
 
 
 def _flatten(tree, prefix=()):
@@ -90,9 +96,9 @@ def flax_names(state_dict, root: str = 'inner'
                ) -> Dict[str, Tuple[str, str]]:
   """state_dict key -> (section, name): section 'params' or 'batch_stats'
   and the flax path joined by '/', as the JAX package's train/restore.py
-  _flatten names it. A 'weight' of one axis is a norm's scale (BatchNorm,
-  LayerNorm); any other is a kernel. Keys with no flax counterpart
-  (BatchNorm's num_batches_tracked) are left out."""
+  _flatten names it. A 'weight' of one axis or none is a scale (BatchNorm,
+  LayerNorm, keras Attention); any other is a kernel. Keys with no flax
+  counterpart (BatchNorm's num_batches_tracked) are left out."""
   out = {}
   for name, value in state_dict.items():
     mod, leaf = name.rsplit('.', 1) if '.' in name else ('', name)
@@ -102,9 +108,8 @@ def flax_names(state_dict, root: str = 'inner'
     if leaf in _STAT_TO_FLAX:
       section, key = 'batch_stats', _STAT_TO_FLAX[leaf]
     elif leaf == 'weight':
-      section, key = 'params', 'scale' if value.ndim == 1 else 'kernel'
-    elif leaf in ('bias', 'position_emb', 'global_bias') or \
-        _SAME_LEAF.match(leaf):
+      section, key = 'params', 'scale' if value.ndim <= 1 else 'kernel'
+    elif leaf == 'bias' or _SAME_LEAF.match(leaf):
       section, key = 'params', leaf
     else:
       continue
@@ -231,7 +236,8 @@ def jax_export_to_bundle(jax_export_dir: str, out_dir: str, params,
   from easyrec_torch.export import saved_model as sm
   from easyrec_torch.features import feature_spec as fs
   from easyrec_torch.models import base as model_base
-  from easyrec_torch.models import multi_task, rank  # noqa: F401
+  from easyrec_torch.models import (  # noqa: F401 (registers)
+      backbone_model, multi_task, rank)
   from easyrec_torch.utils.registry import MODELS
   config = config_util.get_configs_from_pipeline_file(
       os.path.join(jax_export_dir, sm.CONFIG_FILE))

@@ -29,7 +29,8 @@ from easyrec_torch.export import saved_model as sm
 from easyrec_torch.features import feature_spec as fs
 from easyrec_torch.features import transforms as tr
 from easyrec_torch.models import base as model_base
-from easyrec_torch.models import multi_task, rank  # noqa: F401 (registers)
+from easyrec_torch.models import (  # noqa: F401 (registers)
+    backbone_model, multi_task, rank)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 

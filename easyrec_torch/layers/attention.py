@@ -13,9 +13,12 @@ MultiHeadSelfAttention (:63-93), PackedMHA (:101-170), TransformerBlock
     carries a Dense kernel to nn.Linear's weight carries these too
     (convert.py), and its bias keeps flax's shape ([H, Dh] or [out]);
   - padded steps are masked to -1e9 before a softmax, not -inf.
-The layers have no dropout: the MultiTowerBST tower sets every rate to 0
-(the reference's MultiTowerBST has none), and no other ported model
-reaches them.
+Dropout sits where the JAX layers put it: on the attention
+probabilities (attention_dropout), after the attention and the feed-
+forward of a block and after emb_ln (hidden_dropout), flax's inverted
+dropout from the layers' generator (layers/dnn.py Dropout). The
+MultiTowerBST tower sets every rate to 0 (the reference's MultiTowerBST
+has none); the backbone's BST takes the rates its config gives.
 PackedMHA's EASYREC_ATTN_IMPL (stock | vpu | vpu_bf16, default vpu_bf16)
 is read as the JAX package reads it. The three are one math: scores and
 context are batched matmuls on f32 tensors, which under vpu_bf16 hold the
@@ -35,7 +38,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from easyrec_torch.layers.dnn import DNN, Dense, get_activation, lecun_normal_
+from easyrec_torch.layers.dnn import (DNN, Dense, Dropout, get_activation,
+                                      lecun_normal_)
 
 _NEG_INF = -1e9
 ATTN_IMPLS = ('stock', 'vpu', 'vpu_bf16')
@@ -185,10 +189,11 @@ class PackedMHA(nn.Module):
   x_q [B, L, D], x_kv [B, M, D], mask [B, M] -> [B, L, out]."""
 
   def __init__(self, in_features: int, num_heads: int, qkv_features: int,
-               out_features: int,
+               out_features: int, dropout_rate: float = 0.0,
                generator: Optional[torch.Generator] = None, device=None):
     super().__init__()
     kw = dict(generator=generator, device=device)
+    self.drop = Dropout(dropout_rate)
     self.head_dim = qkv_features // num_heads
     heads = (num_heads, self.head_dim)
     self.query = DenseGeneral(in_features, heads=heads, **kw)
@@ -208,7 +213,7 @@ class PackedMHA(nn.Module):
     if mask is not None:
       scores = torch.where(mask[:, None, None, :] > 0, scores,
                            torch.full_like(scores, _NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
+    probs = self.drop(torch.softmax(scores, dim=-1))
     if bf16:
       probs, v = _bf16_round(probs), _bf16_round(v)
     ctx = (probs @ v).transpose(1, 2)                    # [B, L, H, Dh]
@@ -221,13 +226,15 @@ class TransformerBlock(nn.Module):
 
   def __init__(self, hidden_size: int, num_heads: int,
                intermediate_size: int, pre_ln: bool = False,
+               hidden_dropout: float = 0.0, attention_dropout: float = 0.0,
                generator: Optional[torch.Generator] = None, device=None):
     super().__init__()
     kw = dict(generator=generator, device=device)
     self.pre_ln = pre_ln
     self.act = get_activation('gelu')
+    self.drop = Dropout(hidden_dropout)
     self.mha = PackedMHA(hidden_size, num_heads, hidden_size, hidden_size,
-                         **kw)
+                         dropout_rate=attention_dropout, **kw)
     self.ln1 = LayerNorm(hidden_size, device=device)
     self.ln2 = LayerNorm(hidden_size, device=device)
     self.ffn1 = Dense(hidden_size, intermediate_size, **kw)
@@ -235,14 +242,14 @@ class TransformerBlock(nn.Module):
 
   def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     a_in = self.ln1(x) if self.pre_ln else x
-    att = self.mha(a_in, a_in, mask)
+    att = self.drop(self.mha(a_in, a_in, mask))
     if self.pre_ln:
       x = x + att
       f_in = self.ln2(x)
     else:
       x = self.ln1(x + att)
       f_in = x
-    ffn = self.ffn2(self.act(self.ffn1(f_in)))
+    ffn = self.drop(self.ffn2(self.act(self.ffn1(f_in))))
     if self.pre_ln:
       return x + ffn
     return self.ln2(x + ffn)
@@ -264,9 +271,11 @@ class BSTEncoder(nn.Module):
                output_all_tokens: bool = False,
                target_item_position: str = 'head',
                reserve_target_position: bool = True, pre_ln: bool = False,
+               hidden_dropout: float = 0.0, attention_dropout: float = 0.0,
                generator: Optional[torch.Generator] = None, device=None):
     super().__init__()
     kw = dict(generator=generator, device=device)
+    self.drop = Dropout(hidden_dropout)
     if target_item_position not in ('head', 'tail', ''):
       raise ValueError('target_item_position %r' % target_item_position)
     self.pre_ln = pre_ln
@@ -287,7 +296,9 @@ class BSTEncoder(nn.Module):
     self.emb_ln = LayerNorm(hidden_size, device=device)
     for i in range(num_layers):
       self.add_module('block_%d' % i, TransformerBlock(
-          hidden_size, num_heads, intermediate_size, pre_ln=pre_ln, **kw))
+          hidden_size, num_heads, intermediate_size, pre_ln=pre_ln,
+          hidden_dropout=hidden_dropout, attention_dropout=attention_dropout,
+          **kw))
     self.num_layers = num_layers
     if pre_ln:
       self.final_ln = LayerNorm(hidden_size, device=device)
@@ -310,7 +321,7 @@ class BSTEncoder(nn.Module):
     if self.use_position:
       start = self.pos_start
       x = x + self.position_emb[None, start:start + x.shape[1], :]
-    x = self.emb_ln(x)
+    x = self.drop(self.emb_ln(x))
     for i in range(self.num_layers):
       x = getattr(self, 'block_%d' % i)(x, mask)
     if self.pre_ln:

@@ -1,12 +1,15 @@
 """Where the time of a benchmark model's train step goes, on the GPU.
 
     python -m easyrec_torch.tools.profile_step
-        [--model deepfm|deepfm_adagrad|dlrm|din|bst|mmoe] [--steps 10]
+        [--model deepfm|deepfm_adagrad|dlrm|dlrm_backbone|din|bst|mmoe]
+        [--steps 10]
         [--top 25]
 
 Builds the trainer of the flagship Criteo DeepFM (K1 + K2; deepfm_adagrad:
 its Adagrad-tables configuration), of the Criteo DLRM (K1 + K2; the
-quality harness's DLRM on the flagship's schema), of the Taobao DIN
+quality harness's DLRM on the flagship's schema; dlrm_backbone: the same
+DLRM built by the backbone DSL, samples/dlrm_backbone.config's), of the
+Taobao DIN
 (EASYREC_PACKED_FUSED=1, K3), of the Taobao BST (K1 + K2; its attention
 under EASYREC_ATTN_IMPL, default vpu_bf16) or of the Taobao MMoE (K1 +
 K2; two labels, four experts, two towers), all from
@@ -39,9 +42,12 @@ MODELS = {'deepfm': ('criteo_deepfm_config', '0', 'flagship DeepFM'),
           'deepfm_adagrad': ('criteo_deepfm_adagrad_config', '0',
                              'flagship DeepFM, Adagrad tables'),
           'dlrm': ('criteo_dlrm_config', '0', 'Criteo DLRM'),
+          'dlrm_backbone': ('criteo_dlrm_backbone_config', '0',
+                            'Criteo DLRM, backbone DSL'),
           'din': ('taobao_din_config', '1', 'Taobao DIN'),
           'bst': ('taobao_bst_config', '0', 'Taobao BST'),
           'mmoe': ('taobao_mmoe_config', '0', 'Taobao MMoE')}
+
 
 def _device_us(evt) -> float:
   for name in ('self_device_time_total', 'self_cuda_time_total'):

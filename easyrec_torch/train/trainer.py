@@ -46,9 +46,11 @@ from easyrec_torch.data.input_pipeline import InputPipeline
 from easyrec_torch.device import resolve_device
 from easyrec_torch.features import ev as ev_lib
 from easyrec_torch.features import feature_spec as fs
+from easyrec_torch.layers import dnn
 from easyrec_torch.metrics import metrics as metrics_lib
 from easyrec_torch.models import base as model_base
-from easyrec_torch.models import multi_task, rank  # noqa: F401 (registers)
+from easyrec_torch.models import (  # noqa: F401 (registers)
+    backbone_model, multi_task, rank)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.optim import builder as opt_builder
@@ -58,15 +60,18 @@ from easyrec_torch.train.restore import fine_tune_restore
 
 
 def l2_of_kernels(model: nn.Module) -> torch.Tensor:
-  """Sum of squares of the kernels (Dense, DenseGeneral, Conv: every
-  `weight` of two or more axes; the batched experts' `w_<i>`), in the JAX
+  """Sum of squares of the kernels, the leaves the JAX package counts
+  (trainer.py:50-56: a flax name `kernel` or one starting with `w`): every
+  `weight` of two or more axes (Dense, DenseGeneral, Conv, EinsumDense),
+  the batched experts' and CIN's `w_<i>` and Bilinear's `w`, in the JAX
   package's leaf order (sorted parameter paths). Norm weights — flax's
-  `scale` — biases and position tables are not kernels and stay out, as
-  in trainer.py:50-56. None for a model without kernels (FM)."""
+  `scale` — biases, position tables and the other named parameters are
+  not kernels and stay out. None for a model without kernels (FM)."""
   total = None
   for name, p in sorted(model.named_parameters()):
     leaf = name.rsplit('.', 1)[-1]
-    if not (leaf == 'weight' and p.ndim >= 2 or leaf.startswith('w_')):
+    if not (leaf == 'weight' and p.ndim >= 2 or leaf.startswith('w_') or
+            leaf == 'w'):
       continue
     sq = torch.sum(p * p)
     total = sq if total is None else total + sq
@@ -137,6 +142,10 @@ class Trainer:
     gen = torch.Generator().manual_seed(self.seed)
     self.model = model_base.create_model(self.ctx, generator=gen) \
         .to(self.device)
+    # dropout and the other random layers draw on the device, from a
+    # generator of their own
+    dnn.set_generator(self.model, torch.Generator(device=self.device)
+                      .manual_seed(self.seed))
     self.tables = {}
     slot_init = self.embed_pair.sparse.slot_init
     for key, meta in self.metas.items():
@@ -188,6 +197,11 @@ class Trainer:
 
   def _regularised_loss(self, outputs, batch, pulled):
     total, loss_dict = self.model.build_loss(outputs, batch)
+    # the losses backbone layers record (AuxiliaryLoss, VariationalDropout;
+    # JAX trainer.py:319-327), in training only
+    for aux in outputs.get('aux_losses', ()):
+      total = total + aux
+      loss_dict['aux_loss'] = loss_dict.get('aux_loss', 0.0) + aux
     l2 = l2_of_kernels(self.model) if self.l2_reg > 0 else None
     if l2 is not None:
       total = total + self.l2_reg * l2

@@ -11,6 +11,12 @@ Counterpart of easyrec_tpu/utils/flagship.py:
     the same schema: groups `dense` (the 13 raw features) and `sparse`
     (the 26 id features), no wide group, so one table of 26,000,014 rows
     at dim 16.
+  - criteo_dlrm_backbone_config: the backbone of samples/
+    dlrm_backbone.config (the reference's dlrm_backbone_on_criteo.config:
+    bottom_mlp MLP [64, 32, 16] over `dense`, the `sparse` input layer's
+    [2d, feature list], their DotInteraction, [sparse_2d, dot] into
+    top_mlp [256, 128, 64] and the logit) as model_class RankModel, on
+    criteo_dlrm_config's schema, groups and table.
   - criteo_deepfm_adagrad_config: the same model and tables trained with
     the two-optimizer pairing of samples/multi_optimizer_freeze.config
     (:7-17), without its freeze_gradient: an Adagrad (constant lr 0.05,
@@ -164,6 +170,61 @@ def criteo_dlrm_config(batch_size: int = 4096,
   batch 4096, Adam with exponential decay). No wide group: one fused
   table of 26,000,014 rows at dim 16."""
   return _criteo_pipeline(_DLRM, batch_size, hash_bucket_size,
+                          embedding_dim, num_dense, num_cat, model_dir)
+
+
+# samples/dlrm_backbone.config's backbone (its header: the reference's
+# dlrm_backbone_on_criteo.config) on the flagship's dense / sparse groups
+_DLRM_BACKBONE = """  model_class: "RankModel"
+  feature_groups {
+    group_name: "dense"
+    %(dense)s
+    wide_deep: DEEP
+  }
+  feature_groups {
+    group_name: "sparse"
+    %(cat)s
+    wide_deep: DEEP
+  }
+  backbone {
+    blocks {
+      name: "bottom_mlp"
+      inputs { feature_group_name: "dense" }
+      keras_layer { class_name: "MLP"
+                    mlp { hidden_units: [64, 32, 16] } }
+    }
+    blocks {
+      name: "sparse"
+      inputs { feature_group_name: "sparse" }
+      input_layer { output_2d_tensor_and_feature_list: true }
+    }
+    blocks {
+      name: "dot"
+      inputs { block_name: "bottom_mlp" input_fn: "lambda x: [x]" }
+      inputs { block_name: "sparse" input_fn: "lambda x: x[1]" }
+      keras_layer { class_name: "DotInteraction" }
+    }
+    blocks {
+      name: "sparse_2d"
+      inputs { block_name: "sparse" input_fn: "lambda x: x[0]" }
+    }
+    concat_blocks: ["sparse_2d", "dot"]
+    top_mlp { hidden_units: [256, 128, 64] }
+  }"""
+
+
+def criteo_dlrm_backbone_config(batch_size: int = 4096,
+                                hash_bucket_size: int = 1000000,
+                                embedding_dim: int = 16,
+                                num_dense: int = 13,
+                                num_cat: int = 26,
+                                model_dir: str = ''):
+  """The DLRM of samples/dlrm_backbone.config built by the backbone DSL
+  (model_class RankModel) on criteo_dlrm_config's schema and settings:
+  the same groups, so the same one fused table of 26,000,014 rows at dim
+  16; the bottom MLP reads the 13 embedded raw features (208 wide), the
+  dot interaction 27 fields (351 pairs), top_mlp 767 columns."""
+  return _criteo_pipeline(_DLRM_BACKBONE, batch_size, hash_bucket_size,
                           embedding_dim, num_dense, num_cat, model_dir)
 
 

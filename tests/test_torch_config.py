@@ -2,13 +2,25 @@
 JAX package's protobuf parse: every field of the port's schema, set or
 left at its proto default, reads the same on both sides."""
 
+import glob
+import os
+
+import jax
 import numpy as np
 import pytest
+import torch
 
+from easyrec_torch import convert
 from easyrec_torch.config import config_util as t_config
 from easyrec_torch.config import schema
 from easyrec_torch.config import text_format
+from easyrec_torch.layers import dnn as t_dnn
+from easyrec_torch.train.trainer import Trainer as TTrainer
+from easyrec_torch.train.trainer import to_device
 from easyrec_tpu.config import config_util as j_config
+from easyrec_torch.utils.synthetic import synthetic_batch as \
+    t_synthetic_batch
+from easyrec_tpu.layers import dnn as j_dnn
 from easyrec_tpu.utils import flagship as j_flagship
 from easyrec_torch.utils import flagship as t_flagship
 from tests import fixtures
@@ -40,6 +52,13 @@ def _assert_same(t_msg, j_msg, path):
     got, want = getattr(t_msg, spec.name), getattr(j_msg, spec.name)
     if not spec.repeated and not spec.message_type and fd.has_presence:
       assert t_msg.HasField(spec.name) == j_msg.HasField(spec.name), where
+    if spec.message_type and fd.message_type.GetOptions().map_entry:
+      # a protobuf map (Struct.fields): the port's key/value entries
+      t_map = {e.key: e.value for e in got}
+      assert sorted(t_map) == sorted(want), where
+      for k in want:
+        _assert_same(t_map[k], want[k], '%s[%s]' % (where, k))
+      continue
     if spec.message_type:
       if spec.repeated:
         assert len(got) == len(want), where
@@ -215,3 +234,96 @@ def test_parse_errors():
     text_format.parse('data_config { input_type: NoSuchInput }')
   with pytest.raises(text_format.ParseError):
     text_format.parse('train_config { num_steps: 1.5 }')
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the samples with a backbone, less kd_backbone, which sets the unported
+# kd
+BACKBONE_SAMPLES = sorted(
+    p for p in glob.glob(os.path.join(REPO, 'samples', '*.config'))
+    if 'backbone {' in open(p).read() and 'kd {' not in open(p).read())
+
+
+@pytest.mark.parametrize('path', BACKBONE_SAMPLES,
+                         ids=[os.path.basename(p)[:-7]
+                              for p in BACKBONE_SAMPLES])
+def test_backbone_messages_match_protobuf(path):
+  """Every backbone sample's model_config: each field of the backbone's
+  messages (layers.proto, common.proto's MLP, models.proto's ModelParams,
+  google.protobuf.Struct), set or left at its proto default, reads the
+  same as the protobuf parse; so the registry's Parameter reads the
+  defaults the JAX one reads."""
+  _assert_same(t_config.get_configs_from_pipeline_file(path).model_config,
+               j_config.get_configs_from_pipeline_file(path).model_config,
+               'model_config')
+
+
+# DNN settings that check_ported passed and the model refused to build
+# before dropout, dice and softmax were ported
+DNN_CASES = {
+    'dice': 'dnn { hidden_units: [8, 4] activation: "dice" }',
+    'softmax': 'dnn { hidden_units: [8, 4] activation: "softmax" }',
+    'dropout': 'dnn { hidden_units: [8, 4] dropout_ratio: [0.1, 0.1] }',
+}
+
+
+def _dnn_config(case):
+  """The small flagship DeepFM with its deep DNN set to the case."""
+  text = text_format.to_text(t_flagship.criteo_deepfm_config(
+      batch_size=64, hash_bucket_size=50, num_dense=2, num_cat=3))
+  dnn = ('dnn {\n      hidden_units: 256\n      hidden_units: 128\n'
+         '      hidden_units: 64\n    }')
+  assert dnn in text
+  return text.replace(dnn, DNN_CASES[case], 1)
+
+
+@pytest.mark.parametrize('case', sorted(DNN_CASES))
+def test_dnn_settings_check_ported_passes_are_built(case):
+  """A DeepFM whose deep DNN sets activation dice or softmax, or a
+  nonzero dropout_ratio: check_ported accepts it, its Trainer builds and
+  trains a step; dice and softmax towers are held to the JAX DNN in eval
+  mode (1e-5) from one set of flax variables, Dice's `dice_<i>/alpha`
+  and `dice_<i>/BatchNorm_0` statistics carried by convert.py."""
+  text = _dnn_config(case)
+  t_cfg = t_config.get_configs_from_pipeline_str(text)
+  t_config.check_ported(t_cfg)
+  trainer = TTrainer(t_cfg, device='cpu')
+  trainer.init_state()
+  batch = t_synthetic_batch(trainer.specs, ['label'], 64, seed=0)
+  loss = trainer.train_step(to_device(batch, torch.device('cpu')))
+  assert np.isfinite(float(loss['total_loss']))
+  if case == 'dropout':
+    return
+  j_cfg = j_config.get_configs_from_pipeline_str(text)
+  x = np.random.default_rng(0).standard_normal((32, 12)).astype(np.float32)
+  j_mod = j_dnn.DNN.from_config(j_cfg.model_config.deepfm.dnn)
+  variables = j_mod.init(jax.random.PRNGKey(0), x, False)
+  rng = np.random.default_rng(1)
+  variables = jax.tree_util.tree_map(
+      lambda a: np.asarray(a) + rng.random(np.shape(a)).astype(np.float32),
+      variables)
+  t_mod = t_dnn.DNN.from_config(t_cfg.model_config.deepfm.dnn, 12)
+  sd = convert.flax_to_state_dict(variables['params'],
+                                  variables['batch_stats'], root=None)
+  assert sorted(sd) == sorted(t_mod.state_dict())
+  if case == 'dice':
+    assert 'dice_1.alpha' in sd and 'dice_0.BatchNorm_0.running_var' in sd
+  t_mod.load_state_dict(sd)
+  t_mod.eval()
+  np.testing.assert_allclose(
+      t_mod(torch.from_numpy(x)).detach().numpy(),
+      np.asarray(j_mod.apply(variables, x, False)), rtol=1e-5, atol=1e-5)
+
+
+def test_dnn_dropout_mask_keeps_its_share():
+  """dropout_ratio 0.1 in training: over 10^5 elements the kept share is
+  within 4 sigma of 0.9 and every kept value is scaled by 1 / 0.9."""
+  drop = t_dnn.Dropout(0.1)
+  t_dnn.set_generator(drop, torch.Generator().manual_seed(0))
+  x = torch.ones(1000, 100)
+  y = drop(x)
+  kept = (y != 0).float().mean().item()
+  assert abs(kept - 0.9) < 4 * np.sqrt(0.9 * 0.1 / x.numel())
+  np.testing.assert_allclose(y[y != 0].numpy(), 1 / 0.9, rtol=1e-6)
+  drop.eval()
+  assert drop(x) is x

@@ -56,6 +56,14 @@ def _assert_jax_same(a, b, type_name, where):
   for spec in schema.MESSAGES[type_name]:
     fd = a.DESCRIPTOR.fields_by_name[spec.name]
     at = '%s.%s' % (where, spec.name)
+    if spec.message_type and fd.message_type.GetOptions().map_entry:
+      # a protobuf map (Struct.fields), compared by key
+      va, vb = getattr(a, spec.name), getattr(b, spec.name)
+      assert sorted(va) == sorted(vb), at
+      value_type = schema.field(spec.message_type, 'value').message_type
+      for k in va:
+        _assert_jax_same(va[k], vb[k], value_type, '%s[%s]' % (at, k))
+      continue
     if spec.repeated:
       va, vb = list(getattr(a, spec.name)), list(getattr(b, spec.name))
       assert len(va) == len(vb), at
@@ -171,16 +179,16 @@ def test_opaque_fields_are_written_token_for_token():
   """An unported field keeps its tokens, so its JAX parse is unchanged;
   two spellings of one value compare equal."""
   text = ('train_config { freeze_gradient: "dnn/.*" freeze_gradient: '
-          '\'a\\tb\' }\nmodel_config { model_class: "DBMTL" model_params { '
-          'l2_regularization: 1e-4 task_towers { tower_name: '
-          '"t" # comment\n dnn { hidden_units: [8, 4] } '
-          'loss_type: L2_LOSS weight: 1e-3 } } }\n')
+          '\'a\\tb\' }\nmodel_config { model_class: "DSSM" dssm { '
+          'l2_regularization: 1e-4 user_tower { id: '
+          '"t" # comment\n dnn { hidden_units: [8, 4] } } '
+          'simi_func: INNER_PRODUCT temperature: 1e-3 } }\n')
   t = t_config.get_configs_from_pipeline_str(text)
   written = t_text.to_text(t)
   assert 'hidden_units : [ 8 , 4 ]' in written
   a = j_config.get_configs_from_pipeline_str(text)
   b = j_config.get_configs_from_pipeline_str(written)
-  assert a.model_config.model_params == b.model_config.model_params
+  assert a.model_config.dssm == b.model_config.dssm
   assert list(a.train_config.freeze_gradient) == \
       list(b.train_config.freeze_gradient) == ['dnn/.*', 'a\tb']
   again = pb_text.MessageToString(a, as_utf8=True)

@@ -185,5 +185,21 @@ def test_deepfm_forward_matches_flax(final):
 
 
 def test_dropout_is_not_ported():
-  with pytest.raises(NotImplementedError, match='dropout_ratio'):
-    t_dnn.DNN(4, (2,), dropout_ratio=(0.5,))
+  """DNN's dropout_ratio, refused before the backbone slice, now builds:
+  in eval the tower is the one without dropout, and in training it draws
+  its mask from the generator set_generator gives it, never from torch's
+  global one (no generator: it raises)."""
+  torch.manual_seed(0)
+  with_drop = t_dnn.DNN(4, (8, 2), use_bn=False, dropout_ratio=(0.5,))
+  plain = t_dnn.DNN(4, (8, 2), use_bn=False)
+  plain.load_state_dict(with_drop.state_dict())
+  x = torch.randn(16, 4)
+  with_drop.eval()
+  assert torch.equal(with_drop(x), plain(x))
+  with_drop.train()
+  with pytest.raises(RuntimeError, match='generator'):
+    with_drop(x)
+  t_dnn.set_generator(with_drop, torch.Generator().manual_seed(1))
+  first = with_drop(x)
+  t_dnn.set_generator(with_drop, torch.Generator().manual_seed(1))
+  assert torch.equal(with_drop(x), first)

@@ -79,15 +79,19 @@ def _score_bias(path, params):
   return keys[-2] == 'dense_%d' % (len(att) - 1)
 
 
-def _check_params(tt, state, use_bn, lr_sum):
-  params, _ = convert.state_dict_to_flax(tt.model.state_dict())
+def _check_params(tt, state, use_bn, lr_sum, cancelled=None):
+  """`cancelled(path)` names further parameters whose gradient a
+  BatchNorm cancels, held as the Dense biases before one are."""
+  params, _ = convert.state_dict_to_flax(tt.model.state_dict(),
+                                         tt.model.flax_root)
   j_params = jax.device_get(state.params)
   leaves = jax.tree_util.tree_leaves_with_path(params)
   assert len(leaves) == len(jax.tree_util.tree_leaves(j_params))
   for path, got in leaves:
     want = np.asarray(functools.reduce(lambda t, k: t[k.key], path,
                                        j_params))
-    if _score_bias(path, params) or use_bn and _bn_cancelled(path):
+    if _score_bias(path, params) or use_bn and (
+        _bn_cancelled(path) or cancelled is not None and cancelled(path)):
       assert np.abs(got - want).max() <= 2 * lr_sum
     else:
       np.testing.assert_allclose(got, want, rtol=0,

@@ -40,7 +40,9 @@ IGNORED = {
     'ExportConfig.multi_value_fields', 'ExportConfig.auto_multi_value',
 }
 
-# The samples check_ported accepts.
+# The samples check_ported accepts: the 46 of the classic, sequence and
+# multi-task families, then the backbone DSL's 20 and the three with
+# variational_dropout (which only a backbone reads).
 PORTED = ['autoint', 'autoint_seq_group', 'best_exporter_early_stop',
           'dbmtl', 'dbmtl_seq_group_attention', 'dbmtl_seq_numeric_boundary',
           'dcn_max_f1', 'dcn_seq_group', 'dcn_v2', 'dead_line_stop',
@@ -55,23 +57,31 @@ PORTED = ['autoint', 'autoint_seq_group', 'best_exporter_early_stop',
           'rocket_launching', 'rocket_logit_distill', 'rocket_seq',
           'seq_text_cnn_combiner', 'share_embedding_not_used',
           'simple_multi_task', 'wide_and_deep', 'wide_and_deep_no_final']
+BACKBONE = ['aitm_backbone', 'autodis_numeric', 'bst_backbone',
+            'cdn_backbone', 'cin_backbone', 'cl4srec_backbone',
+            'contrastive_backbone', 'dcn_backbone', 'deepfm_backbone',
+            'dlrm_autodis', 'dlrm_backbone', 'dlrm_narydis', 'dlrm_periodic',
+            'dlrm_senet_backbone', 'fibinet_backbone', 'highway_backbone',
+            'masknet_backbone', 'periodic_numeric', 'ppnet_backbone',
+            'wide_and_deep_backbone']
+VARIATIONAL_DROPOUT = ['dbmtl_variational_dropout',
+                       'esmm_variational_dropout',
+                       'multi_tower_variational_dropout']
+PORTED = sorted(PORTED + BACKBONE + VARIATIONAL_DROPOUT)
 
-# The multi-task samples that wait for the backbone slice, with the part
-# check_ported names.
+# The multi-task samples refused, with the part check_ported names.
 MULTI_TASK_REFUSED = {
     'dbmtl_cmbf': 'model_config.dbmtl.bottom_cmbf',
     'dbmtl_uniter': 'model_config.dbmtl.bottom_uniter',
-    'dbmtl_variational_dropout': 'model_config.variational_dropout',
-    'esmm_variational_dropout': 'model_config.variational_dropout',
 }
 
-# Rank samples refused by name: variational dropout, which the JAX package
-# reads only inside its backbone (its MultiTower trains as if it were
-# unset), and the loss types that are not ported.
+# Rank samples refused by name: the loss types that are not ported, and
+# the two backbone samples that wait for the match family and kd.
 RANK_REFUSED = {
-    'multi_tower_variational_dropout': 'model_config.variational_dropout',
     'deepfm_ziln': 'loss_type ZILN_LOSS',
     'losses_pairwise': r'model_config.losses\[0\].pairwise_logistic_loss',
+    'kd_backbone': 'model_config.kd',
+    'parallel_dssm_backbone': "model_class 'MatchModel'",
 }
 
 
@@ -94,6 +104,16 @@ def _compare(j_msg, t_msg, path, found):
       found.add('unported:' + where)
       continue
     t_val = getattr(t_msg, fd.name)
+    if fd.message_type is not None and \
+        fd.message_type.GetOptions().map_entry:
+      # a protobuf map (Struct.fields): the port holds its entries as a
+      # list of key/value messages, the last of a key winning
+      t_map = {e.key: e.value for e in t_val}
+      assert sorted(t_map) == sorted(j_val), where
+      for k in j_val:
+        _compare(j_val[k], t_map[k], '%s.%s[%s]' % (path, fd.name, k),
+                 found)
+      continue
     if spec.message_type:
       j_items = list(j_val) if spec.repeated else [j_val]
       t_items = list(t_val) if spec.repeated else [t_val]
@@ -133,7 +153,7 @@ def _passes(path):
 
 def test_samples_that_pass_check_ported():
   assert [_name(p) for p in SAMPLES if _passes(p)] == PORTED
-  assert len(PORTED) == 46
+  assert len(PORTED) == 69
   for name, part in dict(MULTI_TASK_REFUSED, **RANK_REFUSED).items():
     with pytest.raises(NotImplementedError, match=part):
       t_config.check_ported(t_config.get_configs_from_pipeline_file(
@@ -185,6 +205,14 @@ def test_ported_samples_train_a_step(name, tmp_path):
   model = cfg.model_config.WhichOneof('model')
   if model in ('mmoe', 'esmm', 'dbmtl', 'simple_multi_task', 'ple'):
     assert len(loss) == 3, sorted(loss)
+  if name == 'aitm_backbone':
+    # the two cross entropies: cvr's ORDER_CALIBRATE_LOSS compares it
+    # with its relation towers, and it names none
+    assert sorted(loss) == ['classification_loss_ctr',
+                            'classification_loss_cvr', 'total_loss']
+  # the AuxiliaryLoss samples add aux_loss to the total
+  assert ('aux_loss' in loss) == (name in ('cl4srec_backbone',
+                                           'contrastive_backbone'))
   if model == 'rocket_launching':
     # light and booster cross entropies and the hint; no light hidden
     # layer of the samples has its booster partner's width, so none
