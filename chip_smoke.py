@@ -153,6 +153,40 @@ K4 and K5 must launch 0 times in 6-8.
              once a step each), with its rate, launches a step and peak
              memory; this slice's main path;
  22. serve dlrm backbone  as 19, for the backbone DLRM.
+ 23. match   (run after 22, before 9) the match family: each of its 19
+             samples (DSSM, DSSM_SENet, DAT, MIND, MultiTowerRecall,
+             DropoutNet, PDN, CoMetricLearningI2I, the backbone
+             MatchModel, and kd_backbone), small (batch 256, hash buckets
+             at most 1,000, the sample's own features) on its own input
+             pipeline's batches of write_dssm_data's files (1,000 items,
+             300 users, a sampler's neg. and hard_neg. views in them),
+             trains 3 steps on the card and the CPU from one state,
+             unfused, and dssm_neg_sampler fused as well, at the agree
+             phase's rule, MIND's routing logits and DropoutNet's
+             preference dropout at 0 and the learning rate 0.0001
+             (MATCH_EDITS says why); the eval (auc, recall@k, the
+             errors) held card against CPU through hold_evals;
+ 24. dssm    this slice's main path: samples/dssm_neg_sampler.config at
+             its published widths (batch 1,024 with 1,024 sampled
+             negatives a step, uid and iid of 1,000,000 buckets, cate of
+             10,000, tags of 100,000 up to 8 a row, dim 16, towers [256,
+             128, 64], inner product at temperature 0.1 with the item-id
+             collision mask, compact Adam) on write_dssm_data's generated
+             train and eval CSVs and 1,000,000-item items.txt: K1 and K2
+             at its mixed pack (the base batch's ids, then the neg.
+             view's, in one stream) bit-exact against their plain
+             versions, with times, bounds, the plain versions' and
+             index_add_'s; then train_and_evaluate, unfused, num_steps cut
+             to 20: K1 and K2 (compact Adam) once a step and table over
+             both views' ids, K3-K5 never; its rate over its own
+             pipeline's batches, launches and id slots a step, peak memory
+             and the eval's auc; then its step under torch.profiler
+             (profile_step.py --model dssm, a process of its own): device
+             busy time and idle share;
+ 25. serve dssm  a 5-step full-width DSSM exported, PredictorService on
+             the card answering 1 and 4,096 raw rows over HTTP, user_emb
+             and item_emb bit-equal to the training Trainer's eval forward,
+             with no K1-K5 launch.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -513,16 +547,19 @@ def synthetic_pack(torch, cfg):
   return trainer, key, meta, packs[key].reshape(-1)
 
 
-def phase_kernel_path(torch, cfg, what):
+def phase_kernel_path(torch, cfg, what, pack=synthetic_pack,
+                      yardsticks=False):
   """K1 in every mode and K2's compact Adam at the shape a main path at
-  full width (`cfg`) gives them: the pack of one synthetic batch of it,
-  at its dim 16 (so K2 runs four lanes a row, eight rows a warp), each
-  bit-exact against its plain version; K2 on the sums of mode 1, the
-  path's default. Returns (K1's, K2's) largest difference."""
+  full width (`cfg`) gives them: the pack of one synthetic batch of it
+  (or `pack`'s), at its dim 16 (so K2 runs four lanes a row, eight rows
+  a warp), each bit-exact against its plain version; K2 on the sums of
+  mode 1, the path's default. With `yardsticks`, the plain versions'
+  and index_add_'s times too, and both kernels queued for the
+  kernel-only phase. Returns (K1's, K2's) largest difference."""
   from easyrec_torch.ops import packed_table as pt
 
   dev = torch.device('cuda')
-  trainer, key, meta, ids = synthetic_pack(torch, cfg)
+  trainer, key, meta, ids = pack(torch, cfg)
   n, dim = ids.shape[0], meta.dim
   gen = torch.Generator(device=dev).manual_seed(2468)
   grads = torch.randn((n, dim), generator=gen, device=dev) * 1e-3
@@ -558,6 +595,35 @@ def phase_kernel_path(torch, cfg, what):
       '(mode 1) %.4f ms (bound %.4f ms), rmw_rows %.4f ms (bound %.4f ms)'
       % (what, key, meta.rows, meta.width, n, n_seg, n_touched, dim, k1_ms,
          k1_bound, k2_ms, k2_bound))
+  if yardsticks:
+    k1_plain = cuda_ms(torch, lambda: pt.seg_sum_plain(
+        sids, order, starts, grads, meta.sentinel, '1'), 2, flush)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = sids[1:] != sids[:-1]
+    seg_of_slot = torch.empty(n, dtype=torch.int64, device=dev)
+    seg_of_slot[order] = torch.cumsum(first, 0) - 1
+    acc = torch.zeros((n, dim), device=dev)
+    k1_lib = cuda_ms(torch, lambda: acc.index_add_(0, seg_of_slot, grads),
+                     20, flush)
+    ref = table.clone()
+    k2_plain = cuda_ms(torch, lambda: pt.rmw_rows_plain(
+        ref, uids, gsum, hypers, opt), 2, flush)
+    del acc, ref, seg_of_slot, first
+    log('K1 and K2 at the %s shape: plain seg_sum %.3f ms, index_add_ '
+        '%.4f ms (K1 %s); plain rmw_rows %.3f ms'
+        % (what, k1_plain, k1_lib,
+           'no slower' if k1_ms <= k1_lib else 'SLOWER', k2_plain))
+    sentinel = meta.sentinel
+    queue_kernel_only(
+        'seg_sum (%s, mode 1)' % what, k1_ms, k1_bound,
+        lambda sids, order, starts, grads: pt.seg_sum(
+            sids, order, starts, grads, sentinel, '1'),
+        sids=sids, order=order, starts=starts, grads=grads)
+    queue_kernel_only(
+        'rmw_rows (compact_adam, %s)' % what, k2_ms, k2_bound,
+        lambda table, uids, gsum, hypers: pt.rmw_rows(table, uids, gsum,
+                                                      hypers, opt),
+        table=table, uids=uids, gsum=gsum, hypers=hypers)
   del trainer, table, grads, flush, uids, gsum
   torch.cuda.empty_cache()
   return err1, err2
@@ -949,7 +1015,8 @@ def phase_experimental(torch):
   return {'correct': ok}
 
 
-def phase_agree(torch, what, cfg, fused, compact='1', draws=False):
+def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
+                batches=None):
   """A small model: 3 steps on the card and on the CPU from the same
   weights and batches. The CPU path runs the kernels' plain versions,
   whose agreement with the JAX package the CPU tests hold. On the card
@@ -968,8 +1035,11 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False):
   numbers (`draws`: the card and the CPU draw from generators of their
   own) is evaluated from the shared state, then trains its 3 steps on
   each side, which must launch as above and give finite losses; its
-  losses and tables are not held. Returns the card's launches by kernel
-  and math."""
+  losses and tables are not held. `batches`, where given, are the
+  model's input pipeline's ({'train': 3 batches, 'eval': 2}: a sampler's
+  views and the extra fields in them), which the model always evaluates,
+  in place of synthetic ones. Returns the card's launches by kernel and
+  math."""
   from easyrec_torch.ops import kernels
   from easyrec_torch.optim.sparse import MATH_NAMES
   from easyrec_torch.train.trainer import Trainer, to_device
@@ -987,18 +1057,19 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False):
   for key, table in runs['cpu'].tables.items():
     runs['cuda'].tables[key].copy_(table)
   tasks = runs['cpu'].model.metric_task_names()
-  keys = list(runs['cpu'].metrics.configs) + ['auc_%s' % k for k in tasks]
-  evaluate = bool(tasks) or keys != ['auc'] or draws
+  keys = runs['cpu'].metrics.result_names() + ['auc_%s' % k for k in tasks]
+  evaluate = bool(tasks) or keys != ['auc'] or draws or batches is not None
+  evals = batches['eval'] if batches is not None else None
   if evaluate:
-    hold_evals(eval_both(runs, bs, keys, what, fused), keys, what)
+    hold_evals(eval_both(runs, bs, keys, what, fused, evals), keys, what)
   kernels.reset_launches()
   losses = {}
   for name, t in runs.items():
     dev = torch.device(name)
     losses[name] = []
     for step in range(3):
-      batch = synthetic_batch(t.specs, list(t.ctx.label_fields), bs,
-                              seed=step)
+      batch = batches['train'][step] if batches is not None else \
+          synthetic_batch(t.specs, list(t.ctx.label_fields), bs, seed=step)
       losses[name].append(float(t.train_step(to_device(batch,
                                                         dev))['total_loss']))
   tagged = kernels.tagged_counts()
@@ -1074,12 +1145,12 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False):
       % (what, fused, losses['cuda'], losses['cpu'], far_all, ema, tagged))
   if evaluate:
     eval_both(runs, bs, keys, what + ' after 3 steps, each side its own '
-              'state', fused)
+              'state', fused, evals)
     runs['cpu'].model.load_state_dict(t.model.state_dict())
     for key, table in runs['cpu'].tables.items():
       table.copy_(t.tables[key])
     hold_evals(eval_both(runs, bs, keys, what + ' after 3 steps, the '
-                         'card\'s state on both', fused), keys,
+                         'card\'s state on both', fused, evals), keys,
                what + ' after 3 steps')
   return tagged
 
@@ -1092,13 +1163,16 @@ def hold_evals(evals, keys, what):
   a bin edge landing one bin over moves them by more than 1e-3. Such a
   part is held instead by the probabilities it reads: every row's within
   1e-5 card against CPU, and at least one row in another bin on the two
-  sides, which is then the whole of the part."""
+  sides, which is then the whole of the part. A metric read from no
+  histogram (recall@k, the errors) is held to 1e-3 alone."""
   from easyrec_torch.metrics.metrics import AUC_BINS
   for k in keys:
     a, b = evals['cpu'][k], evals['cuda'][k]
     if abs(a - b) <= 1e-3:
       continue
     probs = 'auc' if k == 'max_f1' else k
+    if probs not in evals['cpu']['probs']:
+      fail('small %s: eval %s card %r, CPU %r' % (what, k, b, a))
     pa, pb = evals['cpu']['probs'][probs], evals['cuda']['probs'][probs]
     err = float((pa - pb).abs().max())
     moved = int(((pa * AUC_BINS).floor() != (pb * AUC_BINS).floor()).sum())
@@ -1117,7 +1191,7 @@ def hold_evals(evals, keys, what):
 
 def eval_probs(torch, t, batches):
   """The probabilities `t`'s eval reads for `auc` and each `auc_<task>`,
-  over `batches`, on the CPU."""
+  over `batches` (with their sampled views), on the CPU."""
   from easyrec_torch.ops import embedding as emb_ops
   from easyrec_torch.train.trainer import to_device
   out = {}
@@ -1125,7 +1199,7 @@ def eval_probs(torch, t, batches):
     for batch in batches:
       b = to_device(batch, t.device)
       pulled = emb_ops.pull_embeddings(
-          t.tables, emb_ops.pack_ids(t.layout, b), t.metas)
+          t.tables, emb_ops.pack_all_views(t.layout, b), t.metas)
       outputs = t.eval_forward(b, pulled)
       parts = {'auc': t.model.metric_inputs(outputs, b)['probs']}
       for task, mi in t.model.metric_inputs_per_task(outputs, b).items():
@@ -1135,18 +1209,21 @@ def eval_probs(torch, t, batches):
   return {k: torch.cat(v) for k, v in out.items()}
 
 
-def eval_both(runs, bs, keys, what, fused):
-  """Each trainer of `runs` evaluates the same two synthetic batches;
-  each of `keys` must be reported in [0, 1] with a finite loss. Returns
-  the results by device, with the probabilities they read (`probs`)."""
+def eval_both(runs, bs, keys, what, fused, batches=None):
+  """Each trainer of `runs` evaluates the same two batches (`batches`, or
+  synthetic ones); each of `keys` must be reported, finite, and in [0, 1]
+  but the errors, with a finite loss. Returns the results by device, with
+  the probabilities they read (`probs`)."""
   import torch
   from easyrec_torch.utils.synthetic import synthetic_batch
   evals = {}
   for name, t in runs.items():
-    batches = [synthetic_batch(t.specs, list(t.ctx.label_fields), bs,
-                               seed=50 + i) for i in range(2)]
+    if batches is None:
+      batches = [synthetic_batch(t.specs, list(t.ctx.label_fields), bs,
+                                 seed=50 + i) for i in range(2)]
     evals[name] = t.evaluate(eval_iter=batches)
-    if not all(0.0 <= evals[name].get(k, -1.0) <= 1.0 for k in keys) or \
+    if not all(k in evals[name] and math.isfinite(evals[name][k]) and (
+        'error' in k or 0.0 <= evals[name][k] <= 1.0) for k in keys) or \
         not math.isfinite(evals[name]['loss']):
       fail('small %s: eval on %s reports %s, %s expected'
            % (what, name, evals[name], keys))
@@ -1204,14 +1281,17 @@ def phase_optimizers(torch):
       % launches)
 
 
-def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
+def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math,
+                views=False):
   """train_and_evaluate of `cfg` at full width, SLICE_STEPS steps, with
   every launch counter set to 0 just before and read just after: each
   kernel of `path_kernels` must launch once per step and table, every
   other kernel not at all, and K2 or K3 only with the block math
   `path_math`; the eval must report `auc` and `auc_<task>` for each of
   the model's metric_task_names(). Then the steady-state train-step rate over pre-built
-  synthetic batches. Returns the launches by kernel and by kernel/math."""
+  synthetic batches, or with `views` (a sampler's) over batches of the
+  model's own input pipeline, whose id slots a step are logged by view.
+  Returns the launches by kernel and by kernel/math."""
   from easyrec_torch import main as main_lib
   from easyrec_torch.ops import kernels
   from easyrec_torch.train.trainer import to_device
@@ -1264,18 +1344,23 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
     fail('%s: K2/K3 launched with the block maths %s, %s expected'
          % (what, tagged, want))
   peak = torch.cuda.max_memory_allocated()
+  trainer = result['trainer']
+  if views:
+    from easyrec_torch.ops import embedding as emb_ops
+    batches = [to_device(b, torch.device('cuda')) for _, b in
+               zip(range(4), trainer.train_input())]
+    slots = {k: int(p.numel()) for k, p in emb_ops.pack_all_views(
+        trainer.layout, batches[0]).items()}
+  else:
+    batches = [to_device(synthetic_batch(
+        trainer.specs, list(trainer.ctx.label_fields), bs, seed=100 + i),
+                         torch.device('cuda')) for i in range(4)]
+    slots = {k: t.tot_k * bs for k, t in trainer.layout.tables.items()}
   log('%s peak device memory: %.3f GB (%.3f GB held before it started); '
       'launches a step: %s; id slots a step: %s'
       % (what, peak / 1e9, held / 1e9,
-         {k: c / SLICE_STEPS for k, c in counts.items() if c},
-         {k: t.tot_k * bs for k, t in
-          result['trainer'].layout.tables.items()}))
+         {k: c / SLICE_STEPS for k, c in counts.items() if c}, slots))
 
-  trainer = result['trainer']
-  batches = [to_device(synthetic_batch(trainer.specs,
-                                       list(trainer.ctx.label_fields), bs,
-                                       seed=100 + i), torch.device('cuda'))
-             for i in range(4)]
   for b in batches[:3]:
     trainer.train_step(b)
   torch.cuda.synchronize()
@@ -1286,9 +1371,10 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math):
   dt = time.perf_counter() - t0
   if not math.isfinite(float(out['total_loss'])):
     fail('%s rate: a loss is not finite' % what)
-  log('train step (%s, batch %d, pre-built synthetic batches on the '
+  log('train step (%s, batch %d, pre-built %s batches on the '
       'device): %.3f ms/step, %.1f examples/s on %s'
-      % (what, bs, dt / RATE_STEPS * 1e3, RATE_STEPS * bs / dt, card))
+      % (what, bs, 'input-pipeline' if views else 'synthetic',
+         dt / RATE_STEPS * 1e3, RATE_STEPS * bs / dt, card))
   del result, trainer, batches
   torch.cuda.empty_cache()
   return dict(counts, **tagged)
@@ -2522,6 +2608,278 @@ def phase_backbone(torch):
     os.environ.pop('EASYREC_ATTN_IMPL', None)
 
 
+# the match family (phases 23-25): its samples small, card against CPU;
+# samples/dssm_neg_sampler.config at its published widths on data made
+# by write_dssm_data; the DSSM's export served
+MATCH_SAMPLES = (
+    'dat', 'dat_inner_simi', 'dropoutnet', 'dropoutnet_neg_sampler_v2',
+    'dssm_hard_neg_sampler', 'dssm_kd', 'dssm_neg_sampler', 'dssm_reg',
+    'dssm_senet', 'kd_backbone', 'metric_learning_i2i', 'metric_learning_ms',
+    'mind', 'mind_neg_sampler', 'mind_time_id', 'multi_tower_recall',
+    'parallel_dssm_backbone', 'pdn', 'pdn_neg_sampler')
+# the agree runs' edits of a match sample: the draws the card and the CPU
+# make apart set to 0 (MIND's routing logits, DropoutNet's preference
+# dropout), and the samples' constant rate 0.001 cut to 0.0001. An inner
+# product at temperature 0.05 over untrained towers (dat_inner_simi,
+# loss 125) turns the weights' last-bit differences after one Adam step
+# (a gradient sum that cancels steps by about lr either way, as the
+# agree rule says) into loss differences of 2e-5 to 4e-5 relative at
+# 0.001 (the card against the CPU, NVIDIA H100 80GB HBM3, 700 W): the
+# steps, and with them those differences, scale with the rate
+MATCH_EDITS = (('num_iters: 3 }',
+                'num_iters: 3 routing_logits_stddev: 0.0 }'),
+               ('user_dropout_rate: 0.1', 'user_dropout_rate: 0.0'),
+               ('item_dropout_rate: 0.5', 'item_dropout_rate: 0.0'),
+               ('constant_learning_rate { learning_rate: 0.001 }',
+                'constant_learning_rate { learning_rate: 0.0001 }'))
+MATCH_FUSED = ('dssm_neg_sampler',)
+MATCH_COLS = ('label', 'uid', 'iid', 'cate', 'tags', 'age', 'price',
+              'seq_cate', 'teacher')
+DSSM_CATES = 10000        # the sample's cate hash buckets
+DSSM_TAGS = 100000        # its tags hash buckets
+
+
+def write_dssm_data(directory, cols=MATCH_COLS[:8], n_items=1000000,
+                    n_users=1000000, train_rows=(SLICE_STEPS + 4) * 1024,
+                    eval_rows=8192, edges=False, seed=2026):
+  """The columns `cols` of the match samples (by default
+  samples/dssm_neg_sampler.config's: label, uid, iid, cate, tags, age,
+  price, seq_cate; `teacher`, a kd teacher's probability, besides) as
+  headerless train.csv and eval.csv in `directory`, and the sampler's
+  items.txt in
+  the GraphLearn text format the sample names (`id<TAB>weight<TAB>
+  iid:cate:price` under a header line) over n_items items with Zipf
+  weights (1 / rank^1.1); with `edges`, edges.txt of 3 items a user for
+  the hard-negative and V2 samplers. Users and items of a row are drawn
+  Zipf-skewed from the same ids, so a batch's items recur among the
+  sampled negatives; an item's cate and price are the same in every row
+  and in items.txt. The label is 1 on one row in three. Returns the
+  paths by name. Defaults: the published widths (1,000,000 items and
+  users, as the sample's hash buckets)."""
+  import numpy as np
+  os.makedirs(directory, exist_ok=True)
+  rng = np.random.default_rng(seed)
+  item_cate = rng.integers(0, DSSM_CATES, n_items)
+  item_price = rng.random(n_items)
+  weights = 1.0 / np.power(np.arange(1, n_items + 1), 1.1)
+  paths = {name: os.path.join(directory, name) for name in
+           ('train.csv', 'eval.csv', 'items.txt', 'edges.txt')}
+  with open(paths['items.txt'], 'w') as f:
+    f.write('id:int64\tweight:float\tfeature:string\n')
+    f.write(''.join('i%d\t%.6g\ti%d:c%d:%.4f\n' % (i, weights[i], i,
+                                                   item_cate[i],
+                                                   item_price[i])
+                    for i in range(n_items)))
+
+  def zipf(n, size):
+    return np.clip(np.floor(n * np.power(rng.random(size), 3.0)), 0,
+                   n - 1).astype(np.int64)
+
+  for name, rows in (('train.csv', train_rows), ('eval.csv', eval_rows)):
+    items = zipf(n_items, rows)
+    users = zipf(n_users, rows)
+    n_tags = rng.integers(1, 9, rows)
+    tags = rng.integers(0, DSSM_TAGS, (rows, 8))
+    n_seq = rng.integers(1, 51, rows)
+    seq = rng.integers(0, DSSM_CATES, (rows, 50))
+    label = (rng.random(rows) < 1 / 3).astype(np.int64)
+    age, teacher = rng.random(rows), rng.random(rows)
+    values = {
+        'label': ['%d' % v for v in label],
+        'uid': ['u%d' % v for v in users],
+        'iid': ['i%d' % v for v in items],
+        'cate': ['c%d' % item_cate[v] for v in items],
+        'tags': ['|'.join('t%d' % t for t in tags[r, :n_tags[r]])
+                 for r in range(rows)],
+        'age': ['%.4f' % v for v in age],
+        'price': ['%.4f' % item_price[v] for v in items],
+        'seq_cate': ['|'.join('c%d' % c for c in seq[r, :n_seq[r]])
+                     for r in range(rows)],
+        'teacher': ['%.4f' % v for v in teacher]}
+    with open(paths[name], 'w') as f:
+      f.write(''.join(','.join(parts) + '\n'
+                      for parts in zip(*(values[c] for c in cols))))
+  if edges:
+    with open(paths['edges.txt'], 'w') as f:
+      f.write(''.join('u%d\ti%d\t1.0\n' % (u, i) for u in range(n_users)
+                      for i in rng.choice(n_items, 3, replace=False)))
+  return paths
+
+
+def match_config(name, data):
+  """samples/<name>.config on write_dssm_data's files in `data`, written
+  with the sample's input_fields, small: batch and eval batch 256, hash
+  buckets at most 1,000, with MATCH_EDITS."""
+  from easyrec_torch.config import config_util
+  with open(os.path.join(HERE, 'samples', name + '.config')) as f:
+    text = f.read()
+  for old, new in MATCH_EDITS:
+    text = text.replace(old, new)
+  cfg = config_util.get_configs_from_pipeline_str(text)
+  dc = cfg.data_config
+  cfg.train_input_path = os.path.join(data, 'train.csv')
+  cfg.eval_input_path = os.path.join(data, 'eval.csv')
+  cfg.model_dir = ''
+  which = dc.WhichOneof('sampler')
+  if which:
+    sampler = getattr(dc, which)
+    for field in ('input_path', 'user_input_path', 'item_input_path',
+                  'pos_edge_input_path', 'hard_neg_edge_input_path'):
+      if getattr(sampler, field, ''):
+        setattr(sampler, field, os.path.join(
+            data, 'edges.txt' if 'edge' in field else 'items.txt'))
+  dc.batch_size = dc.eval_batch_size = 256
+  for fc in config_util.get_feature_configs(cfg):
+    fc.hash_bucket_size = min(int(fc.hash_bucket_size), 1000)
+  return cfg
+
+
+def pipeline_batches(cfg, mode, n):
+  """The first n batches of cfg's input pipeline in `mode`, with the
+  extra fields its models read."""
+  from easyrec_torch.config import config_util
+  from easyrec_torch.data.input_pipeline import InputPipeline
+  path = config_util.get_train_input_path(cfg) if mode == 'train' else \
+      config_util.get_eval_input_path(cfg)
+  pipe = InputPipeline(cfg.data_config,
+                       config_util.get_feature_configs(cfg), path, mode=mode,
+                       extra_fields=config_util.collect_extra_fields(cfg))
+  out = [b for _, b in zip(range(n), pipe)]
+  if len(out) != n:
+    fail('%s input of %s gave %d batches, %d asked' % (mode, path, len(out),
+                                                        n))
+  return out
+
+
+def phase_match(torch):
+  """The agree phase for each match sample, small, on its own pipeline's
+  batches (write_dssm_data's columns, 1,000 items and 300 users): 3 steps
+  card against CPU from one state, unfused (K1 + K2), and fused (K3) for
+  MATCH_FUSED; the eval of 2 batches (auc, recall@k, the errors) held
+  card against CPU from the shared state and from the card's trained
+  state."""
+  from easyrec_torch.config import config_util
+  launches = {}
+  for name in MATCH_SAMPLES:
+    data = os.path.join(SCRATCH, 'match', name)
+    cols = [f.input_name for f in config_util.get_configs_from_pipeline_file(
+        os.path.join(HERE, 'samples', name + '.config'))
+            .data_config.input_fields]
+    write_dssm_data(data, cols=cols, n_items=1000, n_users=300,
+                    train_rows=768, eval_rows=512, edges=True, seed=7)
+    cfg = match_config(name, data)
+    batches = {'train': pipeline_batches(cfg, 'train', 3),
+               'eval': pipeline_batches(cfg, 'eval', 2)}
+    for fused in ('0', '1') if name in MATCH_FUSED else ('0',):
+      for k, c in phase_agree(torch, 'match sample %s' % name, cfg, fused,
+                              batches=batches).items():
+        launches[k] = launches.get(k, 0) + c
+  log('agree: launches by kernel and math over the match samples: %s'
+      % launches)
+
+
+def dssm_pack(torch, cfg):
+  """A trainer of the full-width DSSM on the card and the id stream its
+  sparse update takes from one batch of its pipeline: the base batch's
+  pack, then the `neg.` view's, concatenated (Trainer's view_stream)."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import Trainer, to_device
+  trainer = Trainer(cfg, device='cuda')
+  batch = to_device(next(iter(trainer.train_input())), torch.device('cuda'))
+  packs = emb_ops.pack_all_views(trainer.layout, batch)
+  (key, meta), = trainer.metas.items()
+  base, neg = packs[key].reshape(-1), packs['neg.' + key].reshape(-1)
+  shared = int(torch.isin(torch.unique(neg), torch.unique(base)).sum())
+  log('DSSM pack: table %s, %d base id slots and %d neg. slots (%d of '
+      'them the filler id 0 of the features the view lacks), %d distinct '
+      'ids in both views (segments that span the two)'
+      % (key, base.numel(), neg.numel(), int((neg == 0).sum()), shared))
+  return trainer, key, meta, torch.cat([base, neg])
+
+
+def dssm_config(data, model_dir=''):
+  """samples/dssm_neg_sampler.config at its published widths on
+  write_dssm_data's full-width files in `data`."""
+  from easyrec_torch.utils import flagship
+  return flagship.dssm_neg_sampler_config(data, model_dir)
+
+
+def phase_dssm(torch, card):
+  """This slice's main path: the DSSM of samples/dssm_neg_sampler.config
+  at its published widths (batch 1,024 and 1,024 sampled negatives a
+  step, towers [256, 128, 64], uid and iid of 1,000,000 buckets, dim
+  16, compact Adam) on write_dssm_data's generated files: K1 and K2 at
+  its mixed base + neg. pack bit-exact against their plain versions,
+  with times, bounds and index_add_'s; then train_and_evaluate unfused,
+  num_steps cut to SLICE_STEPS: K1 and K2 once a step and table over
+  both views' ids, K3-K5 never; its rate over its own pipeline's batches.
+  Returns (the launches, (K1's, K2's) largest difference)."""
+  data = os.path.join(SCRATCH, 'dssm')
+  t0 = time.time()
+  write_dssm_data(data)
+  log('dssm: wrote 1,000,000 items and %d train and 8,192 eval rows in '
+      '%.1f s' % ((SLICE_STEPS + 4) * 1024, time.time() - t0))
+  cfg = dssm_config(data)
+  errs = phase_kernel_path(torch, cfg, 'DSSM', pack=dssm_pack,
+                           yardsticks=True)
+  counts = phase_slice(torch, card, 'DSSM (dssm_neg_sampler)', cfg, '0',
+                       ('seg_sum', 'rmw_rows'), 'compact_adam', views=True)
+  # the device's idle share: the step under torch.profiler, in a process
+  # of its own (the profiler stays hooked into the one it traced)
+  out = subprocess.run(
+      [sys.executable, '-m', 'easyrec_torch.tools.profile_step', '--model',
+       'dssm', '--data_dir', data, '--top', '8'], capture_output=True,
+      text=True, timeout=600, cwd=HERE)
+  if out.returncode != 0:
+    fail('profile_step --model dssm: %s' % out.stderr[-2000:])
+  for line in out.stdout.splitlines():
+    log('dssm profile: %s' % line)
+  return counts, errs
+
+
+def dssm_serve_rows(path, n):
+  """The first n rows of a write_dssm_data CSV as raw request rows."""
+  cols = MATCH_COLS[:8]
+  rows = []
+  with open(path) as f:
+    for line in f:
+      parts = dict(zip(cols, line.rstrip('\n').split(',')))
+      for c in ('label', 'age', 'price'):
+        parts[c] = float(parts[c])
+      rows.append(parts)
+      if len(rows) == n:
+        break
+  return rows
+
+
+def phase_serve_dssm(torch, smi):
+  """The full-width DSSM trained 5 steps through train_and_evaluate on a
+  model_dir (K1 + K2) and exported; PredictorService on the card answers
+  1 and 4,096 raw rows of the eval CSV over HTTP, user_emb and item_emb
+  bit-equal to the training Trainer's eval forward on the same rows, with
+  no K1-K5 launch (a served batch has no sampled view)."""
+  import shutil
+  from easyrec_torch import main as main_lib
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  data = os.path.join(SCRATCH, 'dssm')
+  root = os.path.join(SCRATCH, 'serve_dssm')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  cfg = dssm_config(data, model_dir=os.path.join(root, 'md'))
+  result = main_lib.train_and_evaluate(
+      cfg, edit_config_json={'train_config.num_steps': 5}, device='cuda')
+  rows = dssm_serve_rows(os.path.join(data, 'eval.csv'), 4096)
+  want = {n: trainer_outputs(torch, result['trainer'], rows[:n])
+          for n in (1, 4096)}
+  if sorted(want[1]) != ['item_emb', 'user_emb']:
+    fail('serve DSSM: the export outputs %s' % sorted(want[1]))
+  export_dir = result['export_dir']
+  del result
+  serve_bit_equal(torch, 'DSSM', export_dir, rows, want, smi)
+  shutil.rmtree(root, ignore_errors=True)
+  shutil.rmtree(data, ignore_errors=True)
+
+
 def main():
   if not os.path.isdir(os.path.join(HERE, 'easyrec_torch')):
     fail('easyrec_torch/ is not beside chip_smoke.py: run it from the '
@@ -2587,19 +2945,27 @@ def main():
                          ('seg_sum', 'rmw_rows'), 'compact_adam')
   phase_serve_dlrm(torch, smi, 'Criteo DLRM, backbone DSL',
                    'criteo_dlrm_backbone_config')
+  phase_match(torch)
+  dssm, (err1, err2) = phase_dssm(torch, card)
+  for r in results:
+    if r['name'] == 'seg_sum':
+      r['max_abs_err'] = max(r['max_abs_err'], err1)
+    if r['name'] == 'rmw_rows/compact_adam':
+      r['max_abs_err'] = max(r['max_abs_err'], err2)
+  phase_serve_dssm(torch, smi)
   phase_ckpt(torch)
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the backbone DLRM's,
-  # this slice's main path; K3 on the DIN's, Adagrad on the Adagrad
-  # DeepFM's, the EV maths on the EV phase's), 0 for a math no path runs
+  # these that runs it (K1 and K2's compact Adam on the DSSM's, this
+  # slice's main path; K3 on the DIN's, Adagrad on the Adagrad DeepFM's,
+  # the EV maths on the EV phase's), 0 for a math no path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (backbone, dlrm, mmoe, bst, din, deepfm, adagrad,
-                           ev)
+                          (dssm, backbone, dlrm, mmoe, bst, din, deepfm,
+                           adagrad, ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

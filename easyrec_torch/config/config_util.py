@@ -26,9 +26,17 @@ _RANK_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST',
                 'RocketLaunching', 'RankModel')
 _MULTI_TASK_MODELS = ('SimpleMultiTask', 'MMoE', 'ESMM', 'DBMTL', 'PLE',
                       'MultiTaskModel')
+# the match family (models/match.py, match_extra.py, and the backbone's
+# MatchModel)
+_MATCH_MODELS = ('DSSM', 'DSSM_SENet', 'DAT', 'MIND', 'MultiTowerRecall',
+                 'DropoutNet', 'PDN', 'CoMetricLearningI2I', 'MatchModel')
 # the models a backbone DSL builds (models/backbone_model.py)
-_BACKBONE_MODELS = ('RankModel', 'MultiTaskModel')
-_PORTED_MODELS = _RANK_MODELS + _MULTI_TASK_MODELS
+_BACKBONE_MODELS = ('RankModel', 'MultiTaskModel', 'MatchModel')
+_PORTED_MODELS = _RANK_MODELS + _MULTI_TASK_MODELS + _MATCH_MODELS
+# a match model's loss_type: the in-batch softmax (listwise), the
+# pointwise sigmoid cross entropy, or DSSM_reg's L2 on the similarity
+# (JAX MatchModel.build_loss)
+_MATCH_LOSSES = ('SOFTMAX_CROSS_ENTROPY', 'CLASSIFICATION', 'L2_LOSS')
 # the loss types a task tower computes as the JAX package's
 # MultiTaskModel._tower_loss does; it falls back to cross entropy for any
 # other, which the port refuses instead
@@ -243,6 +251,49 @@ def _keras_layers(backbone: Message):
           yield lw, getattr(holder, which).keras_layer
 
 
+def process_neg_sampler_data_path(config: Message) -> None:
+  """Strip the negative sampler's input paths (JAX config_util.py
+  :365-376)."""
+  dc = config.data_config
+  which = dc.WhichOneof('sampler')
+  if not which:
+    return
+  sampler = getattr(dc, which)
+  for name in ('input_path', 'user_input_path', 'item_input_path',
+               'pos_edge_input_path', 'hard_neg_edge_input_path'):
+    if schema.has_field(sampler.type_name, name) and getattr(sampler, name):
+      setattr(sampler, name, getattr(sampler, name).strip())
+
+
+def collect_extra_fields(config: Message) -> List[str]:
+  """Input fields that ride along in batches as numeric 'field.<name>'
+  columns (JAX config_util.py:379-427): the kd terms' prediction, soft
+  label and task-space indicator fields, and the metric-learning model's
+  session_id and sample_id; names that are labels (those flow as
+  label.<name>) are dropped. The grouped metrics and the loss session
+  fields the JAX function also collects belong to parts that are not
+  ported."""
+  fields = []
+
+  def _add(name):
+    if name and name not in fields:
+      fields.append(name)
+
+  mc = config.model_config
+  for kd in mc.kd:
+    _add(kd.pred_name)
+    _add(kd.soft_label_name)
+    _add(kd.task_space_indicator_name)
+  which = mc.WhichOneof('model')
+  if which is not None:
+    sub = getattr(mc, which)
+    for name in ('session_id', 'sample_id'):
+      if schema.has_field(sub.type_name, name):
+        _add(getattr(sub, name))
+  labels = set(config.data_config.label_fields)
+  return [f for f in fields if f not in labels]
+
+
 def check_ported(config: Message) -> None:
   """Raise NotImplementedError naming the first part of `config` that the
   port does not run: an unported field, model class, backbone layer,
@@ -262,7 +313,25 @@ def check_ported(config: Message) -> None:
         raise NotImplementedError(
             'keras layer class %r (model_config.backbone.%s) is not ported'
             % (layer.class_name, where))
-  if mc.model_class in _MULTI_TASK_MODELS:
+  for i, kd in enumerate(mc.kd):
+    if kd.loss_type == 'LISTWISE_DISTILL_LOSS':
+      # it reads listwise_rank_loss, which is not ported
+      raise NotImplementedError('loss_type LISTWISE_DISTILL_LOSS of '
+                                'model_config.kd[%d] is not ported' % i)
+  if mc.kd and mc.model_class in _MULTI_TASK_MODELS:
+    raise NotImplementedError('model_config.kd of a multi-task model is not '
+                              'ported (the JAX package adds no kd term to '
+                              'its loss)')
+  if mc.model_class in _MATCH_MODELS:
+    if mc.loss_type not in _MATCH_LOSSES or mc.num_class != 1:
+      raise NotImplementedError('loss_type %s with num_class %d of a match '
+                                'model is not ported'
+                                % (mc.loss_type, mc.num_class))
+    if mc.losses:
+      # the JAX match models read loss_type only
+      raise NotImplementedError('model_config.losses of a match model is '
+                                'not ported')
+  elif mc.model_class in _MULTI_TASK_MODELS:
     for tower in task_towers(mc):
       for lt in [tower.loss_type] + [l.loss_type for l in tower.losses]:
         if lt not in _TOWER_LOSSES:

@@ -56,6 +56,7 @@ ENUMS: Dict[str, Tuple[str, ...]] = {
                  'LISTWISE_RANK_LOSS', 'LISTWISE_DISTILL_LOSS', 'ZILN_LOSS'),
     'LossWeightStrategy': ('Fixed', 'Uncertainty', 'Random'),
     'Similarity': ('COSINE', 'INNER_PRODUCT', 'EUCLID'),
+    'UserSeqCombineMethod': ('CONCAT', 'SUM'),
     'NullValue': ('NULL_VALUE',),
 }
 
@@ -248,15 +249,28 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
     'EvalMetrics': (
         _f('auc', 'msg:AUC', oneof='metric'),
         _f('max_f1', 'msg:Max_F1', oneof='metric'),
-        *_unported('metric', 'recall_at_topk', 'mean_absolute_error',
-                   'mean_squared_error', 'accuracy',
-                   'root_mean_squared_error', 'gauc', 'session_auc',
-                   'recall', 'precision', 'precision_at_topk'),
+        _f('recall_at_topk', 'msg:RecallAtTopK', oneof='metric'),
+        _f('mean_absolute_error', 'msg:MeanAbsoluteError', oneof='metric'),
+        _f('mean_squared_error', 'msg:MeanSquaredError', oneof='metric'),
+        _f('root_mean_squared_error', 'msg:RootMeanSquaredError',
+           oneof='metric'),
+        _f('precision_at_topk', 'msg:AvgPrecisionAtTopK', oneof='metric'),
+        *_unported('metric', 'accuracy', 'gauc', 'session_auc', 'recall',
+                   'precision'),
     ),
     'AUC': (
         _f('num_thresholds', 'int', 200),
     ),
     'Max_F1': (),
+    'RecallAtTopK': (
+        _f('topk', 'int', 5),
+    ),
+    'AvgPrecisionAtTopK': (
+        _f('topk', 'int', 5),
+    ),
+    'MeanAbsoluteError': (),
+    'MeanSquaredError': (),
+    'RootMeanSquaredError': (),
     'EasyRecModel': (
         _f('model_class', 'string', ''),
         _f('feature_groups', 'msg:FeatureGroupConfig', rep=True),
@@ -274,16 +288,21 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('dlrm', 'msg:DLRM', oneof='model'),
         _f('rocket_launching', 'msg:RocketLaunching', oneof='model'),
         _f('model_params', 'msg:ModelParams', oneof='model'),
-        *_unported('model', 'dummy', 'cmbf',
-                   'uniter', 'multi_tower_recall', 'dssm', 'mind',
-                   'dropoutnet', 'metric_learning', 'pdn', 'dssm_senet',
-                   'dat'),
+        _f('multi_tower_recall', 'msg:MultiTowerRecall', oneof='model'),
+        _f('dssm', 'msg:DSSM', oneof='model'),
+        _f('mind', 'msg:MIND', oneof='model'),
+        _f('dropoutnet', 'msg:DropoutNet', oneof='model'),
+        _f('metric_learning', 'msg:CoMetricLearningI2I', oneof='model'),
+        _f('pdn', 'msg:PDN', oneof='model'),
+        _f('dssm_senet', 'msg:DSSM_SENet', oneof='model'),
+        _f('dat', 'msg:DAT', oneof='model'),
+        *_unported('model', 'dummy', 'cmbf', 'uniter'),
         _f('seq_att_groups', 'msg:SeqAttGroupConfig', rep=True),
         _f('embedding_regularization', 'float', 0.0),
         _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
         _f('num_class', 'int', 1),
         _f('ev_params', 'msg:EVParams'),
-        _f('kd', 'unported', rep=True),
+        _f('kd', 'msg:KD', rep=True),
         _f('restore_filters', 'string', rep=True),
         _f('loss_weight_strategy', 'enum:LossWeightStrategy', 'Fixed'),
         _f('variational_dropout', 'msg:VariationalDropoutLayer'),
@@ -445,11 +464,178 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('learn_loss_weight', 'bool', False),
         _f('f1_reweighted_loss', 'msg:F1ReweighedLoss', oneof='loss_param'),
         _f('binary_focal_loss', 'msg:BinaryFocalLoss', oneof='loss_param'),
-        *_unported('loss_param', 'softmax_loss', 'circle_loss',
-                   'multi_simi_loss', 'pairwise_loss', 'pairwise_focal_loss',
+        _f('softmax_loss', 'msg:SoftmaxCrossEntropyWithNegativeMining',
+           oneof='loss_param'),
+        _f('circle_loss', 'msg:CircleLoss', oneof='loss_param'),
+        _f('multi_simi_loss', 'msg:MultiSimilarityLoss', oneof='loss_param'),
+        *_unported('loss_param', 'pairwise_loss', 'pairwise_focal_loss',
                    'pairwise_logistic_loss', 'jrc_loss',
                    'pairwise_hinge_loss', 'listwise_rank_loss',
                    'listwise_distill_loss', 'ziln_loss'),
+    ),
+    # knowledge distillation (BaseModel.kd_losses); its loss_param is read
+    # by no term the port (or the JAX package) computes but
+    # LISTWISE_DISTILL_LOSS's, which check_ported refuses
+    'KD': (
+        _f('loss_name', 'string', ''),
+        _f('pred_name', 'string', ''),
+        _f('pred_is_logits', 'bool', True),
+        _f('soft_label_name', 'string', ''),
+        _f('label_is_logits', 'bool', True),
+        _f('loss_type', 'enum:LossType', 'CLASSIFICATION'),
+        _f('loss_weight', 'float', 1.0),
+        _f('temperature', 'float', 1.0),
+        _f('task_space_indicator_name', 'string', ''),
+        _f('task_space_indicator_value', 'string', ''),
+        _f('in_task_space_weight', 'float', 1.0),
+        _f('out_task_space_weight', 'float', 1.0),
+        _f('f1_reweighted_loss', 'msg:F1ReweighedLoss', oneof='loss_param'),
+        _f('softmax_loss', 'msg:SoftmaxCrossEntropyWithNegativeMining',
+           oneof='loss_param'),
+        _f('circle_loss', 'msg:CircleLoss', oneof='loss_param'),
+        _f('multi_simi_loss', 'msg:MultiSimilarityLoss', oneof='loss_param'),
+        _f('binary_focal_loss', 'msg:BinaryFocalLoss', oneof='loss_param'),
+        *_unported('loss_param', 'pairwise_loss', 'pairwise_focal_loss',
+                   'pairwise_logistic_loss', 'jrc_loss',
+                   'pairwise_hinge_loss', 'listwise_rank_loss',
+                   'listwise_distill_loss'),
+    ),
+    'SoftmaxCrossEntropyWithNegativeMining': (
+        _f('num_negative_samples', 'int', 0),
+        _f('margin', 'float', 0.0),
+        _f('gamma', 'float', 1.0),
+        _f('coefficient_of_support_vector', 'float', 1.0),
+    ),
+    'CircleLoss': (
+        _f('margin', 'float', 0.25),
+        _f('gamma', 'float', 32.0),
+    ),
+    'MultiSimilarityLoss': (
+        _f('alpha', 'float', 2.0),
+        _f('beta', 'float', 50.0),
+        _f('lamb', 'float', 1.0),
+        _f('eps', 'float', 0.1),
+    ),
+    # the match family (models/match.py, models/match_extra.py)
+    'DSSMTower': (
+        _f('id', 'string', ''),
+        _f('dnn', 'msg:DNN'),
+    ),
+    'DSSM': (
+        _f('user_tower', 'msg:DSSMTower'),
+        _f('item_tower', 'msg:DSSMTower'),
+        _f('l2_regularization', 'float', 1e-4),
+        _f('simi_func', 'enum:Similarity', 'COSINE'),
+        _f('scale_simi', 'bool', True),
+        _f('item_id', 'string', ''),
+        _f('ignore_in_batch_neg_sam', 'bool', False),
+        _f('temperature', 'float', 1.0),
+    ),
+    'DSSM_SENet_Tower': (
+        _f('id', 'string', ''),
+        _f('senet', 'msg:SENet'),
+        _f('dnn', 'msg:DNN'),
+    ),
+    'DSSM_SENet': (
+        _f('user_tower', 'msg:DSSM_SENet_Tower'),
+        _f('item_tower', 'msg:DSSM_SENet_Tower'),
+        _f('l2_regularization', 'float', 1e-4),
+        _f('simi_func', 'enum:Similarity', 'COSINE'),
+        _f('scale_simi', 'bool', True),
+        _f('item_id', 'string', ''),
+        _f('ignore_in_batch_neg_sam', 'bool', False),
+        _f('temperature', 'float', 1.0),
+    ),
+    'DATTower': (
+        _f('id', 'string', ''),
+        _f('dnn', 'msg:DNN'),
+    ),
+    'DAT': (
+        _f('user_tower', 'msg:DATTower'),
+        _f('item_tower', 'msg:DATTower'),
+        _f('l2_regularization', 'float', 1e-4),
+        _f('simi_func', 'enum:Similarity', 'COSINE'),
+        _f('ignore_in_batch_neg_sam', 'bool', False),
+        _f('temperature', 'float', 1.0),
+        _f('amm_i_weight', 'float', 0.5),
+        _f('amm_u_weight', 'float', 0.5),
+    ),
+    # max_seq_len and scale_ratio are read by neither package's capsule
+    'Capsule': (
+        _f('max_k', 'int', 5),
+        _f('max_seq_len', 'int', 0),
+        _f('high_dim', 'int', 0),
+        _f('num_iters', 'int', 3),
+        _f('routing_logits_scale', 'float', 20.0),
+        _f('routing_logits_stddev', 'float', 1.0),
+        _f('squash_pow', 'float', 1.0),
+        _f('scale_ratio', 'float', 1.0),
+        _f('const_caps_num', 'bool', False),
+    ),
+    'MIND': (
+        _f('pre_capsule_dnn', 'msg:DNN'),
+        _f('user_dnn', 'msg:DNN'),
+        _f('concat_dnn', 'msg:DNN'),
+        _f('user_seq_combine', 'enum:UserSeqCombineMethod', 'SUM'),
+        _f('item_dnn', 'msg:DNN'),
+        _f('capsule_config', 'msg:Capsule'),
+        _f('simi_pow', 'float', 10.0),
+        _f('simi_func', 'enum:Similarity', 'COSINE'),
+        _f('scale_simi', 'bool', True),
+        _f('l2_regularization', 'float', 1e-4),
+        _f('time_id_fea', 'string', ''),
+        _f('item_id', 'string', ''),
+        _f('ignore_in_batch_neg_sam', 'bool', False),
+        _f('max_interests_simi', 'float', 1.0),
+    ),
+    'DropoutNet': (
+        _f('user_content', 'msg:DNN'),
+        _f('user_preference', 'msg:DNN'),
+        _f('item_content', 'msg:DNN'),
+        _f('item_preference', 'msg:DNN'),
+        _f('user_tower', 'msg:DNN'),
+        _f('item_tower', 'msg:DNN'),
+        _f('l2_regularization', 'float', 0.0),
+        _f('user_dropout_rate', 'float', 0.0),
+        _f('item_dropout_rate', 'float', 0.5),
+        _f('softmax_loss', 'msg:SoftmaxCrossEntropyWithNegativeMining'),
+    ),
+    'CoMetricLearningI2I': (
+        _f('session_id', 'string', ''),
+        _f('highway', 'msg:HighWayTower', rep=True),
+        _f('input', 'string', ''),
+        _f('dnn', 'msg:DNN'),
+        _f('l2_regularization', 'float', 1e-4),
+        _f('output_l2_normalized_emb', 'bool', True),
+        _f('sample_id', 'string', ''),
+        _f('circle_loss', 'msg:CircleLoss', oneof='loss'),
+        _f('multi_similarity_loss', 'msg:MultiSimilarityLoss', oneof='loss'),
+        _f('item_id', 'string', ''),
+    ),
+    'PDN': (
+        _f('user_dnn', 'msg:DNN'),
+        _f('item_dnn', 'msg:DNN'),
+        _f('u2i_dnn', 'msg:DNN'),
+        _f('trigger_dnn', 'msg:DNN'),
+        _f('i2i_dnn', 'msg:DNN'),
+        _f('sim_dnn', 'msg:DNN'),
+        _f('direct_user_dnn', 'msg:DNN'),
+        _f('direct_item_dnn', 'msg:DNN'),
+        _f('simi_func', 'enum:Similarity', 'COSINE'),
+        _f('scale_simi', 'bool', True),
+        _f('bias_dnn', 'msg:DNN'),
+        _f('item_id', 'string', ''),
+        _f('l2_regularization', 'float', 1e-6),
+    ),
+    'RecallTower': (
+        _f('dnn', 'msg:DNN'),
+    ),
+    'MultiTowerRecall': (
+        _f('user_tower', 'msg:RecallTower'),
+        _f('item_tower', 'msg:RecallTower'),
+        _f('l2_regularization', 'float', 1e-4),
+        _f('final_dnn', 'msg:DNN'),
+        _f('ignore_in_batch_neg_sam', 'bool', False),
     ),
     'F1ReweighedLoss': (
         _f('f1_beta_square', 'float', 1.0),
@@ -848,14 +1034,78 @@ MESSAGES: Dict[str, Tuple[FieldSpec, ...]] = {
         _f('ignore_error', 'bool', False),
         _f('sample_weight', 'string', ''),
         _f('with_header', 'bool', False),
-        *_unported('sampler', 'negative_sampler', 'negative_sampler_v2',
-                   'hard_negative_sampler', 'hard_negative_sampler_v2',
-                   'negative_sampler_in_memory'),
+        _f('negative_sampler', 'msg:NegativeSampler', oneof='sampler'),
+        _f('negative_sampler_v2', 'msg:NegativeSamplerV2', oneof='sampler'),
+        _f('hard_negative_sampler', 'msg:HardNegativeSampler',
+           oneof='sampler'),
+        _f('hard_negative_sampler_v2', 'msg:HardNegativeSamplerV2',
+           oneof='sampler'),
+        _f('negative_sampler_in_memory', 'msg:NegativeSamplerInMemory',
+           oneof='sampler'),
         _f('eval_batch_size', 'int', 4096),
         _f('drop_remainder', 'bool', False),
         _f('max_tag_len', 'int', 16),
         _f('file_shard', 'bool', False),
         _f('data_compression_type', 'string', ''),
+    ),
+    # the negative samplers (data/samplers.py); field_delimiter is read by
+    # neither package's loader (GraphLearn's tab-separated text)
+    'NegativeSampler': (
+        _f('input_path', 'string', ''),
+        _f('num_sample', 'int', 0),
+        _f('attr_fields', 'string', rep=True),
+        _f('item_id_field', 'string', ''),
+        _f('attr_delimiter', 'string', ':'),
+        _f('num_eval_sample', 'int', 0),
+        _f('field_delimiter', 'string', '\001'),
+    ),
+    'NegativeSamplerInMemory': (
+        _f('input_path', 'string', ''),
+        _f('num_sample', 'int', 0),
+        _f('attr_fields', 'string', rep=True),
+        _f('item_id_field', 'string', ''),
+        _f('attr_delimiter', 'string', ':'),
+        _f('num_eval_sample', 'int', 0),
+        _f('field_delimiter', 'string', '\001'),
+    ),
+    'NegativeSamplerV2': (
+        _f('user_input_path', 'string', ''),
+        _f('item_input_path', 'string', ''),
+        _f('pos_edge_input_path', 'string', ''),
+        _f('num_sample', 'int', 0),
+        _f('attr_fields', 'string', rep=True),
+        _f('item_id_field', 'string', ''),
+        _f('user_id_field', 'string', ''),
+        _f('attr_delimiter', 'string', ':'),
+        _f('num_eval_sample', 'int', 0),
+        _f('field_delimiter', 'string', '\001'),
+    ),
+    'HardNegativeSampler': (
+        _f('user_input_path', 'string', ''),
+        _f('item_input_path', 'string', ''),
+        _f('hard_neg_edge_input_path', 'string', ''),
+        _f('num_sample', 'int', 0),
+        _f('num_hard_sample', 'int', 0),
+        _f('attr_fields', 'string', rep=True),
+        _f('item_id_field', 'string', ''),
+        _f('user_id_field', 'string', ''),
+        _f('attr_delimiter', 'string', ':'),
+        _f('num_eval_sample', 'int', 0),
+        _f('field_delimiter', 'string', '\001'),
+    ),
+    'HardNegativeSamplerV2': (
+        _f('user_input_path', 'string', ''),
+        _f('item_input_path', 'string', ''),
+        _f('pos_edge_input_path', 'string', ''),
+        _f('hard_neg_edge_input_path', 'string', ''),
+        _f('num_sample', 'int', 0),
+        _f('num_hard_sample', 'int', 0),
+        _f('attr_fields', 'string', rep=True),
+        _f('item_id_field', 'string', ''),
+        _f('user_id_field', 'string', ''),
+        _f('attr_delimiter', 'string', ':'),
+        _f('num_eval_sample', 'int', 0),
+        _f('field_delimiter', 'string', '\001'),
     ),
     'Field': (
         _f('input_name', 'string', ''),

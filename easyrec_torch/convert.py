@@ -3,7 +3,8 @@
 The JAX side is given as numpy arrays (np.asarray of its leaves), so this
 module imports nothing of JAX:
   - flax `params` / `batch_stats` trees (nested dicts under the model's
-    flax root: 'inner' for a rank model, none for a multi-task model;
+    flax root: 'inner' for a rank model, none for a multi-task or a
+    match model;
     BaseModel.flax_root) <-> a torch state_dict: every `kernel` becomes
     `weight` with its axes reversed (a Dense [in, out] is nn.Linear's
     [out, in], a Conv [W, Cin, Cout] nn.Conv1d's [Cout, Cin, W], a
@@ -17,8 +18,10 @@ module imports nothing of JAX:
     [E, U], CrossNet's `w_<i>` [d, 1] and `b_<i>` [d], CIN's `w_<i>`,
     Bilinear's `w`, Dice's `alpha`, the numeric embeddings' `coef`,
     `linear_w`, `linear_b`, `meta_embedding`, `proj_w`, `proj_mat` and
-    `emb_carry<i>`, VariationalDropout's `logit_p` and an Embed's
-    `embedding`; a rank model's `loss_uncertainty`,
+    `emb_carry<i>`, VariationalDropout's `logit_p`, an Embed's
+    `embedding`, the capsule's `bilinear` [D, high_dim], a pointwise
+    two-tower model's `simi_scale` and `simi_bias` and PDN's
+    `direct_sim_w` and `direct_sim_b`; a rank model's `loss_uncertainty`,
     which flax keeps at the top of the tree beside `inner`, is the
     model's parameter of that name;
   - a packed table [G*8, W] of any optimizer (easyrec_tpu/ops/
@@ -58,7 +61,8 @@ _STAT_TO_FLAX = {v: k for k, v in _STAT_TO_TORCH.items()}
 # leaves that keep their flax name and layout (see the module docstring)
 _SAME_LEAF = re.compile(r'^([wb]_\d+|w|position_emb|global_bias|alpha|coef|'
                         r'linear_[wb]|meta_embedding|proj_w|proj_mat|'
-                        r'emb_carry\d+|logit_p|embedding)$')
+                        r'emb_carry\d+|logit_p|embedding|bilinear|'
+                        r'simi_scale|simi_bias|direct_sim_[wb])$')
 
 
 def _flatten(tree, prefix=()):
@@ -237,7 +241,7 @@ def jax_export_to_bundle(jax_export_dir: str, out_dir: str, params,
   from easyrec_torch.features import feature_spec as fs
   from easyrec_torch.models import base as model_base
   from easyrec_torch.models import (  # noqa: F401 (registers)
-      backbone_model, multi_task, rank)
+      backbone_model, match, match_extra, multi_task, rank)
   from easyrec_torch.utils.registry import MODELS
   config = config_util.get_configs_from_pipeline_file(
       os.path.join(jax_export_dir, sm.CONFIG_FILE))

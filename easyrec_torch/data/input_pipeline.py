@@ -2,18 +2,31 @@
 
 Counterpart of easyrec_tpu/data/input_pipeline.py for the readers the port
 runs: CSVReader (:101), TFRecordReader (:206-276) and DummyReader (:658),
-under the same InputPipeline (:685). Every batch has batch_size rows; a
-short tail is zero-padded with sample_weight 0. Samplers and streaming
-readers are not ported.
+under the same InputPipeline (:685), with the negative samplers spliced
+in (data/samplers.py; :757-766, :843-850, :872-905). Every batch has
+batch_size rows; a short tail is zero-padded with sample_weight 0.
+Streaming readers are not ported.
 
 Batches are flat dicts of numpy arrays:
   feat.<name>.ids / .weights / .dense : packed feature arrays
   label.<name>                        : float32 labels
   sample_weight                       : [B] f32 (0 on padding)
+  field.<name>                        : the extra fields (kd soft labels,
+                                        the metric-learning session ids):
+                                        floats, or strings hashed into
+                                        [0, 2^31) as int64
   raw.<name>                          : with raw_extra_fields, the
                                         extra fields' values as strings
                                         (host only; predict_csv's
                                         reserved_cols)
+  neg.feat.<name>.*                   : with a sampler, the item-side
+                                        features of its num_sample
+                                        negatives (num_eval_sample off
+                                        train; none in predict)
+  hard_neg.feat.<name>.*, hard_neg_mask : with a hard-negative sampler,
+                                        [B * H] rows of each user's hard
+                                        negatives and the [B, H] mask of
+                                        the real ones
 """
 
 from __future__ import annotations
@@ -26,8 +39,10 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from easyrec_torch.config import config_util
+from easyrec_torch.data import samplers as sampler_lib
 from easyrec_torch.features import feature_spec as fs
 from easyrec_torch.features import transforms as tr
+from easyrec_torch.ops.hashing import hash_strings
 from easyrec_torch.utils.registry import INPUTS
 
 
@@ -239,10 +254,11 @@ class InputPipeline:
   after the skip are permuted with other seeds than in the run that was
   cut, so a resumed stream equals the uninterrupted one only unshuffled.
   `shard_index` / `shard_num` pick this reader's share of the input
-  (CSVReader). With `raw_extra_fields`, the input fields `extra_fields`
-  pass through as raw.<name> strings; the JAX package's numeric
-  field.<name> columns feed metrics the port does not have, and are not
-  made.
+  (CSVReader). The input fields `extra_fields` ride along as numeric
+  field.<name> columns and, with `raw_extra_fields`, as raw.<name>
+  strings. A sampler (data_config's `sampler`; none in predict mode)
+  draws its negatives once a batch, after the batch is cut, from the
+  batch's raw item and user ids, as the JAX pipeline's _finalize does.
   """
 
   def __init__(self,
@@ -277,9 +293,20 @@ class InputPipeline:
     self.shuffle = data_config.shuffle and mode == 'train'
     self._seed = 17
     self.skip_rows = int(skip_rows)
-    self.extra_fields = [f for f in (extra_fields or [])
-                         if f in self.reader.field_names]
+    field_types = {f.input_name: f.input_type
+                   for f in data_config.input_fields}
+    self.extra_fields = [(f, field_types[f]) for f in (extra_fields or [])
+                         if f in field_types]
     self.raw_extra_fields = bool(raw_extra_fields)
+    self.sampler = sampler_lib.build(data_config, mode)
+    self._neg_transforms = []
+    if self.sampler is not None:
+      # the features whose inputs are all among the sampler's attrs
+      attr_set = set(self.sampler.attr_fields) | {self.sampler.item_id_field}
+      self._neg_transforms = tr.build_transforms({
+          name: spec for name, spec in self.specs.items()
+          if spec.config is not None and
+          all(n in attr_set for n in spec.config.input_names)})
 
   def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
     epoch = 0
@@ -298,12 +325,12 @@ class InputPipeline:
         carry = self._concat(carry, self._process_chunk(columns, epoch))
         n = carry['sample_weight'].shape[0]
         while n >= self.batch_size:
-          yield self._slice(carry, 0, self.batch_size)
+          yield self._finalize(self._slice(carry, 0, self.batch_size))
           carry = self._slice(carry, self.batch_size, n)
           n = carry['sample_weight'].shape[0]
       if carry is not None and carry['sample_weight'].shape[0] > 0 and \
           not self.drop_remainder:
-        yield self._pad(carry)
+        yield self._finalize(self._pad(carry))
         carry = None
       if self.num_epochs and epoch >= self.num_epochs:
         return
@@ -324,9 +351,21 @@ class InputPipeline:
       out['sample_weight'] = tr.to_float(columns[self.sample_weight_field])
     else:
       out['sample_weight'] = np.ones(n, dtype=np.float32)
-    if self.raw_extra_fields:
-      for fname in self.extra_fields:
+    for fname, ftype in self.extra_fields:
+      if self.raw_extra_fields:
         out['raw.%s' % fname] = tr.to_numpy_str(columns[fname])
+      if ftype == 'STRING':
+        out['field.%s' % fname] = hash_strings(
+            columns[fname], 1 << 31).astype(np.int64)
+      else:
+        out['field.%s' % fname] = tr.to_float(columns[fname])
+    if self.sampler is not None:
+      # raw ids ride along for the batch's exclusion and hard edges
+      out['_sid.item'] = tr.to_numpy_str(
+          columns[self.sampler.item_id_field])
+      user_field = getattr(self.sampler, 'user_id_field', None)
+      if user_field and user_field in columns:
+        out['_sid.user'] = tr.to_numpy_str(columns[user_field])
     if self.shuffle:
       rng = np.random.default_rng(self._seed * 1000003 + epoch)
       self._seed += 1
@@ -343,6 +382,25 @@ class InputPipeline:
   @staticmethod
   def _slice(arrays, lo, hi):
     return {k: v[lo:hi] for k, v in arrays.items()}
+
+  def _finalize(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Splice the sampler's negatives into the batch as neg.feat.* (and a
+    hard-negative sampler's as hard_neg.feat.* with hard_neg_mask)."""
+    if self.sampler is None:
+      return batch
+    item_ids = batch.pop('_sid.item', None)
+    user_ids = batch.pop('_sid.user', None)
+    cols = self.sampler.sample(batch_item_ids=item_ids,
+                               batch_user_ids=user_ids)
+    for k, v in tr.apply_transforms(self._neg_transforms, cols).items():
+      batch['neg.%s' % k] = v
+    if hasattr(self.sampler, 'sample_hard') and user_ids is not None:
+      hcols = self.sampler.sample_hard(user_ids)
+      hmask = hcols.pop('hard_neg_mask')
+      for k, v in tr.apply_transforms(self._neg_transforms, hcols).items():
+        batch['hard_neg.%s' % k] = v
+      batch['hard_neg_mask'] = hmask
+    return batch
 
   def _pad(self, arrays):
     pad = self.batch_size - arrays['sample_weight'].shape[0]

@@ -30,7 +30,7 @@ from easyrec_torch.features import feature_spec as fs
 from easyrec_torch.features import transforms as tr
 from easyrec_torch.models import base as model_base
 from easyrec_torch.models import (  # noqa: F401 (registers)
-    backbone_model, multi_task, rank)
+    backbone_model, match, match_extra, multi_task, rank)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 

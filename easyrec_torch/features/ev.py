@@ -144,29 +144,36 @@ def mask_pulled(pulled: Dict[str, torch.Tensor],
                 masked: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
   """Zero the pulled rows of id slots not admitted or stale (JAX
-  ev.py:137). The product is differentiated, so their gradients vanish and
-  the sparse update leaves their rows untouched. Only the base batch view
-  exists in the port (no samplers yet). `masked`, a device scalar, is
-  incremented by the number of slots zeroed (no host sync)."""
+  ev.py:137-172), in every batch view: the base batch and a sampler's
+  'neg.' and 'hard_neg.' views, so that a sampled negative of an id not
+  yet admitted leaks no gradient either. The product is differentiated,
+  so their gradients vanish and the sparse update leaves their rows
+  untouched. `masked`, a device scalar, is incremented by the number of
+  slots zeroed (no host sync)."""
   out = dict(pulled)
   for key, ev in plan.items():
-    if not ev.enabled or key not in pulled:
+    if not ev.enabled:
       continue
-    keep = keep_mask(packs[key], ev_state.get(key, {}), ev, step)
-    if keep is not None:
-      out[key] = pulled[key] * keep[..., None].to(pulled[key].dtype)
-      if masked is not None:
-        masked += (~keep).sum()
+    for view in (key, 'neg.' + key, 'hard_neg.' + key):
+      if view not in pulled:
+        continue
+      keep = keep_mask(packs[view], ev_state.get(key, {}), ev, step)
+      if keep is not None:
+        out[view] = pulled[view] * keep[..., None].to(pulled[view].dtype)
+        if masked is not None:
+          masked += (~keep).sum()
   return out
 
 
 def update_ev_state(ev_state: Dict[str, Dict[str, torch.Tensor]],
                     packs: Dict[str, torch.Tensor],
                     plan: Dict[str, TableEv], step: torch.Tensor) -> None:
-  """counts += occurrences; last_seen = step, for the ids of the batch,
-  in place (JAX ev.py:177): each aux table takes one sparse update with a
-  gradient of ones, EvAdd on ev_count and EvSet on ev_last. `step` is the
-  step before its increment."""
+  """counts += occurrences; last_seen = step, for the ids of the base
+  batch only, in place (JAX ev.py:177): a sampled negative is not an
+  occurrence, and a view's filler columns (id 0) would admit row 0. Each
+  aux table takes one sparse update with a gradient of ones, EvAdd on
+  ev_count and EvSet on ev_last. `step` is the step before its
+  increment."""
   for key, ev in plan.items():
     aux = ev_state.get(key)
     if not ev.enabled or not aux or key not in packs:

@@ -111,8 +111,9 @@ class DenseGeneral(nn.Module):
 
 
 class DinAttention(nn.Module):
-  """query [B, D], keys [B, L, D], mask [B, L] -> [B, D] (+ each aux
-  [B, L, Da] attended with the same weights, concatenated after it). The
+  """query [..., D], keys [..., L, D], mask [..., L] -> [..., D] (+ each
+  aux [..., L, Da] attended with the same weights, concatenated after
+  it). The
   score MLP over [q, h, q-h, q*h] is a plain DNN (no BatchNorm) whose last
   layer is linear, named att_dnn as in the flax tree; the normaliser is a
   softmax over the valid steps (zero weights where a row's mask is empty)
@@ -133,9 +134,10 @@ class DinAttention(nn.Module):
 
   def forward(self, query: torch.Tensor, keys: torch.Tensor,
               mask: torch.Tensor, aux=()) -> torch.Tensor:
-    q = query[:, None, :].expand_as(keys)
+    # extra leading dims ([B, N] of per-negative queries) broadcast
+    q = query[..., None, :].expand_as(keys)
     att_in = torch.cat([q, keys, q - keys, q * keys], dim=-1)
-    scores = self.att_dnn(att_in)[..., 0]                      # [B, L]
+    scores = self.att_dnn(att_in)[..., 0]                      # [..., L]
     if self.attention_normalizer == 'softmax':
       scores = torch.where(mask > 0, scores,
                            torch.full_like(scores, _NEG_INF))
@@ -143,9 +145,9 @@ class DinAttention(nn.Module):
       weights = weights * (mask.sum(dim=-1, keepdim=True) > 0)
     else:
       weights = torch.sigmoid(scores) * mask
-    out = torch.einsum('bl,bld->bd', weights, keys)
+    out = torch.einsum('...l,...ld->...d', weights, keys)
     if aux:
-      out = torch.cat([out] + [torch.einsum('bl,bld->bd', weights, a)
+      out = torch.cat([out] + [torch.einsum('...l,...ld->...d', weights, a)
                                for a in aux], dim=-1)
     return out
 

@@ -244,23 +244,25 @@ def has_dnn(msg, name: str) -> bool:
 
 
 class DNN(nn.Module):
-  """Config-driven dense stack (protos DNN semantics)."""
+  """Config-driven dense stack (protos DNN semantics). A two-tower
+  embedding head ends in a plain linear layer: use_final_activation and
+  use_final_bn off (JAX DNN, :66-71)."""
 
   def __init__(self, in_features: int, hidden_units: Sequence[int],
                activation: str = 'relu', use_bn: bool = True,
                dropout_ratio: Sequence[float] = (),
                use_final_activation: bool = True,
-               generator: Optional[torch.Generator] = None, device=None):
+               generator: Optional[torch.Generator] = None, device=None,
+               use_final_bn: bool = True):
     super().__init__()
     self.act = get_activation(activation)
     self.hidden_units = tuple(hidden_units)
-    self.use_bn = use_bn
     self.use_final_activation = use_final_activation
     last = len(self.hidden_units) - 1
     width = in_features
     for i, units in enumerate(self.hidden_units):
       self.add_module('dense_%d' % i, Dense(width, units, generator, device))
-      if use_bn:
+      if use_bn and (i < last or use_final_bn):
         self.add_module('bn_%d' % i, BatchNorm(units, device=device))
       if self.act is None and (i < last or use_final_activation):
         self.add_module('dice_%d' % i, Dice(units, device=device))
@@ -279,7 +281,7 @@ class DNN(nn.Module):
     last = len(self.hidden_units) - 1
     for i in range(last + 1):
       x = getattr(self, 'dense_%d' % i)(x)
-      if self.use_bn:
+      if hasattr(self, 'bn_%d' % i):
         x = getattr(self, 'bn_%d' % i)(x)
       if i < last or self.use_final_activation:
         x = self.act(x) if self.act is not None else \

@@ -2,11 +2,15 @@
 port runs: the rank models' sigmoid_cross_entropy (:24) and the task
 towers' softmax_cross_entropy (:34), l2_loss (:42), sigmoid_l2_loss (:47),
 binary_focal_loss (:51) with _ohem_mean (:84) and f1_reweighted_loss
-(:72), and loss_by_type, which picks one of them by a config's LossType.
-Per-sample weights (0 marks padded rows) reduce to a weighted mean."""
+(:72), and loss_by_type, which picks one of them by a config's LossType;
+and the match family's _log1p_sum_exp (:315), circle_loss (:325),
+multi_similarity_loss (:345) and softmax_loss_with_negative_mining
+(:361). Per-sample weights (0 marks padded rows) reduce to a weighted
+mean."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -119,3 +123,77 @@ def _ohem_mean(per: torch.Tensor, weights: torch.Tensor,
   n_keep = torch.ceil(valid.sum() * ohem_ratio)
   keep = sorted_valid * (torch.cumsum(sorted_valid, 0) <= n_keep)
   return (sorted_loss * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+
+
+def _log1p_sum_exp(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+  """log(1 + sum_i mask_i exp(logits_i)) per row, shifted by the row's
+  largest live logit (or 0) against overflow: gamma * ap reaches +126 at
+  gamma 32."""
+  live = mask > 0
+  masked = torch.where(live, logits, torch.full_like(logits, -math.inf))
+  m = torch.clamp(masked.amax(dim=1), min=0.0)
+  s = torch.exp(-m) + torch.where(live, torch.exp(masked - m[:, None]),
+                                  torch.zeros_like(logits)).sum(dim=1)
+  return m + torch.log(s)
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+  return x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True),
+                         min=1e-9)
+
+
+def _pair_masks(labels: torch.Tensor, dtype):
+  """(same group off the diagonal, other group) as [B, B] floats."""
+  same = labels[:, None] == labels[None, :]
+  eye = torch.eye(labels.shape[0], dtype=torch.bool, device=labels.device)
+  return (same & ~eye).to(dtype), (~same).to(dtype)
+
+
+def circle_loss(embeddings: torch.Tensor, labels: torch.Tensor,
+                weights: torch.Tensor, margin: float = 0.25,
+                gamma: float = 32.0) -> torch.Tensor:
+  """Circle loss over L2-normalised embeddings; labels are group ids."""
+  emb = _unit_rows(embeddings)
+  sim = emb @ emb.T
+  pos_mask, neg_mask = _pair_masks(labels, sim.dtype)
+  ap = torch.clamp(1 + margin - sim, min=0.0)
+  an = torch.clamp(sim + margin, min=0.0)
+  logit_p = -gamma * ap * (sim - (1 - margin))
+  logit_n = gamma * an * (sim - margin)
+  return weighted_mean(_log1p_sum_exp(logit_p, pos_mask) +
+                       _log1p_sum_exp(logit_n, neg_mask), weights)
+
+
+def multi_similarity_loss(embeddings: torch.Tensor, labels: torch.Tensor,
+                          weights: torch.Tensor, alpha: float = 2.0,
+                          beta: float = 50.0, lamb: float = 1.0,
+                          eps: float = 0.1) -> torch.Tensor:
+  """The multi-similarity loss (eps is read by neither package)."""
+  emb = _unit_rows(embeddings)
+  sim = emb @ emb.T
+  pos_mask, neg_mask = _pair_masks(labels, sim.dtype)
+  pos_term = _log1p_sum_exp(-alpha * (sim - lamb), pos_mask) / alpha
+  neg_term = _log1p_sum_exp(beta * (sim - lamb), neg_mask) / beta
+  return weighted_mean(pos_term + neg_term, weights)
+
+
+def softmax_loss_with_negative_mining(user_emb: torch.Tensor,
+                                      item_emb: torch.Tensor,
+                                      labels: torch.Tensor,
+                                      weights: torch.Tensor,
+                                      num_negative_samples: int = 4,
+                                      margin: float = 0.0,
+                                      gamma: float = 1.0,
+                                      coef: float = 1.0) -> torch.Tensor:
+  """Support-vector softmax over in-batch negatives: row i's k-th
+  negative is the item of row i - k - 1 (a roll, no draw); the positive
+  column is shifted by -margin, every column scaled by gamma."""
+  u, v = _unit_rows(user_emb), _unit_rows(item_emb)
+  pos = torch.sum(u * v, dim=1, keepdim=True)
+  negs = [torch.sum(u * torch.roll(v, k + 1, dims=0), dim=1, keepdim=True)
+          for k in range(num_negative_samples)]
+  logits = torch.cat([pos - margin] + negs, dim=1) * gamma
+  lbl = labels.to(logits.dtype)
+  per = -torch.log_softmax(logits, dim=-1)[:, 0] * lbl
+  w = weights.to(logits.dtype) * lbl
+  return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1e-9) * coef

@@ -1,15 +1,15 @@
-"""Backbone-driven models: model_class 'RankModel' and 'MultiTaskModel'
-with a `backbone` block DAG and `model_params`.
+"""Backbone-driven models: model_class 'RankModel', 'MatchModel' and
+'MultiTaskModel' with a `backbone` block DAG and `model_params`.
 
 Counterpart of easyrec_tpu/models/backbone_model.py: _as_tensor (:28-32),
-the rank wrapper (:35-58) and the multi-task wrapper (:103-157). The
-MatchModel wrapper (:61-100) waits for the match family.
+the rank wrapper (:35-58), the match wrapper (:61-100) and the multi-task
+wrapper (:103-157).
 
 The JAX wrappers' parameters: a rank model's backbone under `inner`
 (`inner/backbone/...`, then `inner/logits`, which it skips when the
-backbone already gives the logit's one column); a multi-task model's at
-the root (`backbone/...`, then per tower `<tower>_dnn`,
-`<tower>_relation_dnn` and `<tower>_logits`). The models here hold the
+backbone already gives the logit's one column); a match model's and a
+multi-task model's at the root (`backbone/...`; then per task tower
+`<tower>_dnn`, `<tower>_relation_dnn` and `<tower>_logits`). The models here hold the
 same modules under the same names, made by the build pass (`build`) that
 their constructor runs (models/backbone.py).
 """
@@ -24,6 +24,7 @@ from easyrec_torch.layers.dnn import DNN, Dense, has_dnn
 from easyrec_torch.models import backbone as bb
 from easyrec_torch.models.base import (ModelContext, RankModel,
                                        register_model)
+from easyrec_torch.models.match import MatchModel
 from easyrec_torch.models.multi_task import MultiTaskModel
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.utils.synthetic import synthetic_batch
@@ -85,6 +86,39 @@ class BackboneRankModel(RankModel):
       x = bb.lazy_child(self, self.state, 'logits', lambda: Dense(
           x.shape[-1], 1, **self.state.kw))(x)
     return {'raw_logits': x, 'aux_losses': _aux_losses(self.state)}
+
+
+@register_model('MatchModel')
+class BackboneMatchModel(MatchModel):
+  """The backbone's output blocks at user_tower_idx_in_output and
+  item_tower_idx_in_output of model_params are the two towers; a
+  pointwise model's logit is their similarity (cosine or inner product)
+  over the temperature (no scale_simi, as the JAX wrapper)."""
+
+  def __init__(self, ctx: ModelContext, generator=None, device=None):
+    super().__init__(ctx)
+    self.state = bb.BuildState(generator)
+    self.backbone = bb.BackboneModule(ctx, ctx.model_config.backbone,
+                                      self.state, 'backbone')
+    build(self, self.state, device)
+
+  def simi_cfg(self):
+    return self.config.model_params
+
+  def forward(self, batch, pulled) -> Dict[str, object]:
+    self.state.sink.clear()
+    mp = self.config.model_params
+    out = self.backbone(batch, pulled)
+    if not isinstance(out, (list, tuple)):
+      raise ValueError('MatchModel backbone must declare output_blocks '
+                       'for the user and item towers')
+    result = {'user_tower_emb': out[int(mp.user_tower_idx_in_output)],
+              'item_tower_emb': out[int(mp.item_tower_idx_in_output)]}
+    if not self.is_listwise:
+      self.pointwise(result, result['user_tower_emb'],
+                     result['item_tower_emb'], False)
+    result['aux_losses'] = _aux_losses(self.state)
+    return result
 
 
 @register_model('MultiTaskModel')

@@ -5,8 +5,9 @@ build_context (:94), BaseModel (:125), RankModel (:160) with its
 classification prediction, the model-level loss terms (_single_loss
 :214-299 for the ported types, in losses.loss_by_type; _loss_configs
 :325-339; build_loss :399-439 with the Uncertainty weighting) and
-export_outputs (:449), and the _WithPrediction wrapper of models/rank.py
-(:416-440), folded into RankModel.forward with its `loss_uncertainty`
+export_outputs (:449), the knowledge-distillation terms (_kd_losses,
+:341-396, BaseModel.kd_losses here), and the _WithPrediction wrapper of
+models/rank.py (:416-440), folded into RankModel.forward with its `loss_uncertainty`
 parameter. A model's forward returns a dict of outputs; a rank model's
 are `logits` and `probs`, a multi-task model's (models/multi_task.py)
 `logits_<tower>` and `probs_<tower>`, and the trainer, export and serving
@@ -140,6 +141,74 @@ class BaseModel(nn.Module):
     """The outputs an export serves."""
     raise NotImplementedError
 
+  def kd_losses(self, outputs, batch) -> Dict[str, Tuple[torch.Tensor,
+                                                          float]]:
+    """{name: (value, weight)} of the model's kd terms (JAX RankModel
+    ._kd_losses): the student's prediction `pred_name` (else `logits`)
+    against the teacher's soft label field.<soft_label_name> (else
+    label.<...>), both as logits (a probability turned into one unless
+    *_is_logits), at the temperature t: the binary KL divergence of the
+    t-softened probabilities times t^2, the L2 loss of the raw values, or
+    (any other type) the sigmoid cross entropy of pred / t against the
+    softened teacher times t^2. A task-space indicator field weighs rows
+    in and out of the space. LISTWISE_DISTILL_LOSS is refused by
+    check_ported."""
+    out = {}
+    weights = batch['sample_weight']
+    for i, kd in enumerate(self.config.kd):
+      pred = outputs.get(kd.pred_name) if kd.pred_name else None
+      if pred is None:
+        pred = outputs['logits']
+      soft_key = 'field.%s' % kd.soft_label_name
+      if soft_key not in batch:
+        soft_key = 'label.%s' % kd.soft_label_name
+      soft = batch[soft_key]
+      w = weights
+      if kd.task_space_indicator_name:
+        ind_key = 'field.%s' % kd.task_space_indicator_name
+        if ind_key in batch:
+          try:
+            thr = float(kd.task_space_indicator_value)
+          except ValueError:
+            thr = 0.0
+          in_space = (batch[ind_key] > thr).to(torch.float32)
+          w = w * (kd.in_task_space_weight * in_space +
+                   kd.out_task_space_weight * (1.0 - in_space))
+      t = float(kd.temperature) or 1.0
+      pred_l = pred if kd.pred_is_logits else _logit(pred)
+      soft_l = soft if kd.label_is_logits else _logit(soft)
+      if kd.loss_type == 'KL_DIVERGENCE_LOSS':
+        p = torch.sigmoid(soft_l / t)
+        q = torch.sigmoid(pred_l / t)
+        kl = p * (_log_clip(p) - _log_clip(q)) + \
+            (1 - p) * (_log_clip(1 - p) - _log_clip(1 - q))
+        value = torch.sum(kl * w) / torch.clamp(torch.sum(w), min=1e-9) \
+            * t * t
+      elif kd.loss_type == 'L2_LOSS':
+        value = L.l2_loss(soft, pred, w)
+      else:
+        value = L.sigmoid_cross_entropy(torch.sigmoid(soft_l / t),
+                                        pred_l / t, w) * t * t
+      out[kd.loss_name or 'kd_loss_%d' % i] = (
+          value, float(kd.loss_weight) or 1.0)
+    return out
+
+  def add_kd(self, total, losses, outputs, batch):
+    """total + weight x each kd term, the terms logged by name."""
+    for name, (value, w) in self.kd_losses(outputs, batch).items():
+      losses[name] = value
+      total = total + w * value
+    return total, losses
+
+
+def _logit(p: torch.Tensor) -> torch.Tensor:
+  p = torch.clamp(p, 1e-9, 1.0 - 1e-9)
+  return torch.log(p) - torch.log1p(-p)
+
+
+def _log_clip(p: torch.Tensor) -> torch.Tensor:
+  return torch.log(torch.clamp(p, 1e-9, 1.0))
+
 
 class RankModel(BaseModel):
   """Binary classification ranking base: subclasses compute raw logits
@@ -154,7 +223,7 @@ class RankModel(BaseModel):
   def __init__(self, ctx: ModelContext, device=None):
     super().__init__(ctx)
     cfg = self.config
-    n_terms = max(len(cfg.losses), 1)       # kd is not ported
+    n_terms = max(len(cfg.losses), 1) + len(cfg.kd)
     if n_terms > 1 and cfg.loss_weight_strategy == 'Uncertainty':
       self.loss_uncertainty = nn.Parameter(torch.zeros(n_terms,
                                                        device=device))
@@ -207,6 +276,9 @@ class RankModel(BaseModel):
                              outputs['logits'], weights)
       losses[cfg['name']] = value
       terms.append((value, cfg))
+    for name, (value, w) in self.kd_losses(outputs, batch).items():
+      losses[name] = value
+      terms.append((value, {'type': None, 'weight': w, 'learn': False}))
     u = outputs.get('uncertainty_w')
     if u is None:
       return sum(cfg['weight'] * v for v, cfg in terms), losses
@@ -223,6 +295,7 @@ class RankModel(BaseModel):
   def metric_inputs(self, outputs, batch) -> Dict[str, torch.Tensor]:
     return {'labels': batch['label.%s' % self.label_name],
             'probs': outputs['probs'],
+            'preds': outputs.get('y', outputs['probs']),
             'weights': batch['sample_weight']}
 
   def export_outputs(self, outputs) -> Dict[str, torch.Tensor]:

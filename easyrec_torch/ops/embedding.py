@@ -1,8 +1,10 @@
 """Embedding ops: id packing, fused gather, combiners, input-layer assembly.
 
 Counterpart of easyrec_tpu/ops/embedding.py (single device): `pack_ids`
-(:21), `pull_embeddings` (:56), `combine` (:241) and `InputLayer`
-(:268-422) without its sampled-negative views. A sequence in a flat
+(:21), `pull_embeddings` (:56), `pack_all_views` (:230), `combine` (:241)
+and `InputLayer` (:268-422). A sampler's batch views ('neg.', 'hard_neg.')
+are packed under '<prefix><table>' and read through the InputLayer's
+`prefix`. A sequence in a flat
 feature group is reduced by its SequenceCombiner (`_combine_sequence`,
 :361): the masked mean, or an attention, multi-head attention or TextCNN
 whose parameters flax creates inside the calling model; here the model
@@ -23,28 +25,69 @@ from easyrec_torch.features.embedding_layout import EmbeddingLayout
 from easyrec_torch.ops import packed_table as pt
 
 
-def pack_ids(layout: EmbeddingLayout,
-             batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def pack_ids(layout: EmbeddingLayout, batch: Dict[str, torch.Tensor],
+             prefix: str = '') -> Dict[str, torch.Tensor]:
   """Concatenate every feature's ids (+ its table's row offset) into one
-  [B, totK] int64 pack per fused table."""
+  [B, totK] int64 pack per fused table.
+
+  With a prefix (a sampler's 'neg.' or 'hard_neg.' view, which carries the
+  item-side features only), a feature absent from the view fills its
+  columns with id 0, row 0 of the fused table, without its offset, as the
+  JAX package does; a table none of whose features is in the view has no
+  pack."""
   packs = {}
   for key, table in layout.tables.items():
-    cols = []
+    cols, rows, missing = [], None, []
     for use in table.uses:
-      bkey = 'feat.%s.ids' % use.feature
-      if bkey not in batch:
+      bkey = '%sfeat.%s.ids' % (prefix, use.feature)
+      if bkey in batch:
+        rows, device = batch[bkey].shape[0], batch[bkey].device
+        cols.append(batch[bkey].to(torch.int64) + use.offset)
+      elif prefix:
+        cols.append(use.k)
+        missing.append(len(cols) - 1)
+      else:
         raise KeyError('batch is missing %s' % bkey)
-      cols.append(batch[bkey].to(torch.int64) + use.offset)
+    if rows is None:
+      continue
+    for i in missing:
+      cols[i] = torch.zeros((rows, cols[i]), dtype=torch.int64,
+                            device=device)
     packs[key] = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
   return packs
+
+
+VIEWS = ('neg.', 'hard_neg.')
+
+
+def pack_all_views(layout: EmbeddingLayout,
+                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+  """The base batch's packs, then each sampled view's present in the
+  batch, under '<view><table>'."""
+  packs = pack_ids(layout, batch)
+  for pfx in VIEWS:
+    if any(k.startswith(pfx + 'feat.') for k in batch):
+      packs.update({pfx + k: v for k, v in
+                    pack_ids(layout, batch, prefix=pfx).items()})
+  return packs
+
+
+def view_table(pack_key: str) -> str:
+  """The table of a pack key ('neg.<table>' -> '<table>')."""
+  for pfx in VIEWS:
+    if pack_key.startswith(pfx):
+      return pack_key[len(pfx):]
+  return pack_key
 
 
 def pull_embeddings(tables: Dict[str, torch.Tensor],
                     packs: Dict[str, torch.Tensor],
                     metas: Dict[str, pt.TableMeta]
                     ) -> Dict[str, torch.Tensor]:
-  """One gather per fused table -> [B, totK, dim]."""
-  return {key: pt.pull(tables[key], packs[key], metas[key])
+  """One gather per pack (a table's, or a sampled view's of it) ->
+  [rows, totK, dim]."""
+  return {key: pt.pull(tables[view_table(key)], packs[key],
+                       metas[view_table(key)])
           for key in packs}
 
 
@@ -90,47 +133,61 @@ class InputLayer:
     self.specs = specs
 
   def feature_embedding(self, pulled, batch, fname: str,
-                        role: str = 'deep') -> torch.Tensor:
-    """[B, dim] combined embedding of one categorical feature."""
+                        role: str = 'deep', prefix: str = ''
+                        ) -> torch.Tensor:
+    """[B, dim] combined embedding of one categorical feature, of the
+    base batch or of the sampled view `prefix`."""
     spec = self.specs[fname]
     key, use = self.layout.feature_use[(fname, role)]
-    rows = pulled[key][:, use.start:use.start + use.k]
+    wkey = '%sfeat.%s.weights' % (prefix, fname)
+    if prefix and wkey not in batch:
+      raise KeyError(
+          'feature %r is used by a sampled-negative tower but is not in '
+          'the batch view %r: add its input column to the sampler\'s '
+          'attr_fields' % (fname, prefix))
+    rows = pulled[prefix + key][:, use.start:use.start + use.k]
     if use.col_dim:
       # merged wide-into-deep table: this role reads a column slice
       rows = rows[..., use.col_start:use.col_start + use.col_dim]
     combiner = spec.combiner if role == 'deep' else 'sum'
-    return combine(rows, batch['feat.%s.weights' % fname], combiner)
+    return combine(rows, batch[wkey], combiner)
 
-  def sequence_embedding(self, pulled, batch, fname: str):
+  def sequence_embedding(self, pulled, batch, fname: str,
+                         prefix: str = ''):
     """([B, L, dim] rows x mask, mask [B, L]) of one id sequence, or the
     [B, L, N] values x mask of a numeric one."""
     spec = self.specs[fname]
-    mask = batch['feat.%s.mask' % fname]
+    mkey = '%sfeat.%s.mask' % (prefix, fname)
+    if prefix and mkey not in batch:
+      raise KeyError('sequence feature %r has no %r view in the batch'
+                     % (fname, prefix))
+    mask = batch[mkey]
     if spec.seq_is_dense:
-      return batch[spec.dense_key] * mask[:, :, None], mask
+      return batch[prefix + spec.dense_key] * mask[:, :, None], mask
     key, use = self.layout.feature_use[(fname, 'deep')]
-    rows = pulled[key][:, use.start:use.start + use.k]
+    rows = pulled[prefix + key][:, use.start:use.start + use.k]
     if use.col_dim:
       rows = rows[..., use.col_start:use.col_start + use.col_dim]
     return rows * mask[:, :, None], mask
 
-  def dense_feature(self, batch, fname: str) -> torch.Tensor:
-    return batch['feat.%s.dense' % fname]
+  def dense_feature(self, batch, fname: str, prefix: str = ''
+                    ) -> torch.Tensor:
+    return batch['%sfeat.%s.dense' % (prefix, fname)]
 
   def group_embeddings(self, pulled, batch, feature_names,
-                       role: str = 'deep', owner=None):
+                       role: str = 'deep', owner=None, prefix: str = ''):
     """Per-feature [B, d_f] tensors of a group (dense features pass; a
     sequence is reduced by its combiner, held by `owner`)."""
     outs = []
     for f in feature_names:
       kind = self.specs[f].kind
       if kind == 'dense':
-        outs.append(self.dense_feature(batch, f))
+        outs.append(self.dense_feature(batch, f, prefix))
       elif kind == 'sequence':
-        seq, mask = self.sequence_embedding(pulled, batch, f)
+        seq, mask = self.sequence_embedding(pulled, batch, f, prefix)
         outs.append(self.combine_sequence(owner, f, seq, mask))
       else:
-        outs.append(self.feature_embedding(pulled, batch, f, role))
+        outs.append(self.feature_embedding(pulled, batch, f, role, prefix))
     return outs
 
   def combine_sequence(self, owner, fname: str, seq: torch.Tensor,
@@ -156,9 +213,11 @@ class InputLayer:
     return seq.sum(dim=1) / denom
 
   def group_concat(self, pulled, batch, feature_names,
-                   role: str = 'deep', owner=None) -> torch.Tensor:
+                   role: str = 'deep', owner=None, prefix: str = ''
+                   ) -> torch.Tensor:
     """[B, sum(d_f)] concatenation of a feature group."""
-    outs = self.group_embeddings(pulled, batch, feature_names, role, owner)
+    outs = self.group_embeddings(pulled, batch, feature_names, role, owner,
+                                 prefix)
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
   def group_stack(self, pulled, batch, feature_names,

@@ -1,7 +1,8 @@
 """Where the time of a benchmark model's train step goes, on the GPU.
 
     python -m easyrec_torch.tools.profile_step
-        [--model deepfm|deepfm_adagrad|dlrm|dlrm_backbone|din|bst|mmoe]
+        [--model deepfm|deepfm_adagrad|dlrm|dlrm_backbone|din|bst|mmoe|dssm]
+        [--data_dir DIR]  (dssm: write_dssm_data's files)
         [--steps 10]
         [--top 25]
 
@@ -13,8 +14,12 @@ Taobao DIN
 (EASYREC_PACKED_FUSED=1, K3), of the Taobao BST (K1 + K2; its attention
 under EASYREC_ATTN_IMPL, default vpu_bf16) or of the Taobao MMoE (K1 +
 K2; two labels, four experts, two towers), all from
-easyrec_torch/utils/flagship.py, on the card at batch 4096, warms it up
-for 5 steps on pre-built synthetic batches already on the device, then
+easyrec_torch/utils/flagship.py, on the card at batch 4096, or of the
+DSSM of samples/dssm_neg_sampler.config (K1 + K2 over the base batch's
+and the neg. view's ids; batch 1,024 and 1,024 sampled negatives, on a
+--data_dir of chip_smoke.py's write_dssm_data), warms it up for 5 steps
+on pre-built batches already on the device (synthetic; the DSSM's from
+its input pipeline, the sampler's views in them), then
 runs --steps steps without and then under torch.profiler and prints, with
 the card's name and power limit:
   - wall time per step without the profiler (ends in
@@ -46,7 +51,8 @@ MODELS = {'deepfm': ('criteo_deepfm_config', '0', 'flagship DeepFM'),
                             'Criteo DLRM, backbone DSL'),
           'din': ('taobao_din_config', '1', 'Taobao DIN'),
           'bst': ('taobao_bst_config', '0', 'Taobao BST'),
-          'mmoe': ('taobao_mmoe_config', '0', 'Taobao MMoE')}
+          'mmoe': ('taobao_mmoe_config', '0', 'Taobao MMoE'),
+          'dssm': ('dssm_neg_sampler_config', '0', 'DSSM (dssm_neg_sampler)')}
 
 
 def _device_us(evt) -> float:
@@ -60,6 +66,8 @@ def _device_us(evt) -> float:
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   ap.add_argument('--model', choices=sorted(MODELS), default='deepfm')
+  ap.add_argument('--data_dir', default='',
+                  help='train.csv, eval.csv and items.txt of --model dssm')
   ap.add_argument('--steps', type=int, default=10)
   ap.add_argument('--top', type=int, default=25)
   args = ap.parse_args(argv)
@@ -83,13 +91,23 @@ def main(argv=None) -> int:
   dev = torch.device('cuda')
   config_fn, fused, what = MODELS[args.model]
   os.environ['EASYREC_PACKED_FUSED'] = fused
-  trainer = Trainer(getattr(flagship, config_fn)(), device='cuda')
+  if args.model == 'dssm':
+    if not args.data_dir:
+      ap.error('--model dssm reads --data_dir')
+    cfg = flagship.dssm_neg_sampler_config(args.data_dir)
+  else:
+    cfg = getattr(flagship, config_fn)()
+  trainer = Trainer(cfg, device='cuda')
   trainer.init_state()
   bs = int(trainer.data_config.batch_size)
   labels = list(trainer.ctx.label_fields)
-  batches = [to_device(synthetic_batch(trainer.specs, labels,
-                                       bs, seed=i), dev)
-             for i in range(4)]
+  if args.model == 'dssm':
+    batches = [to_device(b, dev) for _, b in zip(range(4),
+                                                 trainer.train_input())]
+  else:
+    batches = [to_device(synthetic_batch(trainer.specs, labels,
+                                         bs, seed=i), dev)
+               for i in range(4)]
   for i in range(WARMUP_STEPS):
     trainer.train_step(batches[i % len(batches)])
   torch.cuda.synchronize()

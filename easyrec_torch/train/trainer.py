@@ -9,13 +9,18 @@ checkpoints and hooks) on one device. A step:
      that EV admission or TTL keeps out (features/ev.py, from the counters
      as they were before this batch) and runs the forward;
   3. builds the loss: the model loss, l2 over the dense kernels, and the
-     embedding regulariser over the pulled rows masked by sample_weight;
+     embedding regulariser over the pulled rows, the base batch's masked
+     by sample_weight and a sampler's views unmasked (JAX :336-346);
   4. runs backward();
   5. runs the dense optimizer at the schedule's rate for this step, after
      clip_by_global_norm where gradient_clipping_by_norm is set;
   6. runs the sparse update of each table (ops/packed_table.py) with the
      embedding optimizer's block math: kernels K1 and K2, or the fused
-     kernel K3 under EASYREC_PACKED_FUSED=1;
+     kernel K3 under EASYREC_PACKED_FUSED=1, once over the ids and row
+     gradients of the base batch and of a sampler's 'neg.' and
+     'hard_neg.' views concatenated in that order (JAX optim/sparse.py
+     :312-320), so a sampled item and its positive occurrences share one
+     segment;
   7. with ev_params, counts the batch's ids and stamps their step into the
      EV aux tables through the same update (block maths ev_add, ev_set).
 Eval and export run the model in eval mode on eval_params(): the dense
@@ -50,7 +55,7 @@ from easyrec_torch.layers import dnn
 from easyrec_torch.metrics import metrics as metrics_lib
 from easyrec_torch.models import base as model_base
 from easyrec_torch.models import (  # noqa: F401 (registers)
-    backbone_model, multi_task, rank)
+    backbone_model, match, match_extra, multi_task, rank)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.optim import builder as opt_builder
@@ -88,6 +93,23 @@ def _model_l2_reg(model_config) -> float:
   if schema.has_field(sub.type_name, 'l2_regularization'):
     return float(sub.l2_regularization)
   return 0.0
+
+
+def view_stream(packs: Dict[str, torch.Tensor],
+                pulled: Dict[str, torch.Tensor], key: str):
+  """(ids [N], row gradients [N, dim]) of table `key`: its base pack's,
+  then its 'neg.' and 'hard_neg.' views', concatenated (a view the model
+  did not read has zero gradients, as in the JAX package's step)."""
+  ids, grads = [], []
+  for view in (key,) + tuple(v + key for v in emb_ops.VIEWS):
+    if view in packs:
+      p = pulled[view]
+      ids.append(packs[view].reshape(-1))
+      g = p.grad if p.grad is not None else torch.zeros_like(p)
+      grads.append(g.reshape(-1, p.shape[-1]))
+  if len(ids) == 1:
+    return ids[0], grads[0]
+  return torch.cat(ids), torch.cat(grads)
 
 
 def to_device(batch: Dict[str, np.ndarray],
@@ -206,12 +228,16 @@ class Trainer:
     if l2 is not None:
       total = total + self.l2_reg * l2
     if self.emb_reg > 0:
-      # padded tail rows (sample_weight 0) stay out of the regulariser
+      # padded tail rows (sample_weight 0) stay out of the regulariser; a
+      # sampler's views have none and count whole, filler columns too
       valid = (batch['sample_weight'] > 0).to(torch.float32)
       reg = None
-      for p in pulled.values():
+      for k, p in pulled.items():
         sq = torch.sum(p * p, dim=tuple(range(1, p.ndim)))
-        term = torch.sum(sq * valid)
+        if emb_ops.view_table(k) == k and p.shape[0] == valid.shape[0]:
+          term = torch.sum(sq * valid)
+        else:
+          term = torch.sum(sq)
         reg = term if reg is None else reg + term
       total = total + self.emb_reg * reg
     return total, loss_dict
@@ -219,7 +245,7 @@ class Trainer:
   def train_step(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
     """One step on a batch of device tensors; returns device scalars."""
-    packs = emb_ops.pack_ids(self.layout, batch)
+    packs = emb_ops.pack_all_views(self.layout, batch)
     pulled = {k: v.requires_grad_() for k, v in
               emb_ops.pull_embeddings(self.tables, packs, self.metas).items()}
     used = ev_lib.mask_pulled(pulled, packs, self.ev_state, self.ev_plan,
@@ -238,8 +264,9 @@ class Trainer:
       sparse = self.embed_pair.sparse
       hypers = sparse.hypers(lr, self.step)
       for key, meta in self.metas.items():
-        pt.apply_packed_update(self.tables[key], packs[key],
-                               pulled[key].grad, hypers, sparse, meta)
+        ids, grads = view_stream(packs, pulled, key)
+        pt.apply_packed_update(self.tables[key], ids, grads, hypers,
+                               sparse, meta)
       if self.ev_plan:
         ev_lib.update_ev_state(self.ev_state, packs, self.ev_plan,
                                self.step)
@@ -256,13 +283,17 @@ class Trainer:
                          config_util.get_train_input_path(
                              self.pipeline_config),
                          mode='train', batch_size=batch_size,
-                         skip_rows=skip_rows)
+                         skip_rows=skip_rows,
+                         extra_fields=config_util.collect_extra_fields(
+                             self.pipeline_config))
 
   def eval_input(self, batch_size=None) -> InputPipeline:
     return InputPipeline(self.data_config, self.feature_configs,
                          config_util.get_eval_input_path(
                              self.pipeline_config),
-                         mode='eval', batch_size=batch_size)
+                         mode='eval', batch_size=batch_size,
+                         extra_fields=config_util.collect_extra_fields(
+                             self.pipeline_config))
 
   # -- evaluation ----------------------------------------------------------
 
@@ -289,13 +320,15 @@ class Trainer:
     """One eval batch: the headline metrics' states, and each task's AUC
     state `auc_task_<name>` where the task's probs are one per row (JAX
     trainer.py:439-450); returns the loss."""
-    packs = emb_ops.pack_ids(self.layout, batch)
+    packs = emb_ops.pack_all_views(self.layout, batch)
     pulled = emb_ops.pull_embeddings(self.tables, packs, self.metas)
     outputs = self.eval_forward(batch, pulled)
     loss, _ = self.model.build_loss(outputs, batch)
     mi = self.model.metric_inputs(outputs, batch)
     self.metrics.update_states(metric_states, mi['labels'], mi['probs'],
-                               mi['weights'])
+                               mi['weights'], preds=mi.get('preds',
+                                                           mi['probs']),
+                               extra=mi)
     for name, tmi in self.model.metric_inputs_per_task(outputs,
                                                        batch).items():
       key = 'auc_task_%s' % name

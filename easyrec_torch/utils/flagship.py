@@ -34,11 +34,19 @@ Counterpart of easyrec_tpu/utils/flagship.py:
     `all` (the sequences through their default sum combiner: 288 wide), 4
     experts of [256, 192, 128, 64], towers ctr (clk) and cvr (buy) of
     [256, 192, 128, 64].
+  - dssm_neg_sampler_config: samples/dssm_neg_sampler.config (two
+    towers [256, 128, 64] at dim 16, uid and iid of 1,000,000 buckets,
+    batch 1,024 with 1,024 negatives a step drawn from items.txt) at its
+    published widths on a data directory's train.csv, eval.csv and
+    items.txt (chip_smoke.py's write_dssm_data makes them).
 """
 
 from __future__ import annotations
 
-from easyrec_torch.config.config_util import get_configs_from_pipeline_str
+import os
+
+from easyrec_torch.config.config_util import (
+    get_configs_from_pipeline_file, get_configs_from_pipeline_str)
 from easyrec_torch.config.text_format import parse
 
 
@@ -432,3 +440,20 @@ def taobao_mmoe_config(batch_size: int = 4096, seq_len: int = 50,
   }""" % '\n    '.join('feature_names: "%s"' % f for f in all_feats)
   return _taobao_pipeline(model, ['clk', 'buy'], batch_size, seq_len,
                           embedding_dim, model_dir)
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def dssm_neg_sampler_config(data_dir: str, model_dir: str = ''):
+  """samples/dssm_neg_sampler.config as published, reading train.csv,
+  eval.csv and items.txt of `data_dir`."""
+  cfg = get_configs_from_pipeline_file(
+      os.path.join(_REPO, 'samples', 'dssm_neg_sampler.config'))
+  cfg.train_input_path = os.path.join(data_dir, 'train.csv')
+  cfg.eval_input_path = os.path.join(data_dir, 'eval.csv')
+  cfg.data_config.negative_sampler.input_path = os.path.join(data_dir,
+                                                             'items.txt')
+  cfg.model_dir = model_dir
+  return cfg

@@ -178,17 +178,19 @@ def test_edited_floats_write_the_same_float32(value):
 def test_opaque_fields_are_written_token_for_token():
   """An unported field keeps its tokens, so its JAX parse is unchanged;
   two spellings of one value compare equal."""
+  # (Uniter, a message the port does not run; the match family's DSSM
+  # served here before it was ported)
   text = ('train_config { freeze_gradient: "dnn/.*" freeze_gradient: '
-          '\'a\\tb\' }\nmodel_config { model_class: "DSSM" dssm { '
-          'l2_regularization: 1e-4 user_tower { id: '
-          '"t" # comment\n dnn { hidden_units: [8, 4] } } '
-          'simi_func: INNER_PRODUCT temperature: 1e-3 } }\n')
+          '\'a\\tb\' }\nmodel_config { model_class: "Uniter" uniter { '
+          'config { hidden_size: 16 hidden_act: '
+          '"t" # comment\n initializer_range: 1e-3 } '
+          'final_dnn { hidden_units: [8, 4] } } }\n')
   t = t_config.get_configs_from_pipeline_str(text)
   written = t_text.to_text(t)
   assert 'hidden_units : [ 8 , 4 ]' in written
   a = j_config.get_configs_from_pipeline_str(text)
   b = j_config.get_configs_from_pipeline_str(written)
-  assert a.model_config.dssm == b.model_config.dssm
+  assert a.model_config.uniter == b.model_config.uniter
   assert list(a.train_config.freeze_gradient) == \
       list(b.train_config.freeze_gradient) == ['dnn/.*', 'a\tb']
   again = pb_text.MessageToString(a, as_utf8=True)

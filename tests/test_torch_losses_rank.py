@@ -361,8 +361,10 @@ REFUSED = {
     'random': ('  losses { loss_type: CLASSIFICATION }\n'
                '  losses { loss_type: L2_LOSS }\n'
                '  loss_weight_strategy: Random', 'Random'),
-    'kd': ('  kd { soft_label_name: "F2" loss_type: CROSS_ENTROPY_LOSS }',
-           'model_config.kd'),
+    # kd is ported but for the listwise distillation, which reads the
+    # listwise rank loss
+    'kd': ('  kd { soft_label_name: "F2" loss_type: LISTWISE_DISTILL_LOSS }',
+           r'LISTWISE_DISTILL_LOSS of model_config.kd\[0\]'),
     'loss_type': ('  loss_type: L2_LOSS', 'loss_type L2_LOSS'),
 }
 

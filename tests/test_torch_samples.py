@@ -24,7 +24,8 @@ from easyrec_torch.train.trainer import Trainer as TTrainer
 from easyrec_torch.train.trainer import to_device
 from easyrec_tpu.config import config_util as j_config
 from tests import fixtures
-from tests.test_samples import MM_COLS, STANDARD_COLS, _write_csv
+from tests.test_samples import (MM_COLS, STANDARD_COLS, _write_csv,
+                                _write_edges, _write_items)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLES = sorted(glob.glob(os.path.join(REPO, 'samples', '*.config')))
@@ -42,7 +43,9 @@ IGNORED = {
 
 # The samples check_ported accepts: the 46 of the classic, sequence and
 # multi-task families, then the backbone DSL's 20 and the three with
-# variational_dropout (which only a backbone reads).
+# variational_dropout (which only a backbone reads), then the match
+# family's 19 (kd_backbone, a backbone RankModel with a kd term, among
+# them).
 PORTED = ['autoint', 'autoint_seq_group', 'best_exporter_early_stop',
           'dbmtl', 'dbmtl_seq_group_attention', 'dbmtl_seq_numeric_boundary',
           'dcn_max_f1', 'dcn_seq_group', 'dcn_v2', 'dead_line_stop',
@@ -67,7 +70,13 @@ BACKBONE = ['aitm_backbone', 'autodis_numeric', 'bst_backbone',
 VARIATIONAL_DROPOUT = ['dbmtl_variational_dropout',
                        'esmm_variational_dropout',
                        'multi_tower_variational_dropout']
-PORTED = sorted(PORTED + BACKBONE + VARIATIONAL_DROPOUT)
+MATCH = ['dat', 'dat_inner_simi', 'dropoutnet', 'dropoutnet_neg_sampler_v2',
+         'dssm_hard_neg_sampler', 'dssm_kd', 'dssm_neg_sampler', 'dssm_reg',
+         'dssm_senet', 'kd_backbone', 'metric_learning_i2i',
+         'metric_learning_ms', 'mind', 'mind_neg_sampler', 'mind_time_id',
+         'multi_tower_recall', 'parallel_dssm_backbone', 'pdn',
+         'pdn_neg_sampler']
+PORTED = sorted(PORTED + BACKBONE + VARIATIONAL_DROPOUT + MATCH)
 
 # The multi-task samples refused, with the part check_ported names.
 MULTI_TASK_REFUSED = {
@@ -75,13 +84,10 @@ MULTI_TASK_REFUSED = {
     'dbmtl_uniter': 'model_config.dbmtl.bottom_uniter',
 }
 
-# Rank samples refused by name: the loss types that are not ported, and
-# the two backbone samples that wait for the match family and kd.
+# Rank samples refused by name: the loss types that are not ported.
 RANK_REFUSED = {
     'deepfm_ziln': 'loss_type ZILN_LOSS',
     'losses_pairwise': r'model_config.losses\[0\].pairwise_logistic_loss',
-    'kd_backbone': 'model_config.kd',
-    'parallel_dssm_backbone': "model_class 'MatchModel'",
 }
 
 
@@ -153,7 +159,7 @@ def _passes(path):
 
 def test_samples_that_pass_check_ported():
   assert [_name(p) for p in SAMPLES if _passes(p)] == PORTED
-  assert len(PORTED) == 69
+  assert len(PORTED) == 88
   for name, part in dict(MULTI_TASK_REFUSED, **RANK_REFUSED).items():
     with pytest.raises(NotImplementedError, match=part):
       t_config.check_ported(t_config.get_configs_from_pipeline_file(
@@ -176,14 +182,26 @@ def test_samples_that_pass_check_ported():
 @pytest.mark.parametrize('name', PORTED)
 def test_ported_samples_train_a_step(name, tmp_path):
   """Each sample check_ported accepts, on data of its declared columns
-  (tests/test_samples.py's generator), model_dir cleared: its train input
-  (the gzip sample through gzip) feeds one step on the CPU; deepfm_ema's
-  EMA of the dense parameters moves with it. A multi-task sample's loss
-  has one term per task."""
+  (tests/test_samples.py's generator; a sampler's items.txt and edges.txt
+  by its writers), model_dir cleared: its train input (the gzip sample
+  through gzip) feeds one step on the CPU; deepfm_ema's EMA of the dense
+  parameters moves with it. A multi-task sample's loss has one term per
+  task, a kd sample's its kd term, and a sampler's batch its views."""
   cfg = t_config.get_configs_from_pipeline_file(
       os.path.join(REPO, 'samples', name + '.config'))
   cols = [f.input_name for f in cfg.data_config.input_fields]
-  assert set(cols) <= set(STANDARD_COLS) | set(MM_COLS) | {'seq_price'}
+  assert set(cols) <= set(STANDARD_COLS) | set(MM_COLS) | {'seq_price',
+                                                            'teacher'}
+  which = cfg.data_config.WhichOneof('sampler')
+  if which:
+    sampler = getattr(cfg.data_config, which)
+    _write_items(str(tmp_path / 'items.txt'))
+    _write_edges(str(tmp_path / 'edges.txt'))
+    for field in ('input_path', 'user_input_path', 'item_input_path',
+                  'pos_edge_input_path', 'hard_neg_edge_input_path'):
+      if schema.has_field(sampler.type_name, field):
+        setattr(sampler, field, str(tmp_path / (
+            'edges.txt' if 'edge' in field else 'items.txt')))
   train = str(tmp_path / 'train.csv')
   _write_csv(train, cols, 64, seed=11)
   if cfg.data_config.input_type == 'TFRecordInput':
@@ -200,7 +218,11 @@ def test_ported_samples_train_a_step(name, tmp_path):
   before = {k: v.detach().clone()
             for k, v in trainer.model.named_parameters()}
   batch = next(iter(trainer.train_input()))
+  assert ('neg.feat.iid.ids' in batch) == bool(which)
+  assert ('hard_neg_mask' in batch) == (which == 'hard_negative_sampler')
   loss = trainer.train_step(to_device(batch, torch.device('cpu')))
+  for kd in cfg.model_config.kd:
+    assert kd.loss_name in loss
   assert np.isfinite(float(loss['total_loss']))
   model = cfg.model_config.WhichOneof('model')
   if model in ('mmoe', 'esmm', 'dbmtl', 'simple_multi_task', 'ple'):
