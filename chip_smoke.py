@@ -187,6 +187,38 @@ K4 and K5 must launch 0 times in 6-8.
              the card answering 1 and 4,096 raw rows over HTTP, user_emb
              and item_emb bit-equal to the training Trainer's eval forward,
              with no K1-K5 launch.
+ 26. retrieve this slice's main path: the full-width DSSM on phase 24's
+             files trained SLICE_STEPS steps through train_and_evaluate on
+             a model_dir (K1 + K2), main.export and split_model's user and
+             item towers; the item tower's Predictor embeds all 1,000,000
+             items of items.txt (calls of 4,096 rows) into a [1,000,000,
+             64] corpus and the user tower's the 8,192 eval rows, both
+             towers' embeddings of 4,096 rows bit-equal to the Trainer's
+             eval forward; a KnnIndex on the card searches the corpus for
+             every user's top-10 and top-100 in query batches of 1,024
+             (hitrate@k by each row's true item, recorded), the top-k of
+             256 users held against a float64 numpy ranking, one batch's
+             search timed beside its bound; the hitrate CLI on the
+             model_dir equal to compute_hitrate in process; the
+             vector_retrieve CLI over a 100,000-row doc table written from
+             the corpus equal to the in-process search; no K1-K5 launch
+             from the export on; the embed, index and search times and
+             peak memory logged.
+ 27. rank extra  (run after 26, before 9) the rest of the rank zoo: each of
+             CMBF's and Uniter's samples (image-only and text-only
+             variants, cmbf_multi_loss), dbmtl_cmbf, dbmtl_uniter,
+             losses_pairwise, deepfm_ziln, deepfm_multi_cls,
+             gauc_session_metrics (with precision, recall and accuracy),
+             multi_optimizer_freeze and deepfm_bf16, small (batch 256,
+             hash buckets at most 1,000, the sample's own features) on its
+             pipeline's batches of write_rank_csv's files, trains 3 steps
+             on the card and the CPU from one state, unfused, and cmbf
+             fused as well, at the agree phase's rule (deepfm_bf16 at its
+             bf16 rule), the attention under EASYREC_ATTN_IMPL=stock,
+             Uniter's dropouts at 0 and the rate at 0.0001
+             (RANK_EXTRA_EDITS says why); the evals held card against CPU
+             through hold_evals, and deepfm_ziln's probabilities and
+             expected values.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -208,6 +240,7 @@ F32_OPS_PER_S = 67e12
 
 SLICE_STEPS = 20
 RATE_STEPS = 20
+BF16_ULP = 2.0 ** -7      # the spacing of bf16's 8-bit significands
 
 
 def fail(msg):
@@ -1016,7 +1049,7 @@ def phase_experimental(torch):
 
 
 def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
-                batches=None):
+                batches=None, bf16=False):
   """A small model: 3 steps on the card and on the CPU from the same
   weights and batches. The CPU path runs the kernels' plain versions,
   whose agreement with the JAX package the CPU tests hold. On the card
@@ -1038,8 +1071,13 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
   losses and tables are not held. `batches`, where given, are the
   model's input pipeline's ({'train': 3 batches, 'eval': 2}: a sampler's
   views and the extra fields in them), which the model always evaluates,
-  in place of synthetic ones. Returns the card's launches by kernel and
-  math."""
+  in place of synthetic ones. A model of bf16 compute_dtype (`bf16`) is
+  held to the bf16 rule instead: its eval forward's logits from the
+  shared state within a bf16 ulp (2^-7) of their scale (the largest
+  |logit|), card against CPU; its losses and eval loss within 2^-7
+  relative; its table weights within 2 lr a step, with no count of those
+  past 1e-5 (ROADMAP's known divergences say why). Returns the card's
+  launches by kernel and math."""
   from easyrec_torch.ops import kernels
   from easyrec_torch.optim.sparse import MATH_NAMES
   from easyrec_torch.train.trainer import Trainer, to_device
@@ -1060,8 +1098,12 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
   keys = runs['cpu'].metrics.result_names() + ['auc_%s' % k for k in tasks]
   evaluate = bool(tasks) or keys != ['auc'] or draws or batches is not None
   evals = batches['eval'] if batches is not None else None
+  loss_rtol = BF16_ULP if bf16 else 1e-5
+  if bf16:
+    hold_bf16_logits(torch, runs, evals, what)
   if evaluate:
-    hold_evals(eval_both(runs, bs, keys, what, fused, evals), keys, what)
+    hold_evals(eval_both(runs, bs, keys, what, fused, evals), keys, what,
+               loss_rtol)
   kernels.reset_launches()
   losses = {}
   for name, t in runs.items():
@@ -1091,7 +1133,7 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
         % (what, fused, losses['cuda'], losses['cpu'], tagged))
     return tagged
   for a, b in zip(losses['cpu'], losses['cuda']):
-    if not math.isfinite(b) or abs(a - b) > 1e-5 * max(1.0, abs(a)):
+    if not math.isfinite(b) or abs(a - b) > loss_rtol * max(1.0, abs(a)):
       fail('small %s: losses differ on the card %s and the CPU %s'
            % (what, losses['cuda'], losses['cpu']))
   # f32 reduction order differs between the card's dense model and the
@@ -1110,7 +1152,7 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
     diff = (runs['cuda'].tables[key][:, :dim].cpu() - table[:, :dim]).abs()
     far = int((diff > 1e-5).sum())
     err = float(diff.max())
-    if far > diff.numel() // 100 or err > 2 * lr_sum:
+    if (far > diff.numel() // 100 and not bf16) or err > 2 * lr_sum:
       cols = sorted(set(torch.nonzero(diff > 1e-5)[:, 1].tolist()))
       fail('small %s: table %s weights differ by up to %g, %d of %d by more '
            'than 1e-5 (columns %s)' % (what, key, err, far, diff.numel(),
@@ -1140,9 +1182,11 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
     ema = ('; EMA weights (decay %g) within 1e-5 but %d of %d, largest '
            'gap %g' % (t.dense_opt.ema_decay, far, total, err))
   log('agree: small %s, EASYREC_PACKED_FUSED=%s, 3 steps, card vs CPU '
-      'losses %s vs %s; table weights within 1e-5 but %d (at most 1 in '
-      '100, each within 2 lr a step)%s; card launches %s'
-      % (what, fused, losses['cuda'], losses['cpu'], far_all, ema, tagged))
+      'losses %s vs %s; table weights within 1e-5 but %d (%s, each within '
+      '2 lr a step)%s; card launches %s'
+      % (what, fused, losses['cuda'], losses['cpu'], far_all,
+         'not counted under the bf16 rule' if bf16 else 'at most 1 in 100',
+         ema, tagged))
   if evaluate:
     eval_both(runs, bs, keys, what + ' after 3 steps, each side its own '
               'state', fused, evals)
@@ -1151,11 +1195,11 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
       table.copy_(t.tables[key])
     hold_evals(eval_both(runs, bs, keys, what + ' after 3 steps, the '
                          'card\'s state on both', fused, evals), keys,
-               what + ' after 3 steps')
+               what + ' after 3 steps', loss_rtol)
   return tagged
 
 
-def hold_evals(evals, keys, what):
+def hold_evals(evals, keys, what, loss_rtol=1e-5):
   """Each of `keys` within 1e-3 card against CPU, the loss within 1e-5
   relative. The AUC and max_f1 are read from 8192-bin histograms of the
   probabilities: where a model's probabilities crowd into a few bins (a
@@ -1164,7 +1208,10 @@ def hold_evals(evals, keys, what):
   part is held instead by the probabilities it reads: every row's within
   1e-5 card against CPU, and at least one row in another bin on the two
   sides, which is then the whole of the part. A metric read from no
-  histogram (recall@k, the errors) is held to 1e-3 alone."""
+  histogram (recall@k, the errors, accuracy, precision, recall, and gauc
+  and session_auc, exact rank sums on the host) is held to 1e-3 alone.
+  The loss is held to `loss_rtol` relative (the bf16 rule's 2^-7 for a
+  bf16 model)."""
   from easyrec_torch.metrics.metrics import AUC_BINS
   for k in keys:
     a, b = evals['cpu'][k], evals['cuda'][k]
@@ -1185,8 +1232,35 @@ def hold_evals(evals, keys, what):
         % (what, k, b, a, moved, pa.numel(), AUC_BINS,
            len(set((pa * AUC_BINS).floor().tolist())), err))
   a, b = evals['cpu']['loss'], evals['cuda']['loss']
-  if abs(a - b) > 1e-5 * max(1.0, abs(a)):
+  if abs(a - b) > loss_rtol * max(1.0, abs(a)):
     fail('small %s: eval loss card %r, CPU %r' % (what, b, a))
+
+
+def hold_bf16_logits(torch, runs, batches, what):
+  """The bf16 rule on the eval forward of the shared state: card and CPU
+  logits within a bf16 ulp (2^-7) of the logits' scale, the largest
+  |logit| of the batches; logs the largest gap in ulps of that scale."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import to_device
+  logits = {}
+  with torch.no_grad():
+    for name, t in runs.items():
+      parts = []
+      for batch in batches:
+        b = to_device(batch, t.device)
+        pulled = emb_ops.pull_embeddings(
+            t.tables, emb_ops.pack_all_views(t.layout, b), t.metas)
+        parts.append(t.eval_forward(b, pulled)['logits'].float().cpu())
+      logits[name] = torch.cat(parts)
+  scale = float(logits['cpu'].abs().max())
+  gap = float((logits['cuda'] - logits['cpu']).abs().max())
+  if not gap <= BF16_ULP * scale:
+    fail('small %s: bf16 eval logits card against CPU apart by %g, %g bf16 '
+         'ulps of their scale %g' % (what, gap, gap / (BF16_ULP * scale),
+                                     scale))
+  log('agree: small %s: bf16 eval logits of %d rows card against CPU apart '
+      'by %g, %.4f bf16 ulps of their scale %g'
+      % (what, logits['cpu'].shape[0], gap, gap / (BF16_ULP * scale), scale))
 
 
 def eval_probs(torch, t, batches):
@@ -2877,7 +2951,481 @@ def phase_serve_dssm(torch, smi):
   del result
   serve_bit_equal(torch, 'DSSM', export_dir, rows, want, smi)
   shutil.rmtree(root, ignore_errors=True)
+
+
+# the retrieve phase (26): the full-width DSSM's item corpus searched
+QUERY_BATCH = 1024        # KnnIndex's query batch: a [1024, 1,000,000] f32
+                          # block of scores is 4.1 GB
+HELD_QUERIES = 256        # queries held against a float64 numpy top-k
+DOC_ROWS = 100000         # rows of the vector_retrieve CLI's doc table
+IVF_ROWS = 20000          # corpus rows of the IVF index held on the card
+
+
+def read_items(path):
+  """The columns iid, cate and price of a write_dssm_data items.txt."""
+  import numpy as np
+  with open(path) as f:
+    next(f)
+    feats = [line.rstrip('\n').split('\t')[2].split(':') for line in f]
+  iid, cate, price = zip(*feats)
+  return {'iid': np.array(iid, dtype=object),
+          'cate': np.array(cate, dtype=object),
+          'price': np.array(price, dtype=np.float64)}
+
+
+def read_eval_columns(path):
+  """The columns of a write_dssm_data eval.csv (MATCH_COLS[:8]), the
+  numeric ones as float64."""
+  import numpy as np
+  with open(path) as f:
+    rows = [line.rstrip('\n').split(',') for line in f]
+  cols = {c: np.array([r[i] for r in rows], dtype=object)
+          for i, c in enumerate(MATCH_COLS[:8])}
+  for c in ('label', 'age', 'price'):
+    cols[c] = cols[c].astype(np.float64)
+  return cols
+
+
+def held_topk(torch, index, queries, k, what):
+  """The card's top-k of `queries` against a float64 numpy ranking over
+  the whole corpus: each returned row's f32 score within 1e-5 of the
+  row's score scale of its float64 score, the rows in float64 order up to
+  that tolerance, and the set of rows the float64 top-k's but for rows
+  tied with its k-th score within the tolerance. Returns the rows where
+  such a tie changed which rows entered."""
+  import numpy as np
+  q = queries.astype(np.float64)
+  corpus = index.embeddings.double().cpu().numpy()
+  s64 = q @ corpus.T
+  got_s, got_i = index.search(queries, k)
+  top = np.argpartition(-s64, k, axis=1)[:, :k]
+  order = np.argsort(-np.take_along_axis(s64, top, axis=1), axis=1,
+                     kind='stable')
+  want_i = np.take_along_axis(top, order, axis=1)
+  tied_rows = 0
+  for r in range(len(q)):
+    scale = float(np.abs(s64[r]).max())
+    tol = 1e-5 * scale
+    exact = s64[r, got_i[r]]
+    if np.abs(got_s[r] - exact).max() > tol:
+      fail('%s: query %d, scores off their float64 values by %g (scale %g)'
+           % (what, r, np.abs(got_s[r] - exact).max(), scale))
+    if (np.diff(exact) > tol).any():
+      fail('%s: query %d, rows out of order' % (what, r))
+    if list(got_i[r]) != list(want_i[r]):
+      kth = s64[r, want_i[r, -1]]
+      diff = set(got_i[r]) ^ set(want_i[r])
+      near = all(abs(s64[r, i] - kth) <= tol for i in diff)
+      same_order = all(abs(s64[r, a] - s64[r, b]) <= tol
+                       for a, b in zip(got_i[r], want_i[r]) if a != b)
+      if not (near and same_order):
+        fail('%s: query %d, top-%d rows %s, float64 %s' %
+             (what, r, k, list(got_i[r][:8]), list(want_i[r][:8])))
+      tied_rows += 1
+  return tied_rows
+
+
+def phase_retrieve(torch, smi, data, n_users=8192, device='cuda'):
+  """Retrieval after the full-width DSSM (phase 26): samples/
+  dssm_neg_sampler.config on write_dssm_data's files in `data` trained
+  SLICE_STEPS steps through train_and_evaluate on a model_dir (K1 + K2),
+  main.export of its checkpoint and split_model's user and item towers;
+  from the export on no K1-K5 launch. The item tower's Predictor embeds
+  every item of items.txt into the corpus and the user tower's the eval
+  rows; their embeddings of 4,096 eval rows must bit-equal the training
+  Trainer's eval forward. An exact KnnIndex on the card searches the
+  corpus for each eval user's top-10 and top-100 in query batches of
+  QUERY_BATCH (hitrate@k by each row's true item, recorded); the top-k of
+  HELD_QUERIES users is held against a float64 numpy ranking; the search
+  of one query batch is timed by CUDA events beside its bound; an
+  IvfIndex of IVF_ROWS corpus rows probing all its clusters must equal
+  the exact index. Then the
+  hitrate CLI on the model_dir must print what compute_hitrate gives in
+  process, and the vector_retrieve CLI on a DOC_ROWS-row doc table
+  written from the corpus must write the in-process search's rows.
+  Returns the training's launches by kernel and by kernel/math."""
+  import shutil
+  import numpy as np
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.config import config_util
+  from easyrec_torch.export.predictor import Predictor
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.retrieval import knn
+  from easyrec_torch.retrieval.vector_retrieve import read_embedding_table
+  from easyrec_torch.tools import hitrate, split_model
+  what = 'retrieve'
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  root = os.path.join(SCRATCH, 'retrieve')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  gc.collect()
+  if device == 'cuda':
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+  cfg = dssm_config(data, model_dir=os.path.join(root, 'md'))
+  kernels.reset_launches()
+  result = main_lib.train_and_evaluate(
+      cfg, edit_config_json={'train_config.num_steps': SLICE_STEPS},
+      device=device)
+  trained = kernels.launch_counts()
+  tagged = kernels.tagged_counts()
+  if device == 'cuda' and trained != dict(
+      {k: 0 for k in trained}, seg_sum=SLICE_STEPS, rmw_rows=SLICE_STEPS):
+    fail('%s: training launched %s, K1 and K2 once a step expected'
+         % (what, trained))
+  log('%s: the DSSM trained %d steps through train_and_evaluate (losses '
+      '%s ... %s; eval %s); launches %s'
+      % (what, result['global_step'], result['losses'][0],
+         result['losses'][-1], result['eval_metrics'], trained))
+  trainer = result['trainer']
+  cols = read_eval_columns(os.path.join(data, 'eval.csv'))
+  rows4k = [{c: cols[c][i] for c in cols} for i in range(4096)]
+  want = trainer_outputs(torch, trainer, rows4k)
+  del result, trainer
+  gc.collect()
+
+  kernels.reset_launches()
+  t0 = time.perf_counter()
+  export_dir = main_lib.export(os.path.join(root, 'md', 'pipeline.config'),
+                               export_dir=os.path.join(root, 'export'),
+                               device=device)
+  towers = split_model.split_export(export_dir, os.path.join(root, 'split'),
+                                    device=device)
+  log('%s: main.export and split_model in %.1f s: %s'
+      % (what, time.perf_counter() - t0, towers))
+  user = Predictor(towers['user'], batch_size=4096, device=device)
+  item = Predictor(towers['item'], batch_size=4096, device=device)
+  for pred, out in ((user, 'user_emb'), (item, 'item_emb')):
+    own = {c: cols[c][:4096] for c in pred.meta['required_columns']}
+    got = pred.predict_columns(own)
+    if sorted(got) != [out]:
+      fail('%s: the %s tower answers %s' % (what, pred.meta['tower'],
+                                            sorted(got)))
+    if got[out].tobytes() != want[out].tobytes():
+      fail('%s: the %s tower\'s %s of 4,096 rows differs from the Trainer\'s '
+           'eval forward by up to %g' % (what, pred.meta['tower'], out,
+                                         float(np.abs(got[out] -
+                                                      want[out]).max())))
+  log('%s: the split towers\' user_emb and item_emb of 4,096 eval rows, each '
+      'fed only its own columns, bit-equal to the training Trainer\'s eval '
+      'forward' % what)
+
+  t0 = time.perf_counter()
+  items = read_items(os.path.join(data, 'items.txt'))
+  read_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  corpus = item.predict_columns(items)['item_emb']
+  if device == 'cuda':
+    torch.cuda.synchronize()
+  embed_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  users = user.predict_columns(
+      {c: cols[c][:n_users] for c in user.meta['required_columns']}
+  )['user_emb']
+  user_s = time.perf_counter() - t0
+  n_items, dim = corpus.shape
+  if not np.isfinite(corpus).all() or not np.isfinite(users).all():
+    fail('%s: an embedding is not finite' % what)
+  log('%s: items.txt read in %.3f s; the item tower embedded %d items '
+      '(%d calls of 4,096 rows) into a [%d, %d] corpus in %.3f s; the user '
+      'tower %d eval rows in %.3f s; %s'
+      % (what, read_s, n_items, -(-n_items // 4096), n_items, dim, embed_s,
+         len(users), user_s, smi))
+
+  t0 = time.perf_counter()
+  index = knn.KnnIndex(corpus, device=device, query_batch=QUERY_BATCH)
+  if device == 'cuda':
+    torch.cuda.synchronize()
+  build_s = time.perf_counter() - t0
+  truth = np.array([int(i[1:]) for i in cols['iid'][:n_users]])
+  rates = {}
+  for k in (10, 100):
+    t0 = time.perf_counter()
+    rates[k] = knn.hitrate_at_k(index, users, truth, k)
+    rates[k]['seconds'] = time.perf_counter() - t0
+  held = HELD_QUERIES
+  tied = {k: held_topk(torch, index, users[:held], k, what)
+          for k in (10, 100)}
+  log('%s: KnnIndex of %d items built in %.3f s; %s; the top-10 and top-100 '
+      'of %d queries held against a float64 numpy ranking (rows whose '
+      'k-th score ties a row left out: %s)'
+      % (what, n_items, build_s, rates, held, tied))
+
+  # the IVF index on the card, small (its probe gathers [B, nprobe, cap,
+  # D] candidates): probing every cluster equals the exact index
+  sub = corpus[:IVF_ROWS]
+  ivf = knn.IvfIndex(sub, n_clusters=64, device=device)
+  _, exact = knn.KnnIndex(sub, device=device).search(users[:held], 10)
+  _, every = ivf.search(users[:held], 10, nprobe=64)
+  if not np.array_equal(every, exact):
+    fail('%s: the IVF index probing all 64 clusters differs from the exact '
+         'index on %d of %d queries' % (what, int((every != exact).any(1)
+                                                  .sum()), held))
+  _, some = ivf.search(users[:held], 10, nprobe=8)
+  recall = np.mean([len(set(a) & set(b)) / 10.0
+                    for a, b in zip(some, exact)])
+  log('%s: IvfIndex of the first %d corpus rows in 64 clusters on the card: '
+      'probing all 64 equals the exact top-10 of %d queries; recall@10 at '
+      'nprobe 8 %.4f' % (what, IVF_ROWS, held, recall))
+  del ivf
+
+  if device == 'cuda':
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=device)
+    q = torch.from_numpy(users[:QUERY_BATCH]).to(device)
+    b = q.shape[0]
+    for k in (10, 100):
+      ms = cuda_ms(torch, lambda: index.search_tensor(q, k), 5, flush)
+      gemm_ms = cuda_ms(torch, lambda: index.scores(q), 5, flush)
+      nbytes = n_items * dim * 4 + b * dim * 4 + 2 * b * n_items * 4 + \
+          2 * b * k * 8
+      bound, by = bound_ms(nbytes, 2.0 * b * n_items * dim)
+      log('%s: search of %d queries over %d items, top-%d: %.4f ms a query '
+          'batch (of it the [%d, %d] GEMM %.4f ms); bound %.4f ms (%s: '
+          '%d bytes, %.3g f32 operations); %.2f x the bound; %s'
+          % (what, b, n_items, k, ms, b, n_items, gemm_ms, bound, by,
+             nbytes, 2.0 * b * n_items * dim, ms / bound, smi))
+    del flush
+
+  # the hitrate CLI in a process of its own, against compute_hitrate here
+  md_cfg = os.path.join(root, 'md', 'pipeline.config')
+  out = subprocess.run(
+      [sys.executable, '-m', 'easyrec_torch.tools.hitrate',
+       '--pipeline_config_path', md_cfg, '--top_k', '10', '--device',
+       device], capture_output=True, text=True, timeout=600, cwd=HERE)
+  if out.returncode != 0:
+    fail('%s: hitrate CLI: %s' % (what, out.stderr[-2000:]))
+  cli = json.loads(out.stdout.strip().splitlines()[-1])
+  here = hitrate.compute_hitrate(
+      config_util.get_configs_from_pipeline_file(md_cfg), 10, device=device)
+  if cli != here:
+    fail('%s: the hitrate CLI printed %s, compute_hitrate %s'
+         % (what, cli, here))
+  log('%s: python -m easyrec_torch.tools.hitrate on the model_dir: %s, as '
+      'compute_hitrate in process' % (what, cli))
+
+  # the vector_retrieve CLI on a doc table written from the corpus
+  doc_path = os.path.join(root, 'docs.csv')
+  q_path = os.path.join(root, 'queries.csv')
+  t0 = time.perf_counter()
+  with open(doc_path, 'w') as f:
+    f.write(''.join('d%d,%s\n' % (i, '|'.join('%.6g' % x for x in v))
+                    for i, v in enumerate(corpus[:DOC_ROWS])))
+  with open(q_path, 'w') as f:
+    f.write(''.join('q%d,%s\n' % (i, '|'.join('%.6g' % x for x in v))
+                    for i, v in enumerate(users[:held])))
+  out_path = os.path.join(root, 'retrieved.csv')
+  t1 = time.perf_counter()
+  out = subprocess.run(
+      [sys.executable, '-m', 'easyrec_torch.retrieval.vector_retrieve',
+       '--query_table', q_path, '--doc_table', doc_path, '--output_table',
+       out_path, '--top_k', '10', '--device', device],
+      capture_output=True, text=True, timeout=600, cwd=HERE)
+  if out.returncode != 0:
+    fail('%s: vector_retrieve CLI: %s' % (what, out.stderr[-2000:]))
+  cli_s = time.perf_counter() - t1
+  doc_ids, doc_emb = read_embedding_table(doc_path)
+  q_ids, q_emb = read_embedding_table(q_path)
+  scores, ids = knn.KnnIndex(doc_emb, item_ids=doc_ids,
+                             device=device).search_ids(q_emb, 10)
+  with open(out_path) as f:
+    lines = f.read().splitlines()
+  if lines[0] != 'query,doc,score' or len(lines) != 1 + held * 10:
+    fail('%s: vector_retrieve wrote %d lines' % (what, len(lines)))
+  for n, line in enumerate(lines[1:]):
+    qid, doc, score = line.split(',')
+    i, j = divmod(n, 10)
+    if qid != q_ids[i] or doc != ids[i, j] or \
+        abs(float(score) - scores[i, j]) > 1e-5 * max(1.0, abs(scores[i, j])):
+      fail('%s: vector_retrieve line %d %r, in process %s,%s,%g'
+           % (what, n + 1, line, q_ids[i], ids[i, j], scores[i, j]))
+  log('%s: python -m easyrec_torch.retrieval.vector_retrieve: %d queries '
+      'over a %d-row doc table (tables written in %.1f s) in %.1f s, its '
+      '%d rows the in-process search\'s'
+      % (what, held, DOC_ROWS, t1 - t0, cli_s, held * 10))
+
+  launched = kernels.launch_counts()
+  if any(launched.values()):
+    fail('%s: K1-K5 launched %s from the export on' % (what, launched))
+  peak = torch.cuda.max_memory_allocated() / 1e9 if device == 'cuda' else 0
+  log('%s: no K1-K5 launch from the export on; peak device memory %.3f GB; '
+      'hitrate@10 %.6f, hitrate@100 %.6f (random labels: near chance, not '
+      'held); %s' % (what, peak, rates[10]['hitrate@10'],
+                     rates[100]['hitrate@100'], smi))
+  del index, user, item, corpus
+  shutil.rmtree(root, ignore_errors=True)
   shutil.rmtree(data, ignore_errors=True)
+  if device == 'cuda':
+    torch.cuda.empty_cache()
+  return dict(trained, **tagged)
+
+
+# the rest of the rank zoo (phase 27): each sample small, card against CPU
+RANK_EXTRA_SAMPLES = (
+    'cmbf', 'cmbf_image_only', 'cmbf_multi_loss', 'cmbf_text_only',
+    'uniter', 'uniter_image_only', 'uniter_text_only', 'dbmtl_cmbf',
+    'dbmtl_uniter', 'losses_pairwise', 'deepfm_ziln', 'deepfm_multi_cls',
+    'gauc_session_metrics', 'multi_optimizer_freeze', 'deepfm_bf16')
+RANK_EXTRA_FUSED = ('cmbf',)
+# the agree runs' edits: Uniter's dropouts (UniterTower's defaults are
+# 0.1; the card and the CPU draw apart) at 0, precision, recall and
+# accuracy beside gauc_session_metrics' grouped AUCs, and the samples'
+# constant rate 0.001 cut to 0.0001, as MATCH_EDITS cuts it and for its
+# reason: dbmtl_cmbf's third loss parted card from CPU by 6.8e-5 relative
+# at 0.001 (its cvr tower's ORDER_CALIBRATE_LOSS, a hinge between two
+# towers' probabilities, over a BatchNorm'd bottom on the fusion
+# encoder; NVIDIA H100 80GB HBM3, 700 W), its second by 1.4e-6
+RANK_EXTRA_EDITS = (
+    ('constant_learning_rate { learning_rate: 0.001 }',
+     'constant_learning_rate { learning_rate: 0.0001 }'),
+    ('uniter {\n    config {', 'uniter {\n    config {\n      '
+     'hidden_dropout_prob: 0.0 attention_probs_dropout_prob: 0.0'),
+    ('bottom_uniter {', 'bottom_uniter {\n      hidden_dropout_prob: 0.0 '
+     'attention_probs_dropout_prob: 0.0'),
+    ('metrics_set { session_auc { session_id_field: "cate" } }',
+     'metrics_set { session_auc { session_id_field: "cate" } }\n'
+     '  metrics_set { precision {} } metrics_set { recall {} }\n'
+     '  metrics_set { accuracy {} }'))
+
+
+def write_rank_csv(path, cols, rows, label, seed):
+  """A headerless CSV of the rank samples' columns (label, uid, iid, cate,
+  tags, age, price, seq_cate, title, img_vec): ids Zipf-skewed over 300
+  users and 1,000 items, 1-8 tags, 1-50 categories, 1-16 title words,
+  64 image floats. `label`: 'binary' (one row in three 1), 'class4'
+  (class ids 0-3) or 'ltv' (zero on two rows in three, else lognormal)."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+
+  def zipf(n):
+    return np.floor(n * np.power(rng.random(rows), 3.0)).astype(np.int64)
+
+  n_tags, n_seq, n_title = (rng.integers(1, 9, rows), rng.integers(1, 51, rows),
+                            rng.integers(1, 17, rows))
+  tags, seq, title = (rng.integers(0, 200, (rows, 8)),
+                      rng.integers(0, 50, (rows, 50)),
+                      rng.integers(0, 500, (rows, 16)))
+  img = rng.standard_normal((rows, 64))
+  if label == 'class4':
+    labels = ['%d' % v for v in rng.integers(0, 4, rows)]
+  elif label == 'ltv':
+    labels = ['%.4f' % v for v in np.where(
+        rng.random(rows) < 2 / 3, 0.0, rng.lognormal(1.0, 1.0, rows))]
+  else:
+    labels = ['%d' % v for v in (rng.random(rows) < 1 / 3)]
+  values = {
+      'label': labels,
+      'uid': ['u%d' % v for v in zipf(300)],
+      'iid': ['i%d' % v for v in zipf(1000)],
+      'cate': ['c%d' % v for v in rng.integers(0, 50, rows)],
+      'tags': ['|'.join('t%d' % t for t in tags[r, :n_tags[r]])
+               for r in range(rows)],
+      'age': ['%.4f' % v for v in rng.random(rows)],
+      'price': ['%.4f' % v for v in rng.random(rows)],
+      'seq_cate': ['|'.join('c%d' % c for c in seq[r, :n_seq[r]])
+                   for r in range(rows)],
+      'title': ['|'.join('w%d' % w for w in title[r, :n_title[r]])
+                for r in range(rows)],
+      'img_vec': ['|'.join('%.4f' % x for x in img[r]) for r in range(rows)]}
+  with open(path, 'w') as f:
+    f.write(''.join(','.join(parts) + '\n'
+                    for parts in zip(*(values[c] for c in cols))))
+
+
+def rank_extra_config(name, data):
+  """samples/<name>.config with RANK_EXTRA_EDITS on write_rank_csv's files
+  of its columns in `data`, small: batch and eval batch 256, hash buckets
+  at most 1,000."""
+  from easyrec_torch.config import config_util
+  with open(os.path.join(HERE, 'samples', name + '.config')) as f:
+    text = f.read()
+  for old, new in RANK_EXTRA_EDITS:
+    text = text.replace(old, new)
+  cfg = config_util.get_configs_from_pipeline_str(text)
+  dc = cfg.data_config
+  cols = [f.input_name for f in dc.input_fields]
+  label = 'class4' if int(cfg.model_config.num_class) > 1 and \
+      cfg.model_config.loss_type == 'CLASSIFICATION' else \
+      'ltv' if cfg.model_config.loss_type == 'ZILN_LOSS' else 'binary'
+  os.makedirs(data, exist_ok=True)
+  for split, rows, seed in (('train', 768, 11), ('eval', 512, 12)):
+    write_rank_csv(os.path.join(data, split + '.csv'), cols, rows, label,
+                   seed)
+  cfg.train_input_path = os.path.join(data, 'train.csv')
+  cfg.eval_input_path = os.path.join(data, 'eval.csv')
+  cfg.model_dir = ''
+  dc.batch_size = dc.eval_batch_size = 256
+  for fc in config_util.get_feature_configs(cfg):
+    fc.hash_bucket_size = min(int(fc.hash_bucket_size), 1000)
+  return cfg
+
+
+def hold_ziln_outputs(torch, runs, batches, what):
+  """ZILN's eval outputs from the shared state, card against CPU: the
+  probability and the expected value y within 1e-5 relative of their
+  scale."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import to_device
+  outs = {}
+  with torch.no_grad():
+    for name, t in runs.items():
+      parts = {'probs': [], 'y': []}
+      for batch in batches:
+        b = to_device(batch, t.device)
+        pulled = emb_ops.pull_embeddings(
+            t.tables, emb_ops.pack_all_views(t.layout, b), t.metas)
+        o = t.eval_forward(b, pulled)
+        for k in parts:
+          parts[k].append(o[k].float().cpu())
+      outs[name] = {k: torch.cat(v) for k, v in parts.items()}
+  for k in ('probs', 'y'):
+    a, b = outs['cpu'][k], outs['cuda'][k]
+    gap, scale = float((a - b).abs().max()), float(a.abs().max())
+    if not gap <= 1e-5 * max(scale, 1.0):
+      fail('small %s: ZILN %s card against CPU apart by %g (scale %g)'
+           % (what, k, gap, scale))
+    log('agree: small %s: ZILN eval %s of %d rows card against CPU within '
+        '%g (scale %g)' % (what, k, a.shape[0], gap, scale))
+
+
+def phase_rank_extra(torch):
+  """The rest of the rank zoo (phase 27): each of RANK_EXTRA_SAMPLES small
+  on its own pipeline's batches of write_rank_csv's files (the sample's
+  own features, batch 256, hash buckets at most 1,000) trains 3 steps on
+  the card and the CPU from one state, unfused, and RANK_EXTRA_FUSED
+  fused as well, at the agree phase's rule (deepfm_bf16 at its bf16
+  rule), under EASYREC_ATTN_IMPL=stock with the dropouts at 0; the eval
+  (auc, gauc, session_auc, accuracy, precision, recall) held card
+  against CPU through hold_evals, and deepfm_ziln's probabilities and
+  expected values."""
+  from easyrec_torch.train.trainer import Trainer
+  os.environ['EASYREC_ATTN_IMPL'] = 'stock'
+  launches = {}
+  try:
+    for name in RANK_EXTRA_SAMPLES:
+      data = os.path.join(SCRATCH, 'rank_extra', name)
+      cfg = rank_extra_config(name, data)
+      batches = {'train': pipeline_batches(cfg, 'train', 3),
+                 'eval': pipeline_batches(cfg, 'eval', 2)}
+      if name == 'deepfm_ziln':
+        runs = {}
+        for dev in ('cpu', 'cuda'):
+          runs[dev] = Trainer(cfg, device=dev)
+          runs[dev].init_state()
+        runs['cuda'].model.load_state_dict(runs['cpu'].model.state_dict())
+        for key, table in runs['cpu'].tables.items():
+          runs['cuda'].tables[key].copy_(table)
+        hold_ziln_outputs(torch, runs, batches['eval'], name)
+        del runs
+      for fused in ('0', '1') if name in RANK_EXTRA_FUSED else ('0',):
+        got = phase_agree(torch, 'rank sample %s' % name, cfg, fused,
+                          batches=batches,
+                          bf16=cfg.train_config.compute_dtype == 'bfloat16')
+        for k, c in got.items():
+          launches[k] = launches.get(k, 0) + c
+  finally:
+    os.environ.pop('EASYREC_ATTN_IMPL', None)
+  log('agree: launches by kernel and math over the rank samples: %s'
+      % launches)
 
 
 def main():
@@ -2953,19 +3501,21 @@ def main():
     if r['name'] == 'rmw_rows/compact_adam':
       r['max_abs_err'] = max(r['max_abs_err'], err2)
   phase_serve_dssm(torch, smi)
+  retrieve = phase_retrieve(torch, smi, os.path.join(SCRATCH, 'dssm'))
+  phase_rank_extra(torch)
   phase_ckpt(torch)
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the DSSM's, this
-  # slice's main path; K3 on the DIN's, Adagrad on the Adagrad DeepFM's,
-  # the EV maths on the EV phase's), 0 for a math no path runs
+  # these that runs it (K1 and K2's compact Adam on the retrieve phase's
+  # DSSM, this slice's main path; K3 on the DIN's, Adagrad on the Adagrad
+  # DeepFM's, the EV maths on the EV phase's), 0 for a math no path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (dssm, backbone, dlrm, mmoe, bst, din, deepfm,
-                           adagrad, ev)
+                          (retrieve, dssm, backbone, dlrm, mmoe, bst, din,
+                           deepfm, adagrad, ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -23,7 +23,7 @@ EasyRecConfig = Message
 
 _RANK_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST',
                 'WideAndDeep', 'DCN', 'AutoInt', 'DLRM', 'FM',
-                'RocketLaunching', 'RankModel')
+                'RocketLaunching', 'CMBF', 'Uniter', 'RankModel')
 _MULTI_TASK_MODELS = ('SimpleMultiTask', 'MMoE', 'ESMM', 'DBMTL', 'PLE',
                       'MultiTaskModel')
 # the match family (models/match.py, match_extra.py, and the backbone's
@@ -44,15 +44,28 @@ _TOWER_LOSSES = ('CLASSIFICATION', 'CROSS_ENTROPY_LOSS',
                  'BINARY_CROSS_ENTROPY_LOSS', 'SOFTMAX_CROSS_ENTROPY',
                  'L2_LOSS', 'SIGMOID_L2_LOSS', 'BINARY_FOCAL_LOSS',
                  'F1_REWEIGHTED_LOSS', 'ORDER_CALIBRATE_LOSS')
+# a rank model's loss_type: the JAX package's RankModel predicts and
+# computes each (base.py:180-310); the softmax types take num_class > 1,
+# ZILN and JRC make 3 and 2 logits whatever num_class says
+_RANK_MODEL_LOSSES = ('CLASSIFICATION', 'CROSS_ENTROPY_LOSS',
+                      'BINARY_CROSS_ENTROPY_LOSS', 'L2_LOSS',
+                      'SIGMOID_L2_LOSS', 'BINARY_FOCAL_LOSS',
+                      'F1_REWEIGHTED_LOSS', 'PAIR_WISE_LOSS',
+                      'PAIRWISE_FOCAL_LOSS', 'PAIRWISE_LOGISTIC_LOSS',
+                      'PAIRWISE_HINGE_LOSS', 'JRC_LOSS', 'ZILN_LOSS',
+                      'LISTWISE_RANK_LOSS', 'LISTWISE_DISTILL_LOSS')
+_MULTI_CLASS_LOSSES = ('CLASSIFICATION', 'CROSS_ENTROPY_LOSS',
+                       'BINARY_CROSS_ENTROPY_LOSS', 'JRC_LOSS', 'ZILN_LOSS')
 # the types of a rank model's `losses` terms that the JAX package's
-# RankModel._single_loss computes on a classification model (base.py:
-# 214-299). SIGMOID_L2_LOSS reads the prediction `y` that only a
-# SIGMOID_L2_LOSS model makes, so the JAX package raises a KeyError on it
-# under classification; the pairwise, listwise, JRC and ZILN types are
-# not ported
+# RankModel._single_loss computes on a model of one logit. SIGMOID_L2_LOSS
+# reads the prediction `y` that only a SIGMOID_L2_LOSS model makes, so the
+# JAX package raises a KeyError on it under classification; JRC and ZILN
+# index the 2 and 3 logits that only a model of that loss_type makes
 _RANK_LOSSES = ('CLASSIFICATION', 'CROSS_ENTROPY_LOSS',
                 'BINARY_CROSS_ENTROPY_LOSS', 'L2_LOSS', 'BINARY_FOCAL_LOSS',
-                'F1_REWEIGHTED_LOSS')
+                'F1_REWEIGHTED_LOSS', 'PAIR_WISE_LOSS', 'PAIRWISE_FOCAL_LOSS',
+                'PAIRWISE_LOGISTIC_LOSS', 'PAIRWISE_HINGE_LOSS',
+                'LISTWISE_RANK_LOSS', 'LISTWISE_DISTILL_LOSS')
 _PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature', 'TagFeature',
                          'SequenceFeature')
 _PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput',
@@ -267,19 +280,34 @@ def process_neg_sampler_data_path(config: Message) -> None:
 
 def collect_extra_fields(config: Message) -> List[str]:
   """Input fields that ride along in batches as numeric 'field.<name>'
-  columns (JAX config_util.py:379-427): the kd terms' prediction, soft
-  label and task-space indicator fields, and the metric-learning model's
-  session_id and sample_id; names that are labels (those flow as
-  label.<name>) are dropped. The grouped metrics and the loss session
-  fields the JAX function also collects belong to parts that are not
-  ported."""
+  columns (JAX config_util.py:379-427): the grouped metrics' ids (gauc's
+  uid_field, session_auc's session_id_field, of the eval config and the
+  task towers), the rank losses' session_name fields, the kd terms'
+  prediction, soft label and task-space indicator fields, and the
+  metric-learning model's session_id and sample_id; names that are
+  labels (those flow as label.<name>) are dropped."""
   fields = []
 
   def _add(name):
     if name and name not in fields:
       fields.append(name)
 
+  def _metric_fields(metrics_set):
+    for m in metrics_set:
+      which = m.WhichOneof('metric')
+      if which == 'gauc':
+        _add(m.gauc.uid_field)
+      elif which == 'session_auc':
+        _add(m.session_auc.session_id_field)
+
+  _metric_fields(config.eval_config.metrics_set)
   mc = config.model_config
+  for loss in mc.losses:
+    which = loss.WhichOneof('loss_param')
+    if which is not None:
+      params = getattr(loss, which)
+      if schema.has_field(params.type_name, 'session_name'):
+        _add(params.session_name)
   for kd in mc.kd:
     _add(kd.pred_name)
     _add(kd.soft_label_name)
@@ -287,6 +315,9 @@ def collect_extra_fields(config: Message) -> List[str]:
   which = mc.WhichOneof('model')
   if which is not None:
     sub = getattr(mc, which)
+    if schema.has_field(sub.type_name, 'task_towers'):
+      for tower in sub.task_towers:
+        _metric_fields(tower.metrics_set)
     for name in ('session_id', 'sample_id'):
       if schema.has_field(sub.type_name, name):
         _add(getattr(sub, name))
@@ -313,11 +344,6 @@ def check_ported(config: Message) -> None:
         raise NotImplementedError(
             'keras layer class %r (model_config.backbone.%s) is not ported'
             % (layer.class_name, where))
-  for i, kd in enumerate(mc.kd):
-    if kd.loss_type == 'LISTWISE_DISTILL_LOSS':
-      # it reads listwise_rank_loss, which is not ported
-      raise NotImplementedError('loss_type LISTWISE_DISTILL_LOSS of '
-                                'model_config.kd[%d] is not ported' % i)
   if mc.kd and mc.model_class in _MULTI_TASK_MODELS:
     raise NotImplementedError('model_config.kd of a multi-task model is not '
                               'ported (the JAX package adds no kd term to '
@@ -338,11 +364,17 @@ def check_ported(config: Message) -> None:
           raise NotImplementedError('loss_type %s of task tower %s is not '
                                     'ported' % (lt, tower.tower_name))
   else:
-    if mc.loss_type != 'CLASSIFICATION' or mc.num_class != 1:
+    if mc.loss_type not in _RANK_MODEL_LOSSES or (
+        mc.num_class != 1 and mc.loss_type not in _MULTI_CLASS_LOSSES):
       raise NotImplementedError('loss_type %s with num_class %d is not '
                                 'ported' % (mc.loss_type, mc.num_class))
     for i, loss in enumerate(mc.losses):
-      if loss.loss_type not in _RANK_LOSSES:
+      if loss.loss_type not in _RANK_LOSSES or mc.loss_type in (
+          'JRC_LOSS', 'ZILN_LOSS') or (mc.num_class != 1 and
+                                       loss.loss_type not in
+                                       _MULTI_CLASS_LOSSES):
+        # a term on logits of another shape than it reads: the JAX
+        # package fails on it
         raise NotImplementedError('loss_type %s of model_config.losses[%d] '
                                   'is not ported' % (loss.loss_type, i))
     if mc.loss_weight_strategy == 'Random':
@@ -357,6 +389,6 @@ def check_ported(config: Message) -> None:
   it = config.data_config.input_type
   if it not in _PORTED_INPUT_TYPES:
     raise NotImplementedError('input_type %s is not ported' % it)
-  if config.train_config.compute_dtype != 'float32':
+  if config.train_config.compute_dtype not in ('float32', 'bfloat16'):
     raise NotImplementedError('compute_dtype %s is not ported'
                               % config.train_config.compute_dtype)

@@ -241,7 +241,7 @@ def jax_export_to_bundle(jax_export_dir: str, out_dir: str, params,
   from easyrec_torch.features import feature_spec as fs
   from easyrec_torch.models import base as model_base
   from easyrec_torch.models import (  # noqa: F401 (registers)
-      backbone_model, match, match_extra, multi_task, rank)
+      backbone_model, match, match_extra, multi_task, rank, rank_extra)
   from easyrec_torch.utils.registry import MODELS
   config = config_util.get_configs_from_pipeline_file(
       os.path.join(jax_export_dir, sm.CONFIG_FILE))

@@ -1,7 +1,10 @@
 """Predictor: load an export and predict, online or over a CSV.
 
 Counterpart of easyrec_tpu/export/predictor.py (:31-401) without the
-big-model store and the incremental-update channels. The export carries
+big-model store and the incremental-update channels. An export split by
+tools/split_model.py names its `tower` in export_meta.json: its Predictor
+answers only that tower's `outputs` (both towers still run, as in the JAX
+package, :62, :78-79), and a column it is not given is filled with ''. The export carries
 the pipeline config, so the host transforms, the model and the tables'
 layout are rebuilt exactly; the forward packs the ids, gathers rows from
 the logical [rows, dim] tables by index_select (the JAX package's pull is
@@ -30,7 +33,7 @@ from easyrec_torch.features import feature_spec as fs
 from easyrec_torch.features import transforms as tr
 from easyrec_torch.models import base as model_base
 from easyrec_torch.models import (  # noqa: F401 (registers)
-    backbone_model, match, match_extra, multi_task, rank)
+    backbone_model, match, match_extra, multi_task, rank, rank_extra)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 
@@ -65,6 +68,9 @@ class Predictor:
       self.tables[key] = table.to(self.device, copy=True)
       self.metas[key] = pt.TableMeta(t.rows, t.dim)
     self.rtp = bool(self.meta.get('export_rtp_outputs'))
+    # a split-tower export answers only its tower's outputs
+    self.wanted = self.meta.get('outputs') if self.meta.get('tower') \
+        else None
 
   @property
   def input_names(self) -> List[str]:
@@ -85,6 +91,8 @@ class Predictor:
     if self.rtp and ('probs' in exported or 'y' in exported):
       # RTP serving output: probs for classification, y for regression
       exported['rank_predict'] = exported.get('probs', exported.get('y'))
+    if self.wanted:
+      exported = {k: v for k, v in exported.items() if k in self.wanted}
     return {k: v.cpu().numpy() for k, v in exported.items()}
 
   def predict_columns(self, columns: Dict[str, np.ndarray]) -> Dict:

@@ -223,17 +223,19 @@ class PackedMHA(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-  """A BST encoder block: post-LN (the reference's layout) or, with
-  pre_ln, LN before each sub-layer and the residual outside."""
+  """A transformer encoder block (BST's, CMBF's and Uniter's): post-LN
+  (the reference's layout) or, with pre_ln, LN before each sub-layer and
+  the residual outside; the feed-forward's activation `hidden_act`."""
 
   def __init__(self, hidden_size: int, num_heads: int,
                intermediate_size: int, pre_ln: bool = False,
                hidden_dropout: float = 0.0, attention_dropout: float = 0.0,
+               hidden_act: str = 'gelu',
                generator: Optional[torch.Generator] = None, device=None):
     super().__init__()
     kw = dict(generator=generator, device=device)
     self.pre_ln = pre_ln
-    self.act = get_activation('gelu')
+    self.act = get_activation(hidden_act)
     self.drop = Dropout(hidden_dropout)
     self.mha = PackedMHA(hidden_size, num_heads, hidden_size, hidden_size,
                          dropout_rate=attention_dropout, **kw)

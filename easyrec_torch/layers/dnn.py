@@ -12,6 +12,15 @@ carried over exactly:
     running averages with momentum 0.99 (torch's 0.01) updated with that
     BIASED variance — so it is written here rather than taken from
     torch.nn.BatchNorm1d, which tracks the unbiased one;
+  - under a bf16 compute_dtype (train_config.compute_dtype, JAX
+    models/base.py:35 and DNN :71-100) a DNN casts its input to bf16, runs
+    each Dense on the bf16-rounded kernel and bias (the product rounded to
+    bf16, then the bias added in bf16), its BatchNorm's statistics in f32
+    with the output rounded to bf16, and returns bf16; a Dense outside it
+    promotes a bf16 input to its f32 weight, as flax's does. Parameters
+    and optimizer state stay f32. (The JAX MLP has the same field, which
+    no caller of the JAX package sets: a backbone's MLP runs in f32 under
+    bf16 in both packages);
   - dropout is flax's inverted dropout: in training each element is kept
     with probability 1 - rate and scaled by 1 / (1 - rate), in eval it is
     the identity. Its mask is drawn from the generator set_generator gives
@@ -137,6 +146,19 @@ class Dense(nn.Linear):
       if use_bias:
         self.bias.fill_(bias_init)
 
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    if x.dtype != self.weight.dtype:
+      x = x.to(self.weight.dtype)      # flax promotes a bf16 input to f32
+    return super().forward(x)
+
+  def forward_in(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax Dense(dtype=dtype): input, kernel and bias in `dtype`, the
+    product rounded to it before the bias is added."""
+    if dtype == self.weight.dtype:
+      return self(x)
+    y = x.to(dtype) @ self.weight.to(dtype).T
+    return y if self.bias is None else y + self.bias.to(dtype)
+
 
 class BatchNorm(nn.Module):
   """flax.linen.BatchNorm over every axis but the last (see the module
@@ -253,8 +275,10 @@ class DNN(nn.Module):
                dropout_ratio: Sequence[float] = (),
                use_final_activation: bool = True,
                generator: Optional[torch.Generator] = None, device=None,
-               use_final_bn: bool = True):
+               use_final_bn: bool = True,
+               compute_dtype: torch.dtype = torch.float32):
     super().__init__()
+    self.compute_dtype = compute_dtype
     self.act = get_activation(activation)
     self.hidden_units = tuple(hidden_units)
     self.use_final_activation = use_final_activation
@@ -279,10 +303,11 @@ class DNN(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     last = len(self.hidden_units) - 1
+    dt = self.compute_dtype
     for i in range(last + 1):
-      x = getattr(self, 'dense_%d' % i)(x)
+      x = getattr(self, 'dense_%d' % i).forward_in(x, dt)
       if hasattr(self, 'bn_%d' % i):
-        x = getattr(self, 'bn_%d' % i)(x)
+        x = getattr(self, 'bn_%d' % i)(x.to(torch.float32)).to(dt)
       if i < last or self.use_final_activation:
         x = self.act(x) if self.act is not None else \
             getattr(self, 'dice_%d' % i)(x)

@@ -82,9 +82,10 @@ class BackboneRankModel(RankModel):
   def raw_outputs(self, batch, pulled) -> Dict[str, object]:
     self.state.sink.clear()
     x = _as_tensor(self.backbone(batch, pulled))
-    if not (x.ndim == 2 and x.shape[-1] == 1):
+    n = self.logits_dim()
+    if not (x.ndim == 2 and x.shape[-1] == n):
       x = bb.lazy_child(self, self.state, 'logits', lambda: Dense(
-          x.shape[-1], 1, **self.state.kw))(x)
+          x.shape[-1], n, **self.state.kw))(x)
     return {'raw_logits': x, 'aux_losses': _aux_losses(self.state)}
 
 

@@ -261,8 +261,10 @@ class _TwoTowerModel(MatchModel):
       dh = sequence_dim(ctx.specs[m.hist_seq[0]])
       self.add_module('seq_att_%d' % i, DinAttention(dh, **kw))
       user_w += dh
-    self.user_dnn = tower_dnn(cfg.user_tower.dnn, user_w, **kw)
-    self.item_dnn = tower_dnn(cfg.item_tower.dnn, item_w, **kw)
+    # the two towers run in the compute dtype (JAX match.py:218-221)
+    dt = dict(compute_dtype=ctx.compute_dtype)
+    self.user_dnn = tower_dnn(cfg.user_tower.dnn, user_w, **dt, **kw)
+    self.item_dnn = tower_dnn(cfg.item_tower.dnn, item_w, **dt, **kw)
     self.scale_simi = not self.is_listwise and \
         _cfg_value(cfg, 'scale_simi', False)
     if self.scale_simi:

@@ -28,6 +28,7 @@ from easyrec_torch.layers.dnn import DNN, Dense, has_dnn
 from easyrec_torch.layers.multi_task import CGCLayer, MMoE as MMoELayer
 from easyrec_torch.losses import losses as L
 from easyrec_torch.models.base import BaseModel, ModelContext, register_model
+from easyrec_torch.models.rank_extra import fusion_bottom
 from easyrec_torch.models.seq_input import (build_group_input, group_input,
                                             group_input_fn)
 
@@ -276,8 +277,9 @@ class ESMM(MultiTaskModel):
 
 @register_model('DBMTL')
 class DBMTL(MultiTaskModel):
-  """reference: model/dbmtl.py. bottom_dnn over the first feature group,
-  an optional MMoE (its experts relu, as the JAX package builds them),
+  """reference: model/dbmtl.py. bottom_dnn over the first feature group
+  (or over the multi-modal bottom_cmbf or bottom_uniter encoder of
+  models/rank_extra.py, where the message sets one), an optional MMoE (its experts relu, as the JAX package builds them),
   then each tower's dnn; a tower with relation towers (those earlier in
   config order) or a relation_dnn concatenates its features with theirs
   into `<tower>_relation`."""
@@ -286,7 +288,13 @@ class DBMTL(MultiTaskModel):
     super().__init__(ctx, generator, device)
     cfg = ctx.model_config.dbmtl
     self.group = next(iter(ctx.groups))
-    width = build_group_input(self, ctx, self.group, **self.kw)
+    bottom = fusion_bottom(ctx, cfg, **self.kw)
+    self.bottom_name = bottom[0] if bottom else None
+    if bottom:
+      self.add_module(*bottom)
+      width = bottom[1].out_features
+    else:
+      width = build_group_input(self, ctx, self.group, **self.kw)
     if has_dnn(cfg, 'bottom_dnn'):
       self.bottom_dnn = DNN.from_config(cfg.bottom_dnn, width, **self.kw)
       width = self.bottom_dnn.out_features
@@ -318,7 +326,10 @@ class DBMTL(MultiTaskModel):
                       Dense(w, max(int(tower.num_class), 1), **self.kw))
 
   def forward(self, batch, pulled):
-    x = group_input(self, self.ctx, pulled, batch, self.group)
+    if self.bottom_name:
+      x = getattr(self, self.bottom_name)(batch, pulled)
+    else:
+      x = group_input(self, self.ctx, pulled, batch, self.group)
     if hasattr(self, 'bottom_dnn'):
       x = self.bottom_dnn(x)
     feats = self.mmoe(x) if self.use_mmoe else [x] * len(self.towers)

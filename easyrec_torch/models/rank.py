@@ -65,18 +65,20 @@ class DeepFM(RankModel):
     fm_dim = _field_dim(ctx, self.fm_names, 'DeepFM')
     self.wide_dim = ctx.layout.wide_output_dim
     self.fm = FMLayer(use_variant=True)
+    dt = dict(compute_dtype=ctx.compute_dtype)
     self.dnn = DNN.from_config(
         cfg.dnn, build_group_input(self, ctx, 'deep', generator, device),
-        generator=generator, device=device)
+        generator=generator, device=device, **dt)
     self.use_final = has_dnn(cfg, 'final_dnn')
     if self.use_final:
       self.final_dnn = DNN.from_config(
           cfg.final_dnn, self.wide_dim + fm_dim + self.dnn.out_features,
-          generator=generator, device=device)
-      self.logits = Dense(self.final_dnn.out_features, 1, generator, device)
+          generator=generator, device=device, **dt)
+      self.logits = Dense(self.final_dnn.out_features, self.logits_dim(),
+                          generator, device)
     else:
-      self.logits = Dense(fm_dim + self.dnn.out_features, 1, generator,
-                          device)
+      self.logits = Dense(fm_dim + self.dnn.out_features, self.logits_dim(),
+                          generator, device)
 
   def raw_logits(self, batch, pulled) -> torch.Tensor:
     il = self.ctx.input_layer
@@ -109,7 +111,8 @@ class MultiTower(RankModel):
     width = 0
     for t in cfg.towers:
       dnn = DNN.from_config(
-          t.dnn, build_group_input(self, ctx, t.input, **kw), **kw)
+          t.dnn, build_group_input(self, ctx, t.input, **kw),
+          compute_dtype=ctx.compute_dtype, **kw)
       self.add_module('tower_%s' % t.input, dnn)
       width += dnn.out_features
     self.din_inputs = []
@@ -146,8 +149,9 @@ class MultiTower(RankModel):
           **kw))
       self.bst_inputs.append(t.input)
       width += dh
-    self.final_dnn = DNN.from_config(cfg.final_dnn, width, **kw)
-    self.logits = Dense(self.final_dnn.out_features, 1, **kw)
+    self.final_dnn = DNN.from_config(cfg.final_dnn, width,
+                                     compute_dtype=ctx.compute_dtype, **kw)
+    self.logits = Dense(self.final_dnn.out_features, self.logits_dim(), **kw)
 
   def _din_tower(self, name, need_key, batch, pulled) -> torch.Tensor:
     query, hist, mask, aux = seq_group_tensors(
@@ -190,15 +194,16 @@ class WideAndDeep(RankModel):
     cfg = ctx.model_config.wide_and_deep
     kw = dict(generator=generator, device=device)
     self.wide_names = ctx.group_features('wide')
+    dt = dict(compute_dtype=ctx.compute_dtype)
     self.dnn = DNN.from_config(
-        cfg.dnn, build_group_input(self, ctx, 'deep', **kw), **kw)
+        cfg.dnn, build_group_input(self, ctx, 'deep', **kw), **dt, **kw)
     self.use_final = has_dnn(cfg, 'final_dnn')
     width = self.dnn.out_features
     if self.use_final:
       self.final_dnn = DNN.from_config(
-          cfg.final_dnn, ctx.layout.wide_output_dim + width, **kw)
+          cfg.final_dnn, ctx.layout.wide_output_dim + width, **dt, **kw)
       width = self.final_dnn.out_features
-    self.logits = Dense(width, 1, **kw)
+    self.logits = Dense(width, self.logits_dim(), **kw)
 
   def raw_logits(self, batch, pulled) -> torch.Tensor:
     wide = self.ctx.input_layer.wide_logits(pulled, batch, self.wide_names)
@@ -220,16 +225,17 @@ class DCN(RankModel):
     kw = dict(generator=generator, device=device)
     self.deep_group = cfg.deep_tower.input
     self.cross_group = cfg.cross_tower.input
+    dt = dict(compute_dtype=ctx.compute_dtype)
     self.deep = DNN.from_config(
         cfg.deep_tower.dnn,
-        build_group_input(self, ctx, self.deep_group, **kw), **kw)
+        build_group_input(self, ctx, self.deep_group, **kw), **dt, **kw)
     cross_dim = build_group_input(self, ctx, self.cross_group, **kw)
     self.cross = CrossNet(cross_dim,
                           num_layers=int(cfg.cross_tower.cross_num) or 3,
                           **kw)
     self.final_dnn = DNN.from_config(
-        cfg.final_dnn, self.deep.out_features + cross_dim, **kw)
-    self.logits = Dense(self.final_dnn.out_features, 1, **kw)
+        cfg.final_dnn, self.deep.out_features + cross_dim, **dt, **kw)
+    self.logits = Dense(self.final_dnn.out_features, self.logits_dim(), **kw)
 
   def raw_logits(self, batch, pulled) -> torch.Tensor:
     gi = group_input_fn(self, self.ctx, pulled, batch)
@@ -274,7 +280,7 @@ class AutoInt(RankModel):
       self.add_module('interact_%d' % i, MultiHeadSelfAttention(
           width, heads, head_size, **kw))
       width = heads * head_size
-    self.logits = Dense(fields * width, 1, **kw)
+    self.logits = Dense(fields * width, self.logits_dim(), **kw)
 
   def raw_logits(self, batch, pulled) -> torch.Tensor:
     x = self.ctx.input_layer.group_stack(pulled, batch, self.names)
@@ -310,7 +316,7 @@ class DLRM(RankModel):
     if self.dense_names:
       self.bot_dnn = DNN.from_config(
           cfg.bot_dnn, build_flat_part(self, ctx, self.dense_names, **kw),
-          **kw)
+          compute_dtype=ctx.compute_dtype, **kw)
       if self.bot_dnn.out_features != dim:
         self.bot_proj = Dense(self.bot_dnn.out_features, dim, **kw)
       fields += 1
@@ -324,8 +330,9 @@ class DLRM(RankModel):
           (dim if self.with_dense else 0)
     else:
       width = fields * dim
-    self.top_dnn = DNN.from_config(cfg.top_dnn, width, **kw)
-    self.logits = Dense(self.top_dnn.out_features, 1, **kw)
+    self.top_dnn = DNN.from_config(cfg.top_dnn, width,
+                                   compute_dtype=ctx.compute_dtype, **kw)
+    self.logits = Dense(self.top_dnn.out_features, self.logits_dim(), **kw)
 
   def raw_logits(self, batch, pulled) -> torch.Tensor:
     il = self.ctx.input_layer
@@ -402,7 +409,7 @@ class RocketLaunching(RankModel):
       for i, u in enumerate(units):
         self.add_module('%s_dense_%d' % (tower, i), Dense(w, u, **kw))
         w = u
-      self.add_module('%s_logits' % tower, Dense(w, 1, **kw))
+      self.add_module('%s_logits' % tower, Dense(w, self.logits_dim(), **kw))
     self.n_booster = len(cfg.booster_dnn.hidden_units)
     self.n_light = len(cfg.light_dnn.hidden_units)
 

@@ -11,9 +11,12 @@ checkpoints and hooks) on one device. A step:
   3. builds the loss: the model loss, l2 over the dense kernels, and the
      embedding regulariser over the pulled rows, the base batch's masked
      by sample_weight and a sampler's views unmasked (JAX :336-346);
-  4. runs backward();
-  5. runs the dense optimizer at the schedule's rate for this step, after
-     clip_by_global_norm where gradient_clipping_by_norm is set;
+  4. runs backward() (the towers' DNNs in bf16 under compute_dtype
+     bfloat16, JAX :91-98; parameters and optimizer state f32);
+  5. zeroes the gradients of the parameters freeze_gradient names (JAX
+     :352-362), then runs the dense optimizer at the schedule's rate for
+     this step, after clip_by_global_norm where gradient_clipping_by_norm
+     is set;
   6. runs the sparse update of each table (ops/packed_table.py) with the
      embedding optimizer's block math: kernels K1 and K2, or the fused
      kernel K3 under EASYREC_PACKED_FUSED=1, once over the ids and row
@@ -23,7 +26,9 @@ checkpoints and hooks) on one device. A step:
      segment;
   7. with ev_params, counts the batch's ids and stamps their step into the
      EV aux tables through the same update (block maths ev_add, ev_set).
-Eval and export run the model in eval mode on eval_params(): the dense
+Eval reports the metrics of eval_config, gauc and session_auc grouped on
+the host by the batch's field.<name> ids (JAX :527-612). Eval and export
+run the model in eval mode on eval_params(): the dense
 optimizer's EMA of the parameters under use_moving_average, through
 torch.func.functional_call, so neither the live parameters nor BatchNorm's
 buffers change.
@@ -39,6 +44,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from easyrec_torch import convert
 from easyrec_torch.config import config_util, schema
 from easyrec_torch.data.input_pipeline import InputPipeline
 from easyrec_torch.device import resolve_device
@@ -55,7 +62,7 @@ from easyrec_torch.layers import dnn
 from easyrec_torch.metrics import metrics as metrics_lib
 from easyrec_torch.models import base as model_base
 from easyrec_torch.models import (  # noqa: F401 (registers)
-    backbone_model, match, match_extra, multi_task, rank)
+    backbone_model, match, match_extra, multi_task, rank, rank_extra)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.optim import builder as opt_builder
@@ -95,6 +102,21 @@ def _model_l2_reg(model_config) -> float:
   return 0.0
 
 
+def frozen_parameters(model: nn.Module, patterns) -> List[nn.Parameter]:
+  """The parameters whose flax path (convert.flax_names: 'inner/dnn/
+  dense_0/kernel') one of the train_config.freeze_gradient regexes
+  searches into (JAX trainer.py:294, :352-362). Their gradient is zeroed,
+  not skipped: an optimizer's moments go on decaying as the JAX side's
+  do."""
+  regexes = [re.compile(p) for p in patterns]
+  if not regexes:
+    return []
+  params = dict(model.named_parameters())
+  names = convert.flax_names(params, root=model.flax_root)
+  return [params[n] for n, (section, path) in names.items()
+          if section == 'params' and any(r.search(path) for r in regexes)]
+
+
 def view_stream(packs: Dict[str, torch.Tensor],
                 pulled: Dict[str, torch.Tensor], key: str):
   """(ids [N], row gradients [N, dim]) of table `key`: its base pack's,
@@ -132,7 +154,11 @@ class Trainer:
     self.specs = fs.build_feature_specs(
         self.feature_configs,
         max_tag_len=self.data_config.max_tag_len or 16)
-    self.ctx = model_base.build_context(pipeline_config, self.specs)
+    # train_config.compute_dtype: the towers' DNNs in bf16, parameters
+    # and optimizer state in f32 (JAX :91-98)
+    self.ctx = model_base.build_context(
+        pipeline_config, self.specs,
+        model_base.compute_dtype(self.train_config))
     self.layout = self.ctx.layout
     self.seed = int(self.train_config.random_seed or 2025)
     self.model_dir = pipeline_config.model_dir
@@ -178,6 +204,8 @@ class Trainer:
           key, table, pt.slot_fill(meta, slot_init))
     self.dense_opt = self.dense_pair.dense(
         dict(self.model.named_parameters()))
+    self.frozen = frozen_parameters(self.model,
+                                    self.train_config.freeze_gradient)
     self.ev_state = ev_lib.init_ev_state(self.layout, self.ev_plan,
                                          self.device) \
         if self.ev_plan else {}
@@ -257,6 +285,8 @@ class Trainer:
     for p in self.dense_opt.params:
       p.grad = None
     total.backward()
+    for p in self.frozen:
+      p.grad = None           # a zero gradient: the optimizer still steps
     self.dense_opt.step()
     with torch.no_grad():
       lr = self.embed_pair.schedule(self.step) * \
@@ -319,7 +349,7 @@ class Trainer:
   def eval_step(self, batch: Dict[str, torch.Tensor], metric_states):
     """One eval batch: the headline metrics' states, and each task's AUC
     state `auc_task_<name>` where the task's probs are one per row (JAX
-    trainer.py:439-450); returns the loss."""
+    trainer.py:439-450); returns the loss and the metric inputs."""
     packs = emb_ops.pack_all_views(self.layout, batch)
     pulled = emb_ops.pull_embeddings(self.tables, packs, self.metas)
     outputs = self.eval_forward(batch, pulled)
@@ -335,7 +365,7 @@ class Trainer:
       if key in metric_states and tmi['probs'].ndim == 1:
         metrics_lib.update_auc(metric_states[key], tmi['labels'],
                                tmi['probs'], tmi['weights'])
-    return loss
+    return loss, mi
 
   def evaluate(self, eval_iter: Optional[Iterable] = None,
                max_batches: Optional[int] = None) -> Dict[str, float]:
@@ -352,12 +382,25 @@ class Trainer:
     # :618-622)
     for name in self.model.metric_task_names():
       states['auc_task_%s' % name] = metrics_lib.init_auc_state(self.device)
+    # gauc and session_auc group the valid rows on the host by the batch's
+    # field.<name> ids, which the eval step does not see (JAX :527-612)
+    buffers = self.metrics.init_host_buffers()
     losses: List[torch.Tensor] = []
     for n, batch in enumerate(eval_iter, 1):
-      losses.append(self.eval_step(to_device(batch, self.device), states))
+      batch = dict(batch)
+      host = {f: np.asarray(batch.pop('field.%s' % f))
+              for f in self.metrics.host_fields if 'field.%s' % f in batch}
+      loss, mi = self.eval_step(to_device(batch, self.device), states)
+      losses.append(loss)
+      if buffers:
+        valid = mi['weights'].cpu().numpy() > 0
+        labels = mi['labels'].cpu().numpy()[valid]
+        probs = mi['probs'].cpu().numpy()[valid]
+        for f, ids in host.items():
+          buffers[f].add(ids[valid], labels, probs)
       if max_batches and n >= max_batches:
         break
-    results = self.metrics.results(states)
+    results = self.metrics.results(states, buffers or None)
     for key, state in states.items():
       if key.startswith('auc_task_'):
         results['auc_%s' % key[len('auc_task_'):]] = \

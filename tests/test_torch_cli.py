@@ -2,7 +2,8 @@
 data, CUDA is the default device and its absence raises, and importing and
 running the port (every module, the ported benchmarks included, then the
 DeepFM with its evaluate, export, predict, Predictor and server, the
-DeepFM with Adagrad tables and the fused Taobao DIN) loads nothing of JAX,
+DeepFM with Adagrad tables, the fused Taobao DIN, the MMoE and the
+retrieval indexes and vector_retrieve CLI) loads nothing of JAX,
 protobuf, pandas, pyarrow, the JAX package or its benchmarks/ scripts."""
 
 import os
@@ -97,6 +98,21 @@ result = main.train_and_evaluate(flagship.taobao_mmoe_config(batch_size=64),
                                  device='cpu',
                                  edit_config_json={'train_config.num_steps': 2})
 assert result['global_step'] == 2 and 'auc_cvr' in result['eval_metrics']
+import numpy as np
+from easyrec_torch.retrieval import knn, vector_retrieve
+items = np.random.default_rng(0).standard_normal((50, 4)).astype(np.float32)
+assert knn.KnnIndex(items, device='cpu').search(items[:3], 2)[1].shape == (3, 2)
+assert knn.IvfIndex(items, n_clusters=4, device='cpu').search(items[:3], 2,
+                                                              nprobe=4)
+folder = os.path.dirname(sys.argv[1])
+for name, rows in (('d.csv', items), ('q.csv', items[:3])):
+  with open(os.path.join(folder, name), 'w') as f:
+    f.write(''.join('r%d,%s\n' % (i, '|'.join(map(str, v)))
+                    for i, v in enumerate(rows)))
+assert vector_retrieve.main(
+    ['--query_table', os.path.join(folder, 'q.csv'), '--doc_table',
+     os.path.join(folder, 'd.csv'), '--output_table',
+     os.path.join(folder, 'o.csv'), '--device', 'cpu']) == 0
 banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas', 'pyarrow',
           'easyrec_tpu', 'benchmarks')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned or

@@ -183,8 +183,8 @@ def test_optimizer_messages_match_protobuf(kind, extra, fields):
     ('feature_configs { input_names: "t" feature_type: ComboFeature }',
      'feature_type ComboFeature'),
     ('data_config { input_type: OdpsInput }', 'input_type OdpsInput'),
-    ('train_config { freeze_gradient: "dnn_0" }', 'freeze_gradient'),
-    ('eval_config { metrics_set { gauc {} } }', 'gauc'),
+    ('train_config { incr_save_config { fs {} } }', 'incr_save_config'),
+    ('fg_json_path: "fg.json"', 'fg_json_path'),
 ])
 def test_unported_parts_raise_naming_them(text, what):
   base = 'model_config { model_class: "DeepFM" }\n'
@@ -221,9 +221,11 @@ def test_a_read_empty_repeated_field_is_not_set():
   for group in cfg.model_config.feature_groups:
     assert list(group.sequence_features) == []
   assert not cfg.train_config.freeze_gradient
+  fc = t_config.get_feature_configs(cfg)[0]
+  assert not fc.combo_input_seps
   t_config.check_ported(cfg)
-  cfg.train_config.freeze_gradient = ['dnn']
-  with pytest.raises(NotImplementedError, match='freeze_gradient'):
+  fc.combo_input_seps = ['#']
+  with pytest.raises(NotImplementedError, match='combo_input_seps'):
     t_config.check_ported(cfg)
 
 

@@ -178,21 +178,23 @@ def test_edited_floats_write_the_same_float32(value):
 def test_opaque_fields_are_written_token_for_token():
   """An unported field keeps its tokens, so its JAX parse is unchanged;
   two spellings of one value compare equal."""
-  # (Uniter, a message the port does not run; the match family's DSSM
-  # served here before it was ported)
-  text = ('train_config { freeze_gradient: "dnn/.*" freeze_gradient: '
-          '\'a\\tb\' }\nmodel_config { model_class: "Uniter" uniter { '
-          'config { hidden_size: 16 hidden_act: '
-          '"t" # comment\n initializer_range: 1e-3 } '
-          'final_dnn { hidden_units: [8, 4] } } }\n')
+  # (a text_cnn combiner's mlp and incr_save_config, fields the port does
+  # not run; Uniter and freeze_gradient served here before they were
+  # ported)
+  text = ('train_config { incr_save_config { kafka { server: "dnn/.*" '
+          'topic: \'a\\tb\' } } }\n'
+          'feature_config { features { input_names: "s" feature_type: '
+          'SequenceFeature sequence_combiner { text_cnn { filter_sizes: 2 '
+          'mlp { hidden_units: [8, 4] activation: "t" # comment\n '
+          'use_bn: false } } } } }\nmodel_config { model_class: "DeepFM" }\n')
   t = t_config.get_configs_from_pipeline_str(text)
   written = t_text.to_text(t)
   assert 'hidden_units : [ 8 , 4 ]' in written
   a = j_config.get_configs_from_pipeline_str(text)
   b = j_config.get_configs_from_pipeline_str(written)
-  assert a.model_config.uniter == b.model_config.uniter
-  assert list(a.train_config.freeze_gradient) == \
-      list(b.train_config.freeze_gradient) == ['dnn/.*', 'a\tb']
+  assert a.feature_config == b.feature_config
+  assert a.train_config.incr_save_config == b.train_config.incr_save_config
+  assert b.train_config.incr_save_config.kafka.topic == 'a\tb'
   again = pb_text.MessageToString(a, as_utf8=True)
   assert _jax_known(
       t_text.canonical(t_config.get_configs_from_pipeline_str(again)),

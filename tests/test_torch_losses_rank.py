@@ -348,24 +348,28 @@ def test_metrics_collection_reports_auc_and_max_f1():
 # ------------------------------------------------------------ refusals
 
 REFUSED = {
-    'pairwise': ('  losses { loss_type: PAIR_WISE_LOSS }',
+    # a pairwise or listwise term on a model of several classes
+    'pairwise': ('  num_class: 2\n  losses { loss_type: PAIR_WISE_LOSS }',
                  'PAIR_WISE_LOSS of model_config.losses'),
-    'listwise': ('  losses { loss_type: CLASSIFICATION }\n'
+    'listwise': ('  num_class: 3\n  losses { loss_type: CLASSIFICATION }\n'
                  '  losses { loss_type: LISTWISE_RANK_LOSS }',
                  r'LISTWISE_RANK_LOSS of model_config.losses\[1\]'),
+    # JRC and ZILN terms read 2 and 3 logits, which a model of one logit
+    # does not make
     'jrc_params': ('  losses { loss_type: JRC_LOSS jrc_loss {} }',
-                   'jrc_loss'),
+                   'JRC_LOSS of model_config.losses'),
     'ziln': ('  losses { loss_type: ZILN_LOSS }', 'ZILN_LOSS'),
     'sigmoid_l2': ('  losses { loss_type: SIGMOID_L2_LOSS }',
                    'SIGMOID_L2_LOSS'),
     'random': ('  losses { loss_type: CLASSIFICATION }\n'
                '  losses { loss_type: L2_LOSS }\n'
                '  loss_weight_strategy: Random', 'Random'),
-    # kd is ported but for the listwise distillation, which reads the
-    # listwise rank loss
-    'kd': ('  kd { soft_label_name: "F2" loss_type: LISTWISE_DISTILL_LOSS }',
-           r'LISTWISE_DISTILL_LOSS of model_config.kd\[0\]'),
-    'loss_type': ('  loss_type: L2_LOSS', 'loss_type L2_LOSS'),
+    # a term beside ZILN's 3 logits
+    'ziln_terms': ('  loss_type: ZILN_LOSS\n'
+                   '  losses { loss_type: CLASSIFICATION }',
+                   'CLASSIFICATION of model_config.losses'),
+    'loss_type': ('  loss_type: PAIRWISE_HINGE_LOSS num_class: 2',
+                  'loss_type PAIRWISE_HINGE_LOSS with num_class 2'),
 }
 
 

@@ -45,7 +45,9 @@ IGNORED = {
 # multi-task families, then the backbone DSL's 20 and the three with
 # variational_dropout (which only a backbone reads), then the match
 # family's 19 (kd_backbone, a backbone RankModel with a kd term, among
-# them).
+# them), then the rest of the rank zoo's 15 (CMBF, Uniter and DBMTL's
+# multi-modal bottoms; the ranking losses, the grouped and multi-class
+# metrics, bf16 and freeze_gradient).
 PORTED = ['autoint', 'autoint_seq_group', 'best_exporter_early_stop',
           'dbmtl', 'dbmtl_seq_group_attention', 'dbmtl_seq_numeric_boundary',
           'dcn_max_f1', 'dcn_seq_group', 'dcn_v2', 'dead_line_stop',
@@ -76,18 +78,24 @@ MATCH = ['dat', 'dat_inner_simi', 'dropoutnet', 'dropoutnet_neg_sampler_v2',
          'metric_learning_ms', 'mind', 'mind_neg_sampler', 'mind_time_id',
          'multi_tower_recall', 'parallel_dssm_backbone', 'pdn',
          'pdn_neg_sampler']
-PORTED = sorted(PORTED + BACKBONE + VARIATIONAL_DROPOUT + MATCH)
+RANK_EXTRA = ['cmbf', 'cmbf_image_only', 'cmbf_multi_loss', 'cmbf_text_only',
+              'dbmtl_cmbf', 'dbmtl_uniter', 'deepfm_bf16', 'deepfm_multi_cls',
+              'deepfm_ziln', 'gauc_session_metrics', 'losses_pairwise',
+              'multi_optimizer_freeze', 'uniter', 'uniter_image_only',
+              'uniter_text_only']
+PORTED = sorted(PORTED + BACKBONE + VARIATIONAL_DROPOUT + MATCH + RANK_EXTRA)
 
-# The multi-task samples refused, with the part check_ported names.
-MULTI_TASK_REFUSED = {
-    'dbmtl_cmbf': 'model_config.dbmtl.bottom_cmbf',
-    'dbmtl_uniter': 'model_config.dbmtl.bottom_uniter',
-}
-
-# Rank samples refused by name: the loss types that are not ported.
-RANK_REFUSED = {
-    'deepfm_ziln': 'loss_type ZILN_LOSS',
-    'losses_pairwise': r'model_config.losses\[0\].pairwise_logistic_loss',
+# The samples still refused, with the part check_ported names: feature
+# types and fg (ROADMAP A6d), incremental saves (A2's leftovers) and
+# Parquet, which needs pyarrow.
+REFUSED = {
+    'combo_cross': 'combo_input_seps',
+    'expr_feature': 'expression',
+    'lookup_feature': 'feature_type LookupFeature',
+    'taobao_fg': 'fg_json_path',
+    'deepfm_incr_save': 'incr_save_config',
+    'ev_incr_save': 'incr_save_config',
+    'dlrm_parquet': 'input_type ParquetInput',
 }
 
 
@@ -159,8 +167,9 @@ def _passes(path):
 
 def test_samples_that_pass_check_ported():
   assert [_name(p) for p in SAMPLES if _passes(p)] == PORTED
-  assert len(PORTED) == 88
-  for name, part in dict(MULTI_TASK_REFUSED, **RANK_REFUSED).items():
+  assert len(PORTED) == 103
+  assert len(SAMPLES) - len(PORTED) == len(REFUSED) == 7
+  for name, part in REFUSED.items():
     with pytest.raises(NotImplementedError, match=part):
       t_config.check_ported(t_config.get_configs_from_pipeline_file(
           os.path.join(REPO, 'samples', name + '.config')))
@@ -226,7 +235,11 @@ def test_ported_samples_train_a_step(name, tmp_path):
   assert np.isfinite(float(loss['total_loss']))
   model = cfg.model_config.WhichOneof('model')
   if model in ('mmoe', 'esmm', 'dbmtl', 'simple_multi_task', 'ple'):
-    assert len(loss) == 3, sorted(loss)
+    # one term a task, and dbmtl_cmbf's cvr ORDER_CALIBRATE_LOSS
+    # against its relation tower ctr
+    calibrated = name == 'dbmtl_cmbf'
+    assert len(loss) == (4 if calibrated else 3), sorted(loss)
+    assert ('order_calibrate_loss_ctr_cvr' in loss) == calibrated
   if name == 'aitm_backbone':
     # the two cross entropies: cvr's ORDER_CALIBRATE_LOSS compares it
     # with its relation towers, and it names none
