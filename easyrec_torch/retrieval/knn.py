@@ -5,10 +5,12 @@ topk_search and hitrate_at_k (:109-131), the k-means of _kmeans_fit
 (:137-158) and IvfIndex (:161-253). The JAX index shards the corpus over
 a mesh, takes a top-k per shard and merges them; on one device the
 padding and the merge fall away, and a search is one [B, D] x [D, N] f32
-GEMM and one torch.topk per query batch of at most `query_batch` rows (a
-[B, N] f32 block of scores is B x N x 4 bytes: 4.1 GB for 1,024 queries
-over 1,000,000 items). The scores are f32 sums as long as
-torch.backends.cuda.matmul.allow_tf32 stays False, torch's default.
+GEMM and one torch.topk per query batch. query_batch sizes the batch from
+the corpus: a [B, N] f32 block of scores is B x N x 4 bytes, so B is the
+largest power of two whose block fits SCORE_BLOCK_BYTES (1,024 queries
+over 1,000,000 items), at most hitrate_at_k's 4,096. The scores are f32
+sums as long as torch.backends.cuda.matmul.allow_tf32 stays False,
+torch's default.
 
 Results are what the JAX index returns: the top-k rows by score, best
 first, rows of equal score lowest index first, also where rows tied at
@@ -31,6 +33,16 @@ import torch
 from easyrec_torch.device import resolve_device
 
 METRICS = ('ip', 'cos', 'l2')
+SCORE_BLOCK_BYTES = 1 << 32     # what a query batch's f32 blocks may hold
+MAX_QUERY_BATCH = 4096
+
+
+def query_batch(bytes_per_query: int) -> int:
+  """The largest power of two of queries whose blocks of
+  `bytes_per_query` each fit SCORE_BLOCK_BYTES, from 1 to
+  MAX_QUERY_BATCH."""
+  rows = max(1, SCORE_BLOCK_BYTES // max(int(bytes_per_query), 1))
+  return min(MAX_QUERY_BATCH, 1 << (rows.bit_length() - 1))
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -74,17 +86,17 @@ class KnnIndex:
   unless the caller asks for the CPU)."""
 
   def __init__(self, item_embeddings, item_ids: Optional[np.ndarray] = None,
-               metric: str = 'ip', device=None, query_batch: int = 1024):
+               metric: str = 'ip', device=None):
     if metric not in METRICS:
       raise ValueError('metric %r: one of %s' % (metric, METRICS))
     self.device = resolve_device(device)
     self.metric = metric
-    self.query_batch = int(query_batch)
     emb = _as_f32(item_embeddings, self.device)
     if metric == 'cos':
       emb = _normalize(emb)
     self.embeddings = emb
     self.num_items = int(emb.shape[0])
+    self.query_batch = query_batch(4 * self.num_items)
     self.ids = item_ids if item_ids is not None else np.arange(
         self.num_items)
     # argmin ||q - e||^2 == argmax (2 q.e - ||e||^2)
@@ -193,13 +205,11 @@ class IvfIndex:
 
   def __init__(self, item_embeddings, item_ids: Optional[np.ndarray] = None,
                metric: str = 'ip', n_clusters: int = 64, n_iters: int = 10,
-               seed: int = 0, init_rows=None, device=None,
-               query_batch: int = 256):
+               seed: int = 0, init_rows=None, device=None):
     if metric not in METRICS:
       raise ValueError('metric %r: one of %s' % (metric, METRICS))
     self.device = resolve_device(device)
     self.metric = metric
-    self.query_batch = int(query_batch)
     emb = _as_f32(item_embeddings, self.device)
     n, d = emb.shape
     n_clusters = min(n_clusters, n)
@@ -247,11 +257,14 @@ class IvfIndex:
     """(scores, item rows); rows are -1 (score -inf) where fewer than k
     members fell inside the probed clusters."""
     nprobe = min(nprobe, self.centroids.shape[0])
-    k = min(k, self.num_items, nprobe * self.buckets.shape[1])
+    _, cap, d = self.buckets.shape
+    k = min(k, self.num_items, nprobe * cap)
+    # a query's gathered candidates [nprobe, cap, D] and their scores
+    batch = query_batch(4 * nprobe * cap * (d + 1))
     q_all = _as_f32(queries, self.device)
     out_s, out_i = [], []
-    for lo in range(0, q_all.shape[0], self.query_batch):
-      s, i = self.search_tensor(q_all[lo:lo + self.query_batch], k, nprobe)
+    for lo in range(0, q_all.shape[0], batch):
+      s, i = self.search_tensor(q_all[lo:lo + batch], k, nprobe)
       out_s.append(s.cpu())
       out_i.append(i.cpu())
     if not out_s:

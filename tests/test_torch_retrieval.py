@@ -44,10 +44,12 @@ def _corpus(seed, n=1003, d=16, b=37):
 
 
 @pytest.mark.parametrize('metric', ['ip', 'cos', 'l2'])
-def test_knn_matches_jax(metric):
+def test_knn_matches_jax(metric, monkeypatch):
   """Scores within 1e-5 relative and ids equal, with string ids over a
   corpus of 1,003 rows (not a multiple of the JAX mesh's 8 devices); the
-  port's query batches of 7 rows give what one batch gives; and the ids
+  port's query batches of 4 rows (a score budget of 7 queries' blocks)
+  give the ids one batch gives and its scores to f32 rounding (the CPU's
+  GEMM rounds a [4, D] block otherwise than a [37, D] one); and the ids
   are those of a float64 numpy ranking."""
   items, queries = _corpus(1)
   ids = np.array(['item_%d' % i for i in range(len(items))], object)
@@ -57,11 +59,12 @@ def test_knn_matches_jax(metric):
   t_s, t_ids = index.search_ids(queries, 10)
   _close(t_s, j_s)
   np.testing.assert_array_equal(t_ids, j_ids)
-  small = t_knn.KnnIndex(items, item_ids=ids, metric=metric, device='cpu',
-                         query_batch=7)
+  monkeypatch.setattr(t_knn, 'SCORE_BLOCK_BYTES', 7 * 4 * len(items))
+  small = t_knn.KnnIndex(items, item_ids=ids, metric=metric, device='cpu')
+  assert small.query_batch == 4 and index.query_batch == 4096
   s7, ids7 = small.search_ids(queries, 10)
   np.testing.assert_array_equal(ids7, t_ids)
-  np.testing.assert_array_equal(s7, t_s)
+  _close(s7, t_s)
   q, e = queries.astype(np.float64), items.astype(np.float64)
   if metric == 'cos':
     q = q / np.linalg.norm(q, axis=1, keepdims=True)
@@ -96,12 +99,13 @@ def _jax_draw(n, n_clusters, seed=0):
 
 
 @pytest.mark.parametrize('metric', ['ip', 'cos', 'l2'])
-def test_ivf_matches_jax_from_its_draw(metric):
+def test_ivf_matches_jax_from_its_draw(metric, monkeypatch):
   """From the JAX initial draw: centroids within 1e-5, the same buckets
   (each cluster's rows in row order, so the same assignments), the same
   search ids at nprobe 4 and at every cluster, where the IVF equals the
-  exact index; a k past the probed pool is clamped and padded with row
-  -1 at -inf."""
+  exact index, in query batches of a few rows (a 64 KiB budget for their
+  gathered candidates); a k past the probed pool is clamped and padded
+  with row -1 at -inf."""
   rng = np.random.default_rng(2)
   centers = rng.normal(size=(8, 12)) * 3
   items = (centers[rng.integers(0, 8, 601)] +
@@ -110,8 +114,8 @@ def test_ivf_matches_jax_from_its_draw(metric):
              rng.normal(size=(29, 12))).astype(np.float32)
   j_ivf = j_knn.IvfIndex(items, metric=metric, n_clusters=16, n_iters=6)
   t_ivf = t_knn.IvfIndex(items, metric=metric, n_clusters=16, n_iters=6,
-                         init_rows=_jax_draw(601, 16), device='cpu',
-                         query_batch=8)
+                         init_rows=_jax_draw(601, 16), device='cpu')
+  monkeypatch.setattr(t_knn, 'SCORE_BLOCK_BYTES', 1 << 16)
   np.testing.assert_allclose(t_ivf.centroids.numpy(),
                              np.asarray(j_ivf.centroids), rtol=1e-5,
                              atol=1e-5)
@@ -135,6 +139,16 @@ def test_ivf_matches_jax_from_its_draw(metric):
   np.testing.assert_array_equal(t_r, j_r)
   _close(t_s, j_s)
   assert (t_r < 0).any() and np.all(np.isneginf(t_s[t_r < 0]))
+
+
+def test_query_batch_from_the_corpus():
+  """The largest power of two of queries whose f32 blocks fit 4 GiB, at
+  most 4,096: 1,024 queries over 1,000,000 items, 4,096 over a small
+  corpus, one query where a single block passes the budget."""
+  assert t_knn.query_batch(4 * 1000000) == 1024
+  assert t_knn.query_batch(4 * 1003) == 4096
+  assert t_knn.query_batch(4 * 64 * 1000 * 65) == 256
+  assert t_knn.query_batch(5 << 30) == 1
 
 
 def test_ivf_own_draw_is_seeded():
