@@ -202,7 +202,7 @@ K4 and K5 must launch 0 times in 6-8.
              beside the bound of its function and that of the
              materialised scores; the hitrate CLI on the
              model_dir equal to compute_hitrate in process; the
-             vector_retrieve CLI over a 100,000-row doc table written from
+             vector_retrieve CLI over a 20,000-row doc table written from
              the corpus equal to the in-process search; no K1-K5 launch
              from the export on; the embed, index and search times and
              peak memory logged.
@@ -222,6 +222,45 @@ K4 and K5 must launch 0 times in 6-8.
              (RANK_EXTRA_RATES; rate_witness logs its readings at 0.001);
              the evals held card against CPU through hold_evals, and
              deepfm_ziln's probabilities and expected values.
+ 28. feature samples  (run after 27) the samples of the remaining feature
+             types, fg.json and incremental saves (combo_cross,
+             expr_feature, lookup_feature, taobao_fg, deepfm_incr_save,
+             ev_incr_save), small (batch 256, hash buckets at most 1,000,
+             the sample's own features) on their pipelines' batches of
+             write_rank_csv's or write_fg_data's files, train 3 steps on
+             the card and the CPU from one state at the agree phase's
+             rule, unfused, and ev_incr_save fused as well; the two
+             incremental samples publish after each step on both sides,
+             and their updates' ids must be equal card against CPU.
+ 29. fg din  this slice's main path: samples/taobao_fg.config with
+             samples/fg/taobao_fg.json unchanged (batch 1,024; hash
+             buckets 100,000 for user_id, adgroup_id, brand and the
+             uid_x_cate combo, 10,000 for cate_id and tags; price in 5
+             buckets; click_seq 50 long; dim 16; towers [128, 64]) on
+             write_fg_data's generated CSVs (fg column order, Zipf-skewed
+             ids): K1 in every mode and K2 (compact Adam) bit-exact
+             against their plain versions on its first batch's pack, with
+             their times, bounds, the plain versions' and index_add_'s;
+             then through train_and_evaluate on a model_dir with its
+             fg_json_path, unfused: K1 and K2 (compact Adam) once a step,
+             K3-K5 never; its rate over its own pipeline's batches,
+             launches a step, peak memory, the host time of the combo
+             feature's transform; its export served by PredictorService,
+             1 and 1,024 of the eval rows bit-equal to the Trainer's eval
+             forward.
+ 30. incr big  (inside phase 12, on its model_dir) the flagship DeepFM
+             continues from its step-20 checkpoint to step 40 with
+             samples/deepfm_incr_save.config's incr_save_config every 10
+             steps: a base snapshot at 20, updates at 30 and 40 (and the
+             empty one of the final publish), each update's ids exactly
+             the rows the batches of its 10 steps touched; the JAX
+             design's host copy and diff of the table timed beside the
+             port's device diff; step 20 exported with big_model; a
+             Predictor on the card memory-maps the export, consumes the
+             updates and must answer as the Trainer's eval forward at step
+             40 (bit for bit, or within 1e-6); its latency at 1, 256 and
+             4,096 rows beside the in-memory Predictor's of the step-40
+             export; no K1-K5 launch while it serves.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -261,7 +300,13 @@ def fail(msg):
   sys.exit(1)
 
 
+# when main() started; each log line carries the seconds since
+STARTED = [None]
+
+
 def log(msg):
+  if STARTED[0] is not None:
+    msg = '[%.1f s] %s' % (time.time() - STARTED[0], msg)
   print(msg, flush=True)
 
 
@@ -1067,7 +1112,8 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
   weights and batches. The CPU path runs the kernels' plain versions,
   whose agreement with the JAX package the CPU tests hold. On the card
   the update must go through K2 (or K3 under EASYREC_PACKED_FUSED=1) with
-  the embedding optimizer's block math, once a step and table. A model
+  the embedding optimizer's block math, once a step and table (with
+  ev_params also ev_add and ev_set, once a step and EV table each). A model
   with per-task metrics (metric_task_names), or whose metrics_set holds
   more than `auc`, is also evaluated on two synthetic batches, card
   against CPU: from the
@@ -1132,8 +1178,12 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
   t = runs['cuda']
   math_ids = {MATH_NAMES[t.embed_pair.sparse.kernel_math(m.compact)[0]]
               for m in t.metas.values()}
-  want = {'%s/%s' % ('rmw_fused' if fused == '1' else 'rmw_rows', m):
-          3 * len(t.tables) for m in math_ids}
+  kernel = 'rmw_fused' if fused == '1' else 'rmw_rows'
+  want = {'%s/%s' % (kernel, m): 3 * len(t.tables) for m in math_ids}
+  # with ev_params, each EV table's counts and last-seen steps (ev_add,
+  # ev_set) take one update a step each
+  for m in ('ev_add', 'ev_set') if t.ev_plan else ():
+    want['%s/%s' % (kernel, m)] = 3 * len(t.ev_plan)
   if tagged != want:
     fail('small %s: the card launched %s, %s expected' % (what, tagged,
                                                           want))
@@ -2102,7 +2152,6 @@ def phase_serve_deepfm(torch, smi):
          len(a['model']) + len(a['tables']), smi))
   del a, b
   shutil.rmtree(os.path.join(root, 'again'))
-  shutil.rmtree(os.path.join(model_dir, 'checkpoints'))
 
   kernels.reset_launches()
   t0 = time.perf_counter()
@@ -2187,7 +2236,242 @@ def phase_serve_deepfm(torch, smi):
       % ('bit-equal' if bit_equal else 'within 1e-6', worst,
          status['requests'], status['rows'], launched))
   del service
+  torch.cuda.empty_cache()
+  shutil.rmtree(final)
+  phase_incr_big(torch, smi, cfg, model_dir, root, rows)
   shutil.rmtree(root, ignore_errors=True)
+  torch.cuda.empty_cache()
+
+
+INCR_EVERY = 10       # phase 30's publish interval, in steps
+
+
+def incr_save_config():
+  """samples/deepfm_incr_save.config's incr_save_config, publishing every
+  INCR_EVERY steps (the sample's 100 is cut with its 10,000 steps)."""
+  from easyrec_torch.config import config_util
+  cfg = config_util.get_configs_from_pipeline_file(
+      os.path.join(HERE, 'samples', 'deepfm_incr_save.config'))
+  ic = cfg.train_config.incr_save_config
+  if (ic.sparse_save_steps, ic.dense_save_steps,
+      ic.WhichOneof('incr_update')) != (100, 100, 'fs'):
+    fail('samples/deepfm_incr_save.config\'s incr_save_config changed: %s'
+         % ic)
+  ic.sparse_save_steps = ic.dense_save_steps = INCR_EVERY
+  return ic
+
+
+def touched_rows(torch, trainer, skip_rows, windows, steps):
+  """For each of `windows` runs of `steps` batches, from skip_rows raw rows
+  on, of the trainer's input (one pipeline, as the resumed run read it:
+  a shuffled pipeline started at another row permutes other chunks), the
+  rows of each table its batches reach, sorted."""
+  import numpy as np
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import to_device
+  out = [{} for _ in range(windows)]
+  batches = zip(range(windows * steps), trainer.train_input(
+      skip_rows=skip_rows))
+  for i, b in batches:
+    for key, pack in emb_ops.pack_ids(
+        trainer.layout, to_device(b, torch.device('cpu'))).items():
+      out[i // steps].setdefault(key, []).append(np.unique(pack.numpy()))
+  return [{k: np.unique(np.concatenate(v)) for k, v in w.items()}
+          for w in out]
+
+
+def phase_incr_big(torch, smi, cfg, model_dir, root, rows):
+  """Phase 30 on phase 12's model_dir (its step-20 checkpoint): the
+  flagship continues to step 40 through train_and_evaluate with
+  incr_save_config() (K1 + K2 once a step), publishing a base snapshot at
+  20 and updates at 30 and 40, and an empty one at the end; each update's
+  sparse ids exactly the rows its steps' batches touched (touched_rows),
+  its dense deltas every dense parameter that moved. Then the JAX
+  design's host work for one publish of the table (a copy of its weight
+  columns to the host and a compare of two copies) timed beside the
+  port's diff on the card. Step 20 exported with big_model (its seconds
+  and bytes); a Predictor on the card memory-maps it, consumes the three
+  updates, and answers `rows` (1, 256 and 4,096 raw rows) as the Trainer's
+  eval forward at step 40, bit for bit or within 1e-6; its latency
+  (Predictor.predict in process, SERVE_REQUESTS calls after one untimed)
+  beside the in-memory Predictor's of the step-40 export. K1-K5 launch 0
+  times from the export on."""
+  import numpy as np
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.export import saved_model as sm
+  from easyrec_torch.export.predictor import Predictor
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.train import incremental as incr_lib
+
+  steps = 2 * SLICE_STEPS
+  cfg = cfg.copy()
+  cfg.train_config.incr_save_config = incr_save_config()
+  edits = {'train_config.num_steps': steps,
+           'train_config.save_checkpoints_steps': SLICE_STEPS,
+           'train_config.log_step_count_steps': 10}
+  kernels.reset_launches()
+  t0 = time.time()
+  with Timed(incr_lib.IncrementalPublisher, 'publish') as pubs:
+    result = main_lib.train_and_evaluate(cfg, edit_config_json=edits,
+                                         device='cuda')
+  torch.cuda.synchronize()
+  wall = time.time() - t0
+  counts = kernels.launch_counts()
+  trainer = result['trainer']
+  if result['global_step'] != steps or counts['seg_sum'] != SLICE_STEPS or \
+      counts['rmw_rows'] != SLICE_STEPS:
+    fail('incr: train_and_evaluate from step %d ran to %d with %s'
+         % (SLICE_STEPS, result['global_step'], counts))
+  incr_dir = os.path.join(model_dir, 'incr_save')
+  updates = incr_lib.list_updates(incr_dir)
+  names = [os.path.basename(u) for u in updates]
+  want_names = ['update-000001-step-%d.npz' % (SLICE_STEPS + INCR_EVERY),
+                'update-000002-step-%d.npz' % steps,
+                'update-000003-step-%d.npz' % steps]
+  if names != want_names or [out for _, out in pubs.calls][0] is not None \
+      or len(pubs.calls) != 4:
+    fail('incr: published %s (%d calls), %s expected'
+         % (names, len(pubs.calls), want_names))
+  (key, meta), = trainer.metas.items()
+  bs = int(cfg.data_config.batch_size)
+  params = incr_lib.dense_arrays(trainer.model)['params']
+  windows = touched_rows(torch, trainer, SLICE_STEPS * bs, 2, INCR_EVERY)
+  for i, (u, touched) in enumerate(zip(updates[:2], windows)):
+    blob = incr_lib.read_update(u)
+    got = blob.get('sparse_ids/' + key)
+    if got is None or not np.array_equal(got, touched[key]):
+      fail('incr: update %s carries %s rows, the %d steps touched %d; '
+           'equal: %s' % (names[i], None if got is None else got.size,
+                          INCR_EVERY, touched[key].size,
+                          got is not None and np.array_equal(
+                              got, touched[key])))
+    dense = sorted(k[len('dense/'):] for k in blob if k.startswith('dense/'))
+    if not dense or not set(dense) <= set(params):
+      fail('incr: update %s carries dense %s of %s' % (names[i], dense,
+                                                       sorted(params)))
+    if i == 1:
+      for k in dense:
+        if not np.array_equal(blob['dense/' + k], params[k]):
+          fail('incr: update %s\'s %s differs from the step-%d parameter'
+               % (names[i], k, steps))
+      if not np.array_equal(blob['sparse_vals/' + key],
+                            trainer.tables[key][got, :meta.dim].cpu()
+                            .numpy()):
+        fail('incr: update %s\'s rows differ from the table at step %d'
+             % (names[i], steps))
+    log('incr: update %s: %d rows (exactly the rows steps %d-%d touched), '
+        '%d of %d dense parameters, %d bytes; published in %.3f s; %s'
+        % (names[i], got.size, SLICE_STEPS + i * INCR_EVERY + 1,
+           SLICE_STEPS + (i + 1) * INCR_EVERY, len(dense), len(params),
+           os.path.getsize(u), pubs.calls[i + 1][0], smi))
+  last = incr_lib.read_update(updates[2])
+  if any(k.startswith('sparse_') for k in last):
+    fail('incr: the final publish at step %d carries rows' % steps)
+  log('incr: train_and_evaluate from step %d to %d with incr_save_config in '
+      '%.1f s (checkpoint, eval and export included); base snapshot %.3f s; '
+      'final publish (nothing moved) %.3f s, %d bytes; launches %s; %s'
+      % (SLICE_STEPS, steps, wall, pubs.calls[0][0], pubs.calls[3][0],
+         os.path.getsize(updates[2]), counts, smi))
+
+  # one publish's table work: the JAX design copies the weight columns
+  # to the host and compares them there; the port compares on the card
+  weights = trainer.tables[key][:, :meta.dim]
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  host_a = weights.cpu().numpy()
+  copy_s = time.perf_counter() - t0
+  host_b = host_a.copy()
+  t0 = time.perf_counter()
+  host_ids = np.nonzero(np.any(host_a != host_b, axis=1))[0]
+  diff_s = time.perf_counter() - t0
+  snap = weights.clone()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  dev_ids = torch.nonzero((weights != snap).any(dim=1)).flatten().cpu()
+  dev_s = time.perf_counter() - t0
+  if host_ids.size or dev_ids.numel():
+    fail('incr: a table compared with its own copy differs')
+  log('incr: the table\'s [%d, %d] f32 weights (%d bytes) in one publish: '
+      'the JAX design\'s host copy %.3f s and host compare %.3f s; the '
+      'port\'s compare on the card %.4f s (its snapshot %d bytes on the '
+      'card); %s' % (meta.rows, meta.dim, meta.rows * meta.dim * 4, copy_s,
+                     diff_s, dev_s, meta.rows * meta.dim * 4, smi))
+  del host_a, host_b, snap, weights
+  want = {n: trainer_outputs(torch, trainer, rows[n]) for n in SERVE_SIZES}
+  final = result['export_dir']
+  del result, trainer
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  with Timed(sm, 'export_saved_model') as exports:
+    big = main_lib.export(cfg, export_dir=os.path.join(root, 'big'),
+                          checkpoint_path=os.path.join(
+                              model_dir, 'checkpoints', str(SLICE_STEPS)),
+                          edit_config_json=edits, big_model=True,
+                          device='cuda')
+  torch.cuda.synchronize()
+  export_s = time.perf_counter() - t0
+  torch.cuda.empty_cache()
+  with open(os.path.join(big, sm.EXPORT_META)) as f:
+    meta_json = json.load(f)
+  if not meta_json['big_model'] or meta_json['global_step'] != SLICE_STEPS:
+    fail('incr: the big-model export says %s' % meta_json)
+  log('incr: big-model export of the step-%d checkpoint in %.3f s (a '
+      'Trainer on the card, restore included; export_saved_model %.3f s): '
+      '%d bytes, of them the KV store %d bytes; %s'
+      % (SLICE_STEPS, export_s, exports.calls[0][0], dir_bytes(big),
+         dir_bytes(os.path.join(big, 'kv')), smi))
+
+  kernels.reset_launches()
+  t0 = time.perf_counter()
+  pb = Predictor(big, batch_size=max(SERVE_SIZES), device='cuda')
+  load_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  applied = pb.consume_incremental(incr_dir)
+  consume_s = time.perf_counter() - t0
+  if applied != 3 or pb.tables:
+    fail('incr: the big-model Predictor applied %d updates, holds tables '
+         '%s' % (applied, sorted(pb.tables)))
+  worst, bit_equal = 0.0, True
+  for n in SERVE_SIZES:
+    got = pb.predict(rows[n])
+    for k, ref in want[n].items():
+      served = np.float32([r[k] for r in got])
+      if served.shape != ref.shape or not np.isfinite(served).all():
+        fail('incr: %s of %d rows: shape %s' % (k, n, served.shape))
+      worst = max(worst, float(np.abs(served - ref).max()))
+      bit_equal &= served.tobytes() == ref.tobytes()
+  if worst > 1e-6:
+    fail('incr: the big-model Predictor after the updates differs from the '
+         'Trainer\'s eval forward at step %d by %g' % (steps, worst))
+  log('incr: big-model Predictor on the card: load (memory map) %.3f s, '
+      'consume of %d updates %.3f s; answers at %s rows %s the Trainer\'s '
+      'eval forward at step %d (largest difference %g); %s'
+      % (load_s, applied, consume_s, list(SERVE_SIZES),
+         'bit-equal to' if bit_equal else 'within 1e-6 of', steps, worst,
+         smi))
+  pm = Predictor(final, batch_size=max(SERVE_SIZES), device='cuda')
+  for n in SERVE_SIZES:
+    lat = {}
+    for what, p in (('big-model', pb), ('in-memory', pm)):
+      p.predict(rows[n])
+      times = []
+      for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        p.predict(rows[n])
+        times.append((time.perf_counter() - t0) * 1e3)
+      lat[what] = times
+    log('incr: %d rows a call, %d calls of Predictor.predict in process: '
+        'big-model p50 %.3f ms, p99 %.3f ms; in-memory (step-%d export) p50 '
+        '%.3f ms, p99 %.3f ms; %s'
+        % (n, SERVE_REQUESTS, np.percentile(lat['big-model'], 50),
+           np.percentile(lat['big-model'], 99), steps,
+           np.percentile(lat['in-memory'], 50),
+           np.percentile(lat['in-memory'], 99), smi))
+  torch.cuda.synchronize()
+  if any(kernels.launch_counts().values()):
+    fail('incr: K1-K5 launched %s while serving' % kernels.launch_counts())
+  del pb, pm
   torch.cuda.empty_cache()
 
 
@@ -3022,7 +3306,9 @@ def phase_serve_dssm(torch, smi):
 
 # the retrieve phase (26): the full-width DSSM's item corpus searched
 HELD_QUERIES = 256        # queries held against a float64 numpy top-k
-DOC_ROWS = 100000         # rows of the vector_retrieve CLI's doc table
+# rows of the vector_retrieve CLI's doc table, cut in depth from 100,000
+# (a text table of that size took ~10 s to write and read)
+DOC_ROWS = 20000
 IVF_ROWS = 20000          # corpus rows of the IVF index held on the card
 
 
@@ -3362,7 +3648,8 @@ SAMPLE_RATE = 'constant_learning_rate { learning_rate: 0.001 }'
 
 def write_rank_csv(path, cols, rows, label, seed):
   """A headerless CSV of the rank samples' columns (label, uid, iid, cate,
-  tags, age, price, seq_cate, title, img_vec): ids Zipf-skewed over 300
+  tags, age, price, seq_cate, title, img_vec, lkp_map): ids Zipf-skewed
+  over 300
   users and 1,000 items, 1-8 tags, 1-50 categories, 1-16 title words,
   64 image floats. `label`: 'binary' (one row in three 1), 'class4'
   (class ids 0-3) or 'ltv' (zero on two rows in three, else lognormal)."""
@@ -3399,6 +3686,14 @@ def write_rank_csv(path, cols, rows, label, seed):
       'title': ['|'.join('w%d' % w for w in title[r, :n_title[r]])
                 for r in range(rows)],
       'img_vec': ['|'.join('%.4f' % x for x in img[r]) for r in range(rows)]}
+  # lookup_feature's kv map (drawn last, so the other columns do not
+  # change): 1-3 categories a row, and the row's own on half the rows
+  values['lkp_map'] = [
+      '|'.join('c%d:%.2f' % (c, w) for c, w in zip(
+          ([int(cate[1:])] if own else []) + list(rng.integers(0, 50, k)),
+          rng.random(k + 1)))
+      for cate, own, k in zip(values['cate'], rng.random(rows) < 0.5,
+                              rng.integers(1, 4, rows))]
   with open(path, 'w') as f:
     f.write(''.join(','.join(parts) + '\n'
                     for parts in zip(*(values[c] for c in cols))))
@@ -3407,7 +3702,8 @@ def write_rank_csv(path, cols, rows, label, seed):
 def rank_extra_config(name, data, rate=None):
   """samples/<name>.config with RANK_EXTRA_EDITS, and its constant rate
   at `rate` where given, on write_rank_csv's files of its columns in
-  `data`, small: batch and eval batch 256, hash buckets at most 1,000."""
+  `data`, small: batch and eval batch 256, hash buckets at most 1,000,
+  model_dir cleared."""
   from easyrec_torch.config import config_util
   with open(os.path.join(HERE, 'samples', name + '.config')) as f:
     text = f.read()
@@ -3524,8 +3820,318 @@ def phase_rank_extra(torch):
   log('agree: launches by kernel and math over the rank samples: %s'
       % launches)
 
+# the fg-driven Taobao DIN (phase 29) and the feature samples (phase 28)
+FG_CONFIG = os.path.join(HERE, 'samples', 'taobao_fg.config')
+FG_JSON = os.path.join(HERE, 'samples', 'fg', 'taobao_fg.json')
+# Taobao's ad-display ids (the Ali-CCP / Taobao display-ad click log the
+# fg's schema comes from): users, ad groups, categories, brands
+FG_IDS = {'user_id': 1141729, 'adgroup_id': 846811, 'cate_id': 12977,
+          'brand': 461497, 'tags': 10000}
+FEATURE_SAMPLES = ('combo_cross', 'expr_feature', 'lookup_feature',
+                   'taobao_fg', 'deepfm_incr_save', 'ev_incr_save')
+FEATURE_FUSED = ('ev_incr_save',)
+
+
+def write_fg_data(directory, train_rows=(SLICE_STEPS + 4) * 1024,
+                  eval_rows=4096, seed=2026):
+  """train.csv and eval.csv of samples/fg/taobao_fg.json's columns, in
+  the fg's column order (utils/fg_util.convert_rtp_fg): clk on one row in
+  twenty; user_id, adgroup_id, cate_id and brand Zipf-skewed over FG_IDS;
+  cms_segid, final_gender_code, age_level and occupation uniform over
+  their few values; price log-uniform over [0.1, 10,000) (all five of the
+  fg's buckets); 1-8 tags; a click sequence of 0-60 (cate_id, brand)
+  pairs, the two columns aligned. Returns the paths by name."""
+  import numpy as np
+  from easyrec_torch.utils.fg_util import convert_rtp_fg
+  with open(FG_JSON) as f:
+    cols = [fd.input_name for fd in convert_rtp_fg(json.load(f))[
+        'input_fields']]
+  os.makedirs(directory, exist_ok=True)
+  rng = np.random.default_rng(seed)
+
+  def zipf(n, size):
+    return np.clip(np.floor(n * np.power(rng.random(size), 3.0)), 0,
+                   n - 1).astype(np.int64)
+
+  paths = {}
+  for name, rows in (('train.csv', train_rows), ('eval.csv', eval_rows)):
+    n_tags, n_seq = rng.integers(1, 9, rows), rng.integers(0, 61, rows)
+    tags = zipf(FG_IDS['tags'], (rows, 8))
+    seq_cate = zipf(FG_IDS['cate_id'], (rows, 60))
+    seq_brand = zipf(FG_IDS['brand'], (rows, 60))
+    values = {
+        'clk': ['%d' % v for v in rng.random(rows) < 0.05],
+        'user_id': ['%d' % v for v in zipf(FG_IDS['user_id'], rows)],
+        'cms_segid': ['%d' % v for v in rng.integers(0, 97, rows)],
+        'final_gender_code': ['%d' % v for v in rng.integers(1, 3, rows)],
+        'age_level': ['%d' % v for v in rng.integers(0, 7, rows)],
+        'occupation': ['%d' % v for v in rng.integers(0, 2, rows)],
+        'adgroup_id': ['%d' % v for v in zipf(FG_IDS['adgroup_id'], rows)],
+        'cate_id': ['%d' % v for v in zipf(FG_IDS['cate_id'], rows)],
+        'brand': ['%d' % v for v in zipf(FG_IDS['brand'], rows)],
+        'price': ['%.2f' % v for v in 0.1 * 1e5 ** rng.random(rows)],
+        'tags': ['|'.join('%d' % t for t in tags[r, :n_tags[r]])
+                 for r in range(rows)],
+        'click_seq__cate_id': ['|'.join('%d' % c for c in
+                                        seq_cate[r, :n_seq[r]])
+                               for r in range(rows)],
+        'click_seq__brand': ['|'.join('%d' % b for b in
+                                      seq_brand[r, :n_seq[r]])
+                             for r in range(rows)]}
+    paths[name] = os.path.join(directory, name)
+    with open(paths[name], 'w') as f:
+      f.write(''.join(','.join(parts) + '\n'
+                      for parts in zip(*(values[c] for c in cols))))
+  return paths
+
+
+def csv_rows(path, names, n):
+  """The first n rows of a headerless CSV as {column: string} dicts, the
+  raw requests a user sends."""
+  import csv as csv_lib
+  with open(path, newline='') as f:
+    return [dict(zip(names, r)) for _, r in zip(range(n),
+                                                csv_lib.reader(f))]
+
+
+def fg_pack(torch, cfg):
+  """phase_kernel_path's pack at the fg DIN's shape: a trainer of `cfg`
+  on the card and the ids of the first batch of its own input."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import Trainer, to_device
+  trainer = Trainer(cfg, device='cuda')
+  batch = to_device(pipeline_batches(cfg, 'train', 1)[0],
+                    torch.device('cuda'))
+  (key, meta), = trainer.metas.items()
+  return trainer, key, meta, emb_ops.pack_ids(trainer.layout,
+                                              batch)[key].reshape(-1)
+
+
+def phase_fg_din(torch, card, smi):
+  """Phase 29: samples/taobao_fg.config through train_and_evaluate on a
+  model_dir, fg_json_path pointing at samples/fg/taobao_fg.json (the
+  config and the fg unchanged but the paths), on write_fg_data's files,
+  unfused: first K1 (every mode) and K2 (compact Adam) bit-exact against
+  their plain versions on its first batch's pack (phase_kernel_path, with
+  the yardsticks); then the published widths checked on the trainer's
+  specs, K1 and K2 once a step, K3-K5 never, finite losses and an auc;
+  then its rate over its own pipeline's batches, launches a step, peak
+  memory, and the host time of the combo feature's transform and of all
+  transforms on one batch's columns; its export served bit-equal to the
+  Trainer's eval forward. Returns the launches by kernel and math, and
+  K1's and K2's largest differences."""
+  import shutil
+  import numpy as np
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.features import transforms as tr
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.train.trainer import to_device
+
+  what = 'fg Taobao DIN'
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  root = os.path.join(SCRATCH, 'fg_din')
+  shutil.rmtree(root, ignore_errors=True)
+  paths = write_fg_data(os.path.join(root, 'data'))
+  edits = {'fg_json_path': FG_JSON,
+           'train_input_path': paths['train.csv'],
+           'eval_input_path': paths['eval.csv'],
+           'model_dir': os.path.join(root, 'md'),
+           'train_config.num_steps': SLICE_STEPS,
+           'train_config.save_checkpoints_steps': SLICE_STEPS,
+           'train_config.log_step_count_steps': 5}
+  errs = phase_kernel_path(torch, main_lib.load_config(FG_CONFIG, edits),
+                           what, pack=fg_pack, yardsticks=True)
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  held = torch.cuda.memory_allocated()
+  kernels.reset_launches()
+  t0 = time.time()
+  result = main_lib.train_and_evaluate(FG_CONFIG, edit_config_json=edits,
+                                       device='cuda')
+  torch.cuda.synchronize()
+  wall = time.time() - t0
+  counts, tagged = kernels.launch_counts(), kernels.tagged_counts()
+  peak = torch.cuda.max_memory_allocated()
+  trainer = result['trainer']
+  specs = trainer.specs
+  widths = {name: (specs[name].rows, specs[name].num_ids,
+                   specs[name].embedding_dim)
+            for name in ('user_id', 'adgroup_id', 'brand', 'uid_x_cate',
+                         'cate_id', 'tags', 'price', 'click_seq__cate_id',
+                         'click_seq__brand')}
+  want_widths = {'user_id': (100000, 1, 16), 'adgroup_id': (100000, 1, 16),
+                 'brand': (100000, 1, 16), 'uid_x_cate': (100000, 1, 16),
+                 'cate_id': (10000, 1, 16), 'tags': (10000, 16, 16),
+                 'price': (5, 1, 16), 'click_seq__cate_id': (10000, 50, 16),
+                 'click_seq__brand': (100000, 50, 16)}
+  towers = [list(t.dnn.hidden_units)
+            for t in trainer.pipeline_config.model_config.multi_tower.towers]
+  if widths != want_widths or towers != [[128, 64], [128, 64]] or \
+      specs['uid_x_cate'].config.feature_type != 'ComboFeature':
+    fail('%s: widths %s, towers %s' % (what, widths, towers))
+  losses = result['losses']
+  n_tables = len(trainer.tables)
+  log('%s: train_and_evaluate through fg_json_path, EASYREC_PACKED_FUSED=0, '
+      '%d steps in %.1f s (set-up, input, checkpoint, eval and export '
+      'included); widths (rows, ids a row, dim) %s; towers %s; losses %s; '
+      'eval %s; launches %s; by math %s'
+      % (what, result['global_step'], wall, widths, towers,
+         ['%.6f' % x for x in losses], result.get('eval_metrics'), counts,
+         tagged))
+  if result['global_step'] != SLICE_STEPS or \
+      not all(math.isfinite(x) for x in losses):
+    fail('%s: %d steps, losses %s' % (what, result['global_step'], losses))
+  auc = result.get('eval_metrics', {}).get('auc')
+  if auc is None or not 0.0 <= auc <= 1.0:
+    fail('%s: eval auc %r' % (what, auc))
+  for name, c in counts.items():
+    want = SLICE_STEPS * n_tables if name in ('seg_sum', 'rmw_rows') else 0
+    if c != want:
+      fail('%s: kernel %s launched %d times in %d steps over %d tables, %d '
+           'expected' % (what, name, c, SLICE_STEPS, n_tables, want))
+  if tagged != {'rmw_rows/compact_adam': SLICE_STEPS * n_tables}:
+    fail('%s: K2 launched with the block maths %s' % (what, tagged))
+
+  # the served answers are held to this state, before the rate's steps
+  names = [f.input_name for f in trainer.data_config.input_fields]
+  rows = csv_rows(paths['eval.csv'], names, 1024)
+  want = {n: trainer_outputs(torch, trainer, rows[:n]) for n in (1, 1024)}
+  pipe = trainer.train_input()
+  batches = [to_device(b, torch.device('cuda'))
+             for _, b in zip(range(4), pipe)]
+  for b in batches[:3]:
+    trainer.train_step(b)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for i in range(RATE_STEPS):
+    out = trainer.train_step(batches[i % len(batches)])
+  torch.cuda.synchronize()
+  dt = (time.perf_counter() - t0) / RATE_STEPS
+  if not math.isfinite(float(out['total_loss'])):
+    fail('%s rate: a loss is not finite' % what)
+  columns = next(iter(pipe.reader.chunks(1024)))
+  combo = tr.build_transform(specs['uid_x_cate'])
+  every = tr.build_transforms(specs)
+  combo_s, all_s = [], []
+  for _ in range(5):
+    t0 = time.perf_counter()
+    combo(columns)
+    combo_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tr.apply_transforms(every, columns)
+    all_s.append(time.perf_counter() - t0)
+  log('train step (%s, batch %d, pre-built input-pipeline batches on the '
+      'device): %.3f ms/step, %.1f examples/s on %s; launches a step %s; '
+      'peak device memory %.3f GB (%.3f GB held before it started); host '
+      'transforms of one batch\'s 1,024 rows: the uid_x_cate combo p50 %.3f '
+      'ms, all %d features p50 %.3f ms'
+      % (what, 1024, dt * 1e3, 1024 / dt, card,
+         {k: c / SLICE_STEPS for k, c in counts.items() if c}, peak / 1e9,
+         held / 1e9, np.median(combo_s) * 1e3, len(specs),
+         np.median(all_s) * 1e3))
+
+  export_dir = result['export_dir']
+  del result, trainer, batches, pipe
+  torch.cuda.empty_cache()
+  serve_bit_equal(torch, what, export_dir, rows, want, smi)
+  shutil.rmtree(root, ignore_errors=True)
+  return dict(counts, **tagged), errs
+
+
+def feature_sample_config(name, data):
+  """samples/<name>.config small, as rank_extra_config cuts a sample; the
+  fg sample with its fg.json's fields and features loaded, on
+  write_fg_data's files in `data`."""
+  from easyrec_torch.config import config_util
+  from easyrec_torch.utils.fg_util import load_fg_json_to_config
+  cfg = config_util.get_configs_from_pipeline_file(
+      os.path.join(HERE, 'samples', name + '.config'))
+  if not cfg.fg_json_path:
+    return rank_extra_config(name, data)
+  cfg.fg_json_path = FG_JSON
+  load_fg_json_to_config(cfg)
+  paths = write_fg_data(data, train_rows=768, eval_rows=512)
+  cfg.train_input_path = paths['train.csv']
+  cfg.eval_input_path = paths['eval.csv']
+  cfg.model_dir = ''
+  dc = cfg.data_config
+  dc.batch_size = dc.eval_batch_size = 256
+  for fc in config_util.get_feature_configs(cfg):
+    fc.hash_bucket_size = min(int(fc.hash_bucket_size), 1000)
+  return cfg
+
+
+def hold_update_ids(torch, what, cfg, batches, data):
+  """Two trainers, on the card and the CPU, from one state, each with an
+  IncrementalPublisher of cfg's incr_save_config into a directory of its
+  own: a base snapshot, then 3 steps on `batches`, publishing after each.
+  Every update's sparse ids must be equal card against CPU; its values
+  are logged beside them."""
+  import numpy as np
+  from easyrec_torch.train import incremental as incr_lib
+  from easyrec_torch.train.trainer import Trainer, to_device
+  runs, pubs = {}, {}
+  for dev in ('cpu', 'cuda'):
+    runs[dev] = Trainer(cfg, device=dev)
+    runs[dev].init_state()
+  runs['cuda'].model.load_state_dict(runs['cpu'].model.state_dict())
+  for key, table in runs['cpu'].tables.items():
+    runs['cuda'].tables[key].copy_(table)
+  for dev, t in runs.items():
+    pubs[dev] = incr_lib.IncrementalPublisher(
+        cfg.train_config.incr_save_config, os.path.join(data, dev))
+    pubs[dev].publish(t, 0)
+  rows, gap = [], 0.0
+  for step, b in enumerate(batches, 1):
+    blobs = {}
+    for dev, t in runs.items():
+      t.train_step(to_device(b, torch.device(dev)))
+      blobs[dev] = incr_lib.read_update(pubs[dev].publish(t, step))
+    for key in runs['cpu'].tables:
+      a = blobs['cpu'].get('sparse_ids/' + key)
+      c = blobs['cuda'].get('sparse_ids/' + key)
+      if a is None or c is None or not np.array_equal(a, c):
+        fail('incr %s: step %d update of table %s: card ids %s, CPU %s'
+             % (what, step, key, None if c is None else c.size,
+                None if a is None else a.size))
+      rows.append(int(a.size))
+      gap = max(gap, float(np.abs(blobs['cpu']['sparse_vals/' + key] -
+                                  blobs['cuda']['sparse_vals/' + key]).max()))
+  log('agree: small %s: updates after each of 3 steps, card and CPU '
+      'publishers: sparse ids equal (%s rows by step and table); their '
+      'values within %g' % (what, rows, gap))
+
+
+def phase_feature_samples(torch):
+  """Phase 28: each of FEATURE_SAMPLES small on its own pipeline's
+  batches trains 3 steps on the card and the CPU from one state at the
+  agree phase's rule, unfused, and FEATURE_FUSED fused as well, its eval
+  held card against CPU through hold_evals; the incremental samples'
+  updates' ids card against CPU (hold_update_ids)."""
+  import shutil
+  launches = {}
+  for name in FEATURE_SAMPLES:
+    data = os.path.join(SCRATCH, 'feature_samples', name)
+    cfg = feature_sample_config(name, data)
+    batches = {'train': pipeline_batches(cfg, 'train', 3),
+               'eval': pipeline_batches(cfg, 'eval', 2)}
+    for fused in ('0', '1') if name in FEATURE_FUSED else ('0',):
+      got = phase_agree(torch, 'feature sample %s' % name, cfg, fused,
+                        batches=batches)
+      for k, c in got.items():
+        launches[k] = launches.get(k, 0) + c
+      if cfg.train_config.HasField('incr_save_config'):
+        hold_update_ids(torch, '%s, EASYREC_PACKED_FUSED=%s' % (name, fused),
+                        cfg, batches['train'],
+                        os.path.join(data, 'incr%s' % fused))
+    shutil.rmtree(data, ignore_errors=True)
+  log('agree: launches by kernel and math over the feature samples: %s'
+      % launches)
+
 
 def main():
+  STARTED[0] = time.time()
   if not os.path.isdir(os.path.join(HERE, 'easyrec_torch')):
     fail('easyrec_torch/ is not beside chip_smoke.py: run it from the '
          'root of a checkout')
@@ -3600,19 +4206,26 @@ def main():
   phase_serve_dssm(torch, smi)
   retrieve = phase_retrieve(torch, smi, os.path.join(SCRATCH, 'dssm'))
   phase_rank_extra(torch)
+  phase_feature_samples(torch)
+  fg, (err1, err2) = phase_fg_din(torch, card, smi)
+  for r in results:
+    if r['name'] == 'seg_sum':
+      r['max_abs_err'] = max(r['max_abs_err'], err1)
+    if r['name'] == 'rmw_rows/compact_adam':
+      r['max_abs_err'] = max(r['max_abs_err'], err2)
   phase_ckpt(torch)
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the retrieve phase's
-  # DSSM, this slice's main path; K3 on the DIN's, Adagrad on the Adagrad
+  # these that runs it (K1 and K2's compact Adam on the fg-driven DIN,
+  # this slice's main path; K3 on the DIN's, Adagrad on the Adagrad
   # DeepFM's, the EV maths on the EV phase's), 0 for a math no path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (retrieve, dssm, backbone, dlrm, mmoe, bst, din,
-                           deepfm, adagrad, ev)
+                          (fg, retrieve, dssm, backbone, dlrm, mmoe, bst,
+                           din, deepfm, adagrad, ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

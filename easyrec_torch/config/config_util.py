@@ -67,7 +67,8 @@ _RANK_LOSSES = ('CLASSIFICATION', 'CROSS_ENTROPY_LOSS',
                 'PAIRWISE_LOGISTIC_LOSS', 'PAIRWISE_HINGE_LOSS',
                 'LISTWISE_RANK_LOSS', 'LISTWISE_DISTILL_LOSS')
 _PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature', 'TagFeature',
-                         'SequenceFeature')
+                         'ComboFeature', 'LookupFeature', 'SequenceFeature',
+                         'ExprFeature', 'PassThroughFeature')
 _PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput',
                        'TFRecordInput', 'BatchTFRecordInput')
 

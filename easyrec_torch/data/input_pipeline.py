@@ -43,7 +43,7 @@ from easyrec_torch.data import samplers as sampler_lib
 from easyrec_torch.features import feature_spec as fs
 from easyrec_torch.features import transforms as tr
 from easyrec_torch.ops.hashing import hash_strings
-from easyrec_torch.utils.registry import INPUTS
+from easyrec_torch.utils.registry import INPUTS, load_by_path
 
 
 class BaseReader:
@@ -259,6 +259,11 @@ class InputPipeline:
   strings. A sampler (data_config's `sampler`; none in predict mode)
   draws its negatives once a batch, after the batch is cut, from the
   batch's raw item and user ids, as the JAX pipeline's _finalize does.
+  A label field's user_define_fn maps its f32 values; each of
+  data_config.extra_label_func (but in predict mode) makes a label from
+  the dict of the labels before it (JAX :732-736, :822-830). With
+  `check_mode`, each raw chunk is validated first (data/check.py), with
+  errors that name the feature, the row and the value.
   """
 
   def __init__(self,
@@ -272,7 +277,8 @@ class InputPipeline:
                shard_index: int = 0,
                shard_num: int = 1,
                extra_fields: Optional[List[str]] = None,
-               raw_extra_fields: bool = False):
+               raw_extra_fields: bool = False,
+               check_mode: bool = False):
     self.data_config = data_config
     self.mode = mode
     if batch_size is None:
@@ -286,6 +292,13 @@ class InputPipeline:
                                 shard_num)
     self.label_fields = list(data_config.label_fields)
     self.sample_weight_field = data_config.sample_weight or None
+    self.check_mode = bool(check_mode)
+    self._label_fns = {f.input_name: load_by_path(f.user_define_fn)
+                       for f in data_config.input_fields
+                       if f.user_define_fn and
+                       f.input_name in self.label_fields}
+    self._extra_label_fns = [(fc.label_name, load_by_path(fc.label_func))
+                             for fc in data_config.extra_label_func]
     if drop_remainder is None:
       drop_remainder = bool(data_config.drop_remainder) and mode == 'train'
     self.drop_remainder = drop_remainder
@@ -341,12 +354,29 @@ class InputPipeline:
     return self.batch_size * min(mult, 64)
 
   def _process_chunk(self, columns, epoch) -> Dict[str, np.ndarray]:
+    if self.check_mode:
+      from easyrec_torch.data.check import validate_columns
+      validate_columns(self.specs, columns,
+                       label_fields=[l for l in self.label_fields
+                                     if self.mode != 'predict'],
+                       sample_weight_field=self.sample_weight_field)
     out = tr.apply_transforms(self.transforms, columns)
     n = next(iter(out.values())).shape[0] if out else \
         len(next(iter(columns.values())))
     for label in self.label_fields:
-      out['label.%s' % label] = tr.to_float(columns[label]).astype(
-          np.float32)
+      vals = tr.to_float(columns[label])
+      fn = self._label_fns.get(label)
+      if fn is not None:
+        vals = np.asarray(fn(vals), dtype=np.float32)
+      out['label.%s' % label] = vals.astype(np.float32)
+    if self._extra_label_fns and self.mode != 'predict':
+      # each function gets the labels so far and makes one more
+      label_dict = {k.split('.', 1)[1]: v for k, v in out.items()
+                    if k.startswith('label.')}
+      for name, fn in self._extra_label_fns:
+        vals = np.asarray(fn(label_dict), dtype=np.float32)
+        out['label.%s' % name] = vals
+        label_dict[name] = vals
     if self.sample_weight_field:
       out['sample_weight'] = tr.to_float(columns[self.sample_weight_field])
     else:

@@ -1,7 +1,6 @@
 """Predictor: load an export and predict, online or over a CSV.
 
-Counterpart of easyrec_tpu/export/predictor.py (:31-401) without the
-big-model store and the incremental-update channels. An export split by
+Counterpart of easyrec_tpu/export/predictor.py (:31-401). An export split by
 tools/split_model.py names its `tower` in export_meta.json: its Predictor
 answers only that tower's `outputs` (both towers still run, as in the JAX
 package, :62, :78-79), and a column it is not given is filled with ''. The export carries
@@ -13,13 +12,30 @@ torch.no_grad() on the device (CUDA unless the caller asks for the CPU).
 The JAX Predictor pads each request to a static batch_size because jit
 needs static shapes; here a request is cut into chunks of at most
 batch_size rows, unpadded, and the rows come back in order.
+
+A big-model export (export/big_model.py, meta 'big_model') keeps its
+tables in a memory-mapped KV store: the ids are packed on the host
+(pack_ids_np), the rows gathered from the store, and only the dense
+forward runs on the device (JAX :82-97). Incremental updates
+(train/incremental.py) come from a directory (consume_incremental), a
+Kafka topic or a DataHub topic, each consumer's position kept on the
+Predictor: an update stamped at or before the export's global_step is
+skipped, and one that does not load (a half-written blob) stops the sweep
+unconsumed, to be retried at the next poll, after the updates before it
+have been applied (JAX :124-310). Table rows are written into the KV
+store through update_rows, flushed once a sweep, or into the tables on
+the device; dense parameters and BatchNorm statistics into the model.
 """
 
 from __future__ import annotations
 
+import base64
 import csv as csv_lib
+import io
 import json
 import os
+import re
+import zipfile
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
@@ -60,7 +76,20 @@ class Predictor:
     self.model.eval()
     self.tables: Dict[str, torch.Tensor] = {}
     self.metas: Dict[str, pt.TableMeta] = {}
+    self.big_model = bool(self.meta.get('big_model'))
+    self._kv_stores = None
+    self._kv_writable = False
+    if self.big_model:
+      # read-only until an update writes into the store
+      self._open_kv(writable=False)
     for key, t in self.layout.tables.items():
+      if self.big_model:
+        spec = self._kv_stores[key]
+        if (spec.rows, spec.dim) != (t.rows, t.dim):
+          raise ValueError('KV table %r is [%d, %d], the config gives '
+                           '[%d, %d]' % (key, spec.rows, spec.dim, t.rows,
+                                         t.dim))
+        continue
       table = state['tables'][key]
       if tuple(table.shape) != (t.rows, t.dim):
         raise ValueError('export table %r is %s, the config gives [%d, %d]'
@@ -71,6 +100,11 @@ class Predictor:
     # a split-tower export answers only its tower's outputs
     self.wanted = self.meta.get('outputs') if self.meta.get('tower') \
         else None
+    # consumed update files, and the Kafka offsets and DataHub sequences
+    # reached, by channel
+    self._consumed = set()
+    self._kafka_offsets: Dict[tuple, int] = {}
+    self._dh_seqs: Dict[tuple, int] = {}
 
   @property
   def input_names(self) -> List[str]:
@@ -85,8 +119,14 @@ class Predictor:
     dev = {k: torch.from_numpy(_writable(v)).to(self.device)
            for k, v in batch.items()
            if k.startswith('feat.') or k == 'sample_weight'}
-    packs = emb_ops.pack_ids(self.layout, dev)
-    pulled = emb_ops.pull_embeddings(self.tables, packs, self.metas)
+    if self.big_model:
+      from easyrec_torch.export import big_model as bm
+      pulled = {key: torch.from_numpy(self._kv_stores[key].gather(ids))
+                .to(self.device)
+                for key, ids in bm.pack_ids_np(self.layout, batch).items()}
+    else:
+      packs = emb_ops.pack_ids(self.layout, dev)
+      pulled = emb_ops.pull_embeddings(self.tables, packs, self.metas)
     exported = self.model.export_outputs(self.model(dev, pulled))
     if self.rtp and ('probs' in exported or 'y' in exported):
       # RTP serving output: probs for classification, y for regression
@@ -94,6 +134,136 @@ class Predictor:
     if self.wanted:
       exported = {k: v for k, v in exported.items() if k in self.wanted}
     return {k: v.cpu().numpy() for k, v in exported.items()}
+
+  # -- incremental updates -------------------------------------------------
+
+  def _open_kv(self, writable: bool):
+    """Open the big-model KV store, again writable where asked."""
+    from easyrec_torch.export import big_model as bm
+    if self._kv_stores is None or (writable and not self._kv_writable):
+      self._kv_stores = bm.open_kv_store(self.export_dir, writable=writable)
+      self._kv_writable = writable
+    return self._kv_stores
+
+  def consume_incremental(self, incr_dir: str) -> int:
+    """Apply the update files of `incr_dir` not consumed yet; returns how
+    many were applied."""
+    from easyrec_torch.train import incremental as incr_lib
+    pending = [u for u in incr_lib.list_updates(incr_dir)
+               if u not in self._consumed]
+    return self._apply_update_blobs(pending)
+
+  def consume_incremental_kafka(self, server: str, topic: str,
+                                start_offset: int = 0) -> int:
+    """Drain the Kafka topic's partition 0 from this Predictor's offset
+    (start_offset on the first call) and apply its updates."""
+    from easyrec_torch.data import kafka_client as kc
+    off = self._kafka_offsets.get((server, topic), start_offset)
+    consumer = kc.KafkaConsumer(server)
+    blobs = []
+    try:
+      while True:
+        records, hwm = consumer.fetch(topic, {0: off}, max_wait_ms=100)
+        for _pid, roff, _key, value in sorted(records, key=lambda r: r[1]):
+          blobs.append(io.BytesIO(value))
+          off = max(off, roff + 1)
+        if not records and off >= hwm.get(0, 0):
+          break
+    finally:
+      consumer.close()
+    n = self._apply_update_blobs(blobs)
+    self._kafka_offsets[(server, topic)] = off
+    return n
+
+  def consume_incremental_datahub(self, endpoint: str, access_id: str,
+                                  access_key: str, project: str,
+                                  topic: str, start_seq: int = 0) -> int:
+    """Drain the DataHub topic from this Predictor's sequence (start_seq
+    on the first call): TUPLE records (key, part, total, base64 payload)
+    reassembled by key into npz blobs, then applied."""
+    from easyrec_torch.data import datahub_client as dhc
+    skey = (endpoint, project, topic)
+    seq = self._dh_seqs.get(skey, start_seq)
+    client = dhc.DataHubClient(endpoint, access_id, access_key)
+    blobs, partial = [], {}
+    try:
+      for shard in client.list_shards(project, topic):
+        cursor, cseq = client.get_cursor(project, topic, shard,
+                                         dhc.SEQUENCE, sequence=seq)
+        _, latest = client.get_cursor(project, topic, shard, dhc.LATEST)
+        while cseq < latest:
+          records, cursor = client.get_records(project, topic, shard,
+                                               cursor)
+          if not records:
+            break
+          for rseq, data in records:
+            key, part, total, payload = data
+            acc = partial.setdefault(key, [None] * int(total))
+            acc[int(part)] = payload
+            if all(c is not None for c in acc):
+              blobs.append(io.BytesIO(base64.b64decode(''.join(acc)
+                                                       .encode())))
+              del partial[key]
+            cseq = rseq + 1
+          seq = max(seq, cseq)
+    finally:
+      client.close()
+    n = self._apply_update_blobs(blobs)
+    self._dh_seqs[skey] = seq
+    return n
+
+  @staticmethod
+  def _update_step(u) -> int:
+    """The step of an update: from its file name (update-N-step-S.npz) or
+    the __meta__ of a blob; -1 where neither says."""
+    if isinstance(u, str):
+      m = re.search(r'-step-(\d+)\.npz$', u)
+      return int(m.group(1)) if m else -1
+    pos = u.tell()
+    try:
+      with np.load(u) as data:
+        if '__meta__' not in data.files:
+          return -1
+        return int(json.loads(str(data['__meta__']))['step'])
+    except (OSError, ValueError, EOFError, KeyError, zipfile.BadZipFile):
+      return -1
+    finally:
+      u.seek(pos)
+
+  def _apply_update_blobs(self, pending) -> int:
+    """Apply updates (paths or file-like npz blobs) in order; returns how
+    many were applied. Each is read whole before any of it is applied."""
+    from easyrec_torch.train import incremental as incr_lib
+    export_step = int(self.meta.get('global_step', -1))
+    fresh = []
+    for u in pending:
+      step = self._update_step(u)
+      if 0 <= step <= export_step:
+        if isinstance(u, str):
+          self._consumed.add(u)      # older than the export: never apply
+        continue
+      fresh.append(u)
+    if not fresh:
+      return 0
+    tables = self._open_kv(writable=True) if self.big_model else \
+        self.tables
+    dense, stats = {}, {}
+    applied = 0
+    for u in fresh:
+      try:
+        blob = incr_lib.read_update(u)
+      except (OSError, ValueError, EOFError, zipfile.BadZipFile):
+        break                        # half-written: retried next poll
+      incr_lib.apply_update(dense, tables, blob, batch_stats=stats)
+      applied += 1
+      if isinstance(u, str):
+        self._consumed.add(u)
+    if self.big_model:
+      for store in tables.values():
+        store.flush()
+    incr_lib.load_dense(self.model, dense, 'params')
+    incr_lib.load_dense(self.model, stats, 'batch_stats')
+    return applied
 
   def predict_columns(self, columns: Dict[str, np.ndarray]) -> Dict:
     """Raw input columns (one value per sample) -> output dict; a missing

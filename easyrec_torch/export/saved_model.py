@@ -14,7 +14,9 @@ The serving state is a dict: 'model', the model's state_dict with
 Trainer.eval_params() in place of the parameters (the EMA weights under
 use_moving_average) beside BatchNorm's running statistics; 'tables', the
 LOGICAL [rows, dim] f32 weights of each fused table, with no optimizer
-slots (the JAX package's unpack_host, :47-54); 'step', an int64 scalar. The
+slots (the JAX package's unpack_host, :47-54), or none in a big-model
+export, whose tables go to a KV store (export/big_model.py: under
+kv/, one raw row-major .bin each and a manifest); 'step', an int64 scalar. The
 port's BatchNorm keeps no num_batches_tracked (flax's BatchNorm has none and
 its momentum is fixed), so the state holds none, and a state_dict holding
 one does not load. Older timestamped exports beyond
@@ -60,15 +62,22 @@ def serving_state(trainer) -> Dict[str, object]:
 
 
 def export_saved_model(trainer, export_base_dir: str,
-                       assets: Optional[list] = None) -> str:
+                       assets: Optional[list] = None,
+                       big_model: bool = False) -> str:
   """Write the trainer's current state as a timestamped export under
-  export_base_dir; returns its path."""
+  export_base_dir; returns its path. big_model puts the tables into the
+  file KV store beside the variables (JAX :30-60)."""
   stamp = str(int(time.time()))
   export_dir = os.path.join(export_base_dir, stamp)
   os.makedirs(export_dir, exist_ok=True)
   config_util.save_pipeline_config(trainer.pipeline_config, export_dir,
                                    CONFIG_FILE)
   state = serving_state(trainer)
+  if big_model:
+    from easyrec_torch.export import big_model as bm
+    bm.write_kv_store(export_dir, {k: t.numpy()
+                                   for k, t in state['tables'].items()})
+    state['tables'] = {}
   os.makedirs(os.path.join(export_dir, VARIABLES_DIR), exist_ok=True)
   torch.save(state, os.path.join(export_dir, VARIABLES_DIR, VARIABLES_FILE))
 
@@ -83,7 +92,7 @@ def export_saved_model(trainer, export_base_dir: str,
       'outputs': sorted(outputs),
       'inputs': _input_signature(trainer),
       'framework': 'easyrec_torch',
-      'big_model': False,
+      'big_model': bool(big_model),
       'export_features': bool(ec.export_features),
       'export_rtp_outputs': bool(ec.export_rtp_outputs),
   }

@@ -2,7 +2,8 @@
 
 Counterpart of easyrec_tpu/export_cli.py plus --device: writes a serving
 bundle from model_dir's latest checkpoint, or --checkpoint_path. Runs on
-CUDA unless --device cpu is given. --big_model is not ported and raises.
+CUDA unless --device cpu is given. --big_model keeps the tables in the
+bundle's memory-mapped KV store (export/big_model.py).
 """
 
 import argparse
@@ -18,7 +19,8 @@ def get_parser() -> argparse.ArgumentParser:
   parser.add_argument('--model_dir', default=None)
   parser.add_argument('--edit_config_json', default=None)
   parser.add_argument('--big_model', action='store_true',
-                      help='not ported: raises NotImplementedError')
+                      help='tables into a memory-mapped KV store, not '
+                           'into the variables')
   parser.add_argument('--device', default='cuda',
                       help="'cuda' (default) or 'cpu'")
   return parser

@@ -9,9 +9,12 @@ packs into static shapes:
                  or, numeric, dense[B, L, N] f32 + mask[B, L] f32
 A RawFeature with an embedding becomes a weighted-id lookup (ids = iota,
 weights = values); a TagFeature is K = max_multi_len weighted ids, zero
-weight on padding. The port builds specs for IdFeature, RawFeature,
-TagFeature and SequenceFeature (ids, boundary-bucketed values or numeric
-values).
+weight on padding. Every feature type of the JAX package has a spec:
+IdFeature, TagFeature, RawFeature, ExprFeature, LookupFeature (the
+raw-projection form, and the kv-map form where an id scheme or an explicit
+lookup_max_sel_elem_num is set), ComboFeature (K = max_multi_len, 8 by
+default, crosses under combo_input_seps), SequenceFeature (ids,
+boundary-bucketed values or numeric values) and PassThroughFeature.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ def table_rows(config) -> int:
     return n + 1
   if list(config.boundaries):
     return len(config.boundaries) + 1
-  if config.feature_type == 'RawFeature':
+  if config.feature_type in ('RawFeature', 'ExprFeature', 'LookupFeature'):
     return max(int(config.raw_input_dim), 1)   # one row per raw dimension
   raise ValueError(
       'feature %s needs hash_bucket_size/num_buckets/vocab/boundaries' %
@@ -105,7 +108,33 @@ def build_feature_spec(config,
         is_weighted=bool(config.kv_separator) or len(config.input_names) > 1,
         config=config)
 
-  if ftype == 'RawFeature':
+  # lookup_max_sel_elem_num reads 10 when unset (the proto's default): only
+  # a config that sets it selects several map values
+  explicit_sel = ftype == 'LookupFeature' and \
+      config.HasField('lookup_max_sel_elem_num')
+  if ftype == 'LookupFeature' and (
+      config.hash_bucket_size > 0 or config.num_buckets > 0 or
+      config.vocab_list or config.vocab_file or explicit_sel):
+    # the kv-map lookup with an id scheme or multi-selection
+    n_sel = max(int(config.lookup_max_sel_elem_num), 1) \
+        if explicit_sel else 1
+    if (config.hash_bucket_size > 0 or config.num_buckets > 0 or
+        config.vocab_list or config.vocab_file or
+        list(config.boundaries)):
+      return FeatureSpec(
+          name=name, kind='categorical', num_ids=n_sel,
+          table_name=table_name, rows=table_rows(config),
+          embedding_dim=emb_dim, combiner=combiner, config=config)
+    if emb_dim > 0:
+      # raw-projection numeric lookup: iota ids weighted by the values
+      return FeatureSpec(
+          name=name, kind='categorical', num_ids=n_sel,
+          table_name=table_name, rows=n_sel, is_weighted=True,
+          embedding_dim=emb_dim, combiner=combiner, config=config)
+    return FeatureSpec(name=name, kind='dense', value_dim=n_sel,
+                       config=config)
+
+  if ftype in ('RawFeature', 'ExprFeature', 'LookupFeature'):
     raw_dim = max(int(config.raw_input_dim), 1)
     if list(config.boundaries):
       # bucketized: one id per raw dimension
@@ -123,6 +152,16 @@ def build_feature_spec(config,
     return FeatureSpec(name=name, kind='dense', value_dim=raw_dim,
                        config=config)
 
+  if ftype == 'ComboFeature':
+    # combo_input_seps: the per-row cross product of multi-valued inputs,
+    # at most max_multi_len (default 8) crosses
+    n_ids = (int(config.max_multi_len) or 8) \
+        if list(config.combo_input_seps) else 1
+    return FeatureSpec(
+        name=name, kind='categorical', num_ids=n_ids,
+        table_name=table_name, rows=table_rows(config),
+        embedding_dim=emb_dim, combiner=combiner, config=config)
+
   if ftype == 'SequenceFeature':
     seq_len = int(config.max_seq_len) or DEFAULT_MAX_SEQ_LEN
     if config.sub_feature_type == 'RawFeature' and \
@@ -138,8 +177,12 @@ def build_feature_spec(config,
         table_name=table_name, rows=table_rows(config),
         embedding_dim=emb_dim, combiner=combiner, config=config)
 
-  raise NotImplementedError('feature_type %s (feature %s) is not ported'
-                            % (ftype, name))
+  if ftype == 'PassThroughFeature':
+    return FeatureSpec(name=name, kind='dense',
+                       value_dim=max(int(config.raw_input_dim), 1),
+                       config=config)
+
+  raise ValueError('unsupported feature type %s for %s' % (ftype, name))
 
 
 def build_feature_specs(configs, max_tag_len: int = DEFAULT_MAX_TAG_LEN

@@ -1,19 +1,23 @@
 """Host-side feature transforms: raw columns -> packed numpy arrays.
 
-Counterpart of easyrec_tpu/features/transforms.py for the feature types the
-port runs: IdTransform (:136), TagTransform (:184), RawTransform (:272) and
-SequenceTransform (:493). Columns are numpy arrays: object arrays of str
-for STRING fields, float64 for FLOAT/DOUBLE, int64 for integer fields.
+Counterpart of easyrec_tpu/features/transforms.py, every feature type:
+IdTransform (:136), TagTransform (:184), RawTransform (:272),
+ComboTransform (:333), LookupTransform (:387), ExprTransform (:468),
+SequenceTransform (:493) and PassThroughTransform (:555). Columns are numpy
+arrays: object arrays of str for STRING fields, float64 for FLOAT/DOUBLE,
+int64 for integer fields. Everything runs on the host, on numpy.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List
 
 import numpy as np
 
 from easyrec_torch.features.feature_spec import FeatureSpec
 from easyrec_torch.ops import hashing
+from easyrec_torch.utils import expr as expr_util
 from easyrec_torch.utils.registry import load_by_path
 
 
@@ -256,6 +260,154 @@ class RawTransform(BaseTransform):
     return {spec.dense_key: vals}
 
 
+class ComboTransform(BaseTransform):
+  """A cross of several inputs, hashed (or looked up by num_buckets or a
+  vocab) into ids. Without combo_input_seps a row's values are joined by
+  combo_join_sep ('\\x1d' by default) into one id; with them each input
+  is split by its own separator (an input without one, or an empty
+  value, stays whole) and the row's cross product, in order, gives up to
+  K = spec.num_ids ids, the rest zero weight."""
+
+  def __call__(self, columns):
+    spec, config = self.spec, self.config
+    join = config.combo_join_sep or '\x1d'
+    cols = [to_numpy_str(columns[name]) for name in config.input_names]
+    n = cols[0].shape[0]
+    seps = list(config.combo_input_seps)
+    use_vocab = bool(config.num_buckets or config.vocab_list or
+                     config.vocab_file)
+
+    def ids_of(values):
+      return _lookup_ids(values, config) if use_vocab else \
+          hashing.hash_strings(values, spec.rows)
+
+    if not seps:
+      joined = np.empty(n, dtype=object)
+      for i in range(n):
+        joined[i] = join.join(str(c[i]) for c in cols)
+      return {
+          spec.ids_key: ids_of(joined).astype(np.int32)[:, None],
+          spec.weights_key: np.ones((n, 1), np.float32),
+      }
+    k = spec.num_ids
+    flat, pos = [], []
+    counts = np.zeros(n, dtype=np.int32)
+    col_seps = seps + [''] * (len(cols) - len(seps))
+    for i in range(n):
+      parts = []
+      for c, sep in zip(cols, col_seps):
+        v = str(c[i])
+        parts.append(v.split(sep) if sep and v else [v])
+      for j, combo in enumerate(itertools.product(*parts)):
+        if j >= k:
+          break
+        flat.append(join.join(combo))
+        pos.append((i, j))
+        counts[i] = j + 1
+    ids = np.zeros((n, k), dtype=np.int64)
+    if flat:
+      for (i, j), h in zip(pos, ids_of(np.array(flat, dtype=object))):
+        ids[i, j] = h
+    weights = (np.arange(k)[None, :] < counts[:, None]).astype(np.float32)
+    return {
+        spec.ids_key: ids.astype(np.int32),
+        spec.weights_key: weights,
+    }
+
+
+def _floats(strs: np.ndarray, counts: np.ndarray, dtype) -> np.ndarray:
+  """[n, m] strings -> numbers, the first counts[i] of row i; a string
+  that is not a number and every slot past the count read 0."""
+  out = np.zeros(strs.shape, dtype=dtype)
+  for i in range(strs.shape[0]):
+    for j in range(counts[i]):
+      try:
+        out[i, j] = float(strs[i, j])
+      except ValueError:
+        pass
+  return out
+
+
+class LookupTransform(BaseTransform):
+  """inputs [key, kv map]: each row selects the values of its map
+  ('k1:v1|k2:v2', separator and kv_separator) whose key equals the row's
+  key, at most n_sel of them in map order. The selected values are read
+  as numbers (dense, or raw-projection weights of iota ids), bucketized
+  by boundaries, or hashed / looked up into ids with mask weights."""
+
+  def __call__(self, columns):
+    spec, config = self.spec, self.config
+    keys = to_numpy_str(columns[config.input_names[0]])
+    maps = to_numpy_str(columns[config.input_names[1]])
+    sep = config.separator or '|'
+    kv = config.kv_separator or ':'
+    n = maps.shape[0]
+    n_sel = spec.num_ids if spec.kind == 'categorical' else spec.value_dim
+    sel = np.empty((n, n_sel), dtype=object)
+    sel.fill('')
+    counts = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+      if not maps[i]:
+        continue
+      j = 0
+      for piece in maps[i].split(sep):
+        pk, _, pv = piece.partition(kv)
+        if pk == keys[i]:
+          sel[i, j] = pv
+          j += 1
+          if j >= n_sel:
+            break
+      counts[i] = j
+    mask = (np.arange(n_sel)[None, :] < counts[:, None]).astype(np.float32)
+    if spec.kind == 'dense':
+      return {spec.dense_key: _floats(sel, counts, np.float32)}
+    if list(config.boundaries):
+      bounds = np.asarray(config.boundaries, dtype=np.float64)
+      ids = np.searchsorted(bounds, _floats(sel, counts, np.float64),
+                            side='right')
+      return {
+          spec.ids_key: ids.astype(np.int32),
+          spec.weights_key: mask,
+      }
+    if not (config.hash_bucket_size > 0 or config.num_buckets > 0 or
+            config.vocab_list or config.vocab_file):
+      # raw-projection numeric lookup: iota ids weighted by the values
+      ids = np.broadcast_to(np.arange(n_sel, dtype=np.int32), (n, n_sel))
+      return {
+          spec.ids_key: np.ascontiguousarray(ids),
+          spec.weights_key: _floats(sel, counts, np.float32),
+      }
+    ids = _lookup_ids(sel.ravel(), config).reshape(n, n_sel)
+    return {
+        spec.ids_key: (ids * (mask > 0)).astype(np.int32),
+        spec.weights_key: mask,
+    }
+
+
+class ExprTransform(BaseTransform):
+  """An expression over the input fields (utils/expr.py) -> dense values,
+  or raw-projection weights of iota ids under an embedding. Arithmetic
+  reads each field as f32; the string functions read its raw strings."""
+
+  def __call__(self, columns):
+    spec, config = self.spec, self.config
+    variables = {name: to_float(columns[name])
+                 for name in config.input_names}
+    raw = {name: to_numpy_str(columns[name]) for name in config.input_names}
+    vals = np.asarray(expr_util.evaluate(config.expression, variables, raw),
+                      dtype=np.float32)
+    if vals.ndim == 1:
+      vals = vals[:, None]
+    if spec.kind == 'categorical':
+      n, d = vals.shape
+      ids = np.broadcast_to(np.arange(d, dtype=np.int32), (n, d))
+      return {
+          spec.ids_key: np.ascontiguousarray(ids),
+          spec.weights_key: vals,
+      }
+    return {spec.dense_key: vals}
+
+
 class SequenceTransform(BaseTransform):
   """Behaviour sequences 'i1|i2|...' -> ids[B, L] + mask[B, L]: the
   pieces in order (hashed, or by num_buckets, boundaries or vocab),
@@ -299,11 +451,25 @@ class SequenceTransform(BaseTransform):
     }
 
 
+class PassThroughTransform(BaseTransform):
+  """The input column as f32 values, one a row."""
+
+  def __call__(self, columns):
+    vals = to_float(columns[self.config.input_names[0]])
+    if vals.ndim == 1:
+      vals = vals[:, None]
+    return {self.spec.dense_key: vals}
+
+
 _TRANSFORMS = {
     'IdFeature': IdTransform,
     'TagFeature': TagTransform,
     'RawFeature': RawTransform,
+    'ComboFeature': ComboTransform,
+    'LookupFeature': LookupTransform,
     'SequenceFeature': SequenceTransform,
+    'ExprFeature': ExprTransform,
+    'PassThroughFeature': PassThroughTransform,
 }
 
 

@@ -30,13 +30,17 @@ ConfigOrPath = Union[str, Message]
 def load_config(config: ConfigOrPath,
                 edit_config_json: Optional[dict] = None) -> Message:
   """A pipeline config (path or message; a message is copied) with the
-  dotted-path edits applied."""
+  dotted-path edits applied, then the input fields and features of its
+  fg_json_path where it names one (utils/fg_util.py)."""
   if isinstance(config, str):
     config = config_util.get_configs_from_pipeline_file(config)
   else:
     config = config.copy()
   if edit_config_json:
     config_util.edit_config(config, edit_config_json)
+  if config.fg_json_path:
+    from easyrec_torch.utils.fg_util import load_fg_json_to_config
+    load_fg_json_to_config(config)
   return config
 
 
@@ -81,19 +85,21 @@ def train_and_evaluate(pipeline_config: ConfigOrPath,
                        continue_train: bool = False,
                        fit_on_eval: bool = False,
                        fit_on_eval_steps: int = 0,
-                       device=None) -> Dict:
+                       device=None,
+                       check_mode: bool = False) -> Dict:
   """Train, resuming from model_dir's latest checkpoint where there is
   one, evaluate on the eval input, and export per export_config.
 
   fit_on_eval: after training, train on the EVAL data (all of it, or
-  fit_on_eval_steps batches) before the export. Returns the step count,
+  fit_on_eval_steps batches) before the export. check_mode validates
+  every raw input chunk (data/check.py). Returns the step count,
   the log history, this run's total losses and the eval metrics, the
   trainer, and export_dir where one was written."""
   from easyrec_torch.export.saved_model import export_saved_model
   from easyrec_torch.train.trainer import Trainer, to_device
   config = load_config(pipeline_config, edit_config_json)
   _prepare_model_dir(config, continue_train)
-  trainer = Trainer(config, device=device)
+  trainer = Trainer(config, device=device, check_mode=check_mode)
   result = trainer.fit()
 
   if fit_on_eval and config.WhichOneof('eval_path'):
@@ -146,18 +152,16 @@ def export(pipeline_config: ConfigOrPath,
            device=None) -> str:
   """Export a serving bundle from model_dir's latest checkpoint, or the
   one checkpoint_path names, into export_dir (default
-  <model_dir>/export/final); returns the bundle's path. big_model, the
-  JAX package's memory-mapped KV-store export, is not ported."""
+  <model_dir>/export/final); returns the bundle's path. big_model writes
+  the tables into the bundle's memory-mapped KV store
+  (export/big_model.py), not into its variables."""
   from easyrec_torch.export.saved_model import export_saved_model
-  if big_model:
-    raise NotImplementedError(
-        'big_model export (export/big_model.py, a memory-mapped KV store '
-        'of the tables) is not ported')
   config = load_config(pipeline_config, edit_config_json)
   trainer = _restored_trainer(config, device, checkpoint_path)
   base = export_dir or os.path.join(config.model_dir, 'export', 'final')
   return export_saved_model(trainer, base,
-                            assets=list(config.export_config.asset_files))
+                            assets=list(config.export_config.asset_files),
+                            big_model=big_model)
 
 
 @torch.no_grad()

@@ -1,19 +1,22 @@
 """HTTP model server around an export bundle.
 
-Counterpart of easyrec_tpu/serving/server.py (:38-236) without the
-incremental-update channels:
+Counterpart of easyrec_tpu/serving/server.py (:38-236):
 
   GET  /health            liveness
   GET  /healthz           readiness: 503 {"status": "loading"} until the
                           forward has run once, then 200 {"status": "warm"}
-  GET  /status            model meta, requests and rows served
+  GET  /status            model meta, requests, rows and updates applied
   POST /predict           {"inputs": [{feature: value, ...}, ...]}
                           -> {"outputs": [{output: value, ...}, ...]};
                           400 on a malformed body, 500 on a serving error
 
 The Predictor runs on the device the service is given (CUDA unless the
 caller asks for the CPU). The service warms up before it binds its port
-(--no_warmup binds at once); one lock serializes predictions.
+(--no_warmup binds at once). With --incr_dir, or --kafka_server and
+--kafka_topic, a background thread applies the incremental updates that
+training publishes there (train/incremental.py) every incr_poll_secs. One
+lock serializes predictions and updates: an update lands between two
+requests.
 """
 
 from __future__ import annotations
@@ -40,14 +43,24 @@ class PredictorService:
 
   def __init__(self, export_dir: str, host: str = '127.0.0.1',
                port: int = 0, batch_size: int = 256,
-               warmup: bool = True, device=None):
+               warmup: bool = True, device=None,
+               incr_dir: Optional[str] = None,
+               kafka_server: Optional[str] = None,
+               kafka_topic: Optional[str] = None,
+               incr_poll_secs: float = 10.0):
     from easyrec_torch.export.predictor import Predictor
     self.predictor = Predictor(export_dir, batch_size=batch_size,
                                device=device)
     self.export_dir = export_dir
+    self.incr_dir = incr_dir
+    self.kafka_server = kafka_server
+    self.kafka_topic = kafka_topic
+    self.incr_poll_secs = incr_poll_secs
     self.lock = threading.Lock()
     self.n_requests = 0
     self.n_rows = 0
+    self.n_updates = 0
+    self._stop = threading.Event()
     self._srv: Optional[ThreadingHTTPServer] = None
     self._threads: List[threading.Thread] = []
     self.host = host
@@ -85,7 +98,29 @@ class PredictorService:
         'inputs': list(self.predictor.input_names),
         'requests': self.n_requests,
         'rows': self.n_rows,
+        'updates_applied': self.n_updates,
     }
+
+  def poll_updates(self) -> int:
+    """One sweep of the incremental channels; returns updates applied."""
+    n = 0
+    with self.lock:
+      if self.incr_dir:
+        n += self.predictor.consume_incremental(self.incr_dir)
+      if self.kafka_server and self.kafka_topic:
+        n += self.predictor.consume_incremental_kafka(self.kafka_server,
+                                                      self.kafka_topic)
+      self.n_updates += n
+    if n:
+      logging.info('applied %d incremental update(s)', n)
+    return n
+
+  def _update_loop(self):
+    while not self._stop.wait(self.incr_poll_secs):
+      try:
+        self.poll_updates()
+      except Exception:           # keep serving; the next poll retries
+        logging.exception('incremental update poll failed')
 
   # -- server lifecycle -------------------------------------------------
   def start(self) -> str:
@@ -149,11 +184,16 @@ class PredictorService:
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
     self._threads = [t]
+    if self.incr_dir or (self.kafka_server and self.kafka_topic):
+      u = threading.Thread(target=self._update_loop, daemon=True)
+      u.start()
+      self._threads.append(u)
     logging.info('serving %s at http://%s:%d on %s', self.export_dir,
                  self.host, self.port, self.predictor.device)
     return 'http://%s:%d' % (self.host, self.port)
 
   def stop(self):
+    self._stop.set()
     if self._srv is not None:
       self._srv.shutdown()
       self._srv.server_close()
@@ -173,6 +213,12 @@ def get_parser():
   parser.add_argument('--no_warmup', action='store_true',
                       help='bind the port immediately; /healthz stays '
                            '503 "loading" until the first predict')
+  parser.add_argument('--incr_dir', default=None,
+                      help='incremental-update directory to follow')
+  parser.add_argument('--kafka_server', default=None)
+  parser.add_argument('--kafka_topic', default=None,
+                      help='Kafka incremental-update topic to follow')
+  parser.add_argument('--incr_poll_secs', type=float, default=10.0)
   parser.add_argument('--device', default='cuda',
                       help="'cuda' (default) or 'cpu'")
   return parser
@@ -187,7 +233,9 @@ def main(argv=None):
   service = PredictorService(
       args.export_dir, host=args.host, port=args.port,
       batch_size=args.batch_size, warmup=not args.no_warmup,
-      device=args.device)
+      device=args.device, incr_dir=args.incr_dir,
+      kafka_server=args.kafka_server, kafka_topic=args.kafka_topic,
+      incr_poll_secs=args.incr_poll_secs)
   service.start()
   try:
     while True:

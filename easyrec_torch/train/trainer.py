@@ -143,8 +143,10 @@ def to_device(batch: Dict[str, np.ndarray],
 class Trainer:
   """Builds the whole training program from one pipeline config."""
 
-  def __init__(self, pipeline_config, device=None):
+  def __init__(self, pipeline_config, device=None, check_mode: bool = False):
     config_util.check_ported(pipeline_config)
+    # --check_mode: each raw input chunk is validated (data/check.py)
+    self.check_mode = bool(check_mode)
     self.device = resolve_device(device)
     self.pipeline_config = pipeline_config
     self.data_config = pipeline_config.data_config
@@ -315,7 +317,8 @@ class Trainer:
                          mode='train', batch_size=batch_size,
                          skip_rows=skip_rows,
                          extra_fields=config_util.collect_extra_fields(
-                             self.pipeline_config))
+                             self.pipeline_config),
+                         check_mode=self.check_mode)
 
   def eval_input(self, batch_size=None) -> InputPipeline:
     return InputPipeline(self.data_config, self.feature_configs,
@@ -323,7 +326,8 @@ class Trainer:
                              self.pipeline_config),
                          mode='eval', batch_size=batch_size,
                          extra_fields=config_util.collect_extra_fields(
-                             self.pipeline_config))
+                             self.pipeline_config),
+                         check_mode=self.check_mode)
 
   # -- evaluation ----------------------------------------------------------
 
@@ -449,12 +453,27 @@ class Trainer:
     cadence. A hook that stops training stops it before the next step.
     With a model_dir, the final eval is written to eval_result.txt.
 
+    With a model_dir, the events files of utils/summary_writer.py (JAX
+    :765-769, :804-810, :849-852, :881-885, :937-945): `loss/<name>` of
+    every loss every save_summary_steps steps (log_step_count_steps where
+    it is unset), `global_step/examples_per_sec` at log cadence and
+    `eval/<metric>` after each periodic eval, in model_dir; the final
+    eval's metrics in model_dir/eval_val. With incr_save_config and a
+    model_dir (JAX :726-738, :890-895, :931-932), an IncrementalPublisher
+    (train/incremental.py) snapshots the state at the first step, then
+    publishes every sparse_save_steps (else dense_save_steps, else
+    save_checkpoints_steps) steps, or sparse_save_secs (else
+    dense_save_secs) seconds, and once more at the end.
+
     Returns the global step, the log history, this run's total losses (one
     a step) and the eval metrics."""
     from easyrec_torch.export.saved_model import export_saved_model
+    from easyrec_torch.utils.summary_writer import SummaryWriter
     tc = self.train_config
     num_steps = num_steps or (tc.num_steps or None)
     log_every = log_every or max(int(tc.log_step_count_steps), 1)
+    summary_every = int(tc.save_summary_steps) \
+        if tc.HasField('save_summary_steps') else log_every
     save_every = int(tc.save_checkpoints_steps) or 1000
     save_secs = int(tc.save_checkpoints_secs)
     self.init_state()
@@ -496,6 +515,17 @@ class Trainer:
         (stopper is not None and stopper.enabled))
 
     step = int(self.step)
+    publisher = None
+    if tc.HasField('incr_save_config') and self.model_dir:
+      from easyrec_torch.train.incremental import IncrementalPublisher
+      ic = tc.incr_save_config
+      publisher = IncrementalPublisher(ic, self.model_dir)
+      incr_every = int(ic.sparse_save_steps or ic.dense_save_steps or
+                       save_every)
+      incr_secs = int(ic.sparse_save_secs or ic.dense_save_secs or 0)
+      last_incr = time.time()
+      publisher.publish(self, step)       # the base snapshot
+    summary = SummaryWriter(self.model_dir) if self.model_dir else None
     losses: List[torch.Tensor] = []
     history = []
     t0, window = time.time(), 0
@@ -509,12 +539,19 @@ class Trainer:
       losses.append(loss_dict['total_loss'])
       step += 1
       window += batch['sample_weight'].shape[0]
+      if summary is not None and step % summary_every == 0:
+        summary.add_scalars({'loss/%s' % k: float(v)
+                             for k, v in loss_dict.items()}, step)
+        summary.flush()
       if step % log_every == 0:
         loss_val = float(loss_dict['total_loss'])
         rate = window / max(time.time() - t0, 1e-6)
         logging.info('step %d: loss=%.5f (%.1f ex/s)', step, loss_val, rate)
         history.append({'step': step, 'loss': loss_val,
                         'examples_per_sec': rate})
+        if summary is not None:
+          summary.add_scalars({'global_step/examples_per_sec': rate}, step)
+          summary.flush()
         t0, window = time.time(), 0
         if deadline is not None and deadline.should_stop():
           logging.warning('dead_line reached; stopping training')
@@ -530,6 +567,10 @@ class Trainer:
         if want_periodic_eval:
           online = self.evaluate(max_batches=20)
           logging.info('online eval @%d: %s', step, online)
+          if summary is not None:
+            summary.add_scalars({'eval/%s' % k: float(v)
+                                 for k, v in online.items()}, step)
+            summary.flush()
           if self.eval_config.eval_online:
             with open(os.path.join(self.model_dir,
                                    'online_eval_result.txt-%d' % step),
@@ -547,8 +588,16 @@ class Trainer:
                            'for %d steps)', step, stopper.metric,
                            stopper.max_check_steps)
             stop_training = True
+      if publisher is not None and (
+          step % incr_every == 0 or
+          (incr_secs and time.time() - last_incr >= incr_secs)):
+        last_incr = time.time()
+        publisher.publish(self, step)
     if manager is not None:
       self.save(manager, step, force=True)
+    if publisher is not None:
+      publisher.publish(self, step)
+      publisher.close()
     result = {'global_step': step, 'history': history,
               'losses': torch.stack(losses).tolist() if losses else []}
     if eval_at_end and has_eval:
@@ -560,4 +609,9 @@ class Trainer:
                   'w') as f:
           json.dump({k: float(v) for k, v in result['eval_metrics'].items()},
                     f)
+        with SummaryWriter(os.path.join(self.model_dir, 'eval_val')) as sw:
+          sw.add_scalars({k: float(v) for k, v in
+                          result['eval_metrics'].items()}, step)
+    if summary is not None:
+      summary.close()
     return result

@@ -1,8 +1,9 @@
 """Train CLI: python -m easyrec_torch.train_eval --pipeline_config_path ...
 
 Counterpart of easyrec_tpu/train_eval.py (:13-74) plus --device. Runs on
-CUDA unless --device cpu is given. With model_dir set in the config, it
-writes checkpoints there and a second call resumes from the latest one.
+CUDA unless --device cpu is given. With model_dir set in the config (or
+--model_dir), it writes checkpoints there and a second call resumes from
+the latest one.
 """
 
 import argparse
@@ -14,10 +15,22 @@ def get_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(description='easyrec_torch train')
   parser.add_argument('--pipeline_config_path', required=True,
                       help='path to the pipeline config file')
+  parser.add_argument('--continue_train', action='store_true', default=False,
+                      help='continue training from the latest checkpoint')
+  parser.add_argument('--model_dir', default=None,
+                      help='override model_dir in the config')
   parser.add_argument('--edit_config_json', default=None,
                       help='json dict of dotted-path config edits')
+  parser.add_argument('--fine_tune_checkpoint', default=None,
+                      help='warm-start checkpoint path')
   parser.add_argument('--num_steps', type=int, default=None,
                       help='override train_config.num_steps')
+  parser.add_argument('--fit_on_eval', action='store_true', default=False,
+                      help='continue training on eval data after training')
+  parser.add_argument('--fit_on_eval_steps', type=int, default=0)
+  parser.add_argument('--check_mode', action='store_true', default=False,
+                      help='validate every input batch with pointed '
+                           'errors')
   parser.add_argument('--device', default='cuda',
                       help="'cuda' (default) or 'cpu'")
   return parser
@@ -31,11 +44,17 @@ def main(argv=None) -> int:
   args = get_parser().parse_args(argv)
   from easyrec_torch import main as main_lib
   edits = json.loads(args.edit_config_json) if args.edit_config_json else {}
+  if args.model_dir:
+    edits['model_dir'] = args.model_dir
+  if args.fine_tune_checkpoint:
+    edits['train_config.fine_tune_checkpoint'] = args.fine_tune_checkpoint
   if args.num_steps is not None:
     edits['train_config.num_steps'] = args.num_steps
-  result = main_lib.train_and_evaluate(args.pipeline_config_path,
-                                     edit_config_json=edits or None,
-                                     device=args.device)
+  result = main_lib.train_and_evaluate(
+      args.pipeline_config_path, edit_config_json=edits or None,
+      continue_train=args.continue_train, fit_on_eval=args.fit_on_eval,
+      fit_on_eval_steps=args.fit_on_eval_steps, device=args.device,
+      check_mode=args.check_mode)
   logging.info('done: step=%s metrics=%s', result['global_step'],
                result.get('eval_metrics', {}))
   return 0

@@ -2,9 +2,12 @@
 data, CUDA is the default device and its absence raises, and importing and
 running the port (every module, the ported benchmarks included, then the
 DeepFM with its evaluate, export, predict, Predictor and server, the
-DeepFM with Adagrad tables, the fused Taobao DIN, the MMoE and the
-retrieval indexes and vector_retrieve CLI) loads nothing of JAX,
-protobuf, pandas, pyarrow, the JAX package or its benchmarks/ scripts."""
+DeepFM with Adagrad tables, the fused Taobao DIN, the MMoE, the
+retrieval indexes and vector_retrieve CLI, and the fg.json Taobao DIN
+with its ComboFeature under check_mode, an ExprFeature of the text
+functions, incremental updates and a big-model export they write into)
+loads nothing of JAX, protobuf, pandas, pyarrow, the JAX package or its
+benchmarks/ scripts."""
 
 import os
 import re
@@ -113,6 +116,45 @@ assert vector_retrieve.main(
     ['--query_table', os.path.join(folder, 'q.csv'), '--doc_table',
      os.path.join(folder, 'd.csv'), '--output_table',
      os.path.join(folder, 'o.csv'), '--device', 'cpu']) == 0
+from easyrec_torch.config.config_util import get_configs_from_pipeline_str
+from easyrec_torch.export import saved_model
+from easyrec_torch.features import transforms as tr
+from easyrec_torch.features.feature_spec import build_feature_spec
+from easyrec_torch.train import incremental
+cfg = main.load_config(os.path.join(os.getcwd(), 'samples',
+                                    'taobao_fg.config'))
+with open(os.path.join(folder, 'fg.csv'), 'w') as f:
+  for i in range(64):
+    f.write('%d,u%d,s1,g1,a1,o1,ad%d,c%d,b1,%.1f,t1|t2,c1|c2,b1\n'
+            % (i % 2, i % 7, i % 5, i % 3, i * 3.5))
+result = main.train_and_evaluate(cfg, device='cpu', check_mode=True,
+                                 edit_config_json={
+    'train_input_path': os.path.join(folder, 'fg.csv'),
+    'eval_input_path': os.path.join(folder, 'fg.csv'),
+    'model_dir': os.path.join(folder, 'fg_md'), 'train_config.num_steps': 2,
+    'data_config.batch_size': 32, 'data_config.eval_batch_size': 32})
+trainer = result['trainer']
+big = saved_model.export_saved_model(trainer, os.path.join(folder, 'big'),
+                                     big_model=True)
+pub = incremental.IncrementalPublisher(
+    get_configs_from_pipeline_str(
+        'train_config { incr_save_config { fs {} } }')
+    .train_config.incr_save_config, os.path.join(folder, 'fg_md'))
+pub.publish(trainer, 2)
+with __import__('torch').no_grad():
+  for t in trainer.tables.values():
+    t.mul_(2.0)
+pub.publish(trainer, 3)
+predictor = Predictor(big, device='cpu')
+assert predictor.consume_incremental(pub.directory) == 1
+assert predictor.predict([{'user_id': 'u1', 'cate_id': 'c1'}])
+fc = get_configs_from_pipeline_str('feature_config { features { feature_name: "r" '
+                      'input_names: "q" input_names: "t" feature_type: '
+                      'ExprFeature expression: "query_common_ratio(q, t)" '
+                      '} }').feature_config.features[0]
+out = tr.build_transform(build_feature_spec(fc))(
+    {'q': np.array(['a b'], object), 't': np.array(['b c'], object)})
+assert out['feat.r.dense'][0, 0] == 0.5
 banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas', 'pyarrow',
           'easyrec_tpu', 'benchmarks')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned or

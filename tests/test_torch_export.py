@@ -178,9 +178,9 @@ def test_edited_floats_write_the_same_float32(value):
 def test_opaque_fields_are_written_token_for_token():
   """An unported field keeps its tokens, so its JAX parse is unchanged;
   two spellings of one value compare equal."""
-  # (a text_cnn combiner's mlp and incr_save_config, fields the port does
-  # not run; Uniter and freeze_gradient served here before they were
-  # ported)
+  # (a text_cnn combiner's mlp, a field the port does not run;
+  # incr_save_config, Uniter and freeze_gradient served here before they
+  # were ported)
   text = ('train_config { incr_save_config { kafka { server: "dnn/.*" '
           'topic: \'a\\tb\' } } }\n'
           'feature_config { features { input_names: "s" feature_type: '
@@ -406,9 +406,16 @@ def trained(tmp_path_factory):
 def test_train_and_evaluate_writes_the_model_dir(trained):
   tmp, path, edits, result = trained
   model_dir = os.path.join(tmp, 'ckpt')
-  assert sorted(os.listdir(model_dir)) == [
-      'checkpoints', 'eval_result.txt', 'export', 'pipeline.config',
-      'version']
+  # the train events file and the final eval's, as the JAX trainer writes
+  # them (utils/summary_writer.py)
+  listed = sorted(os.listdir(model_dir))
+  events = [n for n in listed if n.startswith('events.out.tfevents.')]
+  assert len(events) == 1
+  assert [n for n in listed if n not in events] == [
+      'checkpoints', 'eval_result.txt', 'eval_val', 'export',
+      'pipeline.config', 'version']
+  assert len(glob.glob(os.path.join(model_dir, 'eval_val',
+                                    'events.out.tfevents.*'))) == 1
   with open(os.path.join(model_dir, 'version')) as f:
     assert f.read().strip() == '0.1.0'
   written = t_config.get_configs_from_pipeline_file(
@@ -453,9 +460,22 @@ def test_export_from_a_checkpoint_equals_the_final_export(trained):
                                                    'checkpoints', '10'),
                       edit_config_json=edits, device='cpu')
   assert int(t_sm.load_serving_state(ten)[1]['step']) == 10
-  with pytest.raises(NotImplementedError, match='big_model'):
-    t_main.export(path, edit_config_json=edits, big_model=True,
-                  device='cpu')
+  # a big-model export of the checkpoint: the same model, its tables in
+  # the KV store (export/big_model.py) and none in its variables
+  big = t_main.export(path, export_dir=os.path.join(tmp, 'big'),
+                      checkpoint_path=os.path.join(tmp, 'ckpt',
+                                                   'checkpoints', '20'),
+                      edit_config_json=edits, big_model=True, device='cpu')
+  _, c = t_sm.load_serving_state(big)
+  assert c['tables'] == {}
+  for k in b['model']:
+    assert torch.equal(c['model'][k], b['model'][k]), k
+  from easyrec_torch.export import big_model as t_bm
+  stores = t_bm.open_kv_store(big)
+  assert sorted(stores) == sorted(b['tables'])
+  for k, table in b['tables'].items():
+    np.testing.assert_array_equal(
+        stores[k].gather(np.arange(table.shape[0])), table.numpy())
 
 
 def test_predict_drops_padded_rows(trained):

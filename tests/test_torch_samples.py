@@ -47,7 +47,8 @@ IGNORED = {
 # family's 19 (kd_backbone, a backbone RankModel with a kd term, among
 # them), then the rest of the rank zoo's 15 (CMBF, Uniter and DBMTL's
 # multi-modal bottoms; the ranking losses, the grouped and multi-class
-# metrics, bf16 and freeze_gradient).
+# metrics, bf16 and freeze_gradient), then the remaining feature types,
+# fg.json and incremental saves' six.
 PORTED = ['autoint', 'autoint_seq_group', 'best_exporter_early_stop',
           'dbmtl', 'dbmtl_seq_group_attention', 'dbmtl_seq_numeric_boundary',
           'dcn_max_f1', 'dcn_seq_group', 'dcn_v2', 'dead_line_stop',
@@ -83,18 +84,14 @@ RANK_EXTRA = ['cmbf', 'cmbf_image_only', 'cmbf_multi_loss', 'cmbf_text_only',
               'deepfm_ziln', 'gauc_session_metrics', 'losses_pairwise',
               'multi_optimizer_freeze', 'uniter', 'uniter_image_only',
               'uniter_text_only']
-PORTED = sorted(PORTED + BACKBONE + VARIATIONAL_DROPOUT + MATCH + RANK_EXTRA)
+FEATURE_TYPES = ['combo_cross', 'deepfm_incr_save', 'ev_incr_save',
+                 'expr_feature', 'lookup_feature', 'taobao_fg']
+PORTED = sorted(PORTED + BACKBONE + VARIATIONAL_DROPOUT + MATCH + RANK_EXTRA +
+                FEATURE_TYPES)
 
-# The samples still refused, with the part check_ported names: feature
-# types and fg (ROADMAP A6d), incremental saves (A2's leftovers) and
-# Parquet, which needs pyarrow.
+# The samples still refused, with the part check_ported names: Parquet,
+# which needs pyarrow.
 REFUSED = {
-    'combo_cross': 'combo_input_seps',
-    'expr_feature': 'expression',
-    'lookup_feature': 'feature_type LookupFeature',
-    'taobao_fg': 'fg_json_path',
-    'deepfm_incr_save': 'incr_save_config',
-    'ev_incr_save': 'incr_save_config',
     'dlrm_parquet': 'input_type ParquetInput',
 }
 
@@ -167,8 +164,8 @@ def _passes(path):
 
 def test_samples_that_pass_check_ported():
   assert [_name(p) for p in SAMPLES if _passes(p)] == PORTED
-  assert len(PORTED) == 103
-  assert len(SAMPLES) - len(PORTED) == len(REFUSED) == 7
+  assert len(PORTED) == 109
+  assert len(SAMPLES) - len(PORTED) == len(REFUSED) == 1
   for name, part in REFUSED.items():
     with pytest.raises(NotImplementedError, match=part):
       t_config.check_ported(t_config.get_configs_from_pipeline_file(
@@ -198,9 +195,16 @@ def test_ported_samples_train_a_step(name, tmp_path):
   task, a kd sample's its kd term, and a sampler's batch its views."""
   cfg = t_config.get_configs_from_pipeline_file(
       os.path.join(REPO, 'samples', name + '.config'))
+  train = str(tmp_path / 'train.csv')
+  if cfg.fg_json_path:
+    # the fields and features of the fg.json, as main.load_config reads it
+    from easyrec_torch.utils.fg_util import load_fg_json_to_config
+    cfg.fg_json_path = os.path.join(REPO, cfg.fg_json_path)
+    load_fg_json_to_config(cfg)
+    _write_fg_csv(train, cfg.data_config.input_fields, 64, seed=11)
   cols = [f.input_name for f in cfg.data_config.input_fields]
-  assert set(cols) <= set(STANDARD_COLS) | set(MM_COLS) | {'seq_price',
-                                                            'teacher'}
+  assert cfg.fg_json_path or set(cols) <= set(STANDARD_COLS) | set(
+      MM_COLS) | {'seq_price', 'teacher'}
   which = cfg.data_config.WhichOneof('sampler')
   if which:
     sampler = getattr(cfg.data_config, which)
@@ -211,8 +215,8 @@ def test_ported_samples_train_a_step(name, tmp_path):
       if schema.has_field(sampler.type_name, field):
         setattr(sampler, field, str(tmp_path / (
             'edges.txt' if 'edge' in field else 'items.txt')))
-  train = str(tmp_path / 'train.csv')
-  _write_csv(train, cols, 64, seed=11)
+  if not cfg.fg_json_path:
+    _write_csv(train, cols, 64, seed=11)
   if cfg.data_config.input_type == 'TFRecordInput':
     train = _csv_to_tfrecord(train, cfg.data_config.input_fields)
   elif cfg.train_input_path.endswith('.gz'):
@@ -264,6 +268,26 @@ def test_ported_samples_train_a_step(name, tmp_path):
     decay = trainer.dense_opt.ema_decay
     for k, p in trainer.model.named_parameters():
       assert torch.equal(ema[k], decay * before[k] + (1.0 - decay) * p), k
+
+
+def _write_fg_csv(path, fields, n, seed):
+  """n rows of an fg.json's columns: numbers for numeric fields, log-
+  uniform over [0.1, 2000) (taobao_fg's price buckets at 1, 10, 100 and
+  1000 all hold rows), 1-5 ids for a sequence's '<sequence>__<column>',
+  else one id."""
+  rng = np.random.default_rng(seed)
+
+  def value(field):
+    if field.input_type != 'STRING':
+      return '%.3f' % (0.1 * 20000.0 ** rng.random())
+    if '__' in field.input_name:
+      return '|'.join('v%d' % v for v in rng.integers(0, 50,
+                                                      rng.integers(1, 6)))
+    return 'v%d' % rng.integers(0, 50)
+
+  with open(path, 'w') as f:
+    for _ in range(n):
+      f.write(','.join(value(fd) for fd in fields) + '\n')
 
 
 def _csv_to_tfrecord(path, fields):
