@@ -46,8 +46,9 @@ Phases, in order; any failure exits nonzero before the result line:
              batches): K3 (compact Adam) must launch once per step and
              table, K1 and K2 not at all; then the steady-state train-step
              rate over pre-built synthetic batches;
-  7. deepfm  the flagship config the same way, unfused: K1 and K2 (compact
-             Adam) once per step and table, K3 not at all; then its rate;
+  7. deepfm  the flagship config the same way, unfused, from Criteo's
+             binary layout (phase 31 drives it): K1 and K2 (compact Adam)
+             once per step and table, K3 not at all; then its rate;
   8. adagrad the flagship with Adagrad tables and Adam dense weights
              (flagship.criteo_deepfm_adagrad_config; the table is [w |
              accum], 6.66 GB) the same way: K1 and K2 (Adagrad) once per
@@ -261,6 +262,30 @@ K4 and K5 must launch 0 times in 6-8.
              40 (bit for bit, or within 1e-6); its latency at 1, 256 and
              4,096 rows beside the in-memory Predictor's of the step-40
              export; no K1-K5 launch while it serves.
+ 31. criteo binary  (phase 7's place) this slice's main path: the flagship
+             DeepFM unchanged (criteo_deepfm_config) from CriteoInput files:
+             write_criteo_days writes 303,104 rows of day TSVs from seeds
+             (blanks, ids of 0x80000000 and above), tools/criteo_convert
+             packs them (48,496,640 bytes; s, rows/s), CriteoBinaryReader
+             reads them back (rows/s, the wrapped ids negative); K1 and K2
+             bit-exact on one batch of this path; phase_slice with the eval
+             on day_1.bin, inside it the export and tools/predict_and_chk
+             equal to the Trainer's eval forward (tolerance 0);
+             tools/pre_check on the config and two batches, tools/
+             view_export of the export with its synthetic row on the card.
+ 32. kafka din  (after 9) the Taobao DIN at its published widths, batch
+             1,024, fused (K3), from an in-process broker (MockBroker, a
+             copy of tests/kafka_mock.py on the port's codec) whose 4
+             partitions tools/kafka_topic fills with 40 steps of rows: 10
+             steps with a save and data_offset.json, a fresh Trainer
+             resumed from those offsets to 20, equal bit for bit in every
+             state tensor (and in data_offset.json) to 20 uninterrupted
+             steps; K3 once a step; the write and drain rows/s.
+ 33. small readers  (after 32) RTPInput, an ODPS table's CSV export and
+             DataHubInput (resumed from a pipeline's last_batch_offsets,
+             equal to the first pipeline's next batches), each a small
+             DeepFM card against CPU (phase 5's rule); two random trials of
+             hpo/tuner.py on the card and the CPU, with the same parameters.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -271,6 +296,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1473,7 +1499,7 @@ def phase_optimizers(torch):
 
 
 def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math,
-                views=False):
+                views=False, after=None):
   """train_and_evaluate of `cfg` at full width, SLICE_STEPS steps, with
   every launch counter set to 0 just before and read just after: each
   kernel of `path_kernels` must launch once per step and table, every
@@ -1482,7 +1508,9 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math,
   the model's metric_task_names(). Then the steady-state train-step rate over pre-built
   synthetic batches, or with `views` (a sampler's) over batches of the
   model's own input pipeline, whose id slots a step are logged by view.
-  Returns the launches by kernel and by kernel/math."""
+  `after`, where given, is called with train_and_evaluate's result before
+  the rate's steps change the trained state. Returns the launches by
+  kernel and by kernel/math."""
   from easyrec_torch import main as main_lib
   from easyrec_torch.ops import kernels
   from easyrec_torch.train.trainer import to_device
@@ -1535,6 +1563,8 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math,
     fail('%s: K2/K3 launched with the block maths %s, %s expected'
          % (what, tagged, want))
   peak = torch.cuda.max_memory_allocated()
+  if after is not None:
+    after(result)
   trainer = result['trainer']
   if views:
     from easyrec_torch.ops import embedding as emb_ops
@@ -1902,6 +1932,27 @@ def phase_ev(torch):
   return launches
 
 
+def state_differences(torch, a, b):
+  """Two trainers' state_dicts flattened by path: (a's, the sorted paths
+  whose tensors differ from b's bit for bit, or that only one holds)."""
+  def flat(tree, prefix=''):
+    out = {}
+    for k, v in tree.items():
+      if isinstance(v, dict):
+        out.update(flat(v, prefix + k + '/'))
+      else:
+        out[prefix + k] = v
+    return out
+
+  def bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+  sa, sb = flat(a.state_dict()), flat(b.state_dict())
+  return sa, sorted(set(sa) ^ set(sb)) + sorted(
+      k for k in set(sa) & set(sb) if not torch.equal(bits(sa[k]),
+                                                      bits(sb[k])))
+
+
 def phase_ckpt(torch):
   """The Taobao DIN at full width (K3), unshuffled DummyInput: a Trainer
   fits 20 steps on a model_dir with a save every 10; the step-20
@@ -1942,19 +1993,7 @@ def phase_ckpt(torch):
     fail('ckpt: the resumed run took %d steps to step %d'
          % (len(rb['losses']), rb['global_step']))
 
-  def flat(tree, prefix=''):
-    out = {}
-    for k, v in tree.items():
-      if isinstance(v, dict):
-        out.update(flat(v, prefix + k + '/'))
-      else:
-        out[prefix + k] = v
-    return out
-
-  sa, sb = flat(a.state_dict()), flat(b.state_dict())
-  differ = sorted(k for k in sa if not torch.equal(
-      sa[k].view(torch.int32) if sa[k].dtype == torch.float32 else sa[k],
-      sb[k].view(torch.int32) if sb[k].dtype == torch.float32 else sb[k]))
+  sa, differ = state_differences(torch, a, b)
   log('ckpt: Taobao DIN, K3, 20 steps with saves at 10 and 20; a fresh '
       'Trainer restored step 10 and trained to 20: losses %s (resumed) vs '
       '%s; %d of %d state tensors differ from the uninterrupted run'
@@ -3894,9 +3933,10 @@ def csv_rows(path, names, n):
                                                 csv_lib.reader(f))]
 
 
-def fg_pack(torch, cfg):
-  """phase_kernel_path's pack at the fg DIN's shape: a trainer of `cfg`
-  on the card and the ids of the first batch of its own input."""
+def pipeline_pack(torch, cfg):
+  """phase_kernel_path's pack at a main path's shape (the fg DIN's, the
+  Criteo-binary DeepFM's): a trainer of `cfg` on the card and the ids of
+  the first batch of its own input."""
   from easyrec_torch.ops import embedding as emb_ops
   from easyrec_torch.train.trainer import Trainer, to_device
   trainer = Trainer(cfg, device='cuda')
@@ -3940,7 +3980,7 @@ def phase_fg_din(torch, card, smi):
            'train_config.save_checkpoints_steps': SLICE_STEPS,
            'train_config.log_step_count_steps': 5}
   errs = phase_kernel_path(torch, main_lib.load_config(FG_CONFIG, edits),
-                           what, pack=fg_pack, yardsticks=True)
+                           what, pack=pipeline_pack, yardsticks=True)
   gc.collect()
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
@@ -4130,6 +4170,666 @@ def phase_feature_samples(torch):
       % launches)
 
 
+CRITEO_TRAIN_ROWS = 64 * 4096   # day_0: 262,144 records
+CRITEO_EVAL_ROWS = 10 * 4096    # day_1: 40,960 records (10 eval batches)
+
+
+def write_criteo_days(directory, days=(('day_0', CRITEO_TRAIN_ROWS, 31),
+                                       ('day_1', CRITEO_EVAL_ROWS, 32))):
+  """Criteo day logs (TSV: label, 13 integer features, 26 hex ids) made
+  from seeds: labels at a 0.25 click rate, integers from -2 up, ids a
+  Zipf draw per feature scrambled over 32 bits (so about half are
+  0x80000000 or above), about 5% of the values blank. Returns the TSV
+  paths by day."""
+  import numpy as np
+  os.makedirs(directory, exist_ok=True)
+  paths = {}
+  for name, n, seed in days:
+    rng = np.random.default_rng(seed)
+    label = (rng.random(n) < 0.25).astype(np.int64)
+    dense = rng.integers(-2, 2000, (n, 13))
+    ranks = rng.zipf(1.15, (n, 26)).astype(np.uint64) % np.uint64(1 << 31)
+    ids = (ranks * np.uint64(2654435761) +
+           np.arange(26, dtype=np.uint64) * np.uint64(40503)) % \
+        np.uint64(1 << 32)
+    blank = rng.random((n, 39)) < 0.05
+    cols = [np.array(label.astype(str), dtype=object)]
+    for j in range(39):
+      if j < 13:
+        col = np.array(dense[:, j].astype(str), dtype=object)
+      else:
+        text = ids[:, j - 13].astype('>u4').tobytes().hex()
+        col = np.array([text[k:k + 8] for k in range(0, 8 * n, 8)],
+                       dtype=object)
+      col[blank[:, j]] = ''
+      cols.append(col)
+    path = os.path.join(directory, name + '.tsv')
+    with open(path, 'w') as f:
+      f.writelines('\t'.join(row) + '\n' for row in zip(*cols))
+    paths[name] = path
+  return paths
+
+
+def criteo_binary_config(paths):
+  """The flagship DeepFM (criteo_deepfm_config, unchanged) on CriteoInput
+  files: day_0.bin to train, day_1.bin to evaluate."""
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.utils import flagship
+  return main_lib.load_config(flagship.criteo_deepfm_config(), {
+      'data_config.input_type': 'CriteoInput',
+      'train_input_path': paths['day_0'], 'eval_input_path': paths['day_1']})
+
+
+def phase_criteo_binary(torch, card, smi):
+  """Phase 31, this slice's main path (phase 7 reads its input now): the
+  flagship DeepFM from Criteo's binary layout. write_criteo_days writes
+  the day TSVs (blanks, ids of 0x80000000 and above), tools/criteo_convert
+  packs them (its seconds, bytes and rows/s), CriteoBinaryReader reads
+  them back (rows/s; ids of 0x80000000 and above read as negative int64,
+  the records equal to the converted ones); K1 (every mode) and K2 (compact
+  Adam) bit-exact against their plain versions on one batch of this path
+  (phase_kernel_path, pipeline_pack); then phase_slice (train_and_evaluate,
+  20 steps, K1 and K2 once a step, the eval on day_1.bin; the rate,
+  peak memory and launches), inside which the trained state is exported
+  and tools/predict_and_chk predicts day_1.bin from the export and must
+  equal the Trainer's eval forward on it (tolerance 0); tools/pre_check
+  passes the config and two batches of its data; tools/view_export
+  describes the export and runs its synthetic row on the card. Returns
+  the launches by kernel and math, and K1's and K2's largest
+  differences."""
+  import shutil
+  import numpy as np
+  from easyrec_torch.data.input_pipeline import CriteoBinaryReader
+  from easyrec_torch.export.saved_model import export_saved_model
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.tools import criteo_convert, pre_check, predict_and_chk
+  from easyrec_torch.tools import view_export
+  from easyrec_torch.train.trainer import to_device
+
+  what = 'flagship DeepFM, Criteo binary'
+  root = os.path.join(SCRATCH, 'criteo_binary')
+  shutil.rmtree(root, ignore_errors=True)
+  t0 = time.time()
+  tsv = write_criteo_days(os.path.join(root, 'tsv'))
+  gen_s = time.time() - t0
+  t0 = time.time()
+  criteo_convert.main(['--input_path', os.path.join(root, 'tsv', 'day_*.tsv'),
+                       '--output_dir', os.path.join(root, 'bin')])
+  conv_s = time.time() - t0
+  paths = {d: os.path.join(root, 'bin', d + '.bin') for d in tsv}
+  n_rows = CRITEO_TRAIN_ROWS + CRITEO_EVAL_ROWS
+  nbytes = sum(os.path.getsize(p) for p in paths.values())
+  tsv_bytes = sum(os.path.getsize(p) for p in tsv.values())
+  recs = np.fromfile(paths['day_0'], '<i4').reshape(-1, 40)
+  if nbytes != n_rows * 160 or len(recs) != CRITEO_TRAIN_ROWS:
+    fail('%s: converted %d bytes, %d records' % (what, nbytes, len(recs)))
+  high = int((recs[:, 14:] < 0).sum())
+  log('%s: day TSVs of %d rows (%d bytes) written in %.1f s; criteo_convert '
+      'packed them into %d bytes in %.3f s, %.0f rows/s; %d of the %d '
+      'train ids are 0x80000000 or above (negative int32), %d of its '
+      'values read 0 (the blanks among them)'
+      % (what, n_rows, tsv_bytes, gen_s, nbytes, conv_s, n_rows / conv_s,
+         high, recs[:, 14:].size, int((recs[:, 1:] == 0).sum())))
+  cfg = criteo_binary_config(paths)
+  reader = CriteoBinaryReader(cfg.data_config, paths['day_0'])
+  t0 = time.perf_counter()
+  got = []
+  for chunk in reader.chunks(65536):
+    got.append(np.stack([chunk[f.input_name] for f in
+                         cfg.data_config.input_fields[14:]], 1))
+  read_s = time.perf_counter() - t0
+  got = np.concatenate(got)
+  if high == 0 or not np.array_equal(got, recs[:, 14:].astype(np.int64)):
+    fail('%s: the reader\'s ids differ from the converted records' % what)
+  log('%s: CriteoBinaryReader read %d records in %.3f s, %.0f rows/s; '
+      'their ids equal the records\', the high ones negative'
+      % (what, len(got), read_s, len(got) / read_s))
+  errs = phase_kernel_path(torch, cfg, what, pack=pipeline_pack)
+
+  exported = []
+
+  def check_export(result):
+    trainer = result['trainer']
+    export_dir = export_saved_model(trainer, os.path.join(root, 'export'))
+    exported.append(export_dir)
+    # the Trainer's eval forward on every row of day_1.bin
+    probs = []
+    with torch.no_grad():
+      for batch in trainer.eval_input():
+        valid = batch['sample_weight'] > 0
+        dev = to_device(batch, trainer.device)
+        packs = emb_ops.pack_ids(trainer.layout, dev)
+        pulled = emb_ops.pull_embeddings(trainer.tables, packs,
+                                         trainer.metas)
+        out = trainer.model.export_outputs(trainer.eval_forward(dev, pulled))
+        probs.extend(out['probs'].cpu().numpy()[valid].tolist())
+    want = os.path.join(root, 'want.csv')
+    with open(want, 'w') as f:
+      f.write('probs\n' + ''.join('%r\n' % p for p in probs))
+    args = ['--export_dir', export_dir, '--input_path', paths['day_1'],
+            '--output_path', os.path.join(root, 'pred.csv'), '--cmp_path',
+            want, '--tol', '0', '--batch_size',
+            str(trainer.data_config.eval_batch_size), '--device', 'cuda']
+    t0 = time.time()
+    try:
+      predict_and_chk.main(args)
+    except SystemExit as e:
+      fail('%s: predict_and_chk exited %r: the export\'s answers differ '
+           'from the Trainer\'s eval forward' % (what, e.code))
+    log('%s: exported in %s; predict_and_chk --tol 0 on day_1.bin\'s %d '
+        'rows matched the Trainer\'s eval forward (%.1f s)'
+        % (what, export_dir, len(probs), time.time() - t0))
+    if len(probs) != CRITEO_EVAL_ROWS:
+      fail('%s: the eval forward gave %d rows' % (what, len(probs)))
+
+  launches = phase_slice(torch, card, what, cfg, '0', ('seg_sum', 'rmw_rows'),
+                         'compact_adam', after=check_export)
+  t0 = time.time()
+  problems = pre_check.check_config(cfg) + pre_check.check_data(cfg, 2)
+  if problems:
+    fail('%s: pre_check: %s' % (what, problems))
+  summary = view_export.describe_export(exported[0])
+  smoke = view_export.smoke_predict(summary['export_dir'], device='cuda')
+  if not 0.0 < smoke.get('probs', -1.0) < 1.0:
+    fail('%s: view_export --smoke gave %s' % (what, smoke))
+  log('%s: pre_check passed the config and 2 batches; view_export: %d '
+      'tensors, %d parameters, smoke probs %.6f (%.1f s, %s)'
+      % (what, len(summary['variables']), summary['num_parameters'],
+         smoke['probs'], time.time() - t0, smi))
+  shutil.rmtree(root, ignore_errors=True)
+  return launches, errs
+
+
+class MockBroker:
+  """tests/kafka_mock.py's in-process Kafka broker (Metadata v1,
+  ListOffsets v1, Fetch v4 at most 500 records a partition, Produce v3,
+  RecordBatch v2), its codec taken from easyrec_torch.data.kafka_client."""
+
+  def __init__(self):
+    # logs[(topic, partition)] = list of (key, value) in offset order
+    self.logs = {}
+    self.lock = threading.Lock()
+    self._srv = None
+    self._thread = None
+    self.port = None
+
+  # -- data ----------------------------------------------------------
+  def create_topic(self, topic, partitions):
+    with self.lock:
+      for p in range(partitions):
+        self.logs.setdefault((topic, p), [])
+
+  def produce(self, topic, partition, value, key=None):
+    with self.lock:
+      self.logs.setdefault((topic, partition), []).append((key, value))
+
+  # -- server --------------------------------------------------------
+  def start(self):
+    import socketserver
+    import struct
+    from easyrec_torch.data.kafka_client import (
+        API_FETCH, API_LIST_OFFSETS, API_METADATA, API_PRODUCE,
+        _Reader as _reader, _Writer,
+        build_record_batch, parse_record_batches)
+    broker = self
+
+    class Handler(socketserver.BaseRequestHandler):
+      def handle(self):
+        try:
+          while True:
+            raw = self._read_exact(4)
+            if raw is None:
+              return
+            size = struct.unpack('>i', raw)[0]
+            body = self._read_exact(size)
+            if body is None:
+              return
+            self._dispatch(_reader(body))
+        except (ConnectionError, OSError):
+          return
+
+      def _read_exact(self, n):
+        chunks = []
+        while n > 0:
+          try:
+            b = self.request.recv(min(n, 1 << 20))
+          except OSError:
+            return None
+          if not b:
+            return None
+          chunks.append(b)
+          n -= len(b)
+        return b''.join(chunks)
+
+      def _dispatch(self, r):
+        api_key = r.i16()
+        api_version = r.i16()
+        corr = r.i32()
+        r.string()                             # client id
+        w = _Writer()
+        w.i32(corr)
+        if api_key == API_METADATA and api_version == 1:
+          self._metadata(r, w)
+        elif api_key == API_LIST_OFFSETS and api_version == 1:
+          self._list_offsets(r, w)
+        elif api_key == API_FETCH and api_version == 4:
+          self._fetch(r, w)
+        elif api_key == API_PRODUCE and api_version == 3:
+          self._produce(r, w)
+        else:
+          raise AssertionError('mock broker: unsupported api %d v%d'
+                               % (api_key, api_version))
+        out = w.getvalue()
+        self.request.sendall(struct.pack('>i', len(out)) + out)
+
+      def _metadata(self, r, w):
+        n = r.i32()
+        topics = [r.string() for _ in range(n)]
+        host, port = broker._srv.server_address
+        w.i32(1)                               # brokers
+        w.i32(0)
+        w.string('127.0.0.1')
+        w.i32(port)
+        w.string(None)                         # rack
+        w.i32(0)                               # controller id
+        with broker.lock:
+          if not topics:
+            topics = sorted({t for t, _ in broker.logs})
+          w.i32(len(topics))
+          for t in topics:
+            parts = sorted(p for tt, p in broker.logs if tt == t)
+            w.i16(0 if parts else 3)           # 3: unknown topic
+            w.string(t)
+            w.i8(0)                            # internal
+            w.i32(len(parts))
+            for p in parts:
+              w.i16(0)
+              w.i32(p)
+              w.i32(0)                         # leader
+              w.i32(1)
+              w.i32(0)                         # replicas [0]
+              w.i32(1)
+              w.i32(0)                         # isr [0]
+
+      def _produce(self, r, w):
+        r.string()                             # transactional id
+        r.i16()                                # acks
+        r.i32()                                # timeout
+        n_topics = r.i32()
+        results = []                           # (topic, pid, base_offset)
+        with broker.lock:
+          for _ in range(n_topics):
+            t = r.string()
+            for _ in range(r.i32()):
+              pid = r.i32()
+              record_set = r.bytes_() or b''
+              # auto-create topic-partition on produce (the broker
+              # default the incr-update channel relies on)
+              log = broker.logs.setdefault((t, pid), [])
+              base = len(log)
+              for _off, key, value in parse_record_batches(record_set):
+                log.append((key, value))
+              results.append((t, pid, base))
+        w.i32(len(results))
+        for t, pid, base in results:
+          w.string(t)
+          w.i32(1)
+          w.i32(pid)
+          w.i16(0)                             # error
+          w.i64(base)
+          w.i64(-1)                            # log append time
+        w.i32(0)                               # throttle ms
+
+      def _list_offsets(self, r, w):
+        r.i32()                                # replica id
+        n_topics = r.i32()
+        reqs = []
+        for _ in range(n_topics):
+          t = r.string()
+          parts = []
+          for _ in range(r.i32()):
+            parts.append((r.i32(), r.i64()))
+          reqs.append((t, parts))
+        w.i32(len(reqs))
+        with broker.lock:
+          for t, parts in reqs:
+            w.string(t)
+            w.i32(len(parts))
+            for p, ts in parts:
+              log = broker.logs.get((t, p))
+              w.i32(p)
+              if log is None:
+                w.i16(3)
+                w.i64(-1)
+                w.i64(-1)
+              else:
+                w.i16(0)
+                w.i64(-1)                      # timestamp
+                w.i64(0 if ts == -2 else len(log))
+
+      def _fetch(self, r, w):
+        r.i32()                                # replica
+        r.i32()                                # max wait
+        r.i32()                                # min bytes
+        r.i32()                                # max bytes
+        r.i8()                                 # isolation
+        n_topics = r.i32()
+        reqs = []
+        for _ in range(n_topics):
+          t = r.string()
+          parts = []
+          for _ in range(r.i32()):
+            pid = r.i32()
+            off = r.i64()
+            r.i32()                            # partition max bytes
+            parts.append((pid, off))
+          reqs.append((t, parts))
+        w.i32(0)                               # throttle
+        w.i32(len(reqs))
+        with broker.lock:
+          for t, parts in reqs:
+            w.string(t)
+            w.i32(len(parts))
+            for pid, off in parts:
+              log = broker.logs.get((t, pid), [])
+              w.i32(pid)
+              w.i16(0)
+              w.i64(len(log))                  # high watermark
+              w.i64(len(log))                  # last stable offset
+              w.i32(0)                         # aborted txns
+              if off < len(log):
+                chunk = log[off:off + 500]
+                w.bytes_(build_record_batch(off, chunk))
+              else:
+                w.bytes_(b'')
+
+    srv = socketserver.ThreadingTCPServer(('127.0.0.1', 0), Handler)
+    srv.daemon_threads = True
+    srv.allow_reuse_address = True
+    self._srv = srv
+    self.port = srv.server_address[1]
+    self._thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    self._thread.start()
+    return '127.0.0.1:%d' % self.port
+
+  def stop(self):
+    if self._srv is not None:
+      self._srv.shutdown()
+      self._srv.server_close()
+      self._srv = None
+
+
+KAFKA_PARTITIONS = (1240, 13240, 13240, 13240)   # 40 steps of 1,024 rows
+
+
+def phase_kafka_din(torch, card):
+  """Phase 32: the Taobao DIN at its published widths, batch 1,024, fused
+  (K3), streamed from Kafka, stopped and resumed. MockBroker serves a
+  topic of 4 partitions; tools/kafka_topic writes 40 steps of
+  write_din_csv's rows into it, one file a partition (rows/s), and a
+  KafkaReader drains it in eval mode (rows/s). A Trainer trains 10 steps
+  on one model_dir (a save at 10 with its data_offset.json), a fresh
+  Trainer resumes from those offsets to step 20, and a third trains 20
+  steps on another model_dir: the resumed run's every state tensor must
+  equal the uninterrupted run's bit for bit, its losses the last ten of
+  the uninterrupted run's, its data_offset.json the same text; K3 once a
+  step and table in each run, K1, K2, K4 and K5 never. The broker returns
+  at most 500 records a partition per fetch, so a resume keeps the
+  uninterrupted order across partitions where the cut ends a fetch round
+  (KafkaReader's docstring): partition 0 holds 1,240 rows and 1-3 13,240
+  each, so step 10's 10,240 rows end the sixth round (1,240 + 3 x 3,000).
+  Returns the uninterrupted run's launches by kernel and math."""
+  import shutil
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.data.input_pipeline import KafkaReader
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.tools import kafka_topic
+  from easyrec_torch.train.trainer import Trainer
+  from easyrec_torch.utils import flagship
+
+  what = 'Kafka Taobao DIN'
+  os.environ['EASYREC_PACKED_FUSED'] = '1'
+  root = os.path.join(SCRATCH, 'kafka_din')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  broker = MockBroker()
+  server = broker.start()
+  try:
+    broker.create_topic('din', len(KAFKA_PARTITIONS))
+    data = os.path.join(root, 'din.csv')
+    write_din_csv(data, sum(KAFKA_PARTITIONS), seed=11)
+    with open(data) as f:
+      lines = f.readlines()
+    t0 = time.time()
+    lo = 0
+    for p, n in enumerate(KAFKA_PARTITIONS):
+      written = kafka_topic.write_topic(server, 'din', lines[lo:lo + n],
+                                        partition=p)
+      if written != n:
+        fail('%s: kafka_topic wrote %d of %d rows' % (what, written, n))
+      lo += n
+    write_s = time.time() - t0
+
+    def din_config(model_dir, steps):
+      return main_lib.load_config(
+          flagship.taobao_din_config(batch_size=1024, model_dir=model_dir), {
+              'kafka_train_input': 'server: "%s" topic: "din"' % server,
+              'data_config.input_type': 'KafkaInput',
+              'data_config.shuffle': False,
+              'train_config.num_steps': steps,
+              'train_config.save_checkpoints_steps': 10})
+
+    cfg = din_config('', 20)
+    reader = KafkaReader(cfg.data_config, cfg.kafka_train_input)
+    reader.mode = 'eval'
+    t0 = time.perf_counter()
+    n_read = sum(len(c['__stream_pid']) for c in reader.chunks(4096))
+    read_s = time.perf_counter() - t0
+    log('%s: kafka_topic wrote %d rows to %d partitions %s in %.2f s (%.0f '
+        'rows/s); a KafkaReader drained them in %.3f s (%.0f rows/s)'
+        % (what, lo, len(KAFKA_PARTITIONS), KAFKA_PARTITIONS, write_s,
+           lo / write_s, read_s, n_read / read_s))
+    if n_read != lo:
+      fail('%s: the reader drained %d of %d rows' % (what, n_read, lo))
+
+    def fit(model_dir, steps, want_steps):
+      kernels.reset_launches()
+      gc.collect()
+      torch.cuda.empty_cache()
+      torch.cuda.reset_peak_memory_stats()
+      t = Trainer(din_config(model_dir, steps), device='cuda')
+      t0 = time.time()
+      r = t.fit(eval_at_end=False)
+      torch.cuda.synchronize()
+      wall = time.time() - t0
+      counts, tagged = kernels.launch_counts(), kernels.tagged_counts()
+      n_tables = len(t.tables)
+      want = {name: (want_steps * n_tables if name == 'rmw_fused' else 0)
+              for name in counts}
+      if counts != want or len(r['losses']) != want_steps or \
+          r['global_step'] != steps or \
+          not all(math.isfinite(x) for x in r['losses']):
+        fail('%s: %d steps to %d, launches %s (%s expected), losses %s'
+             % (what, len(r['losses']), r['global_step'], counts, want,
+                r['losses']))
+      with open(os.path.join(model_dir, 'data_offset.json')) as f:
+        offsets = f.read()
+      return t, r, dict(counts, **tagged), offsets, wall, \
+          torch.cuda.max_memory_allocated()
+
+    cut_dir = os.path.join(root, 'cut')
+    _, _, _, cut_offsets, _, _ = fit(cut_dir, 10, 10)
+    resumed, rr, _, resumed_offsets, _, _ = fit(cut_dir, 20, 10)
+    one, ro, launches, one_offsets, wall, peak = fit(
+        os.path.join(root, 'whole'), 20, 20)
+
+    sa, differ = state_differences(torch, resumed, one)
+    log('%s: 10 steps, data_offset.json %s; a fresh Trainer resumed from '
+        'those offsets to step 20: losses %s vs %s; %d of %d state tensors '
+        'differ from the uninterrupted run; data_offset.json at 20: %s '
+        '(uninterrupted: %s)'
+        % (what, cut_offsets, ['%.6f' % x for x in rr['losses']],
+           ['%.6f' % x for x in ro['losses'][10:]], len(differ), len(sa),
+           resumed_offsets, one_offsets))
+    if differ or rr['losses'] != ro['losses'][10:] or \
+        resumed_offsets != one_offsets:
+      fail('%s: the resumed run differs from the uninterrupted one in %s'
+           % (what, differ[:20]))
+    log('%s: uninterrupted 20 steps through Trainer.fit in %.2f s (%.3f '
+        'ms/step, Kafka input, two saves and the first step\'s set-up '
+        'included); launches %s; peak device memory %.3f GB on %s'
+        % (what, wall, wall / 20 * 1e3, launches, peak / 1e9, card))
+  finally:
+    broker.stop()
+  del resumed, one
+  torch.cuda.empty_cache()
+  shutil.rmtree(root, ignore_errors=True)
+  return launches
+
+
+SMALL_ROWS = 1500     # rows of each small reader's data (3 shards of 500)
+
+
+def small_criteo_rows(n, seed):
+  """Rows of the small Criteo schema (label, F1-F3, C1-C6) as strings."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  return [['%d' % (rng.random() < 0.3)] +
+          ['%d' % v for v in rng.integers(0, 900, 3)] +
+          ['%x' % v for v in rng.integers(0, 1 << 32, 6, dtype=np.uint64)]
+          for _ in range(n)]
+
+
+def small_deepfm(edits):
+  """A small DeepFM on the Criteo schema (3 raw and 6 id features of
+  1,000 buckets, batch 256, eval batch 256) with `edits`."""
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.utils import flagship
+  return main_lib.load_config(flagship.criteo_deepfm_config(
+      batch_size=256, hash_bucket_size=1000, num_dense=3, num_cat=6),
+      dict({'data_config.eval_batch_size': 256,
+            'data_config.shuffle': False}, **edits))
+
+
+def phase_small_readers(torch):
+  """Phase 33: the small readers card against CPU (phase_agree on each
+  reader's own pipeline batches): RTPInput ('\\002' between features),
+  an ODPS table read from its CSV export under
+  EASYREC_WAREHOUSE_EXPORT_DIR, and DataHubInput through
+  tests/datahub_mock.py, whose batches after 3 come from a second
+  pipeline resumed at the first one's last_batch_offsets and must equal
+  the first pipeline's next 3. Each reader's rows/s is logged. Then two
+  random trials of hpo/tuner.py on the warehouse DeepFM, 5 steps each, on
+  the card and on the CPU: the same trial parameters (the seed's), each
+  auc in [0, 1]."""
+  import copy
+  import shutil
+  import numpy as np
+  from easyrec_torch.hpo.tuner import LocalTuner
+  from tests.datahub_mock import MockDataHub
+
+  root = os.path.join(SCRATCH, 'small_readers')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  rows = small_criteo_rows(SMALL_ROWS, 5)
+  names = ['label', 'F1', 'F2', 'F3'] + ['C%d' % i for i in range(1, 7)]
+
+  def agree(what, cfg, train=None):
+    if train is None:
+      t0 = time.perf_counter()
+      train = pipeline_batches(cfg, 'train', 3)
+      read_s = time.perf_counter() - t0
+      log('%s: the pipeline read 3 batches of 256 rows in %.3f s (%.0f '
+          'rows/s, transforms included)' % (what, read_s, 768 / read_s))
+    phase_agree(torch, what, cfg, '0', batches={
+        'train': train, 'eval': pipeline_batches(cfg, 'eval', 2)})
+
+  rtp = os.path.join(root, 'data.rtp')
+  with open(rtp, 'w') as f:
+    f.writelines('%s;%s\n' % (r[0], '\002'.join(r[1:])) for r in rows)
+  agree('DeepFM, RTPInput', small_deepfm({
+      'data_config.input_type': 'RTPInput', 'data_config.separator': '\002',
+      'train_input_path': rtp, 'eval_input_path': rtp}))
+
+  export_root = os.path.join(root, 'exports')
+  os.makedirs(os.path.join(export_root, 'criteo_small'))
+  with open(os.path.join(export_root, 'criteo_small', 'part-0.csv'),
+            'w') as f:
+    f.writelines(','.join(r) + '\n' for r in rows)
+  os.environ['EASYREC_WAREHOUSE_EXPORT_DIR'] = export_root
+  table = 'odps://proj/tables/criteo_small'
+  warehouse = small_deepfm({'data_config.input_type': 'OdpsInputV2',
+                            'data_config.separator': ',',
+                            'train_input_path': table,
+                            'eval_input_path': table})
+  agree('DeepFM, OdpsInputV2 from its CSV export', warehouse)
+
+  dh = MockDataHub()
+  endpoint = dh.start()
+  try:
+    dh.create_topic('p', 'criteo', [(n, 'STRING') for n in names], 3)
+    for i, r in enumerate(rows):
+      dh.put('p', 'criteo', i // 500, r)
+    source = ('akId: "ak" akSecret: "sk" region: "%s" project: "p" '
+              'topic: "criteo"' % endpoint)
+    cfg = small_deepfm({'datahub_train_input': source,
+                        'datahub_eval_input': source,
+                        'data_config.input_type': 'DataHubInput'})
+    from easyrec_torch.config import config_util
+    from easyrec_torch.data.input_pipeline import InputPipeline
+    feats = config_util.get_feature_configs(cfg)
+    os.environ['EASYREC_DATAHUB_STOP_AT_END'] = '1'
+    first = InputPipeline(cfg.data_config, feats, cfg.datahub_train_input)
+    it = iter(first)
+    for _ in range(3):
+      next(it)
+    cut = dict(first.last_batch_offsets)
+    tail = [next(it) for _ in range(3)]
+    resumed_cfg = copy.deepcopy(cfg)
+    resumed_cfg.datahub_train_input.offset_info = json.dumps(
+        {str(k): v for k, v in cut.items()})
+    t0 = time.perf_counter()
+    resumed = InputPipeline(resumed_cfg.data_config, feats,
+                            resumed_cfg.datahub_train_input)
+    again = [b for _, b in zip(range(3), resumed)]
+    read_s = time.perf_counter() - t0
+    del os.environ['EASYREC_DATAHUB_STOP_AT_END']
+    same = len(again) == 3 and all(
+        sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(again, tail))
+    log('DeepFM, DataHubInput: 3 batches to offsets %s; a pipeline resumed '
+        'there read 3 more in %.3f s (%.0f rows/s), %s the first '
+        'pipeline\'s next 3' % (cut, read_s, 768 / read_s,
+                                'equal to' if same else 'DIFFERENT from'))
+    if not same:
+      fail('DataHubInput: the resumed batches differ')
+    agree('DeepFM, DataHubInput resumed', resumed_cfg, again)
+  finally:
+    dh.stop()
+
+  space = [{'name': 'train_config.optimizer_config[0].adam_optimizer.'
+                    'learning_rate.exponential_decay_learning_rate.'
+                    'initial_learning_rate',
+            'type': 'double', 'min': 1e-4, 'max': 1e-2, 'log_scale': True},
+           {'name': 'model_config.deepfm.dnn.hidden_units',
+            'type': 'categorical', 'candidates': [[64, 32], [32]]}]
+  trials = {}
+  for dev in ('cuda', 'cpu'):
+    cfg = copy.deepcopy(warehouse)
+    cfg.model_dir = os.path.join(root, 'hpo_' + dev)
+    cfg.train_config.num_steps = 5
+    t0 = time.time()
+    summary = LocalTuner(cfg, space, num_trials=2, device=dev).run()
+    trials[dev] = [(t['assignment'], t['auc']) for t in summary['trials']]
+    log('hpo tuner, 2 random trials on %s in %.1f s: %s'
+        % (dev, time.time() - t0, trials[dev]))
+  if [a for a, _ in trials['cuda']] != [a for a, _ in trials['cpu']] or \
+      not all(0.0 <= auc <= 1.0 for t in trials.values() for _, auc in t):
+    fail('hpo tuner: trials %s' % trials)
+  del os.environ['EASYREC_WAREHOUSE_EXPORT_DIR']
+  shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
   STARTED[0] = time.time()
   if not os.path.isdir(os.path.join(HERE, 'easyrec_torch')):
@@ -4171,9 +4871,13 @@ def main():
       batch_size=256, seq_len=8), '1')
   din = phase_slice(torch, card, 'Taobao DIN', flagship.taobao_din_config(),
                     '1', ('rmw_fused',), 'compact_adam')
-  deepfm = phase_slice(torch, card, 'flagship DeepFM',
-                       flagship.criteo_deepfm_config(), '0',
-                       ('seg_sum', 'rmw_rows'), 'compact_adam')
+  # 7 and 31: the flagship DeepFM from Criteo's binary layout
+  deepfm, (err1, err2) = phase_criteo_binary(torch, card, smi)
+  for r in results:
+    if r['name'] == 'seg_sum':
+      r['max_abs_err'] = max(r['max_abs_err'], err1)
+    if r['name'] == 'rmw_rows/compact_adam':
+      r['max_abs_err'] = max(r['max_abs_err'], err2)
   adagrad = phase_slice(torch, card, 'flagship DeepFM, Adagrad tables',
                         flagship.criteo_deepfm_adagrad_config(), '0',
                         ('seg_sum', 'rmw_rows'), 'adagrad')
@@ -4214,18 +4918,21 @@ def main():
     if r['name'] == 'rmw_rows/compact_adam':
       r['max_abs_err'] = max(r['max_abs_err'], err2)
   phase_ckpt(torch)
+  kafka = phase_kafka_din(torch, card)
+  phase_small_readers(torch)
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the fg-driven DIN,
-  # this slice's main path; K3 on the DIN's, Adagrad on the Adagrad
-  # DeepFM's, the EV maths on the EV phase's), 0 for a math no path runs
+  # these that runs it (K1 and K2's compact Adam on the Criteo-binary
+  # DeepFM, this slice's main path; K3 on the Kafka-streamed DIN, Adagrad
+  # on the Adagrad DeepFM's, the EV maths on the EV phase's), 0 for a math
+  # no path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (fg, retrieve, dssm, backbone, dlrm, mmoe, bst,
-                           din, deepfm, adagrad, ev)
+                          (deepfm, kafka, fg, retrieve, dssm, backbone, dlrm,
+                           mmoe, bst, din, adagrad, ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -11,6 +11,7 @@ NotImplementedError, naming the field, for anything the port does not run.
 from __future__ import annotations
 
 import glob as _glob
+import json
 import logging
 import os
 import re
@@ -70,17 +71,27 @@ _PORTED_FEATURE_TYPES = ('IdFeature', 'RawFeature', 'TagFeature',
                          'ComboFeature', 'LookupFeature', 'SequenceFeature',
                          'ExprFeature', 'PassThroughFeature')
 _PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput',
-                       'TFRecordInput', 'BatchTFRecordInput')
+                       'TFRecordInput', 'BatchTFRecordInput', 'RTPInput',
+                       'RTPInputV2', 'OdpsRTPInput', 'OdpsRTPInputV2',
+                       'CriteoInput', 'KafkaInput', 'DataHubInput',
+                       'HiveInput', 'HiveRTPInput', 'OdpsInput',
+                       'OdpsInputV2', 'OdpsInputV3')
 
 
 def get_configs_from_pipeline_file(path: str,
                                    auto_expand: bool = True) -> Message:
-  """Load an EasyRecConfig from a text-format config file."""
-  if path.endswith('.json'):
-    raise NotImplementedError('json pipeline configs are not ported: %s'
-                              % path)
+  """Load an EasyRecConfig from a text-format config file, or from
+  protobuf's JSON form where the path ends in .json (config/json_format.py;
+  unknown fields dropped)."""
   with open(path, 'r', encoding='utf-8') as f:
-    return get_configs_from_pipeline_str(f.read(), auto_expand)
+    content = f.read()
+  if path.endswith('.json'):
+    from easyrec_torch.config import json_format
+    config = json_format.parse(content, 'EasyRecConfig')
+    if auto_expand:
+      _auto_expand(config)
+    return config
+  return get_configs_from_pipeline_str(content, auto_expand)
 
 
 def get_configs_from_pipeline_str(content: str,
@@ -88,10 +99,14 @@ def get_configs_from_pipeline_str(content: str,
   """Parse an EasyRecConfig from a text-format string."""
   config = parse(content, 'EasyRecConfig')
   if auto_expand:
-    auto_expand_share_feature_configs(config)
-    auto_expand_input_fields(config)
-    auto_expand_group_feature_names(config)
+    _auto_expand(config)
   return config
+
+
+def _auto_expand(config: Message) -> None:
+  auto_expand_share_feature_configs(config)
+  auto_expand_input_fields(config)
+  auto_expand_group_feature_names(config)
 
 
 def save_pipeline_config(config: Message, directory: str,
@@ -175,31 +190,155 @@ def auto_expand_input_fields(config: Message) -> None:
   dc.auto_expand_input_fields = False
 
 
-def edit_config(config: Message, edits: Dict[str, object]) -> Message:
-  """Apply plain dotted-path edits, e.g. {'train_config.num_steps': 100}."""
+_SELECTOR_RE = re.compile(r'^(?P<name>\w+)\[(?P<cond>.+)\]$')
+
+
+def edit_config(config: Message,
+                edits: Union[str, Dict[str, object]]) -> Message:
+  """Apply dotted-path edits (a dict, or its JSON text), as the JAX
+  package's edit_config (config_util.py:167-297):
+    plain paths        train_config.num_steps: 100
+    a list index       feature_configs[0].embedding_dim: 32
+    an index range     feature_configs[0:2].embedding_dim: 32
+    a field predicate  feature_configs[input_names[0]=c1].embedding_dim: 32
+    a comparison       feature_configs[embedding_dim>=16].combiner: mean
+  A value for a repeated field is a list, a JSON list's text or a comma
+  list; for a message, its text format or a dict of its JSON form; enum
+  values go by name."""
+  if isinstance(edits, str):
+    edits = json.loads(edits)
   for path, value in edits.items():
-    parts = path.split('.')
-    target = config
-    for part in parts[:-1]:
-      if '[' in part:
-        raise NotImplementedError('config edit selectors are not ported: %s'
-                                  % path)
-      child = getattr(target, part)
-      setattr(target, part, child)    # materialise an unset sub-message
-      target = child
-    setattr(target, parts[-1], value)
+    _apply_edit(config, path.split('.'), value)
   return config
 
 
-def get_train_input_path(config: Message) -> Optional[str]:
+def _apply_edit(msg: Message, parts: List[str], value) -> None:
+  targets = [msg]
+  for i, part in enumerate(parts):
+    last = i == len(parts) - 1
+    nxt = []
+    for target in targets:
+      sel = _SELECTOR_RE.match(part)
+      if sel:
+        if last:
+          raise ValueError('cannot assign directly to selector %s' % part)
+        nxt.extend(_select(getattr(target, sel.group('name')),
+                           sel.group('cond')))
+      elif last:
+        _set_field(target, part, value)
+      else:
+        child = getattr(target, part)
+        setattr(target, part, child)    # materialise an unset sub-message
+        nxt.append(child)
+    targets = nxt
+
+
+def _select(repeated: list, cond: str) -> list:
+  if re.match(r'^\d+$', cond):
+    return [repeated[int(cond)]]
+  m = re.match(r'^(\d*):(\d*)$', cond)
+  if m:
+    lo = int(m.group(1)) if m.group(1) else 0
+    hi = int(m.group(2)) if m.group(2) else len(repeated)
+    return list(repeated[lo:hi])
+  m = re.match(r'^([\w\[\]]+)\s*(>=|<=|!=|=|>|<)\s*(.*)$', cond)
+  if not m:
+    raise ValueError('bad selector condition: %s' % cond)
+  fexpr, op, raw = m.group(1), m.group(2), m.group(3)
+  out = []
+  for item in repeated:
+    sel = _SELECTOR_RE.match(fexpr)
+    val = getattr(item, sel.group('name'))[int(sel.group('cond'))] \
+        if sel else getattr(item, fexpr)
+    ref = _convert_type(raw, type(val)) if val is not None else raw
+    if _CMP[op](val, ref):
+      out.append(item)
+  return out
+
+
+_CMP = {'=': lambda a, b: a == b, '!=': lambda a, b: a != b,
+        '>': lambda a, b: a > b, '<': lambda a, b: a < b,
+        '>=': lambda a, b: a >= b, '<=': lambda a, b: a <= b}
+
+
+def _convert_type(raw, target_type):
+  if target_type is bool:
+    if isinstance(raw, str):
+      return raw.strip().lower() in ('true', '1', 'yes')
+    return bool(raw)
+  try:
+    return target_type(raw)
+  except (TypeError, ValueError):
+    return raw
+
+
+_PY_TYPES = {'int': int, 'int64': int, 'float': float, 'double': float,
+             'bool': bool}
+
+
+def _message_value(type_name: str, value) -> Message:
+  if isinstance(value, Message):
+    return value
+  if isinstance(value, dict):
+    from easyrec_torch.config import json_format
+    return json_format.parse_dict(value, type_name)
+  if isinstance(value, str):
+    return parse(value, type_name)
+  raise ValueError('cannot assign %r to a %s message' % (value, type_name))
+
+
+def _merge(dst: Message, src: Message) -> None:
+  """src's set fields into dst, as protobuf's text and JSON parsers merge
+  into a message: repeated fields appended, the rest set."""
+  for spec in schema.MESSAGES[src.type_name]:
+    if spec.name not in src._values:
+      continue
+    if spec.repeated:
+      getattr(dst, spec.name).extend(src._values[spec.name])
+    else:
+      setattr(dst, spec.name, src._values[spec.name])
+
+
+def _set_field(target: Message, name: str, value) -> None:
+  spec = schema.field(target.type_name, name)
+  if spec.repeated:
+    if isinstance(value, str):
+      value = json.loads(value) if value.strip().startswith('[') \
+          else value.split(',')
+    if not isinstance(value, (list, tuple)):
+      value = [value]
+    if spec.message_type:
+      setattr(target, name, [_message_value(spec.message_type, v)
+                             for v in value])
+    else:
+      py_type = _PY_TYPES.get(spec.kind, str)
+      setattr(target, name, [_convert_type(v, py_type) for v in value])
+  elif spec.message_type and isinstance(value, Message):
+    setattr(target, name, value)
+  elif spec.message_type:
+    child = getattr(target, name)
+    _merge(child, _message_value(spec.message_type, value))
+    setattr(target, name, child)
+  elif spec.enum_type or spec.kind == 'string':
+    setattr(target, name, value)
+  else:
+    setattr(target, name,
+            _convert_type(value, _PY_TYPES.get(spec.kind, str)))
+
+
+def get_train_input_path(config: Message) -> Union[str, Message, None]:
+  """The train_path oneof's value (JAX config_util.py:322-330): a path
+  string for file inputs, the KafkaServer, DatahubServer or HiveConfig
+  message for a streaming or warehouse input."""
   return _input_path(config, 'train_path')
 
 
-def get_eval_input_path(config: Message) -> Optional[str]:
+def get_eval_input_path(config: Message) -> Union[str, Message, None]:
+  """The eval_path oneof's value, as get_train_input_path."""
   return _input_path(config, 'eval_path')
 
 
-def _input_path(config: Message, oneof: str) -> Optional[str]:
+def _input_path(config: Message, oneof: str):
   which = config.WhichOneof(oneof)
   if which is None:
     return None

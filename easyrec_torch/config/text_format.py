@@ -125,7 +125,7 @@ def _coerce(spec: schema.FieldSpec, value):
         return False
       raise ValueError('field %s wants a bool, got %r' % (spec.name, value))
     return bool(value)
-  if kind == 'int':
+  if kind in ('int', 'int64'):
     if isinstance(value, float) and value != int(value):
       raise ValueError('field %s wants an integer, got %r'
                        % (spec.name, value))
@@ -410,7 +410,7 @@ def _scalar_text(spec: schema.FieldSpec, value) -> str:
     return '"%s"' % _escape(value)
   if kind == 'bool':
     return 'true' if value else 'false'
-  if kind == 'int':
+  if kind in ('int', 'int64'):
     return str(int(value))
   if kind == 'float':
     return _float32_text(float(value))

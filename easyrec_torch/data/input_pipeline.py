@@ -1,11 +1,13 @@
 """Input pipeline: file readers -> feature transforms -> static batches.
 
-Counterpart of easyrec_tpu/data/input_pipeline.py for the readers the port
-runs: CSVReader (:101), TFRecordReader (:206-276) and DummyReader (:658),
-under the same InputPipeline (:685), with the negative samplers spliced
-in (data/samplers.py; :757-766, :843-850, :872-905). Every batch has
-batch_size rows; a short tail is zero-padded with sample_weight 0.
-Streaming readers are not ported.
+Counterpart of easyrec_tpu/data/input_pipeline.py: CSVReader (:101),
+TFRecordReader (:206-276), RTPReader (:280-330), CriteoBinaryReader
+(:333-363), the streaming KafkaReader (:366-484) and DataHubReader
+(:487-596), the warehouse ExternalServiceReader (:599-654) and DummyReader
+(:658), under the same InputPipeline (:685), with the negative samplers
+spliced in (data/samplers.py; :757-766, :843-850, :872-905). Every batch
+has batch_size rows; a short tail is zero-padded with sample_weight 0.
+The Parquet readers are not ported (pyarrow).
 
 Batches are flat dicts of numpy arrays:
   feat.<name>.ids / .weights / .dense : packed feature arrays
@@ -27,13 +29,19 @@ Batches are flat dicts of numpy arrays:
                                         [B * H] rows of each user's hard
                                         negatives and the [B, H] mask of
                                         the real ones
+A streaming reader's rows carry their partition and offset
+(`__stream_pid`, `__stream_off`) through the pipeline; they never reach a
+batch, but set the pipeline's `last_batch_offsets` as each batch is cut.
 """
 
 from __future__ import annotations
 
 import csv
 import gzip
+import json
 import logging
+import os
+import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -125,9 +133,17 @@ class CSVReader(BaseReader):
     return out
 
 
+# the cells the JAX package's CSV parse (pyarrow's ConvertOptions
+# null_values) reads as null in a numeric or BOOL column, which then take
+# the field's default_val; a STRING column reads them as they are
+_CSV_NULLS = frozenset(('', '#N/A', '#N/A N/A', '#NA', '-1.#IND', '-1.#QNAN',
+                        '-NaN', '-nan', '1.#IND', '1.#QNAN', 'N/A', 'NA',
+                        'NULL', 'NaN', 'n/a', 'nan', 'null'))
+
+
 def _typed_column(raw, field) -> np.ndarray:
   """Strings of one CSV column -> a typed numpy column with the field's
-  default_val for empty cells."""
+  default_val for empty (in a numeric or BOOL column, null) cells."""
   t = field.input_type
   if t == 'STRING':
     col = np.array(raw, dtype=object)
@@ -136,14 +152,15 @@ def _typed_column(raw, field) -> np.ndarray:
     return col
   if t in ('FLOAT', 'DOUBLE'):
     dflt = float(field.default_val or 0.0)
-    return np.array([float(v) if v != '' else dflt for v in raw],
-                    dtype=np.float64)
+    return np.array([float(v) if v not in _CSV_NULLS else dflt
+                     for v in raw], dtype=np.float64)
   if t == 'BOOL':
     dflt = (field.default_val or '').lower() in ('1', 'true')
-    return np.array([v.lower() in ('1', 'true') if v != '' else dflt
-                     for v in raw], dtype=np.bool_)
+    return np.array([v.lower() in ('1', 'true') if v not in _CSV_NULLS
+                     else dflt for v in raw], dtype=np.bool_)
   dflt = int(float(field.default_val or 0))
-  return np.array([int(v) if v != '' else dflt for v in raw], dtype=np.int64)
+  return np.array([int(v) if v not in _CSV_NULLS else dflt for v in raw],
+                  dtype=np.int64)
 
 
 _TFRECORD_DTYPES = {'INT32': np.int32, 'INT64': np.int64,
@@ -216,6 +233,348 @@ class TFRecordReader(BaseReader):
     return out
 
 
+@INPUTS.register('RTPInput')
+@INPUTS.register('RTPInputV2')
+@INPUTS.register('OdpsRTPInput')
+@INPUTS.register('OdpsRTPInputV2')
+class RTPReader(BaseReader):
+  """The RTP sample format: the label fields, then one column of the
+  features joined by data_config.separator (RTP writes '\\002'), the
+  columns split by rtp_separator (';' by default): lbl;lbl;...;f1\\002f2.
+  A label the line lacks reads 0.0 and a feature it lacks ''; labels come
+  out float32, features as strings. Files and rows shard as CSVReader's
+  do (rows counted across files, empty lines skipped uncounted)."""
+
+  def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
+    dc = self.data_config
+    rtp_sep = dc.rtp_separator or ';'
+    feat_sep = dc.separator or '\002'
+    labels = list(dc.label_fields)
+    feature_fields = [n for n in self.field_names if n not in labels]
+    paths = config_util.expand_input_paths(self.input_path)
+    if dc.file_shard and self.shard_num > 1:
+      paths = paths[self.shard_index::self.shard_num]
+    row_shard = self.shard_num > 1 and not dc.file_shard
+    row = 0
+    buf = {n: [] for n in self.field_names}
+
+    def flush():
+      out = {n: np.asarray(buf[n], np.float32) for n in labels}
+      out.update({n: np.asarray(buf[n], object) for n in feature_fields})
+      for n in self.field_names:
+        buf[n] = []
+      return out
+
+    for path in paths:
+      with open(path) as f:
+        for line in f:
+          line = line.rstrip('\n')
+          if not line:
+            continue
+          row += 1
+          if row_shard and (row - 1) % self.shard_num != self.shard_index:
+            continue
+          parts = line.split(rtp_sep)
+          feats = parts[-1].split(feat_sep)
+          for i, n in enumerate(labels):
+            buf[n].append(float(parts[i]) if i < len(parts) - 1 else 0.0)
+          for i, n in enumerate(feature_fields):
+            buf[n].append(feats[i] if i < len(feats) else '')
+          if len(buf[self.field_names[0]]) >= chunk_rows:
+            yield flush()
+    if buf[self.field_names[0]]:
+      yield flush()
+
+
+@INPUTS.register('CriteoInput')
+class CriteoBinaryReader(BaseReader):
+  """The packed binary Criteo layout (tools/criteo_convert.py writes it):
+  records of 40 little-endian int32, the label and 13 dense features read
+  as float32 and 26 categorical ids as int64, named by the first 40 input
+  fields in order (their declared types are not read). With shard_num > 1
+  a reader takes the files paths[i::n] under file_shard, else the records
+  i::n of each file."""
+
+  RECORD_INTS = 40
+
+  def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
+    paths = config_util.expand_input_paths(self.input_path)
+    if self.data_config.file_shard and self.shard_num > 1:
+      paths = paths[self.shard_index::self.shard_num]
+    names = self.field_names[:self.RECORD_INTS]
+    for path in paths:
+      data = np.fromfile(path, dtype='<i4')
+      n = data.size // self.RECORD_INTS
+      recs = data[:n * self.RECORD_INTS].reshape(n, self.RECORD_INTS)
+      if not self.data_config.file_shard and self.shard_num > 1:
+        recs = recs[self.shard_index::self.shard_num]
+      for lo in range(0, len(recs), chunk_rows):
+        part = recs[lo:lo + chunk_rows]
+        yield {name: part[:, i].astype(np.float32 if i <= 13 else np.int64)
+               for i, name in enumerate(names)}
+
+
+def _stream_columns(out: Dict[str, np.ndarray], rows, items,
+                    current: Dict[int, int]) -> None:
+  """The (partition, offset, value) `rows` as the __stream_pid and
+  __stream_off columns of `out`, and each partition's next offset past
+  `items` (rows and skipped ones) into `current`."""
+  out['__stream_pid'] = np.array([p for p, _, _ in rows], np.int64)
+  out['__stream_off'] = np.array([o for _, o, _ in rows], np.int64)
+  for pid, off, _ in items:
+    current[pid] = max(current.get(pid, 0), off + 1)
+
+
+@INPUTS.register('KafkaInput')
+class KafkaReader(BaseReader):
+  """Kafka streaming input (data/kafka_client.py, standard library only):
+  each message's value is one CSV line of the input fields, parsed as
+  CSVReader parses a file (_typed_column's defaults and nulls; a line of
+  another field count raises, as the JAX package's typed parse does; an
+  empty message is skipped with its offset).
+
+  The input path is the KafkaServer message (kafka_train_input /
+  kafka_eval_input). Partitions (its `partitions`, else all the topic's,
+  sorted) are assigned statically, [shard_index::shard_num]; each starts
+  at its offset in the `offset_info` JSON (the trainer's data_offset.json
+  resume), else at its `offset` paired with `partitions`, else at the
+  earliest. Training polls on at the end of the stream, unless
+  EASYREC_KAFKA_STOP_AT_END=1; eval and predict drain to the high
+  watermark and stop. `start_offsets` holds where each partition began and
+  `current_offsets` the next offset past the rows yielded so far (a fetch
+  reads ahead of both).
+
+  One fetch returns each partition's next records in turn, so the order of
+  the rows after a resume from offsets is the uninterrupted run's only
+  where the cut fell at the end of a fetch round (every partition at the
+  end of its fetched records); the rows themselves are the same either
+  way, none read twice or skipped."""
+
+  supports_offsets = True    # the trainer saves and restores its offsets
+
+  def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
+    from easyrec_torch.data import kafka_client as kc
+    cfg = self.input_path
+    if cfg is None or isinstance(cfg, str):
+      raise ValueError(
+          'KafkaInput needs a kafka_train_input/kafka_eval_input '
+          'KafkaServer config (got %r)' % (cfg,))
+    consumer = kc.KafkaConsumer(cfg.server,
+                                client_id=cfg.group or 'easy_rec')
+    all_parts = sorted(cfg.partitions) or consumer.partitions_for(cfg.topic)
+    parts = all_parts[self.shard_index::self.shard_num]
+    if not parts:
+      consumer.close()
+      return
+    offs: Dict[int, int] = {}
+    if cfg.offset_info:
+      for k, v in json.loads(cfg.offset_info).items():
+        if int(k) in parts:
+          offs[int(k)] = int(v)
+    for i, p in enumerate(sorted(cfg.partitions)):
+      if i < len(cfg.offset) and p in parts and p not in offs:
+        offs[p] = int(cfg.offset[i])
+    missing = [p for p in parts if p not in offs]
+    if missing:
+      offs.update(consumer.offsets(cfg.topic, missing, kc.EARLIEST))
+    self.current_offsets = dict(offs)
+    # a partition that gives no row to a run keeps its start offset in
+    # the offsets saved after it
+    self.start_offsets = dict(offs)
+    stop_at_end = getattr(self, 'mode', 'train') != 'train' or \
+        os.environ.get('EASYREC_KAFKA_STOP_AT_END') == '1'
+    pending: List[tuple] = []                  # (pid, off, value)
+    try:
+      while True:
+        records, hwm = consumer.fetch(cfg.topic, offs, max_wait_ms=500)
+        for pid, off, _key, value in records:
+          offs[pid] = max(offs[pid], off + 1)
+          pending.append((pid, off, value))
+        while len(pending) >= chunk_rows:
+          chunk, pending = pending[:chunk_rows], pending[chunk_rows:]
+          yield self._parse_records(chunk)
+        if not records and all(offs[p] >= hwm.get(p, 0) for p in parts):
+          if not stop_at_end:
+            continue                           # a stream: poll on
+          if pending:
+            yield self._parse_records(pending)
+          return
+    finally:
+      consumer.close()
+
+  def _parse_records(self, items: List[tuple]) -> Dict[str, np.ndarray]:
+    kept = [it for it in items if it[2]]
+    out = self._parse_lines([v for _, _, v in kept])
+    _stream_columns(out, kept, items, self.current_offsets)
+    return out
+
+  def _parse_lines(self, lines: List[bytes]) -> Dict[str, np.ndarray]:
+    sep = self.data_config.separator or ','
+    rows = list(csv.reader([v.decode('utf-8') for v in lines],
+                           delimiter=sep))
+    width = len(self.field_names)
+    for i, r in enumerate(rows):
+      if len(r) != width:
+        raise ValueError('Kafka message %d of the chunk has %d CSV fields, '
+                         'the input fields are %d: %r'
+                         % (i, len(r), width, lines[i][:200]))
+    return {f.input_name: _typed_column([r[c] for r in rows], f)
+            for c, f in enumerate(self.data_config.input_fields)}
+
+
+@INPUTS.register('DataHubInput')
+class DataHubReader(BaseReader):
+  """Aliyun DataHub streaming input over data/datahub_client.py (REST,
+  standard library only): TUPLE records whose topic schema must name every
+  input field (a missing one raises, naming it and the topic's fields).
+
+  The input path is the DatahubServer message. Shards go round-robin,
+  shard i to the reader i % shard_num; each starts at its sequence in the
+  `offset_info` JSON, else at 0. Training polls on at the end (every
+  shard at LATEST), unless EASYREC_DATAHUB_STOP_AT_END=1; eval and
+  predict stop there. Values come typed by the input fields: STRING ''
+  for null, FLOAT/DOUBLE and INT 0 for null or '', BOOL true for 'true',
+  'True' or '1'. `start_offsets` and `current_offsets` as KafkaReader's."""
+
+  supports_offsets = True
+
+  def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
+    from easyrec_torch.data import datahub_client as dhc
+    cfg = self.input_path
+    if cfg is None or isinstance(cfg, str):
+      raise ValueError(
+          'DataHubInput needs a datahub_train_input/datahub_eval_input '
+          'DatahubServer config (got %r)' % (cfg,))
+    client = dhc.DataHubClient(cfg.region, cfg.akId, cfg.akSecret)
+    names = [n for n, _t in client.get_topic(cfg.project, cfg.topic)]
+    col_idx = {}
+    for f in self.data_config.input_fields:
+      if f.input_name not in names:
+        raise ValueError('input_field[%s] is not in datahub topic %s '
+                         '(fields: %s)' % (f.input_name, cfg.topic, names))
+      col_idx[f.input_name] = names.index(f.input_name)
+    shards = [s for i, s in
+              enumerate(client.list_shards(cfg.project, cfg.topic))
+              if i % self.shard_num == self.shard_index]
+    if not shards:
+      client.close()
+      return
+    offs: Dict[int, int] = {}
+    if cfg.offset_info:
+      for k, v in json.loads(cfg.offset_info).items():
+        if str(k) in shards:
+          offs[int(k)] = int(v)
+    for s in shards:
+      offs.setdefault(int(s), 0)
+    self.current_offsets = dict(offs)
+    self.start_offsets = dict(offs)
+    stop_at_end = getattr(self, 'mode', 'train') != 'train' or \
+        os.environ.get('EASYREC_DATAHUB_STOP_AT_END') == '1'
+    pending: List[tuple] = []                  # (shard, sequence, data)
+    try:
+      while True:
+        got_any, at_end = False, True
+        for s in shards:
+          si = int(s)
+          cursor, _ = client.get_cursor(cfg.project, cfg.topic, s,
+                                        dhc.SEQUENCE, offs[si])
+          records, _ = client.get_records(cfg.project, cfg.topic, s, cursor,
+                                          limit=chunk_rows)
+          for seq, data in records:
+            offs[si] = max(offs[si], seq + 1)
+            pending.append((si, seq, data))
+            got_any = True
+          _, latest = client.get_cursor(cfg.project, cfg.topic, s,
+                                        dhc.LATEST)
+          if offs[si] < latest:
+            at_end = False
+        while len(pending) >= chunk_rows:
+          chunk, pending = pending[:chunk_rows], pending[chunk_rows:]
+          yield self._columns(chunk, col_idx)
+        if not got_any and at_end:
+          if not stop_at_end:
+            time.sleep(0.5)                    # an idle stream: back off
+            continue
+          if pending:
+            yield self._columns(pending, col_idx)
+          return
+    finally:
+      client.close()
+
+  def _columns(self, items: List[tuple],
+               col_idx: Dict[str, int]) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for f in self.data_config.input_fields:
+      vals = [it[2][col_idx[f.input_name]] for it in items]
+      if f.input_type == 'STRING':
+        out[f.input_name] = np.array(
+            ['' if v is None else str(v) for v in vals], dtype=object)
+      elif f.input_type in ('FLOAT', 'DOUBLE'):
+        out[f.input_name] = np.array(
+            [0.0 if v in (None, '') else float(v) for v in vals], np.float64)
+      elif f.input_type in ('INT32', 'INT64'):
+        out[f.input_name] = np.array(
+            [0 if v in (None, '') else int(v) for v in vals], np.int64)
+      else:
+        out[f.input_name] = np.array([v in ('true', 'True', '1')
+                                      for v in vals])
+    _stream_columns(out, items, items, self.current_offsets)
+    return out
+
+
+@INPUTS.register('HiveInput')
+@INPUTS.register('HiveRTPInput')
+@INPUTS.register('OdpsInput')
+@INPUTS.register('OdpsInputV2')
+@INPUTS.register('OdpsInputV3')
+class ExternalServiceReader(BaseReader):
+  """Hive and MaxCompute (ODPS) tables read from an export: the table (the
+  HiveConfig's table_name, or the last part of an odps://project/tables/
+  name path) resolves to $EASYREC_WAREHOUSE_EXPORT_DIR/<table>/, whose
+  *.parquet, *.csv, *.csv.gz or other files are read; a path that already
+  names existing files is read as it is. CSV exports go through
+  CSVReader; a Parquet export raises (pyarrow, not ported), and so does a
+  table with no export, naming the input type and the table."""
+
+  def _resolve(self) -> str:
+    path = self.input_path
+    table = None
+    if not isinstance(path, str):              # a HiveConfig message
+      table = path.table_name
+    elif path.startswith('odps://'):
+      table = path.rstrip('/').split('/')[-1]
+    elif path:
+      hits = config_util.expand_input_paths(path)
+      if hits and all(os.path.exists(h) for h in hits):
+        return path
+      table = path
+    root = os.environ.get('EASYREC_WAREHOUSE_EXPORT_DIR', '')
+    if table and root:
+      for pat in ('*.parquet', '*.csv', '*.csv.gz', '*'):
+        hit = os.path.join(root, table, pat)
+        if config_util.expand_input_paths(hit):
+          return hit
+    raise NotImplementedError(
+        '%s has no live warehouse connectivity here. Export the table '
+        'offline (e.g. INSERT OVERWRITE DIRECTORY ... STORED AS PARQUET '
+        'or odpscmd tunnel download) and either point the input path at '
+        'the exported files, or set EASYREC_WAREHOUSE_EXPORT_DIR so '
+        '<dir>/%s/*.parquet resolves.'
+        % (self.data_config.input_type, table or '<table_name>'))
+
+  def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
+    resolved = self._resolve()
+    if '.csv' not in resolved:
+      raise NotImplementedError(
+          'the export %s is read as Parquet, which needs pyarrow: the '
+          'Parquet readers are not ported; export the table as CSV'
+          % resolved)
+    delegate = CSVReader(self.data_config, resolved, self.shard_index,
+                         self.shard_num)
+    delegate.mode = getattr(self, 'mode', 'train')
+    return delegate.chunks(chunk_rows)
+
+
 @INPUTS.register('DummyInput')
 class DummyReader(BaseReader):
   """Synthetic constant chunks for input-bottleneck perf testing."""
@@ -253,8 +612,10 @@ class InputPipeline:
   and epochs, before any transform or shuffle. With shuffle on, the chunks
   after the skip are permuted with other seeds than in the run that was
   cut, so a resumed stream equals the uninterrupted one only unshuffled.
-  `shard_index` / `shard_num` pick this reader's share of the input
-  (CSVReader). The input fields `extra_fields` ride along as numeric
+  A streaming reader (Kafka, DataHub) is never shuffled and resumes by
+  its offsets, not skip_rows; last_batch_offsets holds each partition's
+  next offset past the last batch cut.
+  `shard_index` / `shard_num` pick this reader's share of the input. The input fields `extra_fields` ride along as numeric
   field.<name> columns and, with `raw_extra_fields`, as raw.<name>
   strings. A sampler (data_config's `sampler`; none in predict mode)
   draws its negatives once a batch, after the batch is cut, from the
@@ -290,6 +651,10 @@ class InputPipeline:
     self.transforms = tr.build_transforms(self.specs)
     self.reader = create_reader(data_config, input_path, shard_index,
                                 shard_num)
+    self.reader.mode = mode    # a streaming reader stops at the end off train
+    # a streaming reader's next offset of each partition past the last
+    # batch cut (_finalize); the trainer saves it as data_offset.json
+    self.last_batch_offsets: Optional[Dict[int, int]] = None
     self.label_fields = list(data_config.label_fields)
     self.sample_weight_field = data_config.sample_weight or None
     self.check_mode = bool(check_mode)
@@ -303,7 +668,10 @@ class InputPipeline:
       drop_remainder = bool(data_config.drop_remainder) and mode == 'train'
     self.drop_remainder = drop_remainder
     self.num_epochs = data_config.num_epochs if mode == 'train' else 1
-    self.shuffle = data_config.shuffle and mode == 'train'
+    # a streaming source is never shuffled: its resume offsets would not
+    # hold
+    self.shuffle = data_config.shuffle and mode == 'train' and \
+        not getattr(self.reader, 'supports_offsets', False)
     self._seed = 17
     self.skip_rows = int(skip_rows)
     field_types = {f.input_name: f.input_type
@@ -396,6 +764,10 @@ class InputPipeline:
       user_field = getattr(self.sampler, 'user_id_field', None)
       if user_field and user_field in columns:
         out['_sid.user'] = tr.to_numpy_str(columns[user_field])
+    if '__stream_pid' in columns:
+      # each row's partition and offset ride along to _finalize
+      out['_off.pid'] = np.asarray(columns['__stream_pid'])
+      out['_off.val'] = np.asarray(columns['__stream_off'])
     if self.shuffle:
       rng = np.random.default_rng(self._seed * 1000003 + epoch)
       self._seed += 1
@@ -414,8 +786,22 @@ class InputPipeline:
     return {k: v[lo:hi] for k, v in arrays.items()}
 
   def _finalize(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Splice the sampler's negatives into the batch as neg.feat.* (and a
-    hard-negative sampler's as hard_neg.feat.* with hard_neg_mask)."""
+    """Fold a streaming batch's row offsets into last_batch_offsets: each
+    partition with a live row (sample_weight > 0) in the batch moves past
+    its last one, the others keep the offset they had (at first, the
+    reader's start offset). Then splice the sampler's negatives into the
+    batch as neg.feat.* (and a hard-negative sampler's as hard_neg.feat.*
+    with hard_neg_mask)."""
+    pid = batch.pop('_off.pid', None)
+    off = batch.pop('_off.val', None)
+    if pid is not None:
+      live = batch['sample_weight'] > 0
+      offsets = dict(self.last_batch_offsets
+                     if self.last_batch_offsets is not None
+                     else getattr(self.reader, 'start_offsets', {}))
+      for p in np.unique(pid[live]):
+        offsets[int(p)] = int(off[live][pid[live] == p].max()) + 1
+      self.last_batch_offsets = offsets
     if self.sampler is None:
       return batch
     item_ids = batch.pop('_sid.item', None)

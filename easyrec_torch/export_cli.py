@@ -43,4 +43,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == '__main__':
-  raise SystemExit(main())
+  _rc = main()
+  from easyrec_torch.utils.proc import exit_after
+  exit_after(_rc)

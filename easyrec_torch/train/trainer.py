@@ -69,6 +69,7 @@ from easyrec_torch.optim import builder as opt_builder
 from easyrec_torch.train import checkpoints as ckpt_lib
 from easyrec_torch.train import hooks
 from easyrec_torch.train.restore import fine_tune_restore
+from easyrec_torch.utils.registry import INPUTS
 
 
 def l2_of_kernels(model: nn.Module) -> torch.Tensor:
@@ -439,9 +440,13 @@ class Trainer:
     un-resumed stream is read); with none there, fine_tune_checkpoint, if
     set, warm-starts the model and tables (train/restore.py). A checkpoint
     is saved every save_checkpoints_steps steps or save_checkpoints_secs
-    seconds and once more at the end, each after the EV sweep. The JAX
-    package also writes data_offset.json, for streaming readers only; none
-    is ported, so the port writes none.
+    seconds and once more at the end, each after the EV sweep. A streaming
+    reader's offsets (JAX :665-710, :779-800) go beside each checkpoint
+    into model_dir/data_offset.json, {"step": s, "offsets": {partition:
+    next offset}}: those past the last batch trained, not the reader's
+    read-ahead. A run restored from a checkpoint of a step above 0 with a
+    streaming reader sets the train input's offset_info from that file and
+    starts there; without the file it drops rows as a file input does.
 
     The hooks (JAX :739-760, :850-900; train/hooks.py): after each
     periodic save, where eval_config.eval_online is set, a best exporter
@@ -531,10 +536,39 @@ class Trainer:
     t0, window = time.time(), 0
     last_save = time.time()
     stop_training = False
-    skip_rows = step * int(self.data_config.batch_size)
-    for batch in self.train_input(skip_rows=skip_rows):
+    offset_file = os.path.join(self.model_dir, 'data_offset.json') \
+        if self.model_dir else None
+    train_pipe = None
+    if resumed and step > 0 and offset_file and \
+        os.path.exists(offset_file):
+      with open(offset_file) as f:
+        restored_offsets = json.load(f).get('offsets')
+      streaming = getattr(INPUTS.get(self.data_config.input_type),
+                          'supports_offsets', False)
+      if restored_offsets is not None and streaming:
+        source = getattr(self.pipeline_config,
+                         self.pipeline_config.WhichOneof('train_path'))
+        source.offset_info = json.dumps(restored_offsets)
+        train_pipe = self.train_input()
+    if train_pipe is None:
+      train_pipe = self.train_input(
+          skip_rows=step * int(self.data_config.batch_size))
+    trained_offsets = None
+
+    def save_offsets(at_step):
+      if offset_file and trained_offsets is not None:
+        with open(offset_file, 'w') as f:
+          json.dump({'step': at_step,
+                     'offsets': {str(k): int(v)
+                                 for k, v in trained_offsets.items()}}, f)
+
+    for batch in train_pipe:
       if stop_training or (num_steps and step >= num_steps):
         break
+      # the pipeline cuts batches one at a time: its offsets are this
+      # batch's
+      if train_pipe.last_batch_offsets is not None:
+        trained_offsets = dict(train_pipe.last_batch_offsets)
       loss_dict = self.train_step(to_device(batch, self.device))
       losses.append(loss_dict['total_loss'])
       step += 1
@@ -564,6 +598,7 @@ class Trainer:
           (save_secs and time.time() - last_save >= save_secs)):
         last_save = time.time()
         self.save(manager, step)
+        save_offsets(step)
         if want_periodic_eval:
           online = self.evaluate(max_batches=20)
           logging.info('online eval @%d: %s', step, online)
@@ -595,6 +630,7 @@ class Trainer:
         publisher.publish(self, step)
     if manager is not None:
       self.save(manager, step, force=True)
+      save_offsets(step)
     if publisher is not None:
       publisher.publish(self, step)
       publisher.close()

@@ -35,6 +35,9 @@ class Registry:
   def __contains__(self, name: str) -> bool:
     return name.lower() in self._entries
 
+  def keys(self):
+    return sorted(self._entries)
+
 
 MODELS = Registry('model')
 INPUTS = Registry('input')

@@ -5,9 +5,11 @@ DeepFM with its evaluate, export, predict, Predictor and server, the
 DeepFM with Adagrad tables, the fused Taobao DIN, the MMoE, the
 retrieval indexes and vector_retrieve CLI, and the fg.json Taobao DIN
 with its ComboFeature under check_mode, an ExprFeature of the text
-functions, incremental updates and a big-model export they write into)
-loads nothing of JAX, protobuf, pandas, pyarrow, the JAX package or its
-benchmarks/ scripts."""
+functions, incremental updates and a big-model export they write into, then the
+RTP, warehouse, Criteo-binary, Kafka and DataHub readers, the Kafka
+trainer's data_offset.json, the tools and the HPO tuner) loads nothing of
+JAX, protobuf, pandas, pyarrow, the JAX package or its benchmarks/
+scripts."""
 
 import os
 import re
@@ -155,6 +157,112 @@ fc = get_configs_from_pipeline_str('feature_config { features { feature_name: "r
 out = tr.build_transform(build_feature_spec(fc))(
     {'q': np.array(['a b'], object), 't': np.array(['b c'], object)})
 assert out['feat.r.dense'][0, 0] == 0.5
+# the readers and tools of the streaming slice
+import json
+from chip_smoke import MockBroker, small_criteo_rows
+from tests.datahub_mock import MockDataHub
+from easyrec_torch.data.input_pipeline import InputPipeline
+from easyrec_torch.hpo.tuner import LocalTuner
+from easyrec_torch.tools import (add_boundaries_to_config, convert_config_format,
+                                 create_config_from_excel, criteo_convert,
+                                 kafka_topic, pre_check, predict_and_chk,
+                                 view_export)
+from easyrec_torch.train.trainer import Trainer
+rows = small_criteo_rows(300, 1)
+names = ['label', 'F1', 'F2', 'F3'] + ['C%d' % i for i in range(1, 7)]
+def small(edits):
+  return main.load_config(flagship.criteo_deepfm_config(
+      batch_size=64, hash_bucket_size=1000, num_dense=3, num_cat=6),
+      dict({'data_config.shuffle': False, 'data_config.eval_batch_size': 64,
+            'data_config.num_epochs': 1}, **edits))
+config_util_mod = __import__('easyrec_torch.config.config_util',
+                             fromlist=['x'])
+def batches(cfg, path):
+  return list(InputPipeline(cfg.data_config,
+                            config_util_mod.get_feature_configs(cfg), path,
+                            mode='eval'))
+rtp = os.path.join(folder, 'd.rtp')
+with open(rtp, 'w') as f:
+  f.writelines('%s;%s\n' % (r[0], '\002'.join(r[1:])) for r in rows)
+cfg = small({'data_config.input_type': 'RTPInput',
+             'data_config.separator': '\002'})
+assert sum(b['sample_weight'].sum() for b in batches(cfg, rtp)) == 300
+os.makedirs(os.path.join(folder, 'wh', 'tbl'))
+with open(os.path.join(folder, 'wh', 'tbl', 'p.csv'), 'w') as f:
+  f.writelines(','.join(r) + '\n' for r in rows)
+os.environ['EASYREC_WAREHOUSE_EXPORT_DIR'] = os.path.join(folder, 'wh')
+cfg = small({'data_config.input_type': 'OdpsInputV2',
+             'data_config.separator': ','})
+assert sum(b['sample_weight'].sum() for b in batches(cfg, 'odps://p/tables/tbl')) == 300
+with open(os.path.join(folder, 'day_0.tsv'), 'w') as f:
+  f.writelines('\t'.join([r[0]] + r[1:4] + ['7'] * 10 + r[4:] + ['ffffffff'] * 20)
+               + '\n' for r in rows)
+criteo_convert.main(['--input_path', os.path.join(folder, 'day_0.tsv'),
+                     '--output_dir', os.path.join(folder, 'bin')])
+criteo = main.load_config(flagship.criteo_deepfm_config(
+    batch_size=64, hash_bucket_size=1000), {
+    'data_config.input_type': 'CriteoInput', 'data_config.num_epochs': 1,
+    'train_input_path': os.path.join(folder, 'bin', 'day_0.bin'),
+    'eval_input_path': os.path.join(folder, 'bin', 'day_0.bin'),
+    'model_dir': os.path.join(folder, 'criteo_md'),
+    'train_config.num_steps': 2})
+assert pre_check.check_config(criteo) == [] == pre_check.check_data(criteo)
+result = main.train_and_evaluate(criteo, device='cpu')
+out = predict_and_chk.predict_and_check(
+    result['export_dir'], os.path.join(folder, 'bin', 'day_0.bin'),
+    os.path.join(folder, 'pred.csv'), device='cpu')
+assert out['num_predictions'] == 300
+assert view_export.describe_export(result['export_dir'])['num_parameters']
+assert 0 < view_export.smoke_predict(result['export_dir'], device='cpu')['probs'] < 1
+broker = MockBroker()
+server = broker.start()
+broker.create_topic('t', 2)
+for p in (0, 1):
+  kafka_topic.write_topic(server, 't', [','.join(r) for r in rows[p::2]],
+                          partition=p)
+os.environ['EASYREC_KAFKA_STOP_AT_END'] = '1'
+kafka = small({'kafka_train_input': 'server: "%s" topic: "t"' % server,
+               'data_config.separator': ',',
+               'data_config.input_type': 'KafkaInput',
+               'model_dir': os.path.join(folder, 'kafka_md'),
+               'train_config.num_steps': 2})
+assert Trainer(kafka, device='cpu').fit(eval_at_end=False)['global_step'] == 2
+with open(os.path.join(folder, 'kafka_md', 'data_offset.json')) as f:
+  assert sum(json.load(f)['offsets'].values()) == 128
+broker.stop()
+dh = MockDataHub()
+endpoint = dh.start()
+dh.create_topic('p', 't', [(n, 'STRING') for n in names], 2)
+for i, r in enumerate(rows):
+  dh.put('p', 't', i % 2, r)
+os.environ['EASYREC_DATAHUB_STOP_AT_END'] = '1'
+datahub = small({'datahub_train_input': 'akId: "a" akSecret: "s" region: "%s" '
+                                        'project: "p" topic: "t"' % endpoint,
+                 'data_config.input_type': 'DataHubInput'})
+assert sum(b['sample_weight'].sum() for b in batches(
+    datahub, datahub.datahub_train_input)) == 300
+dh.stop()
+cfg_path = os.path.join(folder, 'c.config')
+config_util_mod.save_pipeline_config(criteo, folder, 'c.config')
+convert_config_format.main(['--input_config', cfg_path, '--output_config',
+                            os.path.join(folder, 'c.json')])
+assert config_util_mod.get_configs_from_pipeline_file(
+    os.path.join(folder, 'c.json')).data_config.input_type == 'CriteoInput'
+assert add_boundaries_to_config.add_boundaries(
+    small({'data_config.input_type': 'RTPInput',
+           'data_config.separator': '\002', 'train_input_path': rtp})) == 3
+with open(os.path.join(folder, 'f.csv'), 'w') as f:
+  f.write('name,data_type,feature_type,hash_bucket_size,embedding_dim\n'
+          'label,float,label,,\nuid,string,id,100,8\n')
+create_config_from_excel.main(['--template', os.path.join(folder, 'f.csv'),
+                               '--output_path', os.path.join(folder, 'x.config')])
+tuned = small({'data_config.input_type': 'RTPInput',
+               'data_config.separator': '\002', 'train_input_path': rtp,
+               'eval_input_path': rtp, 'model_dir': os.path.join(folder, 'hpo'),
+               'train_config.num_steps': 2})
+assert LocalTuner(tuned, [{'name': 'model_config.deepfm.dnn.hidden_units',
+                           'type': 'categorical', 'candidates': [[8]]}],
+                  num_trials=1, device='cpu').run()['best'] is not None
 banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas', 'pyarrow',
           'easyrec_tpu', 'benchmarks')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned or

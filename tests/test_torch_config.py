@@ -180,8 +180,13 @@ def test_optimizer_messages_match_protobuf(kind, extra, fields):
 
 @pytest.mark.parametrize('text,what', [
     ('model_config { model_class: "DIN" }', "model_class 'DIN'"),
-    ('kafka_train_input { server: "s" }', 'kafka_train_input'),
-    ('data_config { input_type: OdpsInput }', 'input_type OdpsInput'),
+    # the streaming and warehouse inputs are ported: these two cases now
+    # pass check_ported (what is None), under their former ids
+    pytest.param('kafka_train_input { server: "s" }', None,
+                 id='kafka_train_input { server: "s" }-kafka_train_input'),
+    pytest.param('data_config { input_type: OdpsInput }', None,
+                 id='data_config { input_type: OdpsInput }-'
+                    'input_type OdpsInput'),
     ('data_config { input_type: ParquetInput }', 'input_type ParquetInput'),
     ('feature_configs { input_names: "s" feature_type: SequenceFeature '
      'sequence_combiner { text_cnn { mlp { hidden_units: 4 } } } }',
@@ -190,6 +195,9 @@ def test_optimizer_messages_match_protobuf(kind, extra, fields):
 def test_unported_parts_raise_naming_them(text, what):
   base = 'model_config { model_class: "DeepFM" }\n'
   cfg = t_config.get_configs_from_pipeline_str(base + text)
+  if what is None:
+    t_config.check_ported(cfg)
+    return
   with pytest.raises(NotImplementedError, match=what):
     t_config.check_ported(cfg)
 
