@@ -178,20 +178,22 @@ K4 and K5 must launch 0 times in 6-8.
              view's, in one stream) bit-exact against their plain
              versions, with times, bounds, the plain versions' and
              index_add_'s; then train_and_evaluate, unfused, num_steps cut
-             to 20: K1 and K2 (compact Adam) once a step and table over
+             to 20, on phase 26's model_dir (since PR 16): K1 and K2 (compact Adam) once a step and table over
              both views' ids, K3-K5 never; its rate over its own
              pipeline's batches, launches and id slots a step, peak memory
              and the eval's auc; then its step under torch.profiler
-             (profile_step.py --model dssm, a process of its own): device
-             busy time and idle share;
- 25. serve dssm  a 5-step full-width DSSM exported, PredictorService on
-             the card answering 1 and 4,096 raw rows over HTTP, user_emb
+             (profile_step.py --model dssm --steps 3, a process of its
+             own; 10 steps before PR 16): device busy time and idle share;
+ 25. serve dssm  (inside 26, on its export since PR 16) PredictorService
+             on the card answering 1 and 4,096 raw rows over HTTP, user_emb
              and item_emb bit-equal to the training Trainer's eval forward,
              with no K1-K5 launch.
  26. retrieve this slice's main path: the full-width DSSM on phase 24's
-             files trained SLICE_STEPS steps through train_and_evaluate on
-             a model_dir (K1 + K2), main.export and split_model's user and
-             item towers; the item tower's Predictor embeds all 1,000,000
+             files, trained SLICE_STEPS steps through train_and_evaluate on
+             a model_dir (K1 + K2) by phase 24 (its own run before PR
+             16), main.export and split_model's user and
+             item towers (the export served as phase 25 says); the item
+             tower's Predictor embeds all 1,000,000
              items of items.txt (calls of 4,096 rows) into a [1,000,000,
              64] corpus and the user tower's the 8,192 eval rows, both
              towers' embeddings of 4,096 rows bit-equal to the Trainer's
@@ -250,23 +252,25 @@ K4 and K5 must launch 0 times in 6-8.
              1 and 1,024 of the eval rows bit-equal to the Trainer's eval
              forward.
  30. incr big  (inside phase 12, on its model_dir) the flagship DeepFM
-             continues from its step-20 checkpoint to step 40 with
-             samples/deepfm_incr_save.config's incr_save_config every 10
-             steps: a base snapshot at 20, updates at 30 and 40 (and the
-             empty one of the final publish), each update's ids exactly
-             the rows the batches of its 10 steps touched; the JAX
+             continues from its step-20 checkpoint to step 30 with
+             samples/deepfm_incr_save.config's incr_save_config every 5
+             steps (to step 40 every 10 before PR 16): a base snapshot at
+             20, updates at 25 and 30 (and the empty one of the final
+             publish), each update's ids exactly the rows the batches of
+             its 5 steps touched; the JAX
              design's host copy and diff of the table timed beside the
              port's device diff; step 20 exported with big_model; a
              Predictor on the card memory-maps the export, consumes the
              updates and must answer as the Trainer's eval forward at step
-             40 (bit for bit, or within 1e-6); its latency at 1, 256 and
-             4,096 rows beside the in-memory Predictor's of the step-40
+             30 (bit for bit, or within 1e-6); its latency at 1, 256 and
+             4,096 rows beside the in-memory Predictor's of the step-30
              export; no K1-K5 launch while it serves.
- 31. criteo binary  (phase 7's place) this slice's main path: the flagship
+ 31. criteo binary  (phase 7's place) the flagship
              DeepFM unchanged (criteo_deepfm_config) from CriteoInput files:
-             write_criteo_days writes 303,104 rows of day TSVs from seeds
-             (blanks, ids of 0x80000000 and above), tools/criteo_convert
-             packs them (48,496,640 bytes; s, rows/s), CriteoBinaryReader
+             write_criteo_days writes 94,208 rows of day TSVs from seeds
+             (blanks, ids of 0x80000000 and above; 21 train and 2 eval
+             batches), tools/criteo_convert packs them (15,073,280 bytes;
+             s, rows/s), CriteoBinaryReader
              reads them back (rows/s, the wrapped ids negative); K1 and K2
              bit-exact on one batch of this path; phase_slice with the eval
              on day_1.bin, inside it the export and tools/predict_and_chk
@@ -276,7 +280,7 @@ K4 and K5 must launch 0 times in 6-8.
  32. kafka din  (after 9) the Taobao DIN at its published widths, batch
              1,024, fused (K3), from an in-process broker (MockBroker, a
              copy of tests/kafka_mock.py on the port's codec) whose 4
-             partitions tools/kafka_topic fills with 40 steps of rows: 10
+             partitions tools/kafka_topic fills with 28.3 steps of rows: 10
              steps with a save and data_offset.json, a fresh Trainer
              resumed from those offsets to 20, equal bit for bit in every
              state tensor (and in data_offset.json) to 20 uninterrupted
@@ -286,6 +290,20 @@ K4 and K5 must launch 0 times in 6-8.
              equal to the first pipeline's next batches), each a small
              DeepFM card against CPU (phase 5's rule); two random trials of
              hpo/tuner.py on the card and the CPU, with the same parameters.
+ 34. sharded  (after 31) this slice's main path: in a process of its own
+             (parallel/launch.py), a world of one rank over NCCL; the
+             flagship DeepFM at full width (the [26,000,014, 32] table,
+             batch 4,096) under train_distribute EmbeddingParallelStrategy,
+             20 steps through ep_pull_sharded, all_to_all_single and
+             packed_update_sharded (K1 twice a step: the local dedup and
+             the owner's sum; K2 once), against the unsharded path's 20
+             steps from the same step-0 state and batches: losses and
+             table bits equal (else the agree phase's rule); ms/step of
+             both, the exchange's ms a step, both overflow counts (0), peak
+             memory; K1 and K2 bit-exact against their plain versions on
+             this path's inputs; then the Taobao DIN's checkpoint written
+             in the world restored on one device, equal in every state
+             tensor.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -2282,7 +2300,8 @@ def phase_serve_deepfm(torch, smi):
   torch.cuda.empty_cache()
 
 
-INCR_EVERY = 10       # phase 30's publish interval, in steps
+INCR_EVERY = 5        # phase 30's publish interval, in steps (10 before
+                      # PR 16)
 
 
 def incr_save_config():
@@ -2321,9 +2340,9 @@ def touched_rows(torch, trainer, skip_rows, windows, steps):
 
 def phase_incr_big(torch, smi, cfg, model_dir, root, rows):
   """Phase 30 on phase 12's model_dir (its step-20 checkpoint): the
-  flagship continues to step 40 through train_and_evaluate with
+  flagship continues to step 30 through train_and_evaluate with
   incr_save_config() (K1 + K2 once a step), publishing a base snapshot at
-  20 and updates at 30 and 40, and an empty one at the end; each update's
+  20 and updates at 25 and 30, and an empty one at the end; each update's
   sparse ids exactly the rows its steps' batches touched (touched_rows),
   its dense deltas every dense parameter that moved. Then the JAX
   design's host work for one publish of the table (a copy of its weight
@@ -2331,9 +2350,9 @@ def phase_incr_big(torch, smi, cfg, model_dir, root, rows):
   port's diff on the card. Step 20 exported with big_model (its seconds
   and bytes); a Predictor on the card memory-maps it, consumes the three
   updates, and answers `rows` (1, 256 and 4,096 raw rows) as the Trainer's
-  eval forward at step 40, bit for bit or within 1e-6; its latency
+  eval forward at step 30, bit for bit or within 1e-6; its latency
   (Predictor.predict in process, SERVE_REQUESTS calls after one untimed)
-  beside the in-memory Predictor's of the step-40 export. K1-K5 launch 0
+  beside the in-memory Predictor's of the step-30 export. K1-K5 launch 0
   times from the export on."""
   import numpy as np
   from easyrec_torch import main as main_lib
@@ -2342,7 +2361,7 @@ def phase_incr_big(torch, smi, cfg, model_dir, root, rows):
   from easyrec_torch.ops import kernels
   from easyrec_torch.train import incremental as incr_lib
 
-  steps = 2 * SLICE_STEPS
+  steps = SLICE_STEPS + 2 * INCR_EVERY
   cfg = cfg.copy()
   cfg.train_config.incr_save_config = incr_save_config()
   edits = {'train_config.num_steps': steps,
@@ -2357,8 +2376,9 @@ def phase_incr_big(torch, smi, cfg, model_dir, root, rows):
   wall = time.time() - t0
   counts = kernels.launch_counts()
   trainer = result['trainer']
-  if result['global_step'] != steps or counts['seg_sum'] != SLICE_STEPS or \
-      counts['rmw_rows'] != SLICE_STEPS:
+  if result['global_step'] != steps or \
+      counts['seg_sum'] != steps - SLICE_STEPS or \
+      counts['rmw_rows'] != steps - SLICE_STEPS:
     fail('incr: train_and_evaluate from step %d ran to %d with %s'
          % (SLICE_STEPS, result['global_step'], counts))
   incr_dir = os.path.join(model_dir, 'incr_save')
@@ -3277,28 +3297,59 @@ def phase_dssm(torch, card):
   with times, bounds and index_add_'s; then train_and_evaluate unfused,
   num_steps cut to SLICE_STEPS: K1 and K2 once a step and table over
   both views' ids, K3-K5 never; its rate over its own pipeline's batches.
-  Returns (the launches, (K1's, K2's) largest difference)."""
+  Returns (the launches, (K1's, K2's) largest difference, what phase 26
+  takes from the run: dssm_trained's and the model_dir's root)."""
+  import shutil
   data = os.path.join(SCRATCH, 'dssm')
   t0 = time.time()
   write_dssm_data(data)
   log('dssm: wrote 1,000,000 items and %d train and 8,192 eval rows in '
       '%.1f s' % ((SLICE_STEPS + 4) * 1024, time.time() - t0))
-  cfg = dssm_config(data)
-  errs = phase_kernel_path(torch, cfg, 'DSSM', pack=dssm_pack,
+  errs = phase_kernel_path(torch, dssm_config(data), 'DSSM', pack=dssm_pack,
                            yardsticks=True)
-  counts = phase_slice(torch, card, 'DSSM (dssm_neg_sampler)', cfg, '0',
-                       ('seg_sum', 'rmw_rows'), 'compact_adam', views=True)
+  # the run trains on phase 26's model_dir, which retrieves from it
+  root = os.path.join(SCRATCH, 'retrieve')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  trained = {'root': root}
+  counts = phase_slice(
+      torch, card, 'DSSM (dssm_neg_sampler)',
+      dssm_config(data, model_dir=os.path.join(root, 'md')), '0',
+      ('seg_sum', 'rmw_rows'), 'compact_adam', views=True,
+      after=lambda result: trained.update(dssm_trained(torch, result,
+                                                       data)))
   # the device's idle share: the step under torch.profiler, in a process
-  # of its own (the profiler stays hooked into the one it traced)
+  # of its own (the profiler stays hooked into the one it traced); 3 steps
+  # (a traced step takes about 1.4 s)
   out = subprocess.run(
       [sys.executable, '-m', 'easyrec_torch.tools.profile_step', '--model',
-       'dssm', '--data_dir', data, '--top', '8'], capture_output=True,
-      text=True, timeout=600, cwd=HERE)
+       'dssm', '--data_dir', data, '--top', '8', '--steps', '3'],
+      capture_output=True, text=True, timeout=600, cwd=HERE)
   if out.returncode != 0:
     fail('profile_step --model dssm: %s' % out.stderr[-2000:])
   for line in out.stdout.splitlines():
     log('dssm profile: %s' % line)
-  return counts, errs
+  return counts, errs, trained
+
+
+def dssm_trained(torch, result, data):
+  """What phases 25 and 26 take from the DSSM's train_and_evaluate
+  `result` (its launches read just after it): the run's summary, the
+  eval columns, the Trainer's eval forward of 4,096 eval rows, and of
+  1 and 4,096 raw request rows."""
+  from easyrec_torch.ops import kernels
+  trainer = result['trainer']
+  cols = read_eval_columns(os.path.join(data, 'eval.csv'))
+  rows4k = [{c: cols[c][i] for c in cols} for i in range(4096)]
+  served = dssm_serve_rows(os.path.join(data, 'eval.csv'), 4096)
+  return {'summary': (result['global_step'], result['losses'][0],
+                      result['losses'][-1], result['eval_metrics']),
+          'launches': kernels.launch_counts(),
+          'tagged': kernels.tagged_counts(), 'cols': cols,
+          'want': trainer_outputs(torch, trainer, rows4k),
+          'served': served,
+          'served_want': {n: trainer_outputs(torch, trainer, served[:n])
+                          for n in (1, 4096)}}
 
 
 def dssm_serve_rows(path, n):
@@ -3314,33 +3365,6 @@ def dssm_serve_rows(path, n):
       if len(rows) == n:
         break
   return rows
-
-
-def phase_serve_dssm(torch, smi):
-  """The full-width DSSM trained 5 steps through train_and_evaluate on a
-  model_dir (K1 + K2) and exported; PredictorService on the card answers
-  1 and 4,096 raw rows of the eval CSV over HTTP, user_emb and item_emb
-  bit-equal to the training Trainer's eval forward on the same rows, with
-  no K1-K5 launch (a served batch has no sampled view)."""
-  import shutil
-  from easyrec_torch import main as main_lib
-  os.environ['EASYREC_PACKED_FUSED'] = '0'
-  data = os.path.join(SCRATCH, 'dssm')
-  root = os.path.join(SCRATCH, 'serve_dssm')
-  shutil.rmtree(root, ignore_errors=True)
-  os.makedirs(root)
-  cfg = dssm_config(data, model_dir=os.path.join(root, 'md'))
-  result = main_lib.train_and_evaluate(
-      cfg, edit_config_json={'train_config.num_steps': 5}, device='cuda')
-  rows = dssm_serve_rows(os.path.join(data, 'eval.csv'), 4096)
-  want = {n: trainer_outputs(torch, result['trainer'], rows[:n])
-          for n in (1, 4096)}
-  if sorted(want[1]) != ['item_emb', 'user_emb']:
-    fail('serve DSSM: the export outputs %s' % sorted(want[1]))
-  export_dir = result['export_dir']
-  del result
-  serve_bit_equal(torch, 'DSSM', export_dir, rows, want, smi)
-  shutil.rmtree(root, ignore_errors=True)
 
 
 # the retrieve phase (26): the full-width DSSM's item corpus searched
@@ -3415,10 +3439,11 @@ def held_topk(torch, index, queries, k, what):
   return tied_rows
 
 
-def phase_retrieve(torch, smi, data, n_users=8192, device='cuda'):
+def phase_retrieve(torch, smi, data, trained, n_users=8192, device='cuda'):
   """Retrieval after the full-width DSSM (phase 26): samples/
   dssm_neg_sampler.config on write_dssm_data's files in `data` trained
-  SLICE_STEPS steps through train_and_evaluate on a model_dir (K1 + K2),
+  SLICE_STEPS steps through train_and_evaluate on a model_dir (K1 + K2)
+  by phase 24, which hands over `trained` (phase_dssm's), then
   main.export of its checkpoint and split_model's user and item towers;
   from the export on no K1-K5 launch. The item tower's Predictor embeds
   every item of items.txt into the corpus and the user tower's the eval
@@ -3448,34 +3473,24 @@ def phase_retrieve(torch, smi, data, n_users=8192, device='cuda'):
   from easyrec_torch.tools import hitrate, split_model
   what = 'retrieve'
   os.environ['EASYREC_PACKED_FUSED'] = '0'
-  root = os.path.join(SCRATCH, 'retrieve')
-  shutil.rmtree(root, ignore_errors=True)
-  os.makedirs(root)
+  root = trained['root']
   gc.collect()
   if device == 'cuda':
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-  cfg = dssm_config(data, model_dir=os.path.join(root, 'md'))
-  kernels.reset_launches()
-  result = main_lib.train_and_evaluate(
-      cfg, edit_config_json={'train_config.num_steps': SLICE_STEPS},
-      device=device)
-  trained = kernels.launch_counts()
-  tagged = kernels.tagged_counts()
-  if device == 'cuda' and trained != dict(
-      {k: 0 for k in trained}, seg_sum=SLICE_STEPS, rmw_rows=SLICE_STEPS):
+  launched, tagged = trained['launches'], trained['tagged']
+  if device == 'cuda' and launched != dict(
+      {k: 0 for k in launched}, seg_sum=SLICE_STEPS, rmw_rows=SLICE_STEPS):
     fail('%s: training launched %s, K1 and K2 once a step expected'
-         % (what, trained))
-  log('%s: the DSSM trained %d steps through train_and_evaluate (losses '
-      '%s ... %s; eval %s); launches %s'
-      % (what, result['global_step'], result['losses'][0],
-         result['losses'][-1], result['eval_metrics'], trained))
-  trainer = result['trainer']
-  cols = read_eval_columns(os.path.join(data, 'eval.csv'))
-  rows4k = [{c: cols[c][i] for c in cols} for i in range(4096)]
-  want = trainer_outputs(torch, trainer, rows4k)
-  del result, trainer
-  gc.collect()
+         % (what, launched))
+  log('%s: the DSSM trained %d steps through train_and_evaluate on this '
+      'phase\'s model_dir in phase 24 (losses %s ... %s; eval %s); '
+      'launches %s' % ((what,) + trained['summary'] + (launched,)))
+  cols, want = trained['cols'], trained['want']
+  # phase 25 serves this export: raw request rows and their answers
+  served, served_want = trained['served'], trained['served_want']
+  if sorted(served_want[1]) != ['item_emb', 'user_emb']:
+    fail('serve DSSM: the export outputs %s' % sorted(served_want[1]))
 
   kernels.reset_launches()
   t0 = time.perf_counter()
@@ -3486,6 +3501,8 @@ def phase_retrieve(torch, smi, data, n_users=8192, device='cuda'):
                                     device=device)
   log('%s: main.export and split_model in %.1f s: %s'
       % (what, time.perf_counter() - t0, towers))
+  if device == 'cuda':
+    serve_bit_equal(torch, 'DSSM', export_dir, served, served_want, smi)
   user = Predictor(towers['user'], batch_size=4096, device=device)
   item = Predictor(towers['item'], batch_size=4096, device=device)
   for pred, out in ((user, 'user_emb'), (item, 'item_emb')):
@@ -3586,24 +3603,11 @@ def phase_retrieve(torch, smi, data, n_users=8192, device='cuda'):
              nbytes, ops, ms / bound, mat_bound, mat_by, mat_bytes, smi))
     del flush
 
-  # the hitrate CLI in a process of its own, against compute_hitrate here
+  # the hitrate CLI on the model_dir and the vector_retrieve CLI on a doc
+  # table written from the corpus, each in a process of its own, both
+  # started together and run beside compute_hitrate and the search here
+  # (nothing is timed on the card meanwhile)
   md_cfg = os.path.join(root, 'md', 'pipeline.config')
-  out = subprocess.run(
-      [sys.executable, '-m', 'easyrec_torch.tools.hitrate',
-       '--pipeline_config_path', md_cfg, '--top_k', '10', '--device',
-       device], capture_output=True, text=True, timeout=600, cwd=HERE)
-  if out.returncode != 0:
-    fail('%s: hitrate CLI: %s' % (what, out.stderr[-2000:]))
-  cli = json.loads(out.stdout.strip().splitlines()[-1])
-  here = hitrate.compute_hitrate(
-      config_util.get_configs_from_pipeline_file(md_cfg), 10, device=device)
-  if cli != here:
-    fail('%s: the hitrate CLI printed %s, compute_hitrate %s'
-         % (what, cli, here))
-  log('%s: python -m easyrec_torch.tools.hitrate on the model_dir: %s, as '
-      'compute_hitrate in process' % (what, cli))
-
-  # the vector_retrieve CLI on a doc table written from the corpus
   doc_path = os.path.join(root, 'docs.csv')
   q_path = os.path.join(root, 'queries.csv')
   t0 = time.perf_counter()
@@ -3615,14 +3619,35 @@ def phase_retrieve(torch, smi, data, n_users=8192, device='cuda'):
                     for i, v in enumerate(users[:held])))
   out_path = os.path.join(root, 'retrieved.csv')
   t1 = time.perf_counter()
-  out = subprocess.run(
-      [sys.executable, '-m', 'easyrec_torch.retrieval.vector_retrieve',
-       '--query_table', q_path, '--doc_table', doc_path, '--output_table',
-       out_path, '--top_k', '10', '--device', device],
-      capture_output=True, text=True, timeout=600, cwd=HERE)
-  if out.returncode != 0:
-    fail('%s: vector_retrieve CLI: %s' % (what, out.stderr[-2000:]))
+  clis = {name: subprocess.Popen(
+      [sys.executable, '-m'] + argv, stdout=subprocess.PIPE,
+      stderr=subprocess.PIPE, text=True, cwd=HERE) for name, argv in (
+          ('hitrate', ['easyrec_torch.tools.hitrate', '--pipeline_config_path',
+                       md_cfg, '--top_k', '10', '--device', device]),
+          ('vector_retrieve', [
+              'easyrec_torch.retrieval.vector_retrieve', '--query_table',
+              q_path, '--doc_table', doc_path, '--output_table', out_path,
+              '--top_k', '10', '--device', device]))}
+  try:
+    here = hitrate.compute_hitrate(
+        config_util.get_configs_from_pipeline_file(md_cfg), 10,
+        device=device)
+    outs = {name: p.communicate(timeout=600) for name, p in clis.items()}
+  finally:
+    for p in clis.values():
+      if p.poll() is None:
+        p.kill()
+        p.wait()
   cli_s = time.perf_counter() - t1
+  for name, p in clis.items():
+    if p.returncode != 0:
+      fail('%s: %s CLI: %s' % (what, name, outs[name][1][-2000:]))
+  cli = json.loads(outs['hitrate'][0].strip().splitlines()[-1])
+  if cli != here:
+    fail('%s: the hitrate CLI printed %s, compute_hitrate %s'
+         % (what, cli, here))
+  log('%s: python -m easyrec_torch.tools.hitrate on the model_dir: %s, as '
+      'compute_hitrate in process' % (what, cli))
   doc_ids, doc_emb = read_embedding_table(doc_path)
   q_ids, q_emb = read_embedding_table(q_path)
   scores, ids = knn.KnnIndex(doc_emb, item_ids=doc_ids,
@@ -3639,9 +3664,9 @@ def phase_retrieve(torch, smi, data, n_users=8192, device='cuda'):
       fail('%s: vector_retrieve line %d %r, in process %s,%s,%g'
            % (what, n + 1, line, q_ids[i], ids[i, j], scores[i, j]))
   log('%s: python -m easyrec_torch.retrieval.vector_retrieve: %d queries '
-      'over a %d-row doc table (tables written in %.1f s) in %.1f s, its '
-      '%d rows the in-process search\'s'
-      % (what, held, DOC_ROWS, t1 - t0, cli_s, held * 10))
+      'over a %d-row doc table (tables written in %.1f s), its %d rows the '
+      'in-process search\'s; both CLIs and compute_hitrate here in %.1f s'
+      % (what, held, DOC_ROWS, t1 - t0, held * 10, cli_s))
 
   launched = kernels.launch_counts()
   if any(launched.values()):
@@ -3656,7 +3681,7 @@ def phase_retrieve(torch, smi, data, n_users=8192, device='cuda'):
   shutil.rmtree(data, ignore_errors=True)
   if device == 'cuda':
     torch.cuda.empty_cache()
-  return dict(trained, **tagged)
+  return dict(launched, **tagged)
 
 
 # the rest of the rank zoo (phase 27): each sample small, card against CPU
@@ -4170,8 +4195,10 @@ def phase_feature_samples(torch):
       % launches)
 
 
-CRITEO_TRAIN_ROWS = 64 * 4096   # day_0: 262,144 records
-CRITEO_EVAL_ROWS = 10 * 4096    # day_1: 40,960 records (10 eval batches)
+# day_0: 86,016 records, the 20 steps' and one spare batch; day_1: 8,192
+# records (2 eval batches). Cut from 64 and 10 batches to pay for phase 34
+CRITEO_TRAIN_ROWS = 21 * 4096
+CRITEO_EVAL_ROWS = 2 * 4096
 
 
 def write_criteo_days(directory, days=(('day_0', CRITEO_TRAIN_ROWS, 31),
@@ -4559,13 +4586,17 @@ class MockBroker:
       self._srv = None
 
 
-KAFKA_PARTITIONS = (1240, 13240, 13240, 13240)   # 40 steps of 1,024 rows
+# 28.3 steps of 1,024 rows (40 before PR 16), for the 20 the phase reads:
+# a run asks for the batch after its last, and the pipeline reads chunks
+# of 4 batches, so a 20-step run needs 6 chunks (24,576 rows) in the topic
+# (a train-mode stream polls on at its end)
+KAFKA_PARTITIONS = (1240, 9240, 9240, 9240)
 
 
 def phase_kafka_din(torch, card):
   """Phase 32: the Taobao DIN at its published widths, batch 1,024, fused
   (K3), streamed from Kafka, stopped and resumed. MockBroker serves a
-  topic of 4 partitions; tools/kafka_topic writes 40 steps of
+  topic of 4 partitions; tools/kafka_topic writes 28.3 steps of
   write_din_csv's rows into it, one file a partition (rows/s), and a
   KafkaReader drains it in eval mode (rows/s). A Trainer trains 10 steps
   on one model_dir (a save at 10 with its data_offset.json), a fresh
@@ -4576,7 +4607,7 @@ def phase_kafka_din(torch, card):
   step and table in each run, K1, K2, K4 and K5 never. The broker returns
   at most 500 records a partition per fetch, so a resume keeps the
   uninterrupted order across partitions where the cut ends a fetch round
-  (KafkaReader's docstring): partition 0 holds 1,240 rows and 1-3 13,240
+  (KafkaReader's docstring): partition 0 holds 1,240 rows and 1-3 9,240
   each, so step 10's 10,240 rows end the sixth round (1,240 + 3 x 3,000).
   Returns the uninterrupted run's launches by kernel and math."""
   import shutil
@@ -4829,6 +4860,277 @@ def phase_small_readers(torch):
   del os.environ['EASYREC_WAREHOUSE_EXPORT_DIR']
   shutil.rmtree(root, ignore_errors=True)
 
+SHARDED_STEPS = 20
+
+
+def _exchange_timer(sync, xch):
+  """Wrap the exchange's three functions to add their wall time (the card
+  synchronised before and after) to the returned list's first item."""
+  spent = [0.0]
+
+  def timed(fn):
+    def run(*args, **kw):
+      sync()
+      t0 = time.perf_counter()
+      out = fn(*args, **kw)
+      sync()
+      spent[0] += time.perf_counter() - t0
+      return out
+    return run
+
+  saved = (xch.build_route, xch.send_to_owners, xch.return_to_requesters)
+  xch.build_route, xch.send_to_owners, xch.return_to_requesters = map(
+      timed, saved)
+
+  def restore():
+    xch.build_route, xch.send_to_owners, xch.return_to_requesters = saved
+  return spent, restore
+
+
+def _capture_kernels(torch, pt):
+  """Record the inputs of K1's and K2's calls (K2's touched rows as they
+  were before the update) until stop() is called."""
+  seen = {'seg_sum': [], 'rmw_rows': []}
+  seg, rmw = pt.seg_sum, pt.rmw_rows
+
+  def seg_capture(sids, order, starts, grads, sentinel, mode=None):
+    seen['seg_sum'].append((sids.clone(), order.clone(), starts.clone(),
+                            grads.clone(), sentinel,
+                            pt.gg_mode() if mode is None else mode))
+    return seg(sids, order, starts, grads, sentinel, mode)
+
+  def rmw_capture(table, uids, gsum, hypers, opt):
+    ok = (uids >= 0) & (uids < table.shape[0])
+    seen['rmw_rows'].append((table.index_select(0, uids[ok]), uids.clone(),
+                             gsum.clone(), hypers.clone(), opt, ok))
+    return rmw(table, uids, gsum, hypers, opt)
+
+  pt.seg_sum, pt.rmw_rows = seg_capture, rmw_capture
+
+  def stop():
+    pt.seg_sum, pt.rmw_rows = seg, rmw
+  return seen, stop
+
+
+def _held_kernels(torch, pt, seen, sync):
+  """K1 and K2 on the captured inputs of the sharded path against their
+  plain versions, bit for bit; K2 on a table of just the touched rows.
+  Returns their largest differences."""
+  err1 = err2 = 0.0
+  for sids, order, starts, grads, sentinel, mode in seen['seg_sum']:
+    uk, sk = pt.seg_sum(sids, order, starts, grads, sentinel, mode)
+    up, sp = pt.seg_sum_plain(sids, order, starts, grads, sentinel, mode)
+    sync()
+    if not (torch.equal(uk, up) and
+            torch.equal(sk.view(torch.int32), sp.view(torch.int32))):
+      fail('sharded: seg_sum (mode %s) differs from its plain version'
+           % mode)
+    err1 = max(err1, float((sk - sp).abs().max()))
+  for rows, uids, gsum, hypers, opt, ok in seen['rmw_rows']:
+    local = torch.full_like(uids, rows.shape[0])
+    local[ok] = torch.arange(rows.shape[0], device=uids.device)
+    a, b = rows.clone(), rows.clone()
+    pt.rmw_rows(a, local, gsum, hypers, opt)
+    pt.rmw_rows_plain(b, local, gsum, hypers, opt)
+    sync()
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+      fail('sharded: rmw_rows differs from its plain version')
+    err2 = max(err2, float((a - b).abs().max()))
+  return err1, err2
+
+
+def sharded_worker(world, root, small=False):
+  """Phase 34 in a process of its own, rank 0 of a world of one over NCCL
+  (parallel/launch.py): the flagship DeepFM at full width under
+  train_distribute EmbeddingParallelStrategy against the unsharded path
+  from one state, then the Taobao DIN's sharded checkpoint restored on one
+  device. Returns what phase_sharded logs and holds. `small` cuts both
+  models to a few thousand rows, for a check of this code on the CPU."""
+  import copy
+  import shutil
+  import torch
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.ops import kernels
+  from easyrec_torch.ops import packed_table as pt
+  from easyrec_torch.parallel import exchange as xch
+  from easyrec_torch.train.trainer import Trainer, to_device
+  from easyrec_torch.utils import flagship
+  from easyrec_torch.utils.synthetic import synthetic_batch
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  dev = world.device
+  cuda = dev.type == 'cuda'
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  ep = {'train_distribute': 'EmbeddingParallelStrategy'}
+  cfg = main_lib.load_config(
+      flagship.criteo_deepfm_config(batch_size=64, hash_bucket_size=1000)
+      if small else flagship.criteo_deepfm_config(),
+      {'train_config.' + k: v for k, v in ep.items()})
+  bs = int(cfg.data_config.batch_size)
+  out = {'backend': torch.distributed.get_backend(), 'world': world.size,
+         'device': str(world.device)}
+
+  plain = Trainer(cfg, device=dev, world=None)
+  plain.init_state()
+  labels = list(cfg.data_config.label_fields)
+  batches = [to_device(synthetic_batch(plain.specs, labels, bs, seed=s),
+                       dev) for s in range(SHARDED_STEPS)]
+  # the step-0 state both runs start from, kept on the card
+  start = {'step': plain.step.clone(),
+           'model': {k: v.clone() for k, v in
+                     plain.model.state_dict().items()},
+           'tables': {k: v.clone() for k, v in plain.tables.items()},
+           'ev': {}, 'dense_opt': copy.deepcopy(plain.dense_opt.state_dict())}
+
+  def run(trainer):
+    losses = [trainer.train_step(batches[0])]   # a warm-up step, untimed
+    sync()
+    t0 = time.perf_counter()
+    losses += [trainer.train_step(b) for b in batches[1:]]
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    return ms, [{k: float(v) for k, v in d.items()} for d in losses]
+
+  sharded = Trainer(cfg, device=dev)
+  if sharded.world is None or list(sharded.sharding.splits) != \
+      list(sharded.metas):
+    fail('sharded: the trainer did not row-shard its tables in the world')
+  sharded.init_state()
+  sharded.load_state_dict(start)
+  del start
+  sync()
+  if cuda:
+    torch.cuda.reset_peak_memory_stats()
+  kernels.reset_launches()
+  out['ms_sharded'], out['losses_sharded'] = run(sharded)
+  out['counts'] = kernels.launch_counts()
+  out['tagged'] = kernels.tagged_counts()
+  out['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+  out['ms_plain'], out['losses_plain'] = run(plain)
+  out['tables_equal'] = {k: torch.equal(plain.tables[k].view(torch.int32),
+                                        sharded.tables[k].view(torch.int32))
+                         for k in plain.tables}
+  far = 0
+  for k, t in plain.tables.items():
+    d = plain.metas[k].dim
+    far += int(((t[:, :d] - sharded.tables[k][:, :d]).abs() > 1e-5).sum())
+  out['weights_past_1e5'] = far
+  out['weights'] = sum(int(t[:, :plain.metas[k].dim].numel())
+                       for k, t in plain.tables.items())
+  sp, pp = sharded.model.state_dict(), plain.model.state_dict()
+  out['model_differ'] = sorted(k for k in pp if not torch.equal(pp[k],
+                                                                sp[k]))
+  # the exchange's time a step, and K1 and K2 against their plain versions
+  # on this path's inputs, over two more steps
+  spent, restore = _exchange_timer(sync, xch)
+  seen, stop = _capture_kernels(torch, pt)
+  for b in batches[:2]:
+    sharded.train_step(b)
+  stop()
+  restore()
+  out['exchange_ms'] = spent[0] * 1e3 / 2
+  out['err1'], out['err2'] = _held_kernels(torch, pt, seen, sync)
+  out['held'] = (len(seen['seg_sum']), len(seen['rmw_rows']))
+  del plain, sharded, batches, seen
+  if cuda:
+    torch.cuda.empty_cache()
+
+  # the Taobao DIN trained 3 steps in the world and saved (rank 0's file
+  # holds every row); one device restores it and must hold the same state
+  model_dir = os.path.join(root, 'din_sharded')
+  shutil.rmtree(model_dir, ignore_errors=True)
+  din = main_lib.load_config(
+      flagship.taobao_din_config(batch_size=64) if small else
+      flagship.taobao_din_config(),
+      {'train_config.' + k: v for k, v in ep.items()})
+  a = Trainer(din, device=dev)
+  a.init_state()
+  for s in range(3):
+    a.step_batch(synthetic_batch(a.specs, list(din.data_config.label_fields),
+                                 int(din.data_config.batch_size), seed=s))
+  a.save(a.checkpoint_manager(model_dir), 3)
+  b = Trainer(din, device=dev, world=None)
+  b.init_state()
+  b.load_state_dict(b.checkpoint_manager(model_dir).restore_latest())
+  out['din_differ'] = state_differences(torch, a, b)[1]
+  with open(os.path.join(model_dir, 'checkpoints', '3', 'layout.json')) as f:
+    out['din_world'] = json.load(f)['world']
+  return out
+
+
+def phase_sharded(torch, smi):
+  """Phase 34: the flagship DeepFM at full width (the 26,000,014-row table,
+  batch 4,096) in a world of one rank over NCCL, in a process of its own
+  (parallel/launch.py), 20 steps under train_distribute
+  EmbeddingParallelStrategy: every step reads its rows through
+  ep_pull_sharded and updates them through packed_update_sharded (K1's
+  local dedup, all_to_all_single to the owner, K1 + K2 there). From the
+  same step-0 state and batches, the unsharded path's 20 steps must give
+  the same losses and table bits. The ms/step of both (after one warm-up
+  step each, in one process), K1's and K2's launches a step, the
+  exchange's ms a step, both overflow counts (0), peak memory; K1 and K2
+  bit-exact against their plain versions on this path's inputs. Then the
+  Taobao DIN's checkpoint written in the world restores on one device to
+  the same state. Returns the launches by kernel and math, and K1's and
+  K2's largest differences."""
+  from easyrec_torch.parallel import launch
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.time()
+  (res,) = launch.spawn('chip_smoke:sharded_worker', [SCRATCH], 1,
+                        device='cuda', timeout_s=300)
+  wall = time.time() - t0
+  steps = SHARDED_STEPS
+  k1, k2 = res['counts']['seg_sum'], res['counts']['rmw_rows']
+  over = [(d['exchange_update_overflow'], d['exchange_ep_pull_overflow'])
+          for d in res['losses_sharded']]
+  log('sharded: flagship DeepFM, %s world of %d on %s, %d steps (the last '
+      '19 timed): %.3f ms/step sharded against %.3f unsharded (%s); K1 %d '
+      'and K2 %d '
+      'launches (%.1f and %.1f a step); the exchange %.3f ms a step; '
+      'overflow (update, pull) summed %s; peak %.3f GB; K1 and K2 held on '
+      '%d and %d calls of this path, bit-exact (max %g, %g); process '
+      '%.1f s'
+      % (res['backend'], res['world'], res['device'], steps,
+         res['ms_sharded'], res['ms_plain'], smi, k1, k2, k1 / steps,
+         k2 / steps, res['exchange_ms'],
+         tuple(map(sum, zip(*over))), res['peak_gb'], res['held'][0],
+         res['held'][1], res['err1'], res['err2'], wall))
+  if res['backend'] != 'nccl' or res['world'] != 1:
+    fail('sharded: a world of %d over %s' % (res['world'], res['backend']))
+  if k1 != 2 * steps or k2 != steps or res['counts']['rmw_fused']:
+    fail('sharded: launches %s over %d steps' % (res['counts'], steps))
+  if any(o != (0.0, 0.0) for o in over):
+    fail('sharded: the exchange dropped rows: %s' % over)
+  lp = [d['total_loss'] for d in res['losses_plain']]
+  ls = [d['total_loss'] for d in res['losses_sharded']]
+  equal = lp == ls and all(res['tables_equal'].values()) and \
+      not res['model_differ']
+  log('sharded: losses %s sharded, %s unsharded; tables equal bit for bit '
+      '%s; %d of %d weights past 1e-5; dense parameters differing %s'
+      % (['%.6f' % x for x in ls], ['%.6f' % x for x in lp],
+         res['tables_equal'], res['weights_past_1e5'], res['weights'],
+         res['model_differ']))
+  if not equal:
+    # the agree phase's rule; the dense gradients' all-reduce is the one
+    # reduction written otherwise (a copy at one rank)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lp))
+    if rel > 1e-5 or res['weights_past_1e5'] * 100 > res['weights']:
+      fail('sharded: the sharded run parts from the unsharded one (loss '
+           '%g relative, %d weights past 1e-5)'
+           % (rel, res['weights_past_1e5']))
+  if res['din_differ'] or res['din_world']['size'] != 1:
+    fail('sharded: the DIN restored on one device differs in %s (world %s)'
+         % (res['din_differ'][:10], res['din_world']))
+  log('sharded: the Taobao DIN saved in the world (stamp world %s) '
+      'restored on one device equal in every state tensor'
+      % {'size': res['din_world']['size']})
+  counts = dict(res['counts'])
+  counts.update(res['tagged'])
+  return counts, (res['err1'], res['err2'])
+
+
 
 def main():
   STARTED[0] = time.time()
@@ -4878,6 +5180,13 @@ def main():
       r['max_abs_err'] = max(r['max_abs_err'], err1)
     if r['name'] == 'rmw_rows/compact_adam':
       r['max_abs_err'] = max(r['max_abs_err'], err2)
+  # 34: the flagship DeepFM row-sharded in a world of one over NCCL
+  sharded, (err1, err2) = phase_sharded(torch, smi)
+  for r in results:
+    if r['name'] == 'seg_sum':
+      r['max_abs_err'] = max(r['max_abs_err'], err1)
+    if r['name'] == 'rmw_rows/compact_adam':
+      r['max_abs_err'] = max(r['max_abs_err'], err2)
   adagrad = phase_slice(torch, card, 'flagship DeepFM, Adagrad tables',
                         flagship.criteo_deepfm_adagrad_config(), '0',
                         ('seg_sum', 'rmw_rows'), 'adagrad')
@@ -4901,14 +5210,15 @@ def main():
   phase_serve_dlrm(torch, smi, 'Criteo DLRM, backbone DSL',
                    'criteo_dlrm_backbone_config')
   phase_match(torch)
-  dssm, (err1, err2) = phase_dssm(torch, card)
+  dssm, (err1, err2), trained = phase_dssm(torch, card)
   for r in results:
     if r['name'] == 'seg_sum':
       r['max_abs_err'] = max(r['max_abs_err'], err1)
     if r['name'] == 'rmw_rows/compact_adam':
       r['max_abs_err'] = max(r['max_abs_err'], err2)
-  phase_serve_dssm(torch, smi)
-  retrieve = phase_retrieve(torch, smi, os.path.join(SCRATCH, 'dssm'))
+  retrieve = phase_retrieve(torch, smi, os.path.join(SCRATCH, 'dssm'),
+                            trained)
+  del trained
   phase_rank_extra(torch)
   phase_feature_samples(torch)
   fg, (err1, err2) = phase_fg_din(torch, card, smi)
@@ -4925,14 +5235,14 @@ def main():
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the Criteo-binary
+  # these that runs it (K1 and K2's compact Adam on the sharded flagship
   # DeepFM, this slice's main path; K3 on the Kafka-streamed DIN, Adagrad
   # on the Adagrad DeepFM's, the EV maths on the EV phase's), 0 for a math
   # no path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (deepfm, kafka, fg, retrieve, dssm, backbone, dlrm,
-                           mmoe, bst, din, adagrad, ev)
+                          (sharded, deepfm, kafka, fg, retrieve, dssm,
+                           backbone, dlrm, mmoe, bst, din, adagrad, ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -24,7 +24,8 @@ EasyRecConfig = Message
 
 _RANK_MODELS = ('DeepFM', 'MultiTower', 'MultiTowerDIN', 'MultiTowerBST',
                 'WideAndDeep', 'DCN', 'AutoInt', 'DLRM', 'FM',
-                'RocketLaunching', 'CMBF', 'Uniter', 'RankModel')
+                'RocketLaunching', 'CMBF', 'Uniter', 'RankModel',
+                'DummyModel')
 _MULTI_TASK_MODELS = ('SimpleMultiTask', 'MMoE', 'ESMM', 'DBMTL', 'PLE',
                       'MultiTaskModel')
 # the match family (models/match.py, match_extra.py, and the backbone's
@@ -517,10 +518,6 @@ def check_ported(config: Message) -> None:
         # package fails on it
         raise NotImplementedError('loss_type %s of model_config.losses[%d] '
                                   'is not ported' % (loss.loss_type, i))
-    if mc.loss_weight_strategy == 'Random':
-      # its eval weights are a draw of the JAX package's PRNGKey(0)
-      raise NotImplementedError('model_config.loss_weight_strategy Random '
-                                'is not ported')
   for fc in get_feature_configs(config):
     if fc.feature_type not in _PORTED_FEATURE_TYPES:
       raise NotImplementedError('feature_type %s (feature %s) is not ported'

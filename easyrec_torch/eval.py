@@ -19,6 +19,9 @@ def get_parser() -> argparse.ArgumentParser:
   parser.add_argument('--edit_config_json', default=None)
   parser.add_argument('--distribute_eval', action='store_true',
                       default=False)
+  parser.add_argument('--check_mode', action='store_true', default=False,
+                      help='validate every eval input chunk with pointed '
+                           'errors')
   parser.add_argument('--device', default='cuda',
                       help="'cuda' (default) or 'cpu'")
   return parser
@@ -27,6 +30,13 @@ def get_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
   logging.basicConfig(level=logging.INFO)
   args = get_parser().parse_args(argv)
+  from easyrec_torch.parallel import mesh
+  if mesh.world_requested():
+    # one process a device (torchrun --nproc_per_node N): join the world
+    # (the JAX CLI's jax.distributed.initialize, train_eval.py:43-50)
+    world = mesh.join_world(args.device)
+    logging.info('distributed: rank %d/%d on %s', world.rank, world.size,
+                 world.device)
   from easyrec_torch import main as main_lib
   edits = json.loads(args.edit_config_json) if args.edit_config_json else {}
   if args.model_dir:
@@ -37,7 +47,8 @@ def main(argv=None) -> int:
       main_lib.evaluate
   metrics = fn(args.pipeline_config_path,
                eval_result_filename=args.eval_result_filename,
-               edit_config_json=edits or None, device=args.device)
+               edit_config_json=edits or None, device=args.device,
+               check_mode=args.check_mode)
   logging.info('eval metrics: %s', metrics)
   return 0
 

@@ -116,19 +116,34 @@ def init_ev_state(layout, plan: Dict[str, TableEv],
   return out
 
 
+def _lookup(aux: torch.Tensor, pack: torch.Tensor, key: str,
+            sharding) -> torch.Tensor:
+  """The aux value of every id slot [B, tot_k]: a gather, or over a
+  row-sharded table the exchange's (JAX _lookup_dim1 reads the sharded aux
+  table the same way, through its pull)."""
+  split = sharding.splits.get(key) if sharding is not None else None
+  if split is None:
+    return aux[:, 0][pack]
+  from easyrec_torch.ops import embedding as emb_ops
+  return emb_ops.ep_pull_sharded(sharding, aux, pack, split, 1,
+                                 counter=None)[..., 0]
+
+
 def keep_mask(pack: torch.Tensor, aux: Dict[str, torch.Tensor],
-              ev: TableEv, step: torch.Tensor) -> Optional[torch.Tensor]:
+              ev: TableEv, step: torch.Tensor, key: str = None,
+              sharding=None) -> Optional[torch.Tensor]:
   """[B, tot_k] bool: the id slots admitted (count >= filter_freq) and
   fresh (step - last_seen <= ttl, or the column has no TTL); None where the
-  table has neither counter."""
+  table has neither counter. With a sharding, table `key`'s counters are
+  read through the exchange."""
   keep = None
   if 'ev_count' in aux:
-    counts = aux['ev_count'][:, 0][pack]
+    counts = _lookup(aux['ev_count'], pack, key, sharding)
     thr = torch.as_tensor(ev.thr_cols, dtype=torch.float32,
                           device=pack.device)[None, :]
     keep = counts >= thr
   if 'ev_last' in aux and ev.ttl > 0:
-    last = aux['ev_last'][:, 0][pack]
+    last = _lookup(aux['ev_last'], pack, key, sharding)
     ttl_c = torch.as_tensor(ev.ttl_cols, dtype=torch.float32,
                             device=pack.device)[None, :]
     age = step.to(torch.float32) - last
@@ -141,7 +156,7 @@ def mask_pulled(pulled: Dict[str, torch.Tensor],
                 packs: Dict[str, torch.Tensor],
                 ev_state: Dict[str, Dict[str, torch.Tensor]],
                 plan: Dict[str, TableEv], step: torch.Tensor,
-                masked: Optional[torch.Tensor] = None
+                masked: Optional[torch.Tensor] = None, sharding=None
                 ) -> Dict[str, torch.Tensor]:
   """Zero the pulled rows of id slots not admitted or stale (JAX
   ev.py:137-172), in every batch view: the base batch and a sampler's
@@ -157,7 +172,16 @@ def mask_pulled(pulled: Dict[str, torch.Tensor],
     for view in (key, 'neg.' + key, 'hard_neg.' + key):
       if view not in pulled:
         continue
-      keep = keep_mask(packs[view], ev_state.get(key, {}), ev, step)
+      pack = packs[view]
+      if view != key and sharding is not None and key in sharding.splits:
+        # a sampled view, alike on every rank: read as the table's base
+        # batch of each rank, every rank's slots in one exchange
+        keep = keep_mask(pack.reshape(1, -1), ev_state.get(key, {}), ev,
+                         step, key, sharding)
+        keep = None if keep is None else keep.reshape(pack.shape)
+      else:
+        keep = keep_mask(pack, ev_state.get(key, {}), ev, step, key,
+                         sharding)
       if keep is not None:
         out[view] = pulled[view] * keep[..., None].to(pulled[view].dtype)
         if masked is not None:
@@ -167,13 +191,17 @@ def mask_pulled(pulled: Dict[str, torch.Tensor],
 
 def update_ev_state(ev_state: Dict[str, Dict[str, torch.Tensor]],
                     packs: Dict[str, torch.Tensor],
-                    plan: Dict[str, TableEv], step: torch.Tensor) -> None:
+                    plan: Dict[str, TableEv], step: torch.Tensor,
+                    sharding=None) -> None:
   """counts += occurrences; last_seen = step, for the ids of the base
   batch only, in place (JAX ev.py:177): a sampled negative is not an
   occurrence, and a view's filler columns (id 0) would admit row 0. Each
   aux table takes one sparse update with a gradient of ones, EvAdd on
   ev_count and EvSet on ev_last. `step` is the step before its
-  increment."""
+  increment. With a sharding, a row-sharded table's counters take the
+  sharded update (optim/sparse.packed_update_sharded; JAX :209-211) and a
+  replicated one's the gathered update."""
+  from easyrec_torch.optim import sparse as sparse_lib
   for key, ev in plan.items():
     aux = ev_state.get(key)
     if not ev.enabled or not aux or key not in packs:
@@ -182,19 +210,29 @@ def update_ev_state(ev_state: Dict[str, Dict[str, torch.Tensor]],
     ones = torch.ones((ids.shape[0], 1), dtype=torch.float32,
                       device=ids.device)
     hypers = EV_ADD.hypers(None, step)
+    split = sharding.splits.get(key) if sharding is not None else None
     for name, math in (('ev_count', EV_ADD), ('ev_last', EV_SET)):
-      if name in aux:
-        pt.apply_packed_update(aux[name], ids, ones, hypers, math,
-                               aux_meta(aux[name].shape[0]))
+      if name not in aux:
+        continue
+      meta = aux_meta(aux[name].shape[0])
+      if split is not None:
+        sparse_lib.packed_update_sharded(sharding.world, aux[name], ids,
+                                         ones, hypers, math, meta, split)
+      elif sharding is not None:
+        sparse_lib.packed_update_replicated(sharding.world, aux[name], ids,
+                                            ones, hypers, math, meta)
+      else:
+        pt.apply_packed_update(aux[name], ids, ones, hypers, math, meta)
 
 
 def stale_rows(aux: Dict[str, torch.Tensor], ev: TableEv,
-               step: torch.Tensor) -> torch.Tensor:
+               step: torch.Tensor, row0: int = 0) -> torch.Tensor:
   """[rows] bool: rows inside a member segment with steps_to_live whose
   last-seen step is older than it, step - last > ttl in f32 (rows never
-  seen have last 0)."""
+  seen have last 0); the aux table's first row is row `row0` of the
+  table (a rank's block)."""
   last = aux['ev_last'][:, 0]
-  r = torch.arange(last.shape[0], device=last.device)
+  r = torch.arange(last.shape[0], device=last.device) + row0
   age = step.to(torch.float32) - last
   stale = torch.zeros(last.shape[0], dtype=torch.bool, device=last.device)
   for start, end, _ff, lv in ev.row_segments:
@@ -206,19 +244,20 @@ def stale_rows(aux: Dict[str, torch.Tensor], ev: TableEv,
 def evict_stale(tables: Dict[str, torch.Tensor],
                 ev_state: Dict[str, Dict[str, torch.Tensor]],
                 plan: Dict[str, TableEv],
-                step: torch.Tensor) -> Dict[str, Tuple[int, int]]:
+                step: torch.Tensor, row0=None) -> Dict[str, Tuple[int, int]]:
   """The TTL sweep, in place (JAX ev.py:237): rows stale beyond their
   member's steps_to_live are zeroed, the whole combined row (weights and
   optimizer slots, to 0.0, not to the slots' initial values) and both
   counters. Members without steps_to_live are never touched. Returns per
   table the number of rows swept and, of those, rows an id had touched
-  (last seen after step 0; the others were never trained)."""
+  (last seen after step 0; the others were never trained). row0: by table,
+  the first row of a rank's block, where tables are row-sharded."""
   swept = {}
   for key, ev in plan.items():
     aux = ev_state.get(key, {})
     if not ev.enabled or ev.ttl <= 0 or 'ev_last' not in aux:
       continue
-    stale = stale_rows(aux, ev, step)
+    stale = stale_rows(aux, ev, step, (row0 or {}).get(key, 0))
     seen = stale & (aux['ev_last'][:, 0] > 0)
     tables[key][stale] = 0.0
     for name in AUX_NAMES:

@@ -26,6 +26,8 @@ import torch
 from torch import nn
 
 from easyrec_torch.layers.attention import LayerNorm as FlaxLayerNorm
+from easyrec_torch.losses.losses import batch_mean
+from easyrec_torch.parallel.mesh import whole_batch
 from easyrec_torch.layers.dnn import (MLP, BatchNorm, Dense, Dropout,
                                       Stochastic, flax_init, get_activation)
 
@@ -296,13 +298,16 @@ class AuxiliaryLoss(nn.Module):
   def forward(self, inputs) -> torch.Tensor:
     x1, x2 = inputs[0], inputs[1]
     if self.loss_type == 'cosine':
-      loss = -torch.mean(torch.sum(_l2_normalize(x1) * _l2_normalize(x2),
+      loss = -batch_mean(torch.sum(_l2_normalize(x1) * _l2_normalize(x2),
                                    dim=-1))
     elif self.loss_type in ('info_nce', 'nce'):
-      logits = _l2_normalize(x1) @ _l2_normalize(x2).T / self.temperature
-      loss = torch.mean(-torch.diagonal(torch.log_softmax(logits, dim=-1)))
+      # in-batch columns of the global batch (parallel/mesh.py)
+      with whole_batch(x1, x2) as (g1, g2):
+        logits = _l2_normalize(g1) @ _l2_normalize(g2).T / self.temperature
+        loss = torch.mean(
+            -torch.diagonal(torch.log_softmax(logits, dim=-1)))
     else:
-      loss = torch.mean(torch.sum(torch.square(x1 - x2), dim=-1))
+      loss = batch_mean(torch.sum(torch.square(x1 - x2), dim=-1))
     self.sink.append((self.path, self.loss_weight * loss))
     return x1
 

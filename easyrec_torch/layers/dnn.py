@@ -7,7 +7,8 @@ carried over exactly:
   - Dense kernels start from flax's default lecun_normal (truncated normal,
     stddev 1/sqrt(fan_in) before truncation at two deviations), biases 0;
     MLP's from the initialiser its config names (he_uniform by default);
-  - BatchNorm is flax's: batch statistics over every axis but the last,
+  - BatchNorm is flax's: batch statistics over every axis but the last (in
+    a world of processes, over the global batch: parallel/mesh.py),
     with the fast variance E[x^2] - E[x]^2 clipped at 0, eps 1e-5, and
     running averages with momentum 0.99 (torch's 0.01) updated with that
     BIASED variance — so it is written here rather than taken from
@@ -39,6 +40,8 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from easyrec_torch.parallel import mesh
 
 # stddev of a standard normal truncated to (-2, 2)
 _TRUNC_STD = 0.87962566103423978
@@ -181,8 +184,19 @@ class BatchNorm(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     if self.training:
       dims = tuple(range(x.ndim - 1))
-      mean = x.mean(dim=dims)
-      var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+      if mesh.active_world() is None:
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+      else:
+        # statistics of the global batch (mesh.step_scope): one all-reduce
+        # of the sums and the row count
+        n = torch.tensor([float(x.numel() // x.shape[-1])],
+                         dtype=x.dtype, device=x.device)
+        sums = mesh.batch_sum(torch.cat([x.sum(dim=dims),
+                                         (x * x).sum(dim=dims), n]))
+        f = x.shape[-1]
+        mean = sums[:f] / sums[-1]
+        var = torch.clamp(sums[f:2 * f] / sums[-1] - mean * mean, min=0.0)
       with torch.no_grad():
         self.running_mean.mul_(self.momentum).add_(
             (1 - self.momentum) * mean)

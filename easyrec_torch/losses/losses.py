@@ -8,20 +8,38 @@ the ranking losses: _pairwise_diffs (:101) and the four pairwise losses
 listwise_rank_loss (:289) and listwise_distill_loss (:312); and the match
 family's _log1p_sum_exp (:315), circle_loss (:325), multi_similarity_loss
 (:345) and softmax_loss_with_negative_mining (:361). Per-sample weights
-(0 marks padded rows) reduce to a weighted mean."""
+(0 marks padded rows) reduce to a weighted mean.
+
+In a world of processes (parallel/mesh.py step_scope) a weighted mean's
+sums run over the global batch (mesh.batch_sum), as the JAX step's sums
+over its sharded batch axis do. A loss that pairs rows of the batch (the
+pairwise and listwise losses, OHEM, jrc's session softmax, circle and
+multi-similarity, the rolled negatives of
+softmax_loss_with_negative_mining) gathers its inputs from every rank
+(mesh.whole_batch) and pairs the rows of the global batch."""
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from easyrec_torch.parallel.mesh import batch_sum, whole_batch
+
 
 def weighted_mean(values: torch.Tensor, weights: torch.Tensor):
   weights = weights.to(values.dtype)
-  return (values * weights).sum() / torch.clamp(weights.sum(), min=1e-9)
+  return batch_sum((values * weights).sum()) / \
+      torch.clamp(batch_sum(weights.sum()), min=1e-9)
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+  """The mean of x over the global batch."""
+  count = torch.tensor(float(x.numel()), dtype=x.dtype, device=x.device)
+  return batch_sum(x.sum()) / batch_sum(count)
 
 
 def _smooth(labels: torch.Tensor, label_smoothing: float) -> torch.Tensor:
@@ -72,8 +90,9 @@ def binary_focal_loss(labels: torch.Tensor, logits: torch.Tensor,
   if alpha is not None:
     mod = mod * (alpha * labels + (1 - alpha) * (1 - labels))
   if ohem_ratio < 1.0:
-    return _ohem_mean(mod * ce, weights.to(logits.dtype).expand_as(logits),
-                      ohem_ratio)
+    with whole_batch(mod * ce, weights.to(logits.dtype).expand_as(
+        logits)) as (per, w):
+      return _ohem_mean(per, w, ohem_ratio)
   return weighted_mean(mod * ce, weights)
 
 
@@ -149,6 +168,27 @@ def _pair_mean(per, pair_w, ohem_ratio: float):
   return torch.sum(per * pair_w) / torch.clamp(torch.sum(pair_w), min=1e-9)
 
 
+def _global_batch(loss):
+  """`loss` over the global batch's rows: each of its tensor arguments
+  with a batch axis (all are per row) gathered from every rank
+  (mesh.whole_batch)."""
+  def rows(v):
+    return torch.is_tensor(v) and v.ndim > 0
+
+  @functools.wraps(loss)
+  def run(*args, **kw):
+    pos = [i for i, v in enumerate(args) if rows(v)]
+    keys = [k for k, v in kw.items() if rows(v)]
+    with whole_batch(*[args[i] for i in pos], *[kw[k] for k in keys]) as got:
+      args = list(args)
+      for i, t in zip(pos, got):
+        args[i] = t
+      kw.update(zip(keys, got[len(pos):]))
+      return loss(*args, **kw)
+  return run
+
+
+@_global_batch
 def pairwise_loss(labels, logits, weights, margin: float = 0.0,
                   session_ids=None, temperature: float = 1.0,
                   ohem_ratio: float = 1.0):
@@ -158,6 +198,7 @@ def pairwise_loss(labels, logits, weights, margin: float = 0.0,
                     ohem_ratio)
 
 
+@_global_batch
 def pairwise_logistic_loss(labels, logits, weights,
                            temperature: float = 1.0, hinge_margin=None,
                            session_ids=None, ohem_ratio: float = 1.0):
@@ -168,6 +209,7 @@ def pairwise_logistic_loss(labels, logits, weights,
   return _pair_mean(torch.log1p(torch.exp(-diff)), pair_w, ohem_ratio)
 
 
+@_global_batch
 def pairwise_focal_loss(labels, logits, weights, gamma: float = 2.0,
                         alpha=None, hinge_margin: float = 1.0,
                         temperature: float = 1.0, session_ids=None,
@@ -182,6 +224,7 @@ def pairwise_focal_loss(labels, logits, weights, gamma: float = 2.0,
   return _pair_mean(per, pair_w, ohem_ratio)
 
 
+@_global_batch
 def pairwise_hinge_loss(labels, logits, weights, margin: float = 1.0,
                         temperature: float = 1.0, session_ids=None,
                         label_is_logits: bool = True,
@@ -240,6 +283,7 @@ def pairwise_kwargs(loss_type: str, params) -> dict:
               use_exponent=params.use_exponent, ohem_ratio=params.ohem_ratio)
 
 
+@_global_batch
 def jrc_loss(labels, logits2, session_ids, weights, alpha: float = 0.5,
              same_label_loss: bool = True):
   """Joint ranking and calibration over logits2 [B, 2]: alpha x the
@@ -292,9 +336,10 @@ def ziln_loss(labels, logits3, weights, max_sigma: float = 5.0,
   total = weighted_mean(classification_weight * class_loss +
                         regression_weight * reg_loss, weights)
   if mu_regularization:
-    total = total + mu_regularization * torch.mean(torch.square(mu))
+    total = total + mu_regularization * batch_mean(torch.square(mu))
   if sigma_regularization:
-    total = total + sigma_regularization * torch.mean(torch.square(sigma))
+    total = total + sigma_regularization * batch_mean(
+        torch.square(sigma))
   return total
 
 
@@ -318,6 +363,7 @@ def _transform(path: str):
   return load_by_path(path)
 
 
+@_global_batch
 def listwise_rank_loss(labels, logits, session_ids, weights,
                        temperature: float = 1.0,
                        label_is_logits: bool = False,
@@ -381,6 +427,7 @@ def _pair_masks(labels: torch.Tensor, dtype):
   return (same & ~eye).to(dtype), (~same).to(dtype)
 
 
+@_global_batch
 def circle_loss(embeddings: torch.Tensor, labels: torch.Tensor,
                 weights: torch.Tensor, margin: float = 0.25,
                 gamma: float = 32.0) -> torch.Tensor:
@@ -396,6 +443,7 @@ def circle_loss(embeddings: torch.Tensor, labels: torch.Tensor,
                        _log1p_sum_exp(logit_n, neg_mask), weights)
 
 
+@_global_batch
 def multi_similarity_loss(embeddings: torch.Tensor, labels: torch.Tensor,
                           weights: torch.Tensor, alpha: float = 2.0,
                           beta: float = 50.0, lamb: float = 1.0,
@@ -409,6 +457,7 @@ def multi_similarity_loss(embeddings: torch.Tensor, labels: torch.Tensor,
   return weighted_mean(pos_term + neg_term, weights)
 
 
+@_global_batch
 def softmax_loss_with_negative_mining(user_emb: torch.Tensor,
                                       item_emb: torch.Tensor,
                                       labels: torch.Tensor,

@@ -6,7 +6,10 @@ writes pipeline.config and version there, checkpoints to
 latest one, and exports by export_config.exporter_type ('final' by default,
 'none' to skip) into <model_dir>/export/<exporter_type>/<unix time>/
 (export/saved_model.py). Every call runs on `device`, CUDA unless the
-caller asks for the CPU.
+caller asks for the CPU. A process that joined a world of processes
+(parallel/mesh.py join_world) runs each entry point as one rank of it:
+every rank trains and evaluates its shard, rank 0 alone writes the
+model_dir's files (JAX main.py:83, :125).
 """
 
 from __future__ import annotations
@@ -45,8 +48,10 @@ def load_config(config: ConfigOrPath,
 
 
 def _prepare_model_dir(config: Message, continue_train: bool) -> None:
+  from easyrec_torch.parallel import mesh
   model_dir = config.model_dir
-  if not model_dir:
+  world = mesh.current_world()
+  if not model_dir or (world is not None and not world.is_chief):
     return
   os.makedirs(model_dir, exist_ok=True)
   has_ckpt = os.path.isdir(os.path.join(model_dir, 'checkpoints'))
@@ -60,15 +65,15 @@ def _prepare_model_dir(config: Message, continue_train: bool) -> None:
     f.write(__version__ + '\n')
 
 
-def _restored_trainer(config: Message, device, checkpoint_path=None):
-  """A Trainer on `device` holding model_dir's latest checkpoint, or the
-  step checkpoint_path names (its basename is the step)."""
-  from easyrec_torch.train import checkpoints as ckpt_lib
+def _restored_trainer(config: Message, device, checkpoint_path=None,
+                      check_mode: bool = False):
+  """A Trainer on `device` (a rank of the current world, where this
+  process joined one) holding model_dir's latest checkpoint, or the step
+  checkpoint_path names (its basename is the step)."""
   from easyrec_torch.train.trainer import Trainer
-  trainer = Trainer(config, device=device)
+  trainer = Trainer(config, device=device, check_mode=check_mode)
   trainer.init_state()
-  mgr = ckpt_lib.CheckpointManager(config.model_dir,
-                                   layout_stamp=trainer.layout_stamp())
+  mgr = trainer.checkpoint_manager(config.model_dir)
   if checkpoint_path:
     state = mgr.restore(int(os.path.basename(
         os.path.normpath(checkpoint_path))))
@@ -96,7 +101,7 @@ def train_and_evaluate(pipeline_config: ConfigOrPath,
   the log history, this run's total losses and the eval metrics, the
   trainer, and export_dir where one was written."""
   from easyrec_torch.export.saved_model import export_saved_model
-  from easyrec_torch.train.trainer import Trainer, to_device
+  from easyrec_torch.train.trainer import Trainer
   config = load_config(pipeline_config, edit_config_json)
   _prepare_model_dir(config, continue_train)
   trainer = Trainer(config, device=device, check_mode=check_mode)
@@ -107,7 +112,7 @@ def train_and_evaluate(pipeline_config: ConfigOrPath,
     logging.info('fit_on_eval: continuing training on eval data')
     for batch in trainer.eval_input(
         batch_size=config.data_config.batch_size):
-      trainer.train_step(to_device(batch, trainer.device))
+      trainer.step_batch(batch)
       steps += 1
       if fit_on_eval_steps and steps >= fit_on_eval_steps:
         break
@@ -116,10 +121,12 @@ def train_and_evaluate(pipeline_config: ConfigOrPath,
 
   exporter_type = config.export_config.exporter_type or 'final'
   if exporter_type != 'none' and config.model_dir:
-    result['export_dir'] = export_saved_model(
+    export_dir = trainer.export(lambda: export_saved_model(
         trainer, os.path.join(config.model_dir, 'export', exporter_type),
-        assets=list(config.export_config.asset_files))
-    logging.info('exported serving model to %s', result['export_dir'])
+        assets=list(config.export_config.asset_files)))
+    if export_dir is not None:
+      result['export_dir'] = export_dir
+      logging.info('exported serving model to %s', export_dir)
   result['trainer'] = trainer
   return result
 
@@ -127,20 +134,26 @@ def train_and_evaluate(pipeline_config: ConfigOrPath,
 def evaluate(pipeline_config: ConfigOrPath,
              eval_result_filename: str = 'eval_result.txt',
              edit_config_json: Optional[dict] = None,
-             device=None) -> Dict[str, float]:
+             device=None, check_mode: bool = False) -> Dict[str, float]:
   """Evaluate model_dir's latest checkpoint; the metrics also go to
-  <model_dir>/<eval_result_filename> as json."""
+  <model_dir>/<eval_result_filename> as json. check_mode validates every
+  raw eval chunk (data/check.py; JAX main.py:104-113). In a world every
+  rank evaluates its shard of the eval input and gets the same metrics;
+  rank 0 writes them."""
   config = load_config(pipeline_config, edit_config_json)
-  trainer = _restored_trainer(config, device)
+  trainer = _restored_trainer(config, device, check_mode=check_mode)
   metrics = trainer.evaluate()
-  with open(os.path.join(config.model_dir, eval_result_filename), 'w') as f:
-    json.dump({k: float(v) for k, v in metrics.items()}, f)
+  if trainer.is_chief:
+    with open(os.path.join(config.model_dir, eval_result_filename),
+              'w') as f:
+      json.dump({k: float(v) for k, v in metrics.items()}, f)
   logging.info('eval result: %s', metrics)
   return metrics
 
 
 def distribute_evaluate(pipeline_config: ConfigOrPath, **kwargs):
-  """evaluate(): one device evaluates the whole eval input."""
+  """evaluate(): on one device the whole eval input; in a world each
+  rank's shard of it, the metrics reduced over the ranks."""
   return evaluate(pipeline_config, **kwargs)
 
 
@@ -186,17 +199,19 @@ def predict(pipeline_config: ConfigOrPath,
   model = trainer.model
   model.eval()
   rows = []
-  for batch in pipe:
-    valid = batch['sample_weight'] > 0
-    dev = to_device(batch, trainer.device)
-    packs = emb_ops.pack_ids(trainer.layout, dev)
-    pulled = emb_ops.pull_embeddings(trainer.tables, packs, trainer.metas)
-    res = {k: v.cpu().numpy()
-           for k, v in model.export_outputs(model(dev, pulled)).items()}
-    keys = sorted(res)
-    for i in np.nonzero(valid)[0]:
-      rows.append({k: res[k][i] for k in keys})
-  if output_path:
+  # in a world every rank predicts the whole input from whole tables
+  with trainer.unsharded():
+    for batch in pipe:
+      valid = batch['sample_weight'] > 0
+      dev = to_device(batch, trainer.device)
+      packs = emb_ops.pack_ids(trainer.layout, dev)
+      pulled = emb_ops.pull_embeddings(trainer.tables, packs, trainer.metas)
+      res = {k: v.cpu().numpy()
+             for k, v in model.export_outputs(model(dev, pulled)).items()}
+      keys = sorted(res)
+      for i in np.nonzero(valid)[0]:
+        rows.append({k: res[k][i] for k in keys})
+  if output_path and trainer.is_chief:
     with open(output_path, 'w', newline='') as f:
       writer = csv_lib.writer(f)
       keys = sorted(rows[0]) if rows else []

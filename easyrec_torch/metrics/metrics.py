@@ -23,6 +23,8 @@ import os
 import numpy as np
 import torch
 
+from easyrec_torch.parallel import mesh
+
 AUC_BINS = 8192
 
 
@@ -350,7 +352,12 @@ class MetricsCollection:
     cand = extra.get('neg_sam_logits')
     if cand is None and 'in_batch_logits' in extra:
       ib = extra['in_batch_logits']
-      cand = torch.cat([torch.diagonal(ib)[:, None], ib], dim=1)
+      # each row's own column: the diagonal, at this rank's rows' offset
+      # in a world (every rank's items are the in-batch columns)
+      world = mesh.active_world()
+      off = 0 if world is None else world.rank * ib.shape[0]
+      own = torch.diagonal(ib[:, off:off + ib.shape[0]])
+      cand = torch.cat([own[:, None], ib], dim=1)
     for key, state in states.items():
       if key.startswith('topk_') and cand is not None:
         update_topk_recall(state, cand, int(key.split('_')[1]), labels,

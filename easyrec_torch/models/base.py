@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from easyrec_torch.config import schema
 from easyrec_torch.features.embedding_layout import EmbeddingLayout
+from easyrec_torch.layers.dnn import Stochastic
 from easyrec_torch.losses import losses as L
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.utils.registry import MODELS
@@ -196,8 +197,7 @@ class BaseModel(nn.Module):
         q = torch.sigmoid(pred_l / t)
         kl = p * (_log_clip(p) - _log_clip(q)) + \
             (1 - p) * (_log_clip(1 - p) - _log_clip(1 - q))
-        value = torch.sum(kl * w) / torch.clamp(torch.sum(w), min=1e-9) \
-            * t * t
+        value = L.weighted_mean(kl, w) * t * t
       elif kd.loss_type == 'L2_LOSS':
         value = L.l2_loss(soft, pred, w)
       elif kd.loss_type == 'LISTWISE_DISTILL_LOSS':
@@ -248,6 +248,28 @@ CLASSIFICATION_TYPES = (
     'LISTWISE_RANK_LOSS', 'LISTWISE_DISTILL_LOSS')
 
 
+class RandomLossWeights(Stochastic):
+  """`loss_weight_strategy: Random` (JAX models/rank.py:435-438, applied at
+  models/base.py:433-436): softmax(normal(n)) * n, one weight a loss term.
+  In training the normal draw comes from the generator set_generator gives
+  the model (the trainer's); in eval from a fresh generator seeded
+  EVAL_SEED on the batch's device. The JAX package draws from its dropout
+  rng and from PRNGKey(0), which torch cannot draw: the weights scale the
+  loss only, so predictions and metrics do not depend on them."""
+
+  EVAL_SEED = 0
+
+  def __init__(self, n_terms: int):
+    super().__init__()
+    self.n_terms = int(n_terms)
+
+  def forward(self, device) -> torch.Tensor:
+    gen = self.rng() if self.training else \
+        torch.Generator(device=device).manual_seed(self.EVAL_SEED)
+    z = torch.randn((self.n_terms,), generator=gen, device=device)
+    return torch.softmax(z, dim=0) * self.n_terms
+
+
 class RankModel(BaseModel):
   """Ranking base (binary, multi-class or regression): subclasses compute
   raw logits [B, logits_dim()] from (batch, pulled), or raw_outputs with
@@ -256,7 +278,8 @@ class RankModel(BaseModel):
   With `loss_weight_strategy: Uncertainty` and more than one loss term,
   the model holds `loss_uncertainty` (zeros, one per term), which flax
   keeps beside `inner`, not under it (convert.py maps it there), and
-  forward passes it on as `uncertainty_w`."""
+  forward passes it on as `uncertainty_w`. With `Random` and more than one
+  term, forward passes on `random_loss_w`, a draw of RandomLossWeights."""
 
   def __init__(self, ctx: ModelContext, device=None):
     super().__init__(ctx)
@@ -265,6 +288,8 @@ class RankModel(BaseModel):
     if n_terms > 1 and cfg.loss_weight_strategy == 'Uncertainty':
       self.loss_uncertainty = nn.Parameter(torch.zeros(n_terms,
                                                        device=device))
+    if n_terms > 1 and cfg.loss_weight_strategy == 'Random':
+      self.random_loss_weights = RandomLossWeights(n_terms)
 
   @property
   def label_name(self) -> str:
@@ -322,6 +347,9 @@ class RankModel(BaseModel):
     out.update(self.prediction(out.pop('raw_logits')))
     if hasattr(self, 'loss_uncertainty'):
       out['uncertainty_w'] = self.loss_uncertainty
+    if hasattr(self, 'random_loss_weights'):
+      out['random_loss_w'] = self.random_loss_weights(
+          batch['sample_weight'].device)
     return out
 
   def _loss_configs(self) -> List[Dict]:
@@ -418,6 +446,9 @@ class RankModel(BaseModel):
     for name, (value, w) in self.kd_losses(outputs, batch).items():
       losses[name] = value
       terms.append((value, {'type': None, 'weight': w, 'learn': False}))
+    rw = outputs.get('random_loss_w')
+    if rw is not None:
+      return sum(rw[i] * v for i, (v, _) in enumerate(terms)), losses
     u = outputs.get('uncertainty_w')
     if u is None:
       return sum(cfg['weight'] * v for v, cfg in terms), losses

@@ -37,6 +37,7 @@ from easyrec_torch.losses import losses as L
 from easyrec_torch.models.base import BaseModel, ModelContext, register_model
 from easyrec_torch.models.seq_input import build_flat_part
 from easyrec_torch.ops.embedding import sequence_dim
+from easyrec_torch.parallel import mesh
 
 
 def normalize(x: torch.Tensor) -> torch.Tensor:
@@ -93,7 +94,8 @@ class MatchModel(BaseModel):
     return normalize(x) if self.simi_func == 'COSINE' else x
 
   def _item_id_mask(self, batch):
-    """[B, B] bool: rows whose item ids collide (match_model.py:50-69)."""
+    """[B, B'] bool: rows whose item ids collide with the in-batch items'
+    (match_model.py:50-69); in a world B' spans every rank's rows."""
     cfg = self.simi_cfg()
     item_id = _cfg_value(cfg, 'item_id', '')
     if not item_id or _cfg_value(cfg, 'ignore_in_batch_neg_sam', False):
@@ -102,7 +104,24 @@ class MatchModel(BaseModel):
     if key not in batch:
       return None
     ids = batch[key][:, 0]
-    return ids[None, :] == ids[:, None]
+    return mesh.gather_ids(ids)[None, :] == ids[:, None]
+
+  @staticmethod
+  def _in_batch_columns(b: int) -> int:
+    """The in-batch columns of a [b, ...] logits block: every rank's rows
+    in a world."""
+    world = mesh.active_world()
+    return b if world is None else b * world.size
+
+  @staticmethod
+  def _own_diag(b: int, logits: torch.Tensor) -> torch.Tensor:
+    """[b, columns] bool: each row's own item among the in-batch columns
+    (the diagonal, at this rank's rows' offset in a world)."""
+    world = mesh.active_world()
+    off = 0 if world is None else world.rank * b
+    cols = torch.arange(logits.shape[1], device=logits.device)
+    rows = torch.arange(b, device=logits.device)
+    return cols[None, :] == rows[:, None] + off
 
   def _hard_columns(self, outputs, batch, u, b):
     hard = outputs.get('hard_neg_item_tower_emb')
@@ -116,7 +135,9 @@ class MatchModel(BaseModel):
   def full_logits(self, outputs, batch) -> torch.Tensor:
     """The similarity columns over the temperature: [B, B + N + H] of the
     in-batch items (collisions off the diagonal at -1e9), the sampled
-    negatives and each row's hard negatives (missing ones at -1e9); or,
+    negatives and each row's hard negatives (missing ones at -1e9) -- in a
+    world the in-batch columns are every rank's items (mesh.gather_rows),
+    this rank's own at its rows' offset; or,
     with per-negative user towers, [B, 1 + N + H] of the positive and
     the sampled negatives, in-batch items not scored."""
     u = self.maybe_norm(outputs['user_tower_emb'])
@@ -130,11 +151,11 @@ class MatchModel(BaseModel):
                         self.maybe_norm(neg))
       cols = [pos[:, None], nl]
     else:
-      logits = u @ item.T
+      logits = u @ mesh.gather_rows(item)[0].T
       collide = self._item_id_mask(batch)
       if collide is not None:
-        eye = torch.eye(b, dtype=torch.bool, device=logits.device)
-        logits = logits.masked_fill(collide & ~eye, -1e9)
+        logits = logits.masked_fill(collide & ~self._own_diag(b, logits),
+                                    -1e9)
       cols = [logits]
       if neg is not None:
         cols.append(u @ self.maybe_norm(neg).T)
@@ -154,9 +175,10 @@ class MatchModel(BaseModel):
       if outputs.get('neg_user_tower_emb') is not None:
         per = -logp[:, 0]
       else:
-        per = -torch.diagonal(logp[:, :logits.shape[0]])
+        per = -logp[self._own_diag(logits.shape[0], logits)]
       w = weights * labels
-      loss = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1e-9)
+      loss = mesh.batch_sum(torch.sum(per * w)) / \
+          torch.clamp(mesh.batch_sum(torch.sum(w)), min=1e-9)
       return loss, {'softmax_cross_entropy': loss}
     if self.config.loss_type == 'L2_LOSS':
       loss = L.l2_loss(labels, outputs['logits'], weights)
@@ -178,12 +200,13 @@ class MatchModel(BaseModel):
         return {'labels': labels, 'probs': torch.sigmoid(pos), 'preds': pos,
                 'weights': weights, 'neg_sam_logits': logits}
       b = logits.shape[0]
-      pos = torch.diagonal(logits[:, :b])
+      nb = self._in_batch_columns(b)
+      pos = logits[self._own_diag(b, logits)]
       mi = {'labels': labels, 'probs': torch.sigmoid(pos), 'preds': pos,
-            'weights': weights, 'in_batch_logits': logits[:, :b]}
-      if logits.shape[1] > b:
+            'weights': weights, 'in_batch_logits': logits[:, :nb]}
+      if logits.shape[1] > nb:
         # the positive against the sampled negatives only
-        mi['neg_sam_logits'] = torch.cat([pos[:, None], logits[:, b:]],
+        mi['neg_sam_logits'] = torch.cat([pos[:, None], logits[:, nb:]],
                                          dim=1)
       return mi
     if self.config.loss_type == 'L2_LOSS':
@@ -399,9 +422,8 @@ class DAT(MatchModel):
         outputs['augmented_u'] - outputs['item_tower_emb'].detach()), dim=1)
     amm_i = torch.sum(torch.square(
         outputs['augmented_i'] - outputs['user_tower_emb'].detach()), dim=1)
-    denom = torch.clamp(torch.sum(w), min=1e-9)
-    lu = torch.sum(amm_u * w) / denom
-    li = torch.sum(amm_i * w) / denom
+    lu = L.weighted_mean(amm_u, w)
+    li = L.weighted_mean(amm_i, w)
     losses['amm_loss_u'] = lu
     losses['amm_loss_i'] = li
     return total + cfg.amm_u_weight * lu + cfg.amm_i_weight * li, losses
@@ -503,9 +525,9 @@ class MIND(MatchModel):
       off = ~torch.eye(k, dtype=torch.bool, device=sims.device)
       msk = outputs['interests_mask']
       pair_mask = off[None] * (msk[:, :, None] * msk[:, None, :])
-      reg = torch.sum(torch.clamp(sims - cfg.max_interests_simi, min=0.0)
-                      * pair_mask) / torch.clamp(torch.sum(pair_mask),
-                                                 min=1e-9)
+      reg = mesh.batch_sum(torch.sum(
+          torch.clamp(sims - cfg.max_interests_simi, min=0.0) * pair_mask)) \
+          / torch.clamp(mesh.batch_sum(torch.sum(pair_mask)), min=1e-9)
       losses['interest_simi_reg'] = reg
       total = total + reg
     return total, losses

@@ -19,6 +19,7 @@ from easyrec_torch.models.base import BaseModel, ModelContext, register_model
 from easyrec_torch.models.match import MatchModel, normalize, tower_dnn
 from easyrec_torch.models.seq_input import build_flat_part
 from easyrec_torch.ops.embedding import sequence_dim
+from easyrec_torch.parallel import mesh
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -211,12 +212,18 @@ class CoMetricLearningI2I(BaseModel):
 
   def metric_inputs(self, outputs, batch) -> Dict[str, torch.Tensor]:
     """Every off-diagonal pair of the batch: a positive where both rows
-    share a session, scored by the sigmoid of its similarity."""
+    share a session, scored by the sigmoid of its similarity. In a world a
+    rank's rows pair with the global batch's (parallel/mesh.py), so the
+    ranks' pairs together are the global batch's."""
     emb = outputs['float_emb']
     sess = self._session_ids(batch)
-    sim = emb @ emb.T
-    same = (sess[None, :] == sess[:, None]).to(torch.float32)
-    off = 1.0 - torch.eye(sim.shape[0], device=sim.device)
+    cols, base = mesh.gather_rows(emb.detach())
+    sim = emb @ cols.T
+    same = (mesh.gather_ids(sess)[None, :] == sess[:, None]).to(
+        torch.float32)
+    rows = torch.arange(sim.shape[0], device=sim.device) + base
+    off = (rows[:, None] != torch.arange(sim.shape[1], device=sim.device)[
+        None, :]).to(torch.float32)
     return {'labels': (same * off).reshape(-1),
             'probs': torch.sigmoid(sim).reshape(-1),
             'preds': sim.reshape(-1), 'weights': off.reshape(-1)}

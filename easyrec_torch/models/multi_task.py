@@ -101,8 +101,8 @@ class MultiTaskModel(BaseModel):
           # a task's probability must not exceed its relation towers':
           # mean relu(p_t - p_rel), no sample weight
           for rel in getattr(tower, 'relation_tower_names', []):
-            value = torch.mean(torch.relu(outputs['probs_%s' % name] -
-                                          outputs['probs_%s' % rel]))
+            value = L.batch_mean(torch.relu(outputs['probs_%s' % name] -
+                                            outputs['probs_%s' % rel]))
             losses['order_calibrate_loss_%s_%s' % (rel, name)] = value
             total = total + loss_cfg.weight * value
           continue
@@ -254,8 +254,7 @@ class ESMM(MultiTaskModel):
     ctcvr_label = ctr_label * cvr_label
     p = torch.clamp(outputs['probs_ctcvr'], 1e-7, 1 - 1e-7)
     per = -(ctcvr_label * torch.log(p) + (1 - ctcvr_label) * torch.log(1 - p))
-    ctcvr_loss = torch.sum(per * weights) / torch.clamp(torch.sum(weights),
-                                                        min=1e-9)
+    ctcvr_loss = L.weighted_mean(per, weights)
     total = ctr.weight * ctr_loss + cvr.weight * ctcvr_loss
     return total, {'ctr_loss': ctr_loss, 'ctcvr_loss': ctcvr_loss}
 

@@ -381,6 +381,22 @@ class FM(RankModel):
     return logits + self.global_bias[None, :]
 
 
+@register_model('DummyModel')
+class DummyModel(RankModel):
+  """reference: model/dummy_model.py; JAX rank.py:398-413. Zero logits plus
+  one trained bias [1], initialised to zero: it reads no embedding, so a
+  run times the input pipeline apart from a model."""
+
+  def __init__(self, ctx: ModelContext, generator=None, device=None):
+    super().__init__(ctx, device)
+    self.bias = nn.Parameter(torch.zeros(1, device=device))
+
+  def raw_logits(self, batch, pulled) -> torch.Tensor:
+    b = batch['sample_weight'].shape[0]
+    return torch.zeros((b, 1), device=self.bias.device) + \
+        self.bias[None, :]
+
+
 @register_model('RocketLaunching')
 class RocketLaunching(RankModel):
   """reference: model/rocket_launching.py; JAX rank_extra.py:32-128. The
@@ -455,9 +471,10 @@ class RocketLaunching(RankModel):
                                 min=1e-9)
           bn = bh / torch.clamp(torch.linalg.norm(bh, dim=-1, keepdim=True),
                                 min=1e-9)
-          sims.append(1.0 - torch.mean(torch.sum(ln * bn, dim=-1)))
+          sims.append(1.0 - L.batch_mean(torch.sum(ln * bn, dim=-1)))
         else:
-          sims.append(torch.sqrt(torch.mean(torch.square(lh - bh)) + 1e-12))
+          sims.append(torch.sqrt(L.batch_mean(torch.square(lh - bh)) +
+                                 1e-12))
       if sims:
         fd = sum(sims) / len(sims)
         losses['feature_distill'] = fd

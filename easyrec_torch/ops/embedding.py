@@ -2,7 +2,8 @@
 
 Counterpart of easyrec_tpu/ops/embedding.py (single device): `pack_ids`
 (:21), `pull_embeddings` (:56), `pack_all_views` (:230), `combine` (:241)
-and `InputLayer` (:268-422). A sampler's batch views ('neg.', 'hard_neg.')
+and `InputLayer` (:268-422); over a row-sharded table in a world of
+processes, `ep_pull_sharded` (:150-227) and `ep_pull_replicated` (:114-142). A sampler's batch views ('neg.', 'hard_neg.')
 are packed under '<prefix><table>' and read through the InputLayer's
 `prefix`. A sequence in a flat
 feature group is reduced by its SequenceCombiner (`_combine_sequence`,
@@ -17,12 +18,15 @@ applies to the table.
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 
 from easyrec_torch.features.embedding_layout import EmbeddingLayout
 from easyrec_torch.ops import packed_table as pt
+from easyrec_torch.parallel import exchange as xch
+from easyrec_torch.parallel.mesh import RowSplit, World
 
 
 def pack_ids(layout: EmbeddingLayout, batch: Dict[str, torch.Tensor],
@@ -80,15 +84,93 @@ def view_table(pack_key: str) -> str:
   return pack_key
 
 
+@dataclasses.dataclass
+class Sharding:
+  """How a trainer in a world holds its tables: `splits` names the
+  row-sharded ones (each rank holds its RowSplit block); a table not in it
+  is whole on every rank. `stats` counts the rows this rank's exchanges
+  dropped, by counter name (the JAX step's xstats)."""
+  world: World
+  splits: Dict[str, RowSplit]
+  stats: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+  def count(self, name: str, n: int) -> None:
+    self.stats[name] = self.stats.get(name, 0) + int(n)
+
+
 def pull_embeddings(tables: Dict[str, torch.Tensor],
                     packs: Dict[str, torch.Tensor],
-                    metas: Dict[str, pt.TableMeta]
+                    metas: Dict[str, pt.TableMeta],
+                    sharding: Optional[Sharding] = None
                     ) -> Dict[str, torch.Tensor]:
   """One gather per pack (a table's, or a sampled view's of it) ->
-  [rows, totK, dim]."""
-  return {key: pt.pull(tables[view_table(key)], packs[key],
-                       metas[view_table(key)])
-          for key in packs}
+  [rows, totK, dim]. A row-sharded table is read through the exchange:
+  the base batch's pack and the 'hard_neg.' view (each rank's rows' own)
+  by ep_pull_sharded, the 'neg.' view (the same on every rank) by
+  ep_pull_replicated; dropped rows are counted into
+  sharding.stats['ep_pull_overflow']."""
+  out = {}
+  for key, ids in packs.items():
+    base = view_table(key)
+    split = sharding.splits.get(base) if sharding is not None else None
+    if split is None:
+      out[key] = pt.pull(tables[base], ids, metas[base])
+    elif key.startswith('neg.'):
+      out[key] = ep_pull_replicated(sharding, tables[base], ids, split,
+                                    metas[base].dim)
+    else:
+      out[key] = ep_pull_sharded(sharding, tables[base], ids, split,
+                                 metas[base].dim)
+  return out
+
+
+def ep_pull_sharded(sharding: Sharding, table: torch.Tensor,
+                    ids: torch.Tensor, split: RowSplit, dim: int,
+                    counter: Optional[str] = 'ep_pull_overflow'
+                    ) -> torch.Tensor:
+  """EmbeddingParallel forward over a row-sharded table (JAX :150-227):
+  flatten and dedup this rank's ids, send them to their owners, gather
+  there from the owner's block `table` [count, >= dim], send the rows back
+  and undo the dedup -> [..., dim]. Rows the capacity cut drops pull zeros
+  and are counted under `counter`."""
+  world = sharding.world
+  lr = split.local_rows
+  flat = ids.reshape(-1).to(torch.int64)
+  n_loc = flat.shape[0]
+  uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
+  pad_id = world.size * lr
+  uids = torch.cat([uniq, uniq.new_full((n_loc - uniq.shape[0],), pad_id)])
+  route = xch.build_route(world, uids, lr, cap=xch.capacity_rows(
+      n_loc, world.size, split.live_owners))
+  lids = xch.send_to_owners(world, route, uids % lr, 0)
+  n = sum(route.recv_sizes)
+  rows = table.new_zeros((route.cap, dim))
+  rows[:n] = torch.index_select(table[:, :dim], 0, lids[:n])
+  vecs = xch.return_to_requesters(world, route, rows)
+  if counter:
+    sharding.count(counter, route.overflow)
+  return vecs[inv].reshape(tuple(ids.shape) + (dim,))
+
+
+def ep_pull_replicated(sharding: Sharding, table: torch.Tensor,
+                       ids: torch.Tensor, split: RowSplit, dim: int
+                       ) -> torch.Tensor:
+  """EP pull of a pack every rank holds alike (a sampled view; JAX
+  _ep_pull_replicated, :114-142): rank r pulls the r-th of W equal slices
+  of the flat ids (padded with id 0), and the slices' rows are gathered
+  on every rank."""
+  world = sharding.world
+  flat = ids.reshape(-1).to(torch.int64)
+  pad = (-flat.shape[0]) % world.size
+  if pad:
+    flat = torch.cat([flat, flat.new_zeros(pad)])
+  per = flat.shape[0] // world.size
+  mine = flat[world.rank * per:(world.rank + 1) * per]
+  vecs = torch.cat(world.all_gather(
+      ep_pull_sharded(sharding, table, mine, split, dim)))
+  if pad:
+    vecs = vecs[:-pad]
+  return vecs.reshape(tuple(ids.shape) + (dim,))
 
 
 def combine(rows: torch.Tensor, weights: torch.Tensor,

@@ -385,3 +385,54 @@ class EvSet(_EvMath):
 
   def kernel_math(self, compact=False):
     return MATH_EV_SET, []
+
+
+# ------------------------------------------------- the update in a world
+
+def packed_update_sharded(world, table: torch.Tensor, ids: torch.Tensor,
+                          grads: torch.Tensor, hypers: torch.Tensor,
+                          opt: 'SparseOptimizer', meta, split) -> int:
+  """The sparse update of a row-sharded table (JAX _packed_update_sharded,
+  :341-431), in place on this rank's block `table` [count, width], whose
+  geometry is `meta` (ops/packed_table.TableMeta of `count` rows):
+    1. this rank's ids and gradients are summed per id by K1 over their
+       sorted segments (in K3's f32 arithmetic under
+       EASYREC_PACKED_FUSED=1, else in EASYREC_GG_BF16's mode), the
+       unique ids ascending with a sentinel tail past every owner;
+    2. the ids, as rows of their owner's block, and their sums travel to
+       the owners (parallel/exchange.py), cut at the owner's capacity;
+    3. each owner runs the update of ops/packed_table.apply_packed_update
+       (K1 + K2, or K3) over the slots it received; a slot nothing arrived
+       in holds an id past its block, which the kernels skip.
+  At world size 1 the owner's K1 sees each id once, so the step equals
+  the unsharded one bit for bit. Returns the rows bound for this rank
+  that the capacity cut dropped."""
+  from easyrec_torch.ops import packed_table as pt
+  from easyrec_torch.parallel import exchange as xch
+  lr = split.local_rows
+  ids = ids.reshape(-1).to(torch.int64)
+  grads = grads.reshape(-1, meta.dim).to(torch.float32).contiguous()
+  n = ids.shape[0]
+  mode = '0' if pt.fused_mode() else pt.gg_mode()
+  sids, order, starts = pt.sort_segments(ids)
+  uids, gsum = pt.seg_sum(sids, order, starts, grads, world.size * lr, mode)
+  route = xch.build_route(world, uids, lr, cap=xch.capacity_rows(
+      n, world.size, split.live_owners))
+  rids = xch.send_to_owners(world, route, uids % lr, meta.rows)
+  rg = xch.send_to_owners(world, route, gsum, 0.0)
+  pt.apply_packed_update(table, rids, rg, hypers, opt, meta)
+  return route.overflow
+
+
+def packed_update_replicated(world, table: torch.Tensor, ids: torch.Tensor,
+                             grads: torch.Tensor, hypers: torch.Tensor,
+                             opt: 'SparseOptimizer', meta) -> None:
+  """The sparse update of a table every rank holds whole (MirroredStrategy
+  and the other replicating strategies): every rank's ids and gradients,
+  gathered in rank order, through one apply_packed_update on every rank,
+  so the ranks' tables stay equal bit for bit."""
+  from easyrec_torch.ops import packed_table as pt
+  ids = world.all_gather_rows(ids.reshape(-1).to(torch.int64))
+  grads = world.all_gather_rows(
+      grads.reshape(-1, meta.dim).to(torch.float32).contiguous())
+  pt.apply_packed_update(table, ids, grads, hypers, opt, meta)

@@ -1,11 +1,15 @@
-"""Exact and IVF top-k search over item embeddings on one device.
+"""Exact and IVF top-k search over item embeddings.
 
 Counterpart of easyrec_tpu/retrieval/knn.py: KnnIndex (:22-106),
 topk_search and hitrate_at_k (:109-131), the k-means of _kmeans_fit
 (:137-158) and IvfIndex (:161-253). The JAX index shards the corpus over
 a mesh, takes a top-k per shard and merges them; on one device the
 padding and the merge fall away, and a search is one [B, D] x [D, N] f32
-GEMM and one torch.topk per query batch. query_batch sizes the batch from
+GEMM and one torch.topk per query batch. In a world of processes
+(parallel/mesh.py) a KnnIndex holds one block of the corpus a rank, as the
+JAX index holds one a device (:66-106): each rank scores its rows and takes
+a local top-k, the ranks all-gather their candidates, and every rank takes
+the top-k of those, in sorted_topk's order. query_batch sizes the batch from
 the corpus: a [B, N] f32 block of scores is B x N x 4 bytes, so B is the
 largest power of two whose block fits SCORE_BLOCK_BYTES (1,024 queries
 over 1,000,000 items), at most hitrate_at_k's 4,096. The scores are f32
@@ -86,16 +90,28 @@ class KnnIndex:
   unless the caller asks for the CPU)."""
 
   def __init__(self, item_embeddings, item_ids: Optional[np.ndarray] = None,
-               metric: str = 'ip', device=None):
+               metric: str = 'ip', device=None, world=None):
+    """world: a mesh.World whose ranks share the corpus; every rank passes
+    the whole item_embeddings and keeps its block of rows (ceil(N / W)
+    a rank)."""
     if metric not in METRICS:
       raise ValueError('metric %r: one of %s' % (metric, METRICS))
-    self.device = resolve_device(device)
+    self.world = world
+    self.device = world.device if world is not None else \
+        resolve_device(device)
     self.metric = metric
     emb = _as_f32(item_embeddings, self.device)
+    self.row0 = 0
+    if world is not None:
+      per = -(-emb.shape[0] // world.size)
+      self.row0 = min(world.rank * per, emb.shape[0])
+      self.global_items = int(emb.shape[0])
+      emb = emb[self.row0:self.row0 + per]
     if metric == 'cos':
       emb = _normalize(emb)
     self.embeddings = emb
-    self.num_items = int(emb.shape[0])
+    self.num_items = int(emb.shape[0]) if world is None else \
+        self.global_items
     self.query_batch = query_batch(4 * self.num_items)
     self.ids = item_ids if item_ids is not None else np.arange(
         self.num_items)
@@ -114,8 +130,25 @@ class KnnIndex:
   def search_tensor(self, q: torch.Tensor, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores, rows) [B, k] on the device for one batch of device
-    queries."""
-    return sorted_topk(self.scores(q), min(k, self.num_items))
+    queries; in a world, the merge of every rank's local top-k."""
+    k = min(k, self.num_items)
+    if self.world is None:
+      return sorted_topk(self.scores(q), k)
+    local = self.scores(q)
+    n = local.shape[1]
+    if n < k:
+      # a block shorter than k: its missing candidates score -inf
+      local = torch.cat([local, local.new_full((local.shape[0], k - n),
+                                               float('-inf'))], dim=1)
+    s, i = sorted_topk(local, k)
+    i = i + self.row0
+    cand_s = torch.cat(self.world.all_gather(s), dim=1)
+    cand_i = torch.cat(self.world.all_gather(i), dim=1)
+    # sorted_topk's order over the candidates: by score, then row
+    cand_i, perm = torch.sort(cand_i, dim=1, stable=True)
+    cand_s = torch.gather(cand_s, 1, perm)
+    best, pos = torch.sort(cand_s, dim=1, descending=True, stable=True)
+    return best[:, :k], torch.gather(cand_i, 1, pos[:, :k])
 
   def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
     """(scores [B, k], row indices [B, k]) of the exact top-k."""

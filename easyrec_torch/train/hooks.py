@@ -57,7 +57,10 @@ class BestExporter:
   (reference compat/exporter.py BestExporter:88-335)."""
 
   def __init__(self, model_dir: str, metric: str = 'auc',
-               bigger: bool = True):
+               bigger: bool = True, write: bool = True):
+    """write=False (a rank of a world but rank 0) decides alike and calls
+    export_fn, but touches no file."""
+    self.write = write
     self.model_dir = model_dir
     self.metric = metric
     self.bigger = bigger
@@ -75,6 +78,10 @@ class BestExporter:
       return False
     export_dir = os.path.join(self.model_dir, 'best_export')
     tmp_dir = export_dir + '.new'
+    if not self.write:
+      export_fn(tmp_dir)
+      self.best_value, self.best_step = value, step
+      return True
     if os.path.exists(tmp_dir):
       shutil.rmtree(tmp_dir)
     # export FIRST, then swap + record: a failed export must neither

@@ -2,7 +2,9 @@
 
 Counterpart of easyrec_tpu/train/trainer.py (Trainer.__init__, init_state
 :184, the step :298-401, eval_params :405, evaluate :502, fit :640 with its
-checkpoints and hooks) on one device. A step:
+checkpoints and hooks), on one device or in a world of processes, one a
+device (parallel/mesh.py; the JAX package's mesh code, :104-213, :289-453,
+:471-497, :534-635, :800-846). A step:
   1. pulls the batch's rows by index_select on the tables' weight columns
      (no autograd on the tables themselves);
   2. marks the pulled rows as requiring grad, zeroes the rows of id slots
@@ -37,6 +39,28 @@ The tables hold the embedding optimizer's slots beside the weights
 unless EASYREC_PACKED_COMPACT=0). Everything the step needs per step (step
 counter, learning rates, Adam bias corrections) stays on the device: a
 step syncs the host only where the caller reads a loss.
+
+In a world (a Trainer made with `world`, or after mesh.join_world) every
+rank reads its own shard of the input (shard_index = rank), and the step
+equals the JAX step over the global batch:
+  - the batch-wide reductions run global (mesh.step_scope: the losses'
+    sums, BatchNorm's statistics, a match model's in-batch columns), so
+    every rank holds the global loss; every gradient, dense and sparse,
+    is summed over the ranks and divided by the world size (mesh.py says
+    why that is the global batch's gradient);
+  - row-sharded tables (train_distribute, mesh.make_rules) hold this
+    rank's block of rows (mesh.RowSplit), read by ops/embedding.py
+    ep_pull_sharded and updated by optim/sparse.py packed_update_sharded;
+    the rows the exchange's capacity cut drops are returned as
+    exchange_ep_pull_overflow and exchange_update_overflow, summed over the
+    ranks; fit aborts where their rate stays above overflow_abort_rate;
+  - replicated tables are whole on every rank and updated from every
+    rank's ids and gradients, gathered in rank order, so they stay equal
+    bit for bit;
+  - eval keeps the ranks step-aligned with zero-weight filler batches,
+    sums the metric states over the ranks and gathers the host buffers in
+    rank order; rank 0 alone writes the checkpoint stamp and dense state,
+    the eval result, the events files, the export and data_offset.json.
 """
 
 from __future__ import annotations
@@ -50,6 +74,7 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from easyrec_torch import convert
@@ -66,6 +91,8 @@ from easyrec_torch.models import (  # noqa: F401 (registers)
 from easyrec_torch.ops import embedding as emb_ops
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.optim import builder as opt_builder
+from easyrec_torch.optim import sparse as sparse_lib
+from easyrec_torch.parallel import mesh
 from easyrec_torch.train import checkpoints as ckpt_lib
 from easyrec_torch.train import hooks
 from easyrec_torch.train.restore import fine_tune_restore
@@ -144,11 +171,23 @@ def to_device(batch: Dict[str, np.ndarray],
 class Trainer:
   """Builds the whole training program from one pipeline config."""
 
-  def __init__(self, pipeline_config, device=None, check_mode: bool = False):
+  def __init__(self, pipeline_config, device=None, check_mode: bool = False,
+               world=mesh.CURRENT):
     config_util.check_ported(pipeline_config)
     # --check_mode: each raw input chunk is validated (data/check.py)
     self.check_mode = bool(check_mode)
-    self.device = resolve_device(device)
+    # the world this trainer is a rank of: the one given, by default the
+    # one this process joined; None is the single-device path
+    self.world = mesh.current_world() if world is mesh.CURRENT else world
+    if self.world is not None:
+      if device is not None and torch.device(device).type != \
+          self.world.device.type:
+        raise ValueError('device %s is not the world\'s device %s'
+                         % (device, self.world.device))
+      self.device = self.world.device
+    else:
+      self.device = resolve_device(device)
+    self.is_chief = self.world is None or self.world.is_chief
     self.pipeline_config = pipeline_config
     self.data_config = pipeline_config.data_config
     self.train_config = pipeline_config.train_config
@@ -171,6 +210,15 @@ class Trainer:
     self.embed_pair = embed_override or self.dense_pair
     self.metas = {key: pt.table_meta(t.rows, t.dim, self.embed_pair.sparse)
                   for key, t in self.layout.tables.items()}
+    # in a world: which tables are row-sharded, and each one's owners
+    self.sharding = None
+    if self.world is not None:
+      rules = mesh.make_rules(tc, self.world)
+      splits = {key: mesh.row_split(m.rows, m.dim, m.n_parts,
+                                    self.world.size)
+                for key, m in self.metas.items()} \
+          if rules.shard_embeddings else {}
+      self.sharding = emb_ops.Sharding(self.world, splits)
     self.l2_reg = _model_l2_reg(pipeline_config.model_config)
     self.emb_reg = float(pipeline_config.model_config
                          .embedding_regularization)
@@ -203,8 +251,11 @@ class Trainer:
       table = torch.zeros((meta.rows, meta.width), dtype=torch.float32,
                           device=self.device)
       self.layout.init_weights(key, self.seed, self.device, table)
-      self.tables[key] = self.layout.fill_slots(
-          key, table, pt.slot_fill(meta, slot_init))
+      # a rank's block of a row-sharded table: the same draws as the
+      # whole table's, cut
+      self.tables[key] = self.own_rows(key, self.layout.fill_slots(
+          key, table, pt.slot_fill(meta, slot_init)))
+      del table
     self.dense_opt = self.dense_pair.dense(
         dict(self.model.named_parameters()))
     self.frozen = frozen_parameters(self.model,
@@ -212,11 +263,68 @@ class Trainer:
     self.ev_state = ev_lib.init_ev_state(self.layout, self.ev_plan,
                                          self.device) \
         if self.ev_plan else {}
+    self.ev_state = {key: {n: self.own_rows(key, t) for n, t in aux.items()}
+                     for key, aux in self.ev_state.items()}
     # id slots EV has masked in this trainer's steps, and (step, rows
     # swept by table) of its sweeps; neither is checkpointed
     self.ev_masked = torch.zeros((), dtype=torch.int64, device=self.device)
     self.ev_swept = []
     self.step = torch.zeros((), dtype=torch.int32, device=self.device)
+
+  def own_rows(self, key: str, table: torch.Tensor) -> torch.Tensor:
+    """This rank's block of rows of a whole table of `key` (the table
+    itself where it is not row-sharded, or is one block)."""
+    split = self.sharding.splits.get(key) if self.sharding else None
+    if split is None or split.count(self.world.rank) == table.shape[0]:
+      return table
+    lo = split.start(self.world.rank)
+    return table[lo:lo + split.count(self.world.rank)].clone()
+
+  def shard_layout(self) -> Optional[ckpt_lib.ShardLayout]:
+    if self.world is None:
+      return None
+    return ckpt_lib.ShardLayout(self.world.rank, self.world.size,
+                                self.sharding.splits)
+
+  def checkpoint_manager(self, model_dir: str, max_to_keep: int = 10
+                         ) -> ckpt_lib.CheckpointManager:
+    """A manager that writes and reads this trainer's rows: in a world,
+    each rank its block, the stamp and the dense state by rank 0."""
+    return ckpt_lib.CheckpointManager(
+        model_dir, max_to_keep=max_to_keep, layout_stamp=self.layout_stamp(),
+        world=self.world, layout=self.shard_layout())
+
+  @torch.no_grad()
+  def whole_tables(self) -> Dict[str, torch.Tensor]:
+    """Every table whole on every rank (a collective in a world with
+    row-sharded tables; the tables themselves otherwise)."""
+    if self.sharding is None or not self.sharding.splits:
+      return dict(self.tables)
+    return {key: (self.world.all_gather_rows(t)
+                  if key in self.sharding.splits else t)
+            for key, t in self.tables.items()}
+
+  def unsharded(self):
+    """A context in which this trainer holds its tables whole and runs as
+    one device (an export or a predictor reads it so); every rank of a
+    world enters it together."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+      saved = (self.tables, self.ev_state, self.sharding)
+      whole = self.whole_tables()
+      ev_whole = {key: {n: (self.world.all_gather_rows(t)
+                            if self.sharding and key in
+                            self.sharding.splits else t)
+                        for n, t in aux.items()}
+                  for key, aux in self.ev_state.items()}
+      self.tables, self.ev_state, self.sharding = whole, ev_whole, None
+      try:
+        yield self
+      finally:
+        self.tables, self.ev_state, self.sharding = saved
+    return scope()
 
   def state_dict(self) -> Dict[str, Any]:
     """Everything a checkpoint holds (train/checkpoints.py): the step, the
@@ -230,21 +338,38 @@ class Trainer:
   @torch.no_grad()
   def load_state_dict(self, state: Dict[str, Any]) -> None:
     """Copy a state_dict (a checkpoint's, or one built by convert.py from
-    the JAX package's state) into the trainer, after init_state."""
+    the JAX package's state) into the trainer, after init_state; a rank of
+    a world takes its block of a whole table."""
     self.step = torch.as_tensor(state['step']).to(
         device=self.device, dtype=torch.int32).clone()
     self.model.load_state_dict(state['model'])
     for key, table in self.tables.items():
-      table.copy_(state['tables'][key])
+      table.copy_(self._mine(key, state['tables'][key], table))
     for key, aux in self.ev_state.items():
       for name, t in aux.items():
-        t.copy_(state['ev'][key][name])
+        t.copy_(self._mine(key, state['ev'][key][name], t))
     self.dense_opt.load_state_dict(state['dense_opt'])
+
+  def _mine(self, key: str, src: torch.Tensor, dst: torch.Tensor
+            ) -> torch.Tensor:
+    """src, or this rank's block of it where src is the whole table."""
+    if src.shape[0] != dst.shape[0] and src.shape[0] == self.metas[key].rows:
+      split = self.sharding.splits[key]
+      lo = split.start(self.world.rank)
+      return src[lo:lo + dst.shape[0]]
+    return src
 
   def layout_stamp(self) -> dict:
     """The tables' geometry, stored with and checked against checkpoints
-    (train/checkpoints.layout_stamp)."""
-    return ckpt_lib.layout_stamp(self.metas, self.ev_state)
+    (train/checkpoints.layout_stamp); in a world, with its size and row
+    split."""
+    stamp = ckpt_lib.layout_stamp(self.metas)
+    stamp['ev'] = {key: {n: self.metas[key].rows for n in sorted(aux)}
+                   for key, aux in self.ev_state.items()}
+    if self.world is not None:
+      stamp['world'] = ckpt_lib.world_stamp(self.world.size,
+                                            self.sharding.splits)
+    return stamp
 
   # -- train step ----------------------------------------------------------
 
@@ -260,55 +385,118 @@ class Trainer:
       total = total + self.l2_reg * l2
     if self.emb_reg > 0:
       # padded tail rows (sample_weight 0) stay out of the regulariser; a
-      # sampler's views have none and count whole, filler columns too
+      # sampler's views have none and count whole, filler columns too. In
+      # a world the base batch's and the 'hard_neg.' view's rows are each
+      # rank's (summed over the ranks), the 'neg.' view's alike on every
+      # rank
       valid = (batch['sample_weight'] > 0).to(torch.float32)
       reg = None
       for k, p in pulled.items():
         sq = torch.sum(p * p, dim=tuple(range(1, p.ndim)))
         if emb_ops.view_table(k) == k and p.shape[0] == valid.shape[0]:
-          term = torch.sum(sq * valid)
+          term = mesh.batch_sum(torch.sum(sq * valid))
+        elif k.startswith('hard_neg.'):
+          term = mesh.batch_sum(torch.sum(sq))
         else:
           term = torch.sum(sq)
         reg = term if reg is None else reg + term
       total = total + self.emb_reg * reg
     return total, loss_dict
 
+  def pull(self, packs: Dict[str, torch.Tensor]
+           ) -> Dict[str, torch.Tensor]:
+    """The rows of every pack, through the exchange where tables are
+    row-sharded."""
+    return emb_ops.pull_embeddings(self.tables, packs, self.metas,
+                                   self.sharding)
+
+  def _reduce_dense_grads(self) -> None:
+    """Sum the dense gradients over the ranks in one all-reduce and divide
+    by the world size (mesh.py: the global batch's gradient)."""
+    params = self.dense_opt.params
+    flat = torch.cat([(p.grad if p.grad is not None else
+                       torch.zeros_like(p)).reshape(-1) for p in params])
+    self.world.all_reduce(flat)
+    if self.world.size > 1:
+      flat = flat / self.world.size
+    at = 0
+    for p in params:
+      n = p.numel()
+      p.grad = flat[at:at + n].view_as(p).clone()
+      at += n
+
+  def _exchange_counts(self) -> Dict[str, torch.Tensor]:
+    """This step's dropped rows, summed over the ranks (one all-reduce):
+    exchange_ep_pull_overflow and exchange_update_overflow."""
+    names = ('ep_pull_overflow', 'update_overflow')
+    counts = torch.tensor([float(self.sharding.stats.get(n, 0))
+                           for n in names], device=self.device)
+    self.sharding.stats.clear()
+    self.world.all_reduce(counts)
+    return {'exchange_%s' % n: counts[i] for i, n in enumerate(names)}
+
   def train_step(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
     """One step on a batch of device tensors; returns device scalars."""
     packs = emb_ops.pack_all_views(self.layout, batch)
-    pulled = {k: v.requires_grad_() for k, v in
-              emb_ops.pull_embeddings(self.tables, packs, self.metas).items()}
+    pulled = {k: v.requires_grad_() for k, v in self.pull(packs).items()}
     used = ev_lib.mask_pulled(pulled, packs, self.ev_state, self.ev_plan,
-                              self.step, self.ev_masked) \
+                              self.step, self.ev_masked, self.sharding) \
         if self.ev_plan else pulled
     self.model.train()
-    outputs = self.model(batch, used)
-    total, loss_dict = self._regularised_loss(outputs, batch, used)
+    with mesh.step_scope(self.world):
+      outputs = self.model(batch, used)
+      total, loss_dict = self._regularised_loss(outputs, batch, used)
     for p in self.dense_opt.params:
       p.grad = None
     total.backward()
     for p in self.frozen:
       p.grad = None           # a zero gradient: the optimizer still steps
+    if self.world is not None:
+      self._reduce_dense_grads()
     self.dense_opt.step()
     with torch.no_grad():
       lr = self.embed_pair.schedule(self.step) * \
           self.embed_pair.embedding_lr_multiplier
       sparse = self.embed_pair.sparse
       hypers = sparse.hypers(lr, self.step)
+      sh = self.sharding
       for key, meta in self.metas.items():
         ids, grads = view_stream(packs, pulled, key)
-        pt.apply_packed_update(self.tables[key], ids, grads, hypers,
-                               sparse, meta)
+        if sh is None:
+          pt.apply_packed_update(self.tables[key], ids, grads, hypers,
+                                 sparse, meta)
+          continue
+        if sh.world.size > 1:
+          grads = grads / sh.world.size
+        if key in sh.splits:
+          sh.count('update_overflow', sparse_lib.packed_update_sharded(
+              sh.world, self.tables[key], ids, grads, hypers, sparse,
+              pt.TableMeta(self.tables[key].shape[0], meta.dim,
+                           meta.logical_parts, meta.compact),
+              sh.splits[key]))
+        else:
+          sparse_lib.packed_update_replicated(sh.world, self.tables[key],
+                                              ids, grads, hypers, sparse,
+                                              meta)
       if self.ev_plan:
         ev_lib.update_ev_state(self.ev_state, packs, self.ev_plan,
-                               self.step)
+                               self.step, sh)
       self.step += 1
     out = {k: v.detach() for k, v in loss_dict.items()}
     out['total_loss'] = total.detach()
+    if sh is not None and sh.splits:
+      out.update(self._exchange_counts())
     return out
 
   # -- pipelines -----------------------------------------------------------
+
+  def _shard_kw(self) -> Dict[str, int]:
+    """In a world each rank reads its own shard of the input (the
+    reference's worker sharding; JAX trainer.py:471-497)."""
+    if self.world is None:
+      return {}
+    return {'shard_index': self.world.rank, 'shard_num': self.world.size}
 
   def train_input(self, batch_size=None, skip_rows: int = 0
                   ) -> InputPipeline:
@@ -319,7 +507,7 @@ class Trainer:
                          skip_rows=skip_rows,
                          extra_fields=config_util.collect_extra_fields(
                              self.pipeline_config),
-                         check_mode=self.check_mode)
+                         check_mode=self.check_mode, **self._shard_kw())
 
   def eval_input(self, batch_size=None) -> InputPipeline:
     return InputPipeline(self.data_config, self.feature_configs,
@@ -328,7 +516,7 @@ class Trainer:
                          mode='eval', batch_size=batch_size,
                          extra_fields=config_util.collect_extra_fields(
                              self.pipeline_config),
-                         check_mode=self.check_mode)
+                         check_mode=self.check_mode, **self._shard_kw())
 
   # -- evaluation ----------------------------------------------------------
 
@@ -356,14 +544,15 @@ class Trainer:
     state `auc_task_<name>` where the task's probs are one per row (JAX
     trainer.py:439-450); returns the loss and the metric inputs."""
     packs = emb_ops.pack_all_views(self.layout, batch)
-    pulled = emb_ops.pull_embeddings(self.tables, packs, self.metas)
-    outputs = self.eval_forward(batch, pulled)
-    loss, _ = self.model.build_loss(outputs, batch)
-    mi = self.model.metric_inputs(outputs, batch)
-    self.metrics.update_states(metric_states, mi['labels'], mi['probs'],
-                               mi['weights'], preds=mi.get('preds',
-                                                           mi['probs']),
-                               extra=mi)
+    pulled = self.pull(packs)
+    with mesh.step_scope(self.world):
+      outputs = self.eval_forward(batch, pulled)
+      loss, _ = self.model.build_loss(outputs, batch)
+      mi = self.model.metric_inputs(outputs, batch)
+      self.metrics.update_states(metric_states, mi['labels'], mi['probs'],
+                                 mi['weights'], preds=mi.get('preds',
+                                                             mi['probs']),
+                                 extra=mi)
     for name, tmi in self.model.metric_inputs_per_task(outputs,
                                                        batch).items():
       key = 'auc_task_%s' % name
@@ -391,20 +580,65 @@ class Trainer:
     # field.<name> ids, which the eval step does not see (JAX :527-612)
     buffers = self.metrics.init_host_buffers()
     losses: List[torch.Tensor] = []
-    for n, batch in enumerate(eval_iter, 1):
+    world = self.world
+    # dropped rows of the exchange and id slots, summed over the ranks
+    # (JAX :628-635)
+    dropped, slots = 0.0, 0
+    it = iter(eval_iter)
+    template, n = None, 0
+    while True:
+      batch = next(it, None)
+      filler = batch is None
+      if world is not None:
+        # step-aligned: a rank whose shard ran dry feeds zero-weight
+        # copies of its last batch until every rank has (JAX :562-593)
+        more = torch.tensor([0.0 if filler else 1.0], device=self.device)
+        if float(world.all_reduce(more)) == 0.0:
+          break
+        if filler:
+          batch = dict(template if template is not None else
+                       self._empty_eval_batch())
+          batch['sample_weight'] = np.zeros_like(batch['sample_weight'])
+        else:
+          template = batch
+      elif filler:
+        break
       batch = dict(batch)
       host = {f: np.asarray(batch.pop('field.%s' % f))
               for f in self.metrics.host_fields if 'field.%s' % f in batch}
-      loss, mi = self.eval_step(to_device(batch, self.device), states)
-      losses.append(loss)
+      loss, mi = self.eval_step(self.device_batch(batch), states)
+      n += 1
+      if not filler or world is not None:
+        # in a world the loss is the global batch's, which has real rows
+        # on some rank at every step the loop runs: every rank counts it
+        losses.append(loss)
+      if self.sharding is not None and self.sharding.splits:
+        counts = torch.tensor(
+            [float(sum(self.sharding.stats.values())),
+             float(sum(int(np.prod(v.shape)) for k, v in batch.items()
+                       if k.endswith('.ids')) if not filler else 0)],
+            device=self.device)
+        self.sharding.stats.clear()
+        world.all_reduce(counts)
+        dropped += float(counts[0])
+        slots += int(counts[1])
       if buffers:
         valid = mi['weights'].cpu().numpy() > 0
         labels = mi['labels'].cpu().numpy()[valid]
         probs = mi['probs'].cpu().numpy()[valid]
-        for f, ids in host.items():
-          buffers[f].add(ids[valid], labels, probs)
+        parts = [(labels, probs, {f: ids[valid] for f, ids in host.items()})]
+        if world is not None:
+          parts = world.gather_objects(parts[0])
+        for labels, probs, ids in parts:
+          for f in buffers:
+            if f in ids:
+              buffers[f].add(ids[f], labels, probs)
       if max_batches and n >= max_batches:
         break
+    if world is not None:
+      for state in states.values():
+        for t in (state.values() if isinstance(state, dict) else [state]):
+          world.all_reduce(t)
     results = self.metrics.results(states, buffers or None)
     for key, state in states.items():
       if key.startswith('auc_task_'):
@@ -412,9 +646,56 @@ class Trainer:
             metrics_lib.auc_result(state)
     if losses:
       results['loss'] = float(np.mean([float(x) for x in losses]))
+    if slots:
+      results['exchange_overflow_rate'] = dropped / slots
     return results
 
+  def _empty_eval_batch(self) -> Dict[str, np.ndarray]:
+    """A batch of the eval shape for a rank whose eval shard is empty (its
+    rows get weight 0), with every host-metric field."""
+    from easyrec_torch.utils.synthetic import synthetic_batch
+    bs = int(self.data_config.eval_batch_size) or \
+        int(self.data_config.batch_size)
+    batch = synthetic_batch(self.specs, list(self.ctx.label_fields), bs)
+    for f in self.metrics.host_fields:
+      batch['field.%s' % f] = np.zeros(bs, np.int64)
+    return batch
+
   # -- training loop -------------------------------------------------------
+
+  def _overflow_guard(self, loss_dict, batch, step: int, windows: int
+                      ) -> int:
+    """The exchange-overflow guardrail at log cadence (JAX trainer.py
+    :815-846): the rows dropped in this step's exchanges over its id slots
+    (every rank's); past train_config.overflow_abort_rate for
+    overflow_abort_windows windows in a row, training aborts. Returns the
+    windows in a row so far."""
+    tc = self.train_config
+    abort_rate = float(tc.overflow_abort_rate)
+    if abort_rate <= 0:
+      return 0
+    dropped = sum(float(v) for k, v in loss_dict.items()
+                  if k.startswith('exchange_') and k.endswith('overflow'))
+    slots = sum(int(np.prod(v.shape)) for k, v in batch.items()
+                if k.endswith('.ids'))
+    slots *= self.world.size if self.world is not None else 1
+    if not slots or dropped / slots <= abort_rate:
+      return 0
+    windows += 1
+    logging.warning(
+        'exchange overflow %.1f%% of %d id slots at step %d (window %d/%d '
+        'before abort) — raise EASYREC_EXCHANGE_CAP_FACTOR or rebalance '
+        'the table', 100.0 * dropped / slots, slots, step, windows,
+        int(tc.overflow_abort_windows))
+    if windows >= int(tc.overflow_abort_windows):
+      raise RuntimeError(
+          'exchange overflow rate %.1f%% exceeded train_config.'
+          'overflow_abort_rate=%.3f for %d consecutive logging windows: the '
+          'capacity-bounded owner buffers (parallel/exchange.py) are '
+          'dropping ids — raise EASYREC_EXCHANGE_CAP_FACTOR, shrink the '
+          'per-chip batch, or set overflow_abort_rate: 0 to accept the '
+          'drops.' % (100.0 * dropped / slots, abort_rate, windows))
+    return windows
 
   def save(self, manager: ckpt_lib.CheckpointManager, step: int,
            force: bool = False) -> bool:
@@ -426,6 +707,34 @@ class Trainer:
       self.ev_swept.append((step, swept))
       logging.info('EV sweep at step %d: rows evicted %s', step, swept)
     return manager.save(self.state_dict(), step, force=force)
+
+  def device_batch(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+    """A host batch of this rank on the device. In a world of more than
+    one rank a sampler's 'neg.' view is rank 0's on every rank, as the JAX
+    package replicates it (parallel/mesh.py:62-73): a rank's sampler
+    redraws the positives of its own rows, a NegativeSamplerV2 leaves out
+    its own rows' positives, and a rank whose eval shard has run dry
+    repeats its last batch."""
+    if self.world is not None and self.world.size > 1:
+      view = [{k: v for k, v in batch.items() if k.startswith('neg.')}]
+      dist.broadcast_object_list(view, src=0, group=self.world.group)
+      batch = {k: v for k, v in batch.items() if not k.startswith('neg.')}
+      batch.update(view[0])
+    return to_device(batch, self.device)
+
+  def step_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """train_step on a host batch of this rank (device_batch)."""
+    return self.train_step(self.device_batch(batch))
+
+  def export(self, export_fn):
+    """export_fn() on rank 0, with the tables whole (every rank of a world
+    calls it); its result on rank 0, None elsewhere."""
+    with self.unsharded():
+      out = export_fn() if self.is_chief else None
+    if self.world is not None:
+      self.world.barrier()
+    return out
 
   def fit(self, num_steps: Optional[int] = None,
           log_every: Optional[int] = None,
@@ -485,9 +794,8 @@ class Trainer:
     manager = None
     resumed = False
     if checkpoint and self.model_dir:
-      manager = ckpt_lib.CheckpointManager(
-          self.model_dir, max_to_keep=int(tc.keep_checkpoint_max) or 10,
-          layout_stamp=self.layout_stamp())
+      manager = self.checkpoint_manager(
+          self.model_dir, max_to_keep=int(tc.keep_checkpoint_max) or 10)
       restored = manager.restore_latest()
       if restored is not None:
         self.load_state_dict(restored)
@@ -510,7 +818,7 @@ class Trainer:
         ec.exporter_type == 'best' or ec.HasField('best_exporter_metric')):
       best_exporter = hooks.BestExporter(
           self.model_dir, metric=ec.best_exporter_metric or 'auc',
-          bigger=ec.metric_bigger)
+          bigger=ec.metric_bigger, write=self.is_chief)
     deadline = hooks.DeadlineStopper(tc.dead_line) if tc.dead_line else None
     stop_signal = hooks.StopSignalFile(
         self.model_dir, enabled=tc.enable_oss_stop_signal) \
@@ -522,6 +830,10 @@ class Trainer:
     step = int(self.step)
     publisher = None
     if tc.HasField('incr_save_config') and self.model_dir:
+      if self.world is not None and self.world.size > 1:
+        raise NotImplementedError(
+            'incr_save_config in a world of %d processes: the incremental '
+            'publisher diffs whole tables on one device' % self.world.size)
       from easyrec_torch.train.incremental import IncrementalPublisher
       ic = tc.incr_save_config
       publisher = IncrementalPublisher(ic, self.model_dir)
@@ -530,7 +842,9 @@ class Trainer:
       incr_secs = int(ic.sparse_save_secs or ic.dense_save_secs or 0)
       last_incr = time.time()
       publisher.publish(self, step)       # the base snapshot
-    summary = SummaryWriter(self.model_dir) if self.model_dir else None
+    summary = SummaryWriter(self.model_dir) \
+        if self.model_dir and self.is_chief else None
+    overflow_windows = 0
     losses: List[torch.Tensor] = []
     history = []
     t0, window = time.time(), 0
@@ -556,7 +870,7 @@ class Trainer:
     trained_offsets = None
 
     def save_offsets(at_step):
-      if offset_file and trained_offsets is not None:
+      if offset_file and trained_offsets is not None and self.is_chief:
         with open(offset_file, 'w') as f:
           json.dump({'step': at_step,
                      'offsets': {str(k): int(v)
@@ -569,7 +883,7 @@ class Trainer:
       # batch's
       if train_pipe.last_batch_offsets is not None:
         trained_offsets = dict(train_pipe.last_batch_offsets)
-      loss_dict = self.train_step(to_device(batch, self.device))
+      loss_dict = self.step_batch(batch)
       losses.append(loss_dict['total_loss'])
       step += 1
       window += batch['sample_weight'].shape[0]
@@ -581,6 +895,8 @@ class Trainer:
         loss_val = float(loss_dict['total_loss'])
         rate = window / max(time.time() - t0, 1e-6)
         logging.info('step %d: loss=%.5f (%.1f ex/s)', step, loss_val, rate)
+        overflow_windows = self._overflow_guard(loss_dict, batch, step,
+                                                overflow_windows)
         history.append({'step': step, 'loss': loss_val,
                         'examples_per_sec': rate})
         if summary is not None:
@@ -593,6 +909,10 @@ class Trainer:
         if stop_signal is not None and stop_signal.should_stop():
           logging.warning('stop-signal file found; stopping training')
           stop_training = True
+        if self.world is not None:
+          # one rank's clock or file stops every rank at the same step
+          flag = torch.tensor([float(stop_training)], device=self.device)
+          stop_training = float(self.world.all_reduce(flag)) > 0
       if manager is not None and (
           step % save_every == 0 or
           (save_secs and time.time() - last_save >= save_secs)):
@@ -606,14 +926,15 @@ class Trainer:
             summary.add_scalars({'eval/%s' % k: float(v)
                                  for k, v in online.items()}, step)
             summary.flush()
-          if self.eval_config.eval_online:
+          if self.eval_config.eval_online and self.is_chief:
             with open(os.path.join(self.model_dir,
                                    'online_eval_result.txt-%d' % step),
                       'w') as f:
               json.dump({k: float(v) for k, v in online.items()}, f)
           if best_exporter is not None:
             best_exporter.maybe_export(
-                step, online, lambda d: export_saved_model(self, d))
+                step, online, lambda d: self.export(
+                    lambda: export_saved_model(self, d)))
           if stopper is not None and stopper.should_stop(step, online):
             if stopper.custom_fn is not None:
               logging.info('early stopping at step %d (early_stop_func '
@@ -639,7 +960,7 @@ class Trainer:
     if eval_at_end and has_eval:
       result['eval_metrics'] = self.evaluate()
       logging.info('eval: %s', result['eval_metrics'])
-      if self.model_dir:
+      if self.model_dir and self.is_chief:
         os.makedirs(self.model_dir, exist_ok=True)
         with open(os.path.join(self.model_dir, 'eval_result.txt'),
                   'w') as f:

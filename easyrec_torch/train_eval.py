@@ -1,7 +1,13 @@
 """Train CLI: python -m easyrec_torch.train_eval --pipeline_config_path ...
 
 Counterpart of easyrec_tpu/train_eval.py (:13-74) plus --device. Runs on
-CUDA unless --device cpu is given. With model_dir set in the config (or
+CUDA unless --device cpu is given. Started by torchrun (or with
+EASYREC_DISTRIBUTED=1 and RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT set),
+each process joins the world as one rank: NCCL on cuda:<LOCAL_RANK>, gloo
+under --device cpu:
+
+    torchrun --nproc_per_node 4 -m easyrec_torch.train_eval \
+        --pipeline_config_path cfg.config --device cpu With model_dir set in the config (or
 --model_dir), it writes checkpoints there and a second call resumes from
 the latest one.
 """
@@ -42,6 +48,13 @@ def main(argv=None) -> int:
       format='[%(levelname)s] %(asctime)s %(filename)s:%(lineno)d : '
              '%(message)s')
   args = get_parser().parse_args(argv)
+  from easyrec_torch.parallel import mesh
+  if mesh.world_requested():
+    # one process a device (torchrun --nproc_per_node N): join the world
+    # (the JAX CLI's jax.distributed.initialize, train_eval.py:43-50)
+    world = mesh.join_world(args.device)
+    logging.info('distributed: rank %d/%d on %s', world.rank, world.size,
+                 world.device)
   from easyrec_torch import main as main_lib
   edits = json.loads(args.edit_config_json) if args.edit_config_json else {}
   if args.model_dir:

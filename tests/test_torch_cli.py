@@ -81,6 +81,13 @@ main.evaluate(sys.argv[1], device='cpu')
 main.export(sys.argv[1], device='cpu',
             export_dir=os.path.join(os.path.dirname(sys.argv[1]), 'again'))
 main.predict(sys.argv[1], device='cpu')
+# the multi-process slice: its modules, and the splice of this model_dir
+from easyrec_torch.parallel import exchange, launch, mesh
+from easyrec_torch.tools import splice_packed_ckpt
+from easyrec_torch.utils import dryrun
+here = os.path.dirname(sys.argv[1])
+splice_packed_ckpt.splice(sys.argv[1], os.path.join(here, 'ckpt'),
+                          os.path.join(here, 'spliced'), 2)
 assert Predictor(result['export_dir'], device='cpu').predict([{}])
 service = PredictorService(result['export_dir'], device='cpu')
 service.start()

@@ -317,3 +317,39 @@ def test_train_cli_flags(tmp_path):
   out = run('--model_dir', ft, '--fine_tune_checkpoint', md,
             '--num_steps', '5')
   assert 'done: step=5' in out and 'fine-tune' in out.lower()
+
+
+@pytest.mark.parametrize('bad', ['kv_split', 'raw_value'])
+def test_eval_cli_check_mode_points_as_jax(tmp_path, bad):
+  """The eval CLI's --check_mode (JAX eval.py:22, :35; main.py:104-113):
+  on a checkpoint trained from good rows, an eval input with a bad row
+  raises the JAX eval's error, type and message, through
+  `python -m easyrec_torch.eval` (its main, in process) and through
+  main.evaluate and distribute_evaluate; without the flag the row reads
+  its defaults and the eval runs."""
+  from easyrec_torch import eval as t_eval_cli
+  train = os.path.join(str(tmp_path), 'train.csv')
+  evalp = os.path.join(str(tmp_path), 'eval.csv')
+  with open(train, 'w') as f:
+    f.write(''.join(','.join(r) + '\n' for r in GOOD * 8))
+  with open(evalp, 'w') as f:
+    f.write(''.join(','.join(r) + '\n' for r in GOOD + [BAD[bad]]))
+  text = CHECK_CONFIG.format(train=train).replace(
+      'eval_input_path: "%s"' % train, 'eval_input_path: "%s"' % evalp)
+  text = text.replace('model_dir: ""', 'model_dir: "%s"' % os.path.join(
+      str(tmp_path), 'md'))
+  path = os.path.join(str(tmp_path), 'pipeline.config')
+  with open(path, 'w') as f:
+    f.write(text)
+  t_main.train_and_evaluate(path, device='cpu',
+                            edit_config_json={'export_config.exporter_type':
+                                              'none'})
+  j_err = _raised(lambda: j_main.evaluate(path, check_mode=True))
+  assert j_err is not None and j_err[0] == 'CheckError', j_err
+  for run in (lambda: t_eval_cli.main(['--pipeline_config_path', path,
+                                       '--check_mode', '--device', 'cpu']),
+              lambda: t_main.distribute_evaluate(path, device='cpu',
+                                                 check_mode=True)):
+    assert _raised(run) == j_err
+  metrics = t_main.evaluate(path, device='cpu')
+  assert 'auc' in metrics

@@ -4,8 +4,10 @@ max-F1 (metrics/metrics.py) against the JAX package on the CPU: the
 model-level `losses` with fixed and Uncertainty weights (values and the
 gradients of the logits and of `loss_uncertainty`), RocketLaunching's four
 terms with the gradient of every parameter and its three stopped
-gradients, max_f1 from the AUC histogram, and check_ported's refusals of
-the loss parts that are not ported."""
+gradients, max_f1 from the AUC histogram, check_ported's refusals of
+the loss parts that are not ported, and loss_weight_strategy Random: its
+loss with the JAX draw handed to the port, its own draws, and a model with
+it passing check_ported and training."""
 
 import os
 
@@ -361,9 +363,6 @@ REFUSED = {
     'ziln': ('  losses { loss_type: ZILN_LOSS }', 'ZILN_LOSS'),
     'sigmoid_l2': ('  losses { loss_type: SIGMOID_L2_LOSS }',
                    'SIGMOID_L2_LOSS'),
-    'random': ('  losses { loss_type: CLASSIFICATION }\n'
-               '  losses { loss_type: L2_LOSS }\n'
-               '  loss_weight_strategy: Random', 'Random'),
     # a term beside ZILN's 3 logits
     'ziln_terms': ('  loss_type: ZILN_LOSS\n'
                    '  losses { loss_type: CLASSIFICATION }',
@@ -380,3 +379,80 @@ def test_unported_loss_parts_are_refused_by_name(name):
       SCHEMA % {'model': DEEPFM % part})
   with pytest.raises(NotImplementedError, match=match):
     t_config.check_ported(cfg)
+
+
+# ----------------------------------------------------- Random loss weights
+
+RANDOM = TERMS % ('', '') + '  loss_weight_strategy: Random'
+
+
+def _random_loss(t_model, j_model, batch, logits, j_w):
+  """Both totals and terms from the same logits and the JAX weights."""
+  lg = torch.tensor(logits, requires_grad=True)
+  out = {'logits': lg, 'probs': torch.sigmoid(lg),
+         'random_loss_w': torch.from_numpy(np.array(j_w))}
+  t_tot, t_terms = t_model.build_loss(out, _torch(batch))
+  t_tot.backward()
+
+  def j_total(x):
+    return j_model.build_loss({'logits': x, 'probs': jax.nn.sigmoid(x),
+                               'random_loss_w': j_w}, batch)
+
+  (j_tot, j_terms), j_grad = jax.value_and_grad(j_total, has_aux=True)(
+      jnp.asarray(logits))
+  return (t_tot, t_terms, lg.grad), (j_tot, j_terms, j_grad)
+
+
+@pytest.mark.parametrize('case', ['random_loss', 'random_trains'])
+def test_random_loss_weights(case):
+  """loss_weight_strategy Random weights the terms by softmax(normal(n)) *
+  n (JAX models/rank.py:435-438). The draws differ (ROADMAP's known
+  divergences): 'random_loss' hands the port the JAX eval draw of
+  PRNGKey(0) and holds total, terms and the logits' gradient within 1e-6;
+  the port's own draws sum to n, are the same on every eval forward and
+  new on every training one. 'random_trains': the config passes
+  check_ported, and a Trainer trains 3 steps to finite losses with
+  predictions that do not depend on the draw."""
+  t_model, j_model, j_specs = _model_pair(RANDOM)
+  n = len(t_model.config.losses)
+  batch = synthetic_batch(j_specs, ['label'], 64, seed=5)
+  if case == 'random_loss':
+    j_w = jax.nn.softmax(jax.random.normal(jax.random.PRNGKey(0),
+                                           (n,))) * n
+    logits = (np.random.default_rng(4).standard_normal(64) * 2).astype(
+        np.float32)
+    (t_tot, t_terms, t_grad), (j_tot, j_terms, j_grad) = _random_loss(
+        t_model, j_model, batch, logits, j_w)
+    for k in j_terms:
+      np.testing.assert_allclose(t_terms[k].item(), float(j_terms[k]),
+                                 rtol=1e-6, err_msg=k)
+    np.testing.assert_allclose(t_tot.item(), float(j_tot), rtol=1e-6)
+    np.testing.assert_allclose(t_grad.numpy(), np.asarray(j_grad),
+                               rtol=1e-5, atol=1e-9)
+    draw = t_model.random_loss_weights
+    draw.eval()
+    w0, w1 = draw('cpu'), draw('cpu')
+    assert torch.equal(w0, w1) and w0.shape == (n,)
+    np.testing.assert_allclose(float(w0.sum()), n, rtol=1e-6)
+    draw.train()
+    draw.generator = torch.Generator().manual_seed(1)
+    assert not torch.equal(draw('cpu'), draw('cpu'))
+    return
+  from easyrec_torch.train.trainer import Trainer, to_device
+  t_cfg = t_config.get_configs_from_pipeline_str(
+      SCHEMA % {'model': DEEPFM % RANDOM})
+  t_config.check_ported(t_cfg)
+  trainer = Trainer(t_cfg, device='cpu')
+  trainer.init_state()
+  dev = to_device(batch, torch.device('cpu'))
+  pulled = trainer.pull(t_emb.pack_all_views(trainer.layout, dev))
+  before = trainer.eval_forward(dev, pulled)
+  losses = [float(trainer.train_step(dev)['total_loss']) for _ in range(3)]
+  assert np.all(np.isfinite(losses)) and len(set(losses)) == 3
+  trainer.model.train()
+  again = trainer.model(dev, pulled)
+  trainer.model.eval()
+  # training draws new weights; the probabilities do not read them
+  assert not torch.equal(again['random_loss_w'], before['random_loss_w'])
+  assert torch.equal(trainer.eval_forward(dev, pulled)['random_loss_w'],
+                     before['random_loss_w'])

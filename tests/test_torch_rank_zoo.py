@@ -234,6 +234,11 @@ MODELS = {
     light_dnn { hidden_units: [8] }
     feature_based_distillation: true
     feature_distillation_function: EUCLID }''',
+    # input-pipeline perf testing: zero logits plus one trained bias
+    'dummy': '''  model_class: "DummyModel"
+  feature_groups { group_name: "all" feature_names: ["F1", "C1"]
+                   wide_deep: DEEP }
+  dummy {}''',
     'deepfm_uncertainty': '''  model_class: "DeepFM"
   feature_groups { group_name: "deep"
                    feature_names: ["F1", "F2", "C1", "C2", "C3"]
