@@ -304,6 +304,27 @@ K4 and K5 must launch 0 times in 6-8.
              this path's inputs; then the Taobao DIN's checkpoint written
              in the world restored on one device, equal in every state
              tensor.
+ 35. parquet dlrm  (after 31, before 34) this slice's main path: the
+             Criteo DLRM at full width (flagship.criteo_dlrm_config, the
+             [26,000,014, 32] table, batch 4,096) fed from Parquet:
+             phase 31's 94,208 rows written as Parquet files by this
+             script's write_parquet (the card's machine has no pyarrow:
+             PLAIN and RLE_DICTIONARY pages, uncompressed and snappy, two
+             row groups, blanks null), day_1 also as a TSV; the CSV and
+             Parquet readers' rows/s on day_1 alone and with the
+             transforms, every Parquet batch of day_1 equal to the CSV
+             pipeline's; K1 and K2 bit-exact on one batch of this path;
+             train_and_evaluate 20 steps from day_0.parquet (K1 and K2 once
+             a step), the eval on day_1.parquet.
+ 36. pod tools  (after 34) tools/aot_pod_check --world 8: a world of 8
+             gloo processes on the card's host runs the row-sharded
+             flagship step (its checks; each rank's memory at the run's
+             and at full width), then K1 and K2 on the card at rank 0's
+             owner shapes for that world at full width, bit-exact, with
+             their times; tools/scaling_model's world of 8 at 4,096
+             buckets (the JAX tool's default; the full table cut, see
+             SCALING_BUCKETS) and 4,096 rows a rank, projected from phase
+             34's sharded ms/step.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -4201,35 +4222,42 @@ CRITEO_TRAIN_ROWS = 21 * 4096
 CRITEO_EVAL_ROWS = 2 * 4096
 
 
+def criteo_day_columns(n, seed):
+  """The 40 columns of n Criteo day-log rows made from `seed`, as object
+  arrays of strings ('' where blank): labels at a 0.25 click rate,
+  integers from -2 up, ids a Zipf draw per feature scrambled over 32 bits
+  (so about half are 0x80000000 or above) in hex, about 5% of the values
+  blank (labels never)."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  label = (rng.random(n) < 0.25).astype(np.int64)
+  dense = rng.integers(-2, 2000, (n, 13))
+  ranks = rng.zipf(1.15, (n, 26)).astype(np.uint64) % np.uint64(1 << 31)
+  ids = (ranks * np.uint64(2654435761) +
+         np.arange(26, dtype=np.uint64) * np.uint64(40503)) % \
+      np.uint64(1 << 32)
+  blank = rng.random((n, 39)) < 0.05
+  cols = [np.array(label.astype(str), dtype=object)]
+  for j in range(39):
+    if j < 13:
+      col = np.array(dense[:, j].astype(str), dtype=object)
+    else:
+      text = ids[:, j - 13].astype('>u4').tobytes().hex()
+      col = np.array([text[k:k + 8] for k in range(0, 8 * n, 8)],
+                     dtype=object)
+    col[blank[:, j]] = ''
+    cols.append(col)
+  return cols
+
+
 def write_criteo_days(directory, days=(('day_0', CRITEO_TRAIN_ROWS, 31),
                                        ('day_1', CRITEO_EVAL_ROWS, 32))):
-  """Criteo day logs (TSV: label, 13 integer features, 26 hex ids) made
-  from seeds: labels at a 0.25 click rate, integers from -2 up, ids a
-  Zipf draw per feature scrambled over 32 bits (so about half are
-  0x80000000 or above), about 5% of the values blank. Returns the TSV
-  paths by day."""
-  import numpy as np
+  """Criteo day logs (TSV: label, 13 integer features, 26 hex ids) of
+  criteo_day_columns' rows. Returns the TSV paths by day."""
   os.makedirs(directory, exist_ok=True)
   paths = {}
   for name, n, seed in days:
-    rng = np.random.default_rng(seed)
-    label = (rng.random(n) < 0.25).astype(np.int64)
-    dense = rng.integers(-2, 2000, (n, 13))
-    ranks = rng.zipf(1.15, (n, 26)).astype(np.uint64) % np.uint64(1 << 31)
-    ids = (ranks * np.uint64(2654435761) +
-           np.arange(26, dtype=np.uint64) * np.uint64(40503)) % \
-        np.uint64(1 << 32)
-    blank = rng.random((n, 39)) < 0.05
-    cols = [np.array(label.astype(str), dtype=object)]
-    for j in range(39):
-      if j < 13:
-        col = np.array(dense[:, j].astype(str), dtype=object)
-      else:
-        text = ids[:, j - 13].astype('>u4').tobytes().hex()
-        col = np.array([text[k:k + 8] for k in range(0, 8 * n, 8)],
-                       dtype=object)
-      col[blank[:, j]] = ''
-      cols.append(col)
+    cols = criteo_day_columns(n, seed)
     path = os.path.join(directory, name + '.tsv')
     with open(path, 'w') as f:
       f.writelines('\t'.join(row) + '\n' for row in zip(*cols))
@@ -4860,6 +4888,356 @@ def phase_small_readers(torch):
   del os.environ['EASYREC_WAREHOUSE_EXPORT_DIR']
   shutil.rmtree(root, ignore_errors=True)
 
+# -- a minimal Parquet writer: the card's machine has no pyarrow, and phase
+# 35 feeds the port's Parquet reader files of its own making
+
+def _uleb(v):
+  out = bytearray()
+  while True:
+    b, v = v & 0x7f, v >> 7
+    out.append(b | (0x80 if v else 0))
+    if not v:
+      return bytes(out)
+
+
+def _thrift(fields):
+  """A Thrift compact-protocol struct of (field id, kind, value) in field
+  order; kinds i32, i64, bin, struct, and list_i32 / list_bin /
+  list_struct; a None value is left out."""
+  types = {'i32': 5, 'i64': 6, 'bin': 8, 'struct': 12}
+  out = bytearray()
+  last = 0
+
+  def value(kind, v):
+    if kind in ('i32', 'i64'):
+      return _uleb((v << 1) ^ (v >> 63))
+    if kind == 'bin':
+      return _uleb(len(v)) + v
+    return _thrift(v)
+
+  for fid, kind, v in fields:
+    if v is None:
+      continue
+    if kind.startswith('list_'):
+      elem = kind[5:]
+      head = bytes([(min(len(v), 15) << 4) | types[elem]])
+      body = head + (_uleb(len(v)) if len(v) >= 15 else b'') + \
+          b''.join(value(elem, x) for x in v)
+      t = 9
+    else:
+      body, t = value(kind, v), types[kind]
+    out += bytes([((fid - last) << 4) | t]) if 0 < fid - last <= 15 else \
+        bytes([t]) + _uleb((fid << 1) ^ (fid >> 63))
+    out += body
+    last = fid
+  return bytes(out + b'\x00')
+
+
+def snappy_compress(data):
+  """A Snappy raw-format block of `data`: each run of 8 or more equal
+  bytes a literal byte and copies at offset 1 (overlapping), the rest
+  literals of up to 65,536 bytes."""
+  import numpy as np
+  a = np.frombuffer(data, np.uint8)
+  out = bytearray(_uleb(len(data)))
+
+  def literal(lo, hi):
+    for s in range(lo, hi, 65536):
+      n = min(hi, s + 65536) - s
+      if n <= 60:
+        out.append((n - 1) << 2)
+      elif n <= 256:
+        out.extend((60 << 2, n - 1))
+      else:
+        out.extend((61 << 2, (n - 1) & 0xff, (n - 1) >> 8))
+      out.extend(data[s:s + n])
+
+  cuts = np.flatnonzero(np.diff(a) != 0) + 1
+  starts = np.concatenate([[0], cuts]).astype(np.int64)
+  ends = np.concatenate([cuts, [a.size]]).astype(np.int64)
+  long_runs = (ends - starts) >= 8
+  pos = 0
+  for lo, hi in zip(starts[long_runs].tolist(), ends[long_runs].tolist()):
+    literal(pos, lo + 1)
+    left = hi - lo - 1
+    while left > 0:
+      k = min(left, 64)
+      out.extend((((k - 1) << 2) | 2, 1, 0))
+      left -= k
+    pos = hi
+  literal(pos, a.size)
+  return bytes(out)
+
+
+def _bit_packed(values, width):
+  """The RLE / bit-packed hybrid of `values` as bit-packed groups of 8."""
+  import numpy as np
+  v = np.asarray(values, np.uint64)
+  groups = -(-v.size // 8)
+  v = np.concatenate([v, np.zeros(groups * 8 - v.size, np.uint64)])
+  bits = ((v[:, None] >> np.arange(width, dtype=np.uint64)) &
+          np.uint64(1)).astype(np.uint8)
+  return _uleb((groups << 1) | 1) + np.packbits(bits.reshape(-1),
+                                                bitorder='little').tobytes()
+
+
+def _plain(kind, values):
+  import numpy as np
+  if kind == 'string':
+    enc = [v.encode('utf-8') for v in values]
+    return b''.join(len(b).to_bytes(4, 'little') + b for b in enc)
+  return np.asarray(values, {'int32': '<i4', 'int64': '<i8',
+                             'double': '<f8'}[kind]).tobytes()
+
+
+PQ_TYPES = {'int32': 1, 'int64': 2, 'double': 5, 'string': 6}
+
+
+def write_parquet(path, columns, row_groups, codecs, dictionary=()):
+  """A Parquet file of `columns` [(name, kind, values, nulls)] (kind
+  int32, int64, double or string; nulls a bool mask or None, a column
+  with one OPTIONAL, else REQUIRED) in the row groups [(lo, hi)], each
+  column chunk one V1 data page compressed by codecs[i] ('none' or
+  'snappy'), PLAIN, or RLE_DICTIONARY behind a dictionary page for the
+  columns named in `dictionary`."""
+  import numpy as np
+  body = bytearray(b'PAR1')
+  groups = []
+  for (lo, hi), codec in zip(row_groups, codecs):
+    code = {'none': 0, 'snappy': 1}[codec]
+    pack = snappy_compress if codec == 'snappy' else bytes
+    chunks, sizes = [], []
+    for name, kind, values, nulls in columns:
+      vals = values[lo:hi]
+      page = b''
+      if nulls is not None:
+        live = ~nulls[lo:hi]
+        levels = _bit_packed(live.astype(np.uint64), 1)
+        page = len(levels).to_bytes(4, 'little') + levels
+        vals = vals[live]
+      start = len(body)
+      dict_off = None
+      encodings = [0, 3]
+      if name in dictionary:
+        uniq, idx = np.unique(vals, return_inverse=True)
+        raw = _plain(kind, uniq)
+        comp = pack(raw)
+        dict_off = start
+        body += _thrift([(1, 'i32', 2), (2, 'i32', len(raw)),
+                         (3, 'i32', len(comp)),
+                         (7, 'struct', [(1, 'i32', len(uniq)),
+                                        (2, 'i32', 0)])]) + comp
+        width = max(1, int(len(uniq) - 1).bit_length())
+        page += bytes([width]) + _bit_packed(idx, width)
+        encoding = 8
+        encodings = [0, 3, 8]
+      else:
+        page += _plain(kind, vals)
+        encoding = 0
+      data_off = len(body)
+      comp = pack(page)
+      body += _thrift([(1, 'i32', 0), (2, 'i32', len(page)),
+                       (3, 'i32', len(comp)),
+                       (5, 'struct', [(1, 'i32', hi - lo),
+                                      (2, 'i32', encoding), (3, 'i32', 3),
+                                      (4, 'i32', 3)])]) + comp
+      size = len(body) - start
+      sizes.append(size)
+      chunks.append([(2, 'i64', start), (3, 'struct', [
+          (1, 'i32', PQ_TYPES[kind]), (2, 'list_i32', encodings),
+          (3, 'list_bin', [name.encode()]), (4, 'i32', code),
+          (5, 'i64', hi - lo), (6, 'i64', size), (7, 'i64', size),
+          (9, 'i64', data_off), (11, 'i64', dict_off)])])
+    groups.append([(1, 'list_struct', chunks), (2, 'i64', sum(sizes)),
+                   (3, 'i64', hi - lo)])
+  schema = [[(4, 'bin', b'schema'), (5, 'i32', len(columns))]]
+  for name, kind, _, nulls in columns:
+    schema.append([(1, 'i32', PQ_TYPES[kind]),
+                   (3, 'i32', 0 if nulls is None else 1),
+                   (4, 'bin', name.encode()),
+                   (6, 'i32', 0 if kind == 'string' else None)])
+  meta = _thrift([(1, 'i32', 1), (2, 'list_struct', schema),
+                  (3, 'i64', row_groups[-1][1] - row_groups[0][0]),
+                  (4, 'list_struct', groups),
+                  (6, 'bin', b'easyrec_torch chip_smoke.py')])
+  body += meta + len(meta).to_bytes(4, 'little') + b'PAR1'
+  with open(path, 'wb') as f:
+    f.write(bytes(body))
+
+
+# phase 35's Parquet files: C1-C13 dictionary-encoded, the rest PLAIN
+PARQUET_DICT = tuple('C%d' % i for i in range(1, 14))
+
+
+def criteo_parquet_columns(cols):
+  """criteo_day_columns' strings as write_parquet's columns: the label
+  int32, F1-F13 int64 and C1-C26 strings, each blank a null."""
+  import numpy as np
+  out = [('label', 'int32', cols[0].astype(np.int32), None)]
+  for j in range(1, 40):
+    blank = cols[j] == ''
+    if j <= 13:
+      out.append(('F%d' % j, 'int64',
+                  np.where(blank, '0', cols[j]).astype(np.int64), blank))
+    else:
+      out.append(('C%d' % (j - 13), 'string', cols[j], blank))
+  return out
+
+
+def phase_parquet_dlrm(torch, card, smi):
+  """Phase 35, this slice's main path: the full-width Criteo DLRM
+  (flagship.criteo_dlrm_config: the [26,000,014, 32] table, batch 4,096)
+  fed from Parquet. criteo_day_columns' rows (phase 31's seeds) are
+  written as Parquet files by write_parquet, day_1 also as a TSV (the label
+  int32, F1-F13 int64 and C1-C26 strings, blanks null; C1-C13
+  RLE_DICTIONARY, the rest PLAIN; two row groups, the first uncompressed,
+  the second snappy). The CSV and Parquet readers alone read day_1
+  (rows/s), and the two pipelines' batches of day_1 must be equal key for
+  key and bit for bit (rows/s of each); K1 (every mode) and K2 (compact
+  Adam) bit-exact against their plain versions on one batch of the
+  Parquet path (phase_kernel_path, pipeline_pack); then phase_slice
+  (train_and_evaluate from day_0.parquet, 20 steps, K1 and K2 once a step,
+  the eval on day_1.parquet). Returns the launches by kernel and math,
+  and K1's and K2's largest differences."""
+  import shutil
+  import numpy as np
+  from easyrec_torch import main as main_lib
+  from easyrec_torch.config import config_util
+  from easyrec_torch.data.input_pipeline import InputPipeline, create_reader
+  from easyrec_torch.ops import parquet_ops
+  from easyrec_torch.utils import flagship
+
+  what = 'Criteo DLRM, Parquet'
+  root = os.path.join(SCRATCH, 'parquet_dlrm')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  t0 = time.time()
+  tsv, pq = {}, {}
+  for name, n, seed in (('day_0', CRITEO_TRAIN_ROWS, 31),
+                        ('day_1', CRITEO_EVAL_ROWS, 32)):
+    cols = criteo_day_columns(n, seed)
+    tsv[name] = os.path.join(root, name + '.tsv')
+    if name == 'day_1':      # the CSV side reads day_1 only
+      with open(tsv[name], 'w') as f:
+        f.writelines('\t'.join(row) + '\n' for row in zip(*cols))
+    pq[name] = os.path.join(root, name + '.parquet')
+    write_parquet(pq[name], criteo_parquet_columns(cols),
+                  [(0, n // 2), (n // 2, n)], ['none', 'snappy'],
+                  PARQUET_DICT)
+  log('%s: %d rows written as Parquet files (%d bytes: two row groups, '
+      'uncompressed and snappy, C1-C13 RLE_DICTIONARY), day_1 also as a TSV '
+      '(%d bytes), in %.1f s'
+      % (what, CRITEO_TRAIN_ROWS + CRITEO_EVAL_ROWS,
+         sum(os.path.getsize(p) for p in pq.values()),
+         os.path.getsize(tsv['day_1']), time.time() - t0))
+
+  def config(input_type, paths):
+    return main_lib.load_config(flagship.criteo_dlrm_config(), {
+        'data_config.input_type': input_type,
+        'train_input_path': paths['day_0'], 'eval_input_path': paths['day_1']})
+
+  cfg_csv, cfg_pq = config('CSVInput', tsv), config('ParquetInput', pq)
+  # the decoder's native loops build at their first use: apart from the
+  # rates below
+  t0 = time.perf_counter()
+  parquet_ops.native()
+  log('%s: the native Parquet decoder (ops/native/parquet_ops.cc) built and '
+      'loaded in %.2f s' % (what, time.perf_counter() - t0))
+  # the readers and the batches on day_1 (both row groups, both codecs):
+  # day_0's 86,016 rows took 12 s of the 60 that phases 35 and 36 may cost
+  rates = {}
+  for kind, cfg, path in (('CSV', cfg_csv, tsv['day_1']),
+                          ('Parquet', cfg_pq, pq['day_1'])):
+    t0 = time.perf_counter()
+    rows = sum(len(c['label']) for c in create_reader(
+        cfg.data_config, path).chunks(4096))
+    rates[kind] = rows / (time.perf_counter() - t0)
+    if rows != CRITEO_EVAL_ROWS:
+      fail('%s: the %s reader read %d rows' % (what, kind, rows))
+  pipes = {}
+  for kind, cfg, path in (('CSV', cfg_csv, tsv['day_1']),
+                          ('Parquet', cfg_pq, pq['day_1'])):
+    t0 = time.perf_counter()
+    pipes[kind] = list(InputPipeline(
+        cfg.data_config, config_util.get_feature_configs(cfg), path,
+        mode='eval'))
+    rates[kind + ' pipeline'] = CRITEO_EVAL_ROWS / (time.perf_counter() -
+                                                     t0)
+  if len(pipes['CSV']) != len(pipes['Parquet']):
+    fail('%s: %d Parquet batches, %d CSV' % (what, len(pipes['Parquet']),
+                                             len(pipes['CSV'])))
+  for i, (a, b) in enumerate(zip(pipes['CSV'], pipes['Parquet'])):
+    if sorted(a) != sorted(b) or any(
+        a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
+        for k in a):
+      fail('%s: batch %d of the Parquet pipeline differs from the CSV '
+           'pipeline\'s' % (what, i))
+  log('%s: the Parquet pipeline\'s %d batches of day_1 equal the CSV '
+      'pipeline\'s key for key, bit for bit; rows/s on the card\'s host: '
+      'readers alone CSV %.0f, Parquet %.0f (%.2fx); reader + transforms '
+      'CSV %.0f, Parquet %.0f (%.2fx) (%s)'
+      % (what, len(pipes['CSV']), rates['CSV'], rates['Parquet'],
+         rates['Parquet'] / rates['CSV'], rates['CSV pipeline'],
+         rates['Parquet pipeline'],
+         rates['Parquet pipeline'] / rates['CSV pipeline'], smi))
+  del pipes
+  errs = phase_kernel_path(torch, cfg_pq, what, pack=pipeline_pack)
+  launches = phase_slice(torch, card, what, cfg_pq, '0',
+                         ('seg_sum', 'rmw_rows'), 'compact_adam')
+  shutil.rmtree(root, ignore_errors=True)
+  return launches, errs
+
+
+# phase 36's scaling world at the JAX tool's 4,096 buckets a feature: at
+# the flagship's 1,000,000 each of its 8 ranks draws the 6.66 GB table, and
+# the world took 33.9 s against 17.1 (NVIDIA H100 80GB HBM3, 700 W), past
+# the 60 s phases 35 and 36 may cost together; PERF.md's records at the
+# full table come from scaling_model's own run on the card's host
+SCALING_BUCKETS = 4096
+
+
+def phase_pod_tools(torch, smi, step_ms):
+  """Phase 36: the two multi-GPU tools. tools/aot_pod_check at --world 8
+  (one 8-GPU node: 8 gloo processes of this host, the flagship DeepFM
+  row-sharded at 8 rows a rank, one step; its checks, and each rank's
+  memory at the run's and at full width), which launches K1 and K2 on
+  the card at rank 0's owner shapes for that world at full width, each
+  bit-exact against its plain version, with their times; then
+  tools/scaling_model's world of 8 (the flagship at SCALING_BUCKETS
+  buckets and 4,096 rows a rank, 8 gloo processes, its collectives
+  counted) projected from phase 34's sharded ms/step. Returns K1's and
+  K2's largest differences."""
+  from easyrec_torch.tools import aot_pod_check, scaling_model
+  # both tools' worlds in one start of 8 processes (each start costs about
+  # 10 s on the card's host, most of it importing torch)
+  t0 = time.time()
+  pod, scale = aot_pod_check.run_worlds(8, [(8, 4096, 16),
+                                            (4096, SCALING_BUCKETS, 16)])
+  log('phase 36: one world of 8 gloo processes ran both tools\' steps in '
+      '%.1f s' % (time.time() - t0))
+  t0 = time.time()
+  summary = aot_pod_check.check(world=8, device='cuda', results=pod,
+                                log=lambda m: log('aot_pod_check: ' + m))
+  if not summary['ok']:
+    fail('aot_pod_check --world 8: %s' % summary['failures'])
+  (k,) = summary['kernels']
+  shape = summary['owner_shapes'][k['table']]
+  log('aot_pod_check --world 8 passed in %.1f s: K1 %.4f ms over %d slots '
+      '(%d filled), K2 %.4f ms on the [%d, %d] shard, both bit-exact (%s)'
+      % (time.time() - t0, k['k1_ms'], shape['slots'], shape['fill'],
+         k['k2_ms'], shape['rows'], shape['width'], smi))
+  t0 = time.time()
+  rec = scaling_model.model_world(8, 8, 4096, SCALING_BUCKETS, step_ms,
+                                  'chip_smoke.py phase 34', results=scale)
+  log('scaling_model --worlds 8 --hash_buckets %d --step_ms %.3f (%.1f s): '
+      '%s' % (SCALING_BUCKETS, step_ms, time.time() - t0,
+              json.dumps(rec, sort_keys=True)))
+  if rec['overflow'] != [0.0, 0.0] or not rec['projected_step_ms'] > \
+      step_ms or rec['collective_counts'].get('all_to_all', 0) < 4:
+    fail('scaling_model: %s' % rec)
+  return k['k1_max_abs_err'], k['k2_max_abs_err']
+
+
 SHARDED_STEPS = 20
 
 
@@ -5128,7 +5506,7 @@ def phase_sharded(torch, smi):
       % {'size': res['din_world']['size']})
   counts = dict(res['counts'])
   counts.update(res['tagged'])
-  return counts, (res['err1'], res['err2'])
+  return counts, (res['err1'], res['err2']), res['ms_sharded']
 
 
 
@@ -5180,13 +5558,22 @@ def main():
       r['max_abs_err'] = max(r['max_abs_err'], err1)
     if r['name'] == 'rmw_rows/compact_adam':
       r['max_abs_err'] = max(r['max_abs_err'], err2)
-  # 34: the flagship DeepFM row-sharded in a world of one over NCCL
-  sharded, (err1, err2) = phase_sharded(torch, smi)
+  # 35: the Criteo DLRM at full width from Parquet
+  parquet, (err1, err2) = phase_parquet_dlrm(torch, card, smi)
   for r in results:
     if r['name'] == 'seg_sum':
       r['max_abs_err'] = max(r['max_abs_err'], err1)
     if r['name'] == 'rmw_rows/compact_adam':
       r['max_abs_err'] = max(r['max_abs_err'], err2)
+  # 34: the flagship DeepFM row-sharded in a world of one over NCCL
+  sharded, (err1, err2), sharded_ms = phase_sharded(torch, smi)
+  # 36: aot_pod_check and scaling_model at a world of 8
+  errs = phase_pod_tools(torch, smi, sharded_ms)
+  for r in results:
+    if r['name'] == 'seg_sum':
+      r['max_abs_err'] = max(r['max_abs_err'], err1, errs[0])
+    if r['name'] == 'rmw_rows/compact_adam':
+      r['max_abs_err'] = max(r['max_abs_err'], err2, errs[1])
   adagrad = phase_slice(torch, card, 'flagship DeepFM, Adagrad tables',
                         flagship.criteo_deepfm_adagrad_config(), '0',
                         ('seg_sum', 'rmw_rows'), 'adagrad')
@@ -5235,14 +5622,15 @@ def main():
   phase_serve_din(torch, smi)
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the sharded flagship
-  # DeepFM, this slice's main path; K3 on the Kafka-streamed DIN, Adagrad
-  # on the Adagrad DeepFM's, the EV maths on the EV phase's), 0 for a math
-  # no path runs
+  # these that runs it (K1 and K2's compact Adam on the Parquet-fed DLRM,
+  # this slice's main path; K3 on the Kafka-streamed DIN, Adagrad on the
+  # Adagrad DeepFM's, the EV maths on the EV phase's), 0 for a math no
+  # path runs
   for r in results:
     r['launches'] = next((path[r['name']] for path in
-                          (sharded, deepfm, kafka, fg, retrieve, dssm,
-                           backbone, dlrm, mmoe, bst, din, adagrad, ev)
+                          (parquet, sharded, deepfm, kafka, fg, retrieve,
+                           dssm, backbone, dlrm, mmoe, bst, din, adagrad,
+                           ev)
                           if path.get(r['name'], 0)), 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -76,7 +76,9 @@ _PORTED_INPUT_TYPES = ('CSVInput', 'CSVInputV2', 'CSVInputEx', 'DummyInput',
                        'RTPInputV2', 'OdpsRTPInput', 'OdpsRTPInputV2',
                        'CriteoInput', 'KafkaInput', 'DataHubInput',
                        'HiveInput', 'HiveRTPInput', 'OdpsInput',
-                       'OdpsInputV2', 'OdpsInputV3')
+                       'OdpsInputV2', 'OdpsInputV3', 'ParquetInput',
+                       'ParquetInputV2', 'ParquetInputV3',
+                       'HiveParquetInput')
 
 
 def get_configs_from_pipeline_file(path: str,

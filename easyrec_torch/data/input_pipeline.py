@@ -1,13 +1,13 @@
 """Input pipeline: file readers -> feature transforms -> static batches.
 
 Counterpart of easyrec_tpu/data/input_pipeline.py: CSVReader (:101),
+ParquetReader (:166-204, on the port's own decoder, data/parquet.py),
 TFRecordReader (:206-276), RTPReader (:280-330), CriteoBinaryReader
 (:333-363), the streaming KafkaReader (:366-484) and DataHubReader
 (:487-596), the warehouse ExternalServiceReader (:599-654) and DummyReader
 (:658), under the same InputPipeline (:685), with the negative samplers
 spliced in (data/samplers.py; :757-766, :843-850, :872-905). Every batch
 has batch_size rows; a short tail is zero-padded with sample_weight 0.
-The Parquet readers are not ported (pyarrow).
 
 Batches are flat dicts of numpy arrays:
   feat.<name>.ids / .weights / .dense : packed feature arrays
@@ -161,6 +161,93 @@ def _typed_column(raw, field) -> np.ndarray:
   dflt = int(float(field.default_val or 0))
   return np.array([int(v) if v not in _CSV_NULLS else dflt for v in raw],
                   dtype=np.int64)
+
+
+def _fill_defaults(columns: Dict[str, tuple], dc,
+                   lists=()) -> Dict[str, np.ndarray]:
+  """(values, nulls) columns of data/parquet.py -> arrays, the nulls
+  replaced by each input field's default_val as the JAX package's
+  _fill_defaults (:61-95) replaces them: a STRING field with a default_val
+  also replaces ''; a numeric or BOOL field's nulls take its default (0,
+  False) in the column's own type; a list column (`lists`) is left as it
+  is. Nulls no default fills stay None, in an object array."""
+  out = {}
+  for f in dc.input_fields:
+    name = f.input_name
+    vals, nulls = columns[name]
+    if name in lists:
+      out[name] = vals
+      continue
+    if f.input_type == 'STRING':
+      if f.HasField('default_val'):
+        if vals.dtype != object:
+          # pyarrow cannot make a string default a number (ArrowInvalid)
+          raise TypeError('parquet column %s holds %s, its STRING field a '
+                          'default_val %r' % (name, vals.dtype,
+                                              f.default_val))
+        vals = vals.copy()
+        vals[(vals == None) | (vals == '')] = f.default_val  # noqa: E711
+    elif nulls is not None and vals.dtype != object:
+      if f.input_type in ('FLOAT', 'DOUBLE'):
+        fill = float(f.default_val or 0.0)
+      elif f.input_type == 'BOOL':
+        fill = (f.default_val or '').lower() in ('1', 'true')
+      else:
+        fill = int(float(f.default_val or 0))
+      vals = vals.copy()
+      vals[nulls] = np.asarray(fill).astype(vals.dtype)
+      nulls = None
+    if nulls is not None and vals.dtype != object:
+      vals = vals.astype(object)
+      vals[nulls] = None
+    out[name] = vals
+  return out
+
+
+@INPUTS.register('ParquetInput')
+@INPUTS.register('ParquetInputV2')
+@INPUTS.register('ParquetInputV3')
+@INPUTS.register('HiveParquetInput')
+class ParquetReader(BaseReader):
+  """Parquet files through the port's own decoder (data/parquet.py; no
+  pyarrow). A file that lacks a configured field raises KeyError. Chunks
+  are cut every `chunk_rows` rows across the row groups of each file, as
+  the JAX package's pyarrow iter_batches cuts them, so the shuffle sees the
+  same chunks; each column keeps the file's type (an int32 column stays
+  int32), its nulls filled as _fill_defaults says. With shard_num > 1 a
+  reader takes the files paths[i::n] under file_shard, else the rows
+  whose index across all its files is i modulo n."""
+
+  def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
+    from easyrec_torch.data import parquet
+    paths = config_util.expand_input_paths(self.input_path)
+    if not paths:
+      raise FileNotFoundError('no input files match %s' % self.input_path)
+    dc = self.data_config
+    if dc.file_shard and self.shard_num > 1:
+      paths = paths[self.shard_index::self.shard_num]
+    row_shard = self.shard_num > 1 and not dc.file_shard
+    names = self.field_names
+    row = 0
+    for path in paths:
+      pf = parquet.ParquetFile(path)
+      missing = [n for n in names if n not in pf.names]
+      if missing:
+        raise KeyError('parquet file %s is missing configured '
+                       'input_fields %s (has: %s)' % (path, missing,
+                                                      pf.names))
+      lists = {n for n in names if pf.columns[n].is_list}
+      for batch in pf.iter_batches(chunk_rows, names):
+        if row_shard:
+          n = len(batch[names[0]][0])
+          keep = np.flatnonzero(np.arange(row, row + n) % self.shard_num ==
+                                self.shard_index)
+          row += n
+          if keep.size == 0:
+            continue
+          batch = {k: (v[keep], None if m is None else m[keep])
+                   for k, (v, m) in batch.items()}
+        yield _fill_defaults(batch, dc, lists)
 
 
 _TFRECORD_DTYPES = {'INT32': np.int32, 'INT64': np.int64,
@@ -533,8 +620,8 @@ class ExternalServiceReader(BaseReader):
   name path) resolves to $EASYREC_WAREHOUSE_EXPORT_DIR/<table>/, whose
   *.parquet, *.csv, *.csv.gz or other files are read; a path that already
   names existing files is read as it is. CSV exports go through
-  CSVReader; a Parquet export raises (pyarrow, not ported), and so does a
-  table with no export, naming the input type and the table."""
+  CSVReader, the others through ParquetReader (JAX :650); a table with no
+  export raises, naming the input type and the table."""
 
   def _resolve(self) -> str:
     path = self.input_path
@@ -564,13 +651,9 @@ class ExternalServiceReader(BaseReader):
 
   def chunks(self, chunk_rows: int) -> Iterator[Dict[str, np.ndarray]]:
     resolved = self._resolve()
-    if '.csv' not in resolved:
-      raise NotImplementedError(
-          'the export %s is read as Parquet, which needs pyarrow: the '
-          'Parquet readers are not ported; export the table as CSV'
-          % resolved)
-    delegate = CSVReader(self.data_config, resolved, self.shard_index,
-                         self.shard_num)
+    cls = ParquetReader if '.csv' not in resolved else CSVReader
+    delegate = cls(self.data_config, resolved, self.shard_index,
+                   self.shard_num)
     delegate.mode = getattr(self, 'mode', 'train')
     return delegate.chunks(chunk_rows)
 

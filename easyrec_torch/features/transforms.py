@@ -5,7 +5,9 @@ IdTransform (:136), TagTransform (:184), RawTransform (:272),
 ComboTransform (:333), LookupTransform (:387), ExprTransform (:468),
 SequenceTransform (:493) and PassThroughTransform (:555). Columns are numpy
 arrays: object arrays of str for STRING fields, float64 for FLOAT/DOUBLE,
-int64 for integer fields. Everything runs on the host, on numpy.
+int64 for integer fields (a Parquet column keeps its file's type), and a
+Parquet LIST column an object array of Python lists, which the Tag,
+Sequence and Raw transforms read. Everything runs on the host, on numpy.
 """
 
 from __future__ import annotations
@@ -139,6 +141,31 @@ def _split_lookup(strs, sep: str, k: int, config):
   return ids, counts
 
 
+def _list_rows(col):
+  """A list column's rows (a Parquet LIST column: an object array of
+  Python lists, None for a null row) as a list, else None. Counterpart of
+  the JAX package's _list_rows (easyrec_tpu/features/transforms.py:155);
+  a list column whose rows are all null reads as strings, all ''."""
+  arr = np.asarray(col)
+  if arr.dtype != object:
+    return None
+  first = next((v for v in arr if v is not None), None)
+  return arr.tolist() if isinstance(first, list) else None
+
+
+def _lists_to_strings(col, sep: str):
+  """A list column's rows joined with the feature's separator, each value
+  by its Python str (a float64's as in the JAX package), an empty or null
+  row as ''; None if col is not a list column (JAX :172-181)."""
+  rows = _list_rows(col)
+  if rows is None:
+    return None
+  out = np.empty(len(rows), dtype=object)
+  for i, r in enumerate(rows):
+    out[i] = '' if not r else sep.join(str(v) for v in r)
+  return out
+
+
 class TagTransform(BaseTransform):
   """Multi-value tags 'a|b|c' -> ids [B, K] + weights [B, K], K =
   max_multi_len; weighted 'a:0.5|b:2' under kv_separator (a weight that is
@@ -149,6 +176,9 @@ class TagTransform(BaseTransform):
     spec, config = self.spec, self.config
     col = columns[config.input_names[0]]
     sep = config.separator or '|'
+    joined = _lists_to_strings(col, sep)
+    if joined is not None:
+      col = joined
     k = spec.num_ids
     if config.kv_separator:
       strs = to_numpy_str(col)
@@ -220,6 +250,12 @@ class RawTransform(BaseTransform):
     col = columns[config.input_names[0]]
     if raw_dim == 1:
       vals = to_float(col)[:, None]
+    elif (rows := _list_rows(col)) is not None:
+      vals = np.zeros((len(rows), raw_dim), dtype=np.float32)
+      for i, r in enumerate(rows):
+        if r:
+          m = min(raw_dim, len(r))
+          vals[i, :m] = np.asarray(r[:m], dtype=np.float32)
     else:
       strs = to_numpy_str(col)
       sep = config.separator or '|'
@@ -417,8 +453,10 @@ class SequenceTransform(BaseTransform):
 
   def __call__(self, columns):
     spec, config = self.spec, self.config
-    col = to_numpy_str(columns[config.input_names[0]])
+    col = columns[config.input_names[0]]
     sep = config.separator or '|'
+    joined = _lists_to_strings(col, sep)
+    col = to_numpy_str(col if joined is None else joined)
     L = spec.num_ids
     if spec.seq_is_dense:
       n = col.shape[0]

@@ -78,6 +78,7 @@ def build_route(world: World, uids_sorted: torch.Tensor, local_rows: int,
       local_rows
   edges = torch.searchsorted(uids_sorted, bounds)
   send = (edges[1:] - edges[:-1]).to(torch.int64)
+  world.count_host_sync()
   raw = torch.stack(world.all_gather(send)).cpu().numpy()     # [W, W]
   offs = np.cumsum(raw, axis=0) - raw                         # sum s' < s
   if cap is None or cap >= n_loc * n_dev:
@@ -100,6 +101,11 @@ def build_route(world: World, uids_sorted: torch.Tensor, local_rows: int,
 def _a2a(world: World, send: torch.Tensor, send_sizes, recv_sizes
          ) -> torch.Tensor:
   out = send.new_empty((int(sum(recv_sizes)),) + tuple(send.shape[1:]))
+  row = send.element_size() * int(np.prod(send.shape[1:], dtype=np.int64))
+  sent, recv = [row * int(n) for n in send_sizes], \
+      [row * int(n) for n in recv_sizes]
+  world.count_traffic('all_to_all', sum(sent), sum(recv))
+  world.count_peers(sent, recv)
   dist.all_to_all_single(out, send.contiguous(), output_split_sizes=list(
       recv_sizes), input_split_sizes=list(send_sizes), group=world.group)
   return out

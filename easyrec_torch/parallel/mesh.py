@@ -41,7 +41,8 @@ import datetime
 import hashlib
 import math
 import os
-from typing import List, Optional, Sequence
+import pickle
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -54,11 +55,54 @@ SHARDING_STRATEGIES = ('EmbeddingParallelStrategy', 'SokStrategy',
 @dataclasses.dataclass
 class World:
   """One process of a data-parallel job: its rank, the world size, its
-  device and the process group (None: the default group)."""
+  device and the process group (None: the default group).
+
+  It counts its collectives since reset_traffic() (traffic()), a dict
+  update a call: by kind, [calls, payload bytes sent, payload bytes
+  received]. An all_reduce sends and receives its tensor, an all_gather
+  sends its tensor and receives every rank's, an all_gather_object its
+  pickled object and every rank's, an all_to_all what its split sizes say
+  (also by peer rank: [sent, received]), a broadcast_object its arrays'
+  bytes, sent at the root and received elsewhere. host_syncs counts the
+  collectives whose result the host waits for (a route's size matrix,
+  all_gather_rows' sizes). tools/scaling_model.py prices the payloads as
+  wire bytes."""
   rank: int
   size: int
   device: torch.device
   group: object = None
+  _traffic: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
+  _peers: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
+  _syncs: List[int] = dataclasses.field(default_factory=lambda: [0])
+
+  def count_traffic(self, kind: str, sent: int, recv: int) -> None:
+    c = self._traffic.setdefault(kind, [0, 0, 0])
+    c[0] += 1
+    c[1] += int(sent)
+    c[2] += int(recv)
+
+  def count_peers(self, sent: Sequence[int], recv: Sequence[int]) -> None:
+    """An all_to_all's bytes to and from each peer rank, in rank order."""
+    for peer, (s, r) in enumerate(zip(sent, recv)):
+      c = self._peers.setdefault(peer, [0, 0])
+      c[0] += int(s)
+      c[1] += int(r)
+
+  def count_host_sync(self) -> None:
+    self._syncs[0] += 1
+
+  def traffic(self) -> dict:
+    """What this rank's collectives moved since reset_traffic()."""
+    return {'kinds': {k: {'calls': c[0], 'sent': c[1], 'recv': c[2]}
+                      for k, c in self._traffic.items()},
+            'peers': {p: {'sent': c[0], 'recv': c[1]}
+                      for p, c in self._peers.items()},
+            'host_syncs': self._syncs[0]}
+
+  def reset_traffic(self) -> None:
+    self._traffic.clear()
+    self._peers.clear()
+    self._syncs[0] = 0
 
   @property
   def is_chief(self) -> bool:
@@ -72,11 +116,15 @@ class World:
 
   def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
     """In-place sum over the ranks; returns `t`."""
+    nbytes = t.numel() * t.element_size()
+    self.count_traffic('all_reduce', nbytes, nbytes)
     dist.all_reduce(t, group=self.group)
     return t
 
   def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
     """Every rank's `t` (same shape on every rank), in rank order."""
+    nbytes = t.numel() * t.element_size()
+    self.count_traffic('all_gather', nbytes, nbytes * self.size)
     out = [torch.empty_like(t) for _ in range(self.size)]
     dist.all_gather(out, t.contiguous(), group=self.group)
     return out
@@ -85,6 +133,7 @@ class World:
     """Every rank's rows of `t` ([n_r, ...], n_r may differ), concatenated
     in rank order."""
     n = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
+    self.count_host_sync()
     sizes = [int(s) for s in torch.cat(self.all_gather(n)).tolist()]
     top = max(sizes)
     pad = t
@@ -97,6 +146,8 @@ class World:
     """Every rank's picklable `obj`, in rank order."""
     out = [None] * self.size
     dist.all_gather_object(out, obj, group=self.group)
+    self.count_traffic('all_gather_object', len(pickle.dumps(obj)),
+                       sum(len(pickle.dumps(o)) for o in out))
     return out
 
 

@@ -719,6 +719,10 @@ class Trainer:
     if self.world is not None and self.world.size > 1:
       view = [{k: v for k, v in batch.items() if k.startswith('neg.')}]
       dist.broadcast_object_list(view, src=0, group=self.world.group)
+      nbytes = sum(np.asarray(v).nbytes for v in view[0].values())
+      self.world.count_traffic('broadcast_object',
+                               nbytes if self.world.is_chief else 0,
+                               0 if self.world.is_chief else nbytes)
       batch = {k: v for k, v in batch.items() if not k.startswith('neg.')}
       batch.update(view[0])
     return to_device(batch, self.device)

@@ -7,9 +7,9 @@ retrieval indexes and vector_retrieve CLI, and the fg.json Taobao DIN
 with its ComboFeature under check_mode, an ExprFeature of the text
 functions, incremental updates and a big-model export they write into, then the
 RTP, warehouse, Criteo-binary, Kafka and DataHub readers, the Kafka
-trainer's data_offset.json, the tools and the HPO tuner) loads nothing of
-JAX, protobuf, pandas, pyarrow, the JAX package or its benchmarks/
-scripts."""
+trainer's data_offset.json, the tools and the HPO tuner, and a Parquet file
+read with pyarrow and pandas blocked) loads nothing of JAX, protobuf,
+pandas, pyarrow, the JAX package or its benchmarks/ scripts."""
 
 import os
 import re
@@ -65,6 +65,19 @@ def test_cuda_is_the_default_and_never_replaced_by_the_cpu(tmp_path):
 
 ISOLATION = r'''
 import importlib, pkgutil, sys
+
+
+class _Blocked:
+  """pyarrow and pandas cannot be imported here: the port must not need
+  them (the card's machine has neither)."""
+
+  def find_spec(self, name, path=None, target=None):
+    if name.split('.')[0] in ('pyarrow', 'pandas'):
+      raise ImportError('%s is blocked in this test' % name)
+    return None
+
+
+sys.meta_path.insert(0, _Blocked())
 import easyrec_torch
 for mod in pkgutil.walk_packages(easyrec_torch.__path__, 'easyrec_torch.'):
   importlib.import_module(mod.name)
@@ -270,6 +283,35 @@ tuned = small({'data_config.input_type': 'RTPInput',
 assert LocalTuner(tuned, [{'name': 'model_config.deepfm.dnn.hidden_units',
                            'type': 'categorical', 'candidates': [[8]]}],
                   num_trials=1, device='cpu').run()['best'] is not None
+# Parquet through the port's own decoder, pyarrow blocked: chip_smoke.py's
+# writer makes the file, ParquetInput reads it back
+from chip_smoke import write_parquet
+pq_path = os.path.join(folder, 'd.parquet')
+labels = np.arange(40) % 2
+tags = np.array(['t%d' % (i % 7) for i in range(40)], dtype=object)
+write_parquet(pq_path, [('label', 'int32', labels.astype(np.int32), None),
+                        ('uid', 'string', tags, tags == 't3')],
+              [(0, 25), (25, 40)], ['none', 'snappy'], ['uid'])
+pq_cfg = get_configs_from_pipeline_str("""
+data_config {
+  batch_size: 16
+  num_epochs: 1
+  shuffle: false
+  label_fields: "label"
+  input_fields { input_name: "label" input_type: FLOAT }
+  input_fields { input_name: "uid" input_type: STRING default_val: "none" }
+  input_type: ParquetInput
+}
+feature_config {
+  features { input_names: "uid" feature_type: IdFeature
+             embedding_dim: 4 hash_bucket_size: 50 }
+}""")
+from easyrec_torch.config.config_util import get_feature_configs
+pq_rows = [b for b in InputPipeline(pq_cfg.data_config,
+                                    get_feature_configs(pq_cfg), pq_path,
+                                    mode='eval')]
+assert sum(int(b['sample_weight'].sum()) for b in pq_rows) == 40
+assert [float(x) for x in pq_rows[0]['label.label'][:4]] == [0., 1., 0., 1.]
 banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas', 'pyarrow',
           'easyrec_tpu', 'benchmarks')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned or

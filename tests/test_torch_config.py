@@ -180,14 +180,16 @@ def test_optimizer_messages_match_protobuf(kind, extra, fields):
 
 @pytest.mark.parametrize('text,what', [
     ('model_config { model_class: "DIN" }', "model_class 'DIN'"),
-    # the streaming and warehouse inputs are ported: these two cases now
-    # pass check_ported (what is None), under their former ids
+    # the streaming, warehouse and Parquet inputs are ported: these three
+    # cases now pass check_ported (what is None), under their former ids
     pytest.param('kafka_train_input { server: "s" }', None,
                  id='kafka_train_input { server: "s" }-kafka_train_input'),
     pytest.param('data_config { input_type: OdpsInput }', None,
                  id='data_config { input_type: OdpsInput }-'
                     'input_type OdpsInput'),
-    ('data_config { input_type: ParquetInput }', 'input_type ParquetInput'),
+    pytest.param('data_config { input_type: ParquetInput }', None,
+                 id='data_config { input_type: ParquetInput }-'
+                    'input_type ParquetInput'),
     ('feature_configs { input_names: "s" feature_type: SequenceFeature '
      'sequence_combiner { text_cnn { mlp { hidden_units: 4 } } } }',
      'text_cnn.mlp'),

@@ -289,8 +289,10 @@ def test_warehouse_exports_read_as_jax(tmp_path, monkeypatch, input_type):
 
 def test_warehouse_errors_name_the_table_and_pyarrow(tmp_path, monkeypatch):
   """No export: both packages raise the same NotImplementedError. A
-  Parquet export: the port raises naming pyarrow (the JAX package reads
-  it through pyarrow)."""
+  Parquet export goes to the Parquet reader, as in the JAX package (which
+  reads it through pyarrow): a file of the magic alone raises a
+  ValueError in both (pyarrow's ArrowInvalid is one), the port's naming
+  the file."""
   monkeypatch.delenv('EASYREC_WAREHOUSE_EXPORT_DIR', raising=False)
   path = 'odps://proj/tables/nothing'
   jc, tc = _both(WAREHOUSE % (path, 'OdpsInputV2'))
@@ -308,7 +310,11 @@ def test_warehouse_errors_name_the_table_and_pyarrow(tmp_path, monkeypatch):
   monkeypatch.setenv('EASYREC_WAREHOUSE_EXPORT_DIR', str(root))
   pipe = t_ip.InputPipeline(tc.data_config, t_config.get_feature_configs(tc),
                             'odps://proj/tables/pq', mode='eval')
-  with pytest.raises(NotImplementedError, match='pyarrow'):
+  with pytest.raises(ValueError, match='part-0.parquet is not a Parquet'):
+    next(iter(pipe))
+  pipe = j_ip.InputPipeline(jc.data_config, j_config.get_feature_configs(jc),
+                            'odps://proj/tables/pq', mode='eval')
+  with pytest.raises(ValueError):
     next(iter(pipe))
 
 

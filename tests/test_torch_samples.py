@@ -4,8 +4,9 @@ with the same value, or listed in the port's schema as unported (so
 check_ported names it), or on IGNORED below, fields that change nothing the
 port computes. The samples that pass check_ported are counted and named,
 each trains a step on the CPU (the gzip CSV sample through its gzip
-reader, the TFRecord sample through its TFRecord reader), and a gzip copy
-of a CSV reads as the CSV does."""
+reader, the TFRecord sample through its TFRecord reader, the Parquet
+sample through its Parquet reader), and a gzip copy of a CSV reads as the
+CSV does."""
 
 import glob
 import gzip
@@ -86,14 +87,13 @@ RANK_EXTRA = ['cmbf', 'cmbf_image_only', 'cmbf_multi_loss', 'cmbf_text_only',
               'uniter_text_only']
 FEATURE_TYPES = ['combo_cross', 'deepfm_incr_save', 'ev_incr_save',
                  'expr_feature', 'lookup_feature', 'taobao_fg']
+READERS = ['dlrm_parquet']
 PORTED = sorted(PORTED + BACKBONE + VARIATIONAL_DROPOUT + MATCH + RANK_EXTRA +
-                FEATURE_TYPES)
+                FEATURE_TYPES + READERS)
 
-# The samples still refused, with the part check_ported names: Parquet,
-# which needs pyarrow.
-REFUSED = {
-    'dlrm_parquet': 'input_type ParquetInput',
-}
+# The samples still refused, with the part check_ported names: none since
+# the port reads Parquet with a decoder of its own (dlrm_parquet).
+REFUSED = {}
 
 
 def _name(path):
@@ -164,8 +164,8 @@ def _passes(path):
 
 def test_samples_that_pass_check_ported():
   assert [_name(p) for p in SAMPLES if _passes(p)] == PORTED
-  assert len(PORTED) == 109
-  assert len(SAMPLES) - len(PORTED) == len(REFUSED) == 1
+  assert len(PORTED) == len(SAMPLES) == 110
+  assert len(SAMPLES) - len(PORTED) == len(REFUSED) == 0
   for name, part in REFUSED.items():
     with pytest.raises(NotImplementedError, match=part):
       t_config.check_ported(t_config.get_configs_from_pipeline_file(
@@ -219,6 +219,8 @@ def test_ported_samples_train_a_step(name, tmp_path):
     _write_csv(train, cols, 64, seed=11)
   if cfg.data_config.input_type == 'TFRecordInput':
     train = _csv_to_tfrecord(train, cfg.data_config.input_fields)
+  elif cfg.data_config.input_type == 'ParquetInput':
+    train = _csv_to_parquet(train, cfg.data_config.input_fields)
   elif cfg.train_input_path.endswith('.gz'):
     with open(train, 'rb') as src, gzip.open(train + '.gz', 'wb') as g:
       shutil.copyfileobj(src, g)
@@ -303,6 +305,23 @@ def _csv_to_tfrecord(path, fields):
   dst = path[:-len('.csv')] + '.tfrecord'
   tfrecord.write_records(dst, (tfrecord.columns_to_example(r)
                                for r in rows))
+  return dst
+
+
+def _csv_to_parquet(path, fields):
+  """The generator's CSV as a Parquet file pyarrow writes: FLOAT fields
+  as double columns, the rest as strings."""
+  import pyarrow as pa
+  import pyarrow.parquet as pq
+  with open(path) as f:
+    rows = [line.rstrip('\n').split(',') for line in f]
+  cols = {}
+  for i, fd in enumerate(fields):
+    vals = [r[i] for r in rows]
+    cols[fd.input_name] = pa.array([float(v) for v in vals]) \
+        if fd.input_type == 'FLOAT' else pa.array(vals, pa.string())
+  dst = path[:-len('.csv')] + '.parquet'
+  pq.write_table(pa.table(cols), dst)
   return dst
 
 
