@@ -80,7 +80,7 @@ K4 and K5 must launch 0 times in 6-8.
              model_dir (20 steps, one save; the checkpoint and the 'final'
              export timed, with their bytes), main.export of the
              checkpoint (equal to the final export bit for bit), then
-             PredictorService on the card: load and warmup timed, 20
+             PredictorService on the card: load and warmup timed, 10
              timed requests each of 1, 256 and 4096 raw rows (p50, p99,
              rows/s), answers equal to the Trainer's eval forward, /status
              counting them, K1-K5 launched 0 times; then the Taobao DIN
@@ -182,8 +182,8 @@ K4 and K5 must launch 0 times in 6-8.
              both views' ids, K3-K5 never; its rate over its own
              pipeline's batches, launches and id slots a step, peak memory
              and the eval's auc; then its step under torch.profiler
-             (profile_step.py --model dssm --steps 3, a process of its
-             own; 10 steps before PR 16): device busy time and idle share;
+             (profile_step.py --model dssm --steps 2, a process of its
+             own): device busy time and idle share;
  25. serve dssm  (inside 26, on its export since PR 16) PredictorService
              on the card answering 1 and 4,096 raw rows over HTTP, user_emb
              and item_emb bit-equal to the training Trainer's eval forward,
@@ -325,6 +325,21 @@ K4 and K5 must launch 0 times in 6-8.
              buckets (the JAX tool's default; the full table cut, see
              SCALING_BUCKETS) and 4,096 rows a rank, projected from phase
              34's sharded ms/step.
+ 37. gates   (after 12, before 11) the JAX package's learnability gates
+             on the card: first K1 (every mode), K2 and K3 (compact Adam)
+             bit-exact against their plain versions on the ids of the
+             first batch of 256 rows of the FM gate (table dim 16, 9
+             used) and of the MMoE gate (dim 8); then the port's
+             Trainer.fit on the gates' own files,
+             configs, steps and bars (tests/test_torch_learnability_data.py,
+             a JAX-free copy of tests/test_learnability*.py's): FM on K1 +
+             K2 and fused on K3, the DeepFM at f32 and under compute_dtype
+             bfloat16 (its eval loss apart from the f32 run's),
+             MultiTowerDIN, MMoE, ESMM, MIND recall@5 and DSSM pointwise,
+             each above its Bayes-derived bar; FM with its tables'
+             learning rate 0 (K1 + K2 still launched) under the bar; FM on
+             the CPU within GATE_CPU_STDS stds of the card's AUC; each
+             gate's kernels once a step and table.
 Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -346,7 +361,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 SLICE_STEPS = 20
-RATE_STEPS = 20
+RATE_STEPS = 10
 BF16_ULP = 2.0 ** -7      # the spacing of bf16's 8-bit significands
 # the bf16 rule of a bf16 compute_dtype model, card against CPU (ROADMAP's
 # known divergences): its eval logits within BF16_LOGIT_TOL of their scale
@@ -704,14 +719,18 @@ def synthetic_pack(torch, cfg):
 
 
 def phase_kernel_path(torch, cfg, what, pack=synthetic_pack,
-                      yardsticks=False):
+                      yardsticks=False, fused=False):
   """K1 in every mode and K2's compact Adam at the shape a main path at
   full width (`cfg`) gives them: the pack of one synthetic batch of it
-  (or `pack`'s), at its dim 16 (so K2 runs four lanes a row, eight rows
-  a warp), each bit-exact against its plain version; K2 on the sums of
-  mode 1, the path's default. With `yardsticks`, the plain versions'
-  and index_add_'s times too, and both kernels queued for the
-  kernel-only phase. Returns (K1's, K2's) largest difference."""
+  (or `pack`'s), at its table's dim (16 on the full-width paths and the
+  FM gate's, so K2 runs four lanes a row; 8 on the other gates', two),
+  its alignment lanes without gradient, each
+  bit-exact against its plain version; K2 on the sums of mode 1, the
+  path's default. With `fused`, K3 (compact Adam) on the same ids and
+  gradients too, bit-exact against its plain version. With `yardsticks`,
+  the plain versions' and index_add_'s times too, and both kernels
+  queued for the kernel-only phase. Returns (K1's, K2's) largest
+  difference, and K3's with `fused`."""
   from easyrec_torch.ops import packed_table as pt
 
   dev = torch.device('cuda')
@@ -719,6 +738,7 @@ def phase_kernel_path(torch, cfg, what, pack=synthetic_pack,
   n, dim = ids.shape[0], meta.dim
   gen = torch.Generator(device=dev).manual_seed(2468)
   grads = torch.randn((n, dim), generator=gen, device=dev) * 1e-3
+  grads[:, trainer.layout.tables[key].used_dim:] = 0.0
   grads[::97] = 0.0
   sids, order, starts = pt.sort_segments(ids)
   n_seg = int((starts[:n] < n).sum())
@@ -780,9 +800,15 @@ def phase_kernel_path(torch, cfg, what, pack=synthetic_pack,
         lambda table, uids, gsum, hypers: pt.rmw_rows(table, uids, gsum,
                                                       hypers, opt),
         table=table, uids=uids, gsum=gsum, hypers=hypers)
+  errs = (err1, err2)
+  if fused:
+    table = math_table(torch, trainer.layout, key, meta.rows, dim, opt,
+                       compact, gen)
+    errs += (check_fused(torch, pt, table, sids, order, starts, grads,
+                         hypers, opt, '%s shape, %s' % (what, name))[2],)
   del trainer, table, grads, flush, uids, gsum
   torch.cuda.empty_cache()
-  return err1, err2
+  return errs
 
 
 def queue_k2(torch, pt, layout, key, meta, name, opt, compact, ms, bound,
@@ -2095,7 +2121,7 @@ class Timed:
 
 
 SERVE_SIZES = (1, 256, 4096)
-SERVE_REQUESTS = 20
+SERVE_REQUESTS = 10
 
 
 def serve_rows(n, seed):
@@ -2138,7 +2164,8 @@ def phase_serve_deepfm(torch, smi):
   'final' export of the logical [26,000,014, 32] table), main.export of
   the step-20 checkpoint into a second directory (its variables must equal
   the final export's bit for bit), then PredictorService on the card: load
-  and warmup timed, /healthz 200, 20 timed requests (after one untimed)
+  and warmup timed, /healthz 200, SERVE_REQUESTS timed requests (after
+  one untimed)
   of 1, 256 and 4096 raw rows each, /status counting them, and every
   answer equal to the training Trainer's own eval forward on the same
   transformed rows (each request one chunk, as the Trainer's batch; held
@@ -3340,11 +3367,11 @@ def phase_dssm(torch, card):
       after=lambda result: trained.update(dssm_trained(torch, result,
                                                        data)))
   # the device's idle share: the step under torch.profiler, in a process
-  # of its own (the profiler stays hooked into the one it traced); 3 steps
-  # (a traced step takes about 1.4 s)
+  # of its own (the profiler stays hooked into the one it traced); 2 steps
+  # (a traced step takes 1.4-5.5 s)
   out = subprocess.run(
       [sys.executable, '-m', 'easyrec_torch.tools.profile_step', '--model',
-       'dssm', '--data_dir', data, '--top', '8', '--steps', '3'],
+       'dssm', '--data_dir', data, '--top', '8', '--steps', '2'],
       capture_output=True, text=True, timeout=600, cwd=HERE)
   if out.returncode != 0:
     fail('profile_step --model dssm: %s' % out.stderr[-2000:])
@@ -5510,6 +5537,135 @@ def phase_sharded(torch, smi):
 
 
 
+# phase 37: the FM gate's eval AUC, card against CPU. The two runs train on
+# the same files from different initial tables (a trainer draws them on its
+# own device) and sum in other orders, so they part in how they order the
+# (iid, cate) cells inside each of lint's two Bayes levels. Two random such
+# orders read sqrt(2) x lint_order_spread apart as one std (0.0028 on the
+# gate's eval file); the tolerance is GATE_CPU_STDS of those stds, 0.0098.
+GATE_CPU_STDS = 3.5
+
+
+def phase_gates(torch, card):
+  """Phase 37: the JAX package's learnability gates on the card, through
+  the port's Trainer.fit at the gates' sizes, seeds, steps, learning rates
+  and bars (tests/test_torch_learnability_data.py, the JAX-free copy the
+  CPU gates read): FM on K1 + K2 and again fused on K3, the DeepFM at f32
+  and under compute_dtype bfloat16 (its DNNs on cuBLAS in bf16; its eval
+  loss must differ from the f32 run's), MultiTowerDIN, MMoE, ESMM, MIND
+  recall and DSSM pointwise, each above its bar. A control that a broken
+  sparse update fails: FM with the tables' learning rate 0
+  (embedding_learning_rate_multiplier), which runs K1 + K2 but moves no
+  table weight, must read under the bar. Then FM on the CPU from the same
+  files, its AUC within GATE_CPU_STDS stds of two random orders of lint's
+  cells of the card's. Every launch counter is set to 0 before each gate
+  and read after it: the gate's kernels once a step and table (K2 or K3
+  with compact Adam), the others never. First K1, K2 and K3 bit-exact
+  against their plain versions on the ids of the first batch of the FM
+  gate (its table dim 16: the dim-8 embeddings and FM's merged wide
+  weight, 9 used) and of the MMoE gate (dim 8), phase_kernel_path.
+  Returns the launches of the gates
+  together, by kernel and by kernel/math, and K1's, K2's and K3's
+  largest differences."""
+  from easyrec_torch.config import config_util
+  from easyrec_torch.ops import kernels
+  from tests import test_torch_learnability_data as d
+  root = os.path.join(SCRATCH, 'gates')
+  os.makedirs(root, exist_ok=True)
+  lint = d.BAYES['lint'] - d.MARGIN['rank']
+  lseq = d.BAYES['lseq'] - d.MARGIN['seq']
+  mt = {'auc_ctr': d.BAYES['lctr'] - d.MARGIN['mt'],
+        'auc_cvr': d.BAYES['lcvr'] - d.MARGIN['mt']}
+  unfused, fused = ('seg_sum', 'rmw_rows'), ('rmw_fused',)
+  total = {}
+
+  def gate(what, path, path_kernels, bars, device='cuda', under=False):
+    """Train one gate; each metric of `bars` must read above its bar (with
+    `under`, under it)."""
+    os.environ['EASYREC_PACKED_FUSED'] = '1' if path_kernels == fused \
+        else '0'
+    kernels.reset_launches()
+    m, trainer, result, secs = d.run_gate(path, device)
+    if device == 'cuda':
+      torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    tagged = kernels.tagged_counts()
+    steps, n_tables = result['global_step'], len(trainer.tables)
+    log('phase 37 %s on %s: %d steps over %d table(s) in %.1f s (input '
+        'and eval included); %s; bars %s; launches %s'
+        % (what, device, steps, n_tables, secs, m,
+           {k: round(v, 4) for k, v in bars.items()},
+           {k: c for k, c in dict(counts, **tagged).items() if c}))
+    losses = result['losses']
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+      fail('phase 37 %s: %d losses for %d steps, or one not finite'
+           % (what, len(losses), steps))
+    for name, c in counts.items():
+      want = steps * n_tables if device == 'cuda' and \
+          name in path_kernels else 0
+      if c != want:
+        fail('phase 37 %s: kernel %s launched %d times in %d steps over %d '
+             'tables, %d expected' % (what, name, c, steps, n_tables, want))
+    want = {'%s/compact_adam' % k: steps * n_tables for k in path_kernels
+            if k != 'seg_sum'} if device == 'cuda' else {}
+    if tagged != want:
+      fail('phase 37 %s: K2/K3 launched with the block maths %s, %s '
+           'expected' % (what, tagged, want))
+    for k, c in dict(counts, **tagged).items():
+      total[k] = total.get(k, 0) + c
+    for key, bar in bars.items():
+      if (m[key] < bar) != under or m[key] == bar:
+        fail('phase 37 %s gate: %s=%.4f not %s its bar %.4f'
+             % (what, key, m[key], 'under' if under else 'above', bar))
+    return m
+
+  t0 = time.time()
+  fm = d.gate_config(root, d.RANK_BODIES['FM'], ['lint'])
+  mmoe = d.gate_config(root, d.MT_BODIES['MMoE'], ['lctr', 'lcvr'])
+  errs = (0.0, 0.0, 0.0)
+  for what, path in (('FM gate', fm), ('MMoE gate', mmoe)):
+    errs = [max(a, b) for a, b in zip(errs, phase_kernel_path(
+        torch, config_util.get_configs_from_pipeline_file(path), what,
+        pack=pipeline_pack, fused=True))]
+  m_fm = gate('FM (K1 + K2)', fm, unfused, {'auc': lint})
+  gate('FM, EASYREC_PACKED_FUSED=1 (K3)', fm, fused, {'auc': lint})
+  m_f32 = gate('DeepFM', d.gate_config(root, d.DEEPFM_BODY, ['lint']),
+               unfused, {'auc': lint})
+  m = gate('DeepFM, compute_dtype bfloat16', d.gate_config(
+      root, d.DEEPFM_BODY, ['lint'], bf16=True), unfused, {'auc': lint})
+  if m['loss'] == m_f32['loss']:
+    fail('phase 37: the bf16 DeepFM read the f32 eval loss %r: '
+         'compute_dtype ignored' % m['loss'])
+  gate('MultiTowerDIN', d.gate_config(root, d.SEQ_BODIES['MultiTowerDIN'],
+                                      ['lseq']), unfused, {'auc': lseq})
+  gate('MMoE', mmoe, unfused, mt)
+  gate('ESMM', d.gate_config(root, d.ESMM_BODY, ['lctr', 'lcvr']), unfused,
+       dict(mt, auc_cvr=d.BAYES['lcvr'] - d.MARGIN['esmm_cvr']))
+  mind, evalp = d.mind_config(os.path.join(root, 'mind'))
+  gate('MIND', mind, unfused, {'recall@5': d.mind_gate(evalp)})
+  gate('DSSM pointwise', d.extra_config(os.path.join(root, 'extra'),
+                                        d.DSSM_POINTWISE, 'ltwr'),
+       unfused, {'auc': d.TWO_TOWER_BAR})
+  control = gate('FM, tables frozen (control)', d.gate_config(
+      root, d.RANK_BODIES['FM'], ['lint'], frozen=True), unfused,
+                 {'auc': lint}, under=True)
+  m_cpu = gate('FM', fm, unfused, {'auc': lint}, device='cpu')
+  gap = abs(m_cpu['auc'] - m_fm['auc'])
+  std = d.lint_order_spread(d.data_file(root, d.make_csv, 4096, 6)) * \
+      math.sqrt(2)
+  log('phase 37: FM auc card %.4f, CPU %.4f, gap %.4f (tolerance %.4f: %g '
+      'times %.4f, one std of two random orders of the cells inside lint\'s '
+      'levels); the control %.4f under the bar %.4f; %.1f s in all on %s; '
+      'launches %s'
+      % (m_fm['auc'], m_cpu['auc'], gap, GATE_CPU_STDS * std, GATE_CPU_STDS,
+         std, control['auc'], lint, time.time() - t0, card, total))
+  if not gap <= GATE_CPU_STDS * std:
+    fail('phase 37: FM auc card %.4f against CPU %.4f, %.4f apart, past '
+         '%.4f' % (m_fm['auc'], m_cpu['auc'], gap, GATE_CPU_STDS * std))
+  os.environ['EASYREC_PACKED_FUSED'] = '0'
+  return total, errs
+
+
 def main():
   STARTED[0] = time.time()
   if not os.path.isdir(os.path.join(HERE, 'easyrec_torch')):
@@ -5620,18 +5776,26 @@ def main():
   ev = phase_ev(torch)
   phase_serve_deepfm(torch, smi)
   phase_serve_din(torch, smi)
+  # 37: the learnability gates on the card (K1 + K2, K3)
+  gates, errs = phase_gates(torch, card)
+  errs = dict(zip(('seg_sum', 'rmw_rows/compact_adam',
+                   'rmw_fused/compact_adam'), errs))
+  for r in results:
+    r['max_abs_err'] = max(r['max_abs_err'], errs.get(r['name'], 0.0))
   phase_kernel_only(torch)
   # launches on the paths: each kernel and math on the first path of
-  # these that runs it (K1 and K2's compact Adam on the Parquet-fed DLRM,
-  # this slice's main path; K3 on the Kafka-streamed DIN, Adagrad on the
-  # Adagrad DeepFM's, the EV maths on the EV phase's), 0 for a math no
-  # path runs
+  # these that runs it (K1 and K2's compact Adam on the Parquet-fed DLRM;
+  # K3 on the Kafka-streamed DIN, Adagrad on the Adagrad DeepFM's, the EV
+  # maths on the EV phase's), 0 for a math no path runs, plus the
+  # learnability gates' own (phase 37, this slice's path: K1, K2 and K3
+  # with compact Adam)
   for r in results:
     r['launches'] = next((path[r['name']] for path in
                           (parquet, sharded, deepfm, kafka, fg, retrieve,
                            dssm, backbone, dlrm, mmoe, bst, din, adagrad,
                            ev)
-                          if path.get(r['name'], 0)), 0)
+                          if path.get(r['name'], 0)), 0) + \
+        gates.get(r['name'], 0)
   results += groups
   keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
           'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
