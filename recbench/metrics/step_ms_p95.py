@@ -1,0 +1,11 @@
+"""The 95th percentile (nearest rank) over every step of the window of
+the time from one step's start to the next's (the last step's: to the
+end of its work), each start a CUDA event recorded on the stream with no
+sync added."""
+
+import math
+
+
+def read(run):
+  steps = sorted(run.window['step_ms'])
+  return steps[max(0, math.ceil(0.95 * len(steps)) - 1)]
