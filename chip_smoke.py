@@ -181,9 +181,10 @@ K4 and K5 must launch 0 times in 6-8.
              to 20, on phase 26's model_dir (since PR 16): K1 and K2 (compact Adam) once a step and table over
              both views' ids, K3-K5 never; its rate over its own
              pipeline's batches, launches and id slots a step, peak memory
-             and the eval's auc; then its step under torch.profiler
-             (profile_step.py --model dssm --steps 2, a process of its
-             own): device busy time and idle share;
+             and the eval's auc; the run sets train_config.is_profiling,
+             so fit writes its first logging window's torch.profiler trace
+             into model_dir/profile: it must hold an easyrec.step span a
+             step, every span of the step and device kernels;
  25. serve dssm  (inside 26, on its export since PR 16) PredictorService
              on the card answering 1 and 4,096 raw rows over HTTP, user_emb
              and item_emb bit-equal to the training Trainer's eval forward,
@@ -344,6 +345,7 @@ Then one JSON line of kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
 
+import collections
 import gc
 import json
 import math
@@ -3360,24 +3362,61 @@ def phase_dssm(torch, card):
   shutil.rmtree(root, ignore_errors=True)
   os.makedirs(root)
   trained = {'root': root}
+  # the operator's step trace: fit profiles its first logging window
+  cfg = dssm_config(data, model_dir=os.path.join(root, 'md'))
+  cfg.train_config.is_profiling = True
   counts = phase_slice(
-      torch, card, 'DSSM (dssm_neg_sampler)',
-      dssm_config(data, model_dir=os.path.join(root, 'md')), '0',
+      torch, card, 'DSSM (dssm_neg_sampler)', cfg, '0',
       ('seg_sum', 'rmw_rows'), 'compact_adam', views=True,
       after=lambda result: trained.update(dssm_trained(torch, result,
                                                        data)))
-  # the device's idle share: the step under torch.profiler, in a process
-  # of its own (the profiler stays hooked into the one it traced); 2 steps
-  # (a traced step takes 1.4-5.5 s)
-  out = subprocess.run(
-      [sys.executable, '-m', 'easyrec_torch.tools.profile_step', '--model',
-       'dssm', '--data_dir', data, '--top', '8', '--steps', '2'],
-      capture_output=True, text=True, timeout=600, cwd=HERE)
-  if out.returncode != 0:
-    fail('profile_step --model dssm: %s' % out.stderr[-2000:])
-  for line in out.stdout.splitlines():
-    log('dssm profile: %s' % line)
+  check_step_trace(os.path.join(root, 'md', 'profile',
+                                'rank0.pt.trace.json'), 'DSSM')
   return counts, errs, trained
+
+
+# the spans of every train step (easyrec_torch/utils/spans.py)
+STEP_SPANS = ('easyrec.step', 'easyrec.pack', 'easyrec.pull',
+              'easyrec.forward', 'easyrec.embed', 'easyrec.loss',
+              'easyrec.backward', 'easyrec.dense_opt',
+              'easyrec.sparse_update', 'easyrec.sparse_update.sort')
+
+
+def check_step_trace(path, what):
+  """The chrome trace fit writes under train_config.is_profiling (phase
+  slice's log window: 5 steps): an easyrec.step span a step, every span of
+  the step, and kernels on the card. Logs each span's count and host ms,
+  the kernels' device ms and the synchronizing calls a step."""
+  if not os.path.exists(path):
+    fail('%s: is_profiling wrote no %s' % (what, path))
+  with open(path) as f:
+    events = [e for e in json.load(f)['traceEvents'] if e.get('ph') == 'X']
+  spans = collections.Counter()
+  host = collections.Counter()
+  for e in events:
+    if e.get('cat') == 'user_annotation' and \
+        e['name'].startswith('easyrec.'):
+      spans[e['name']] += 1
+      host[e['name']] += float(e.get('dur', 0.0))
+  kernels = [e for e in events if e.get('cat') == 'kernel']
+  syncs = sum(1 for e in events if e.get('cat') == 'cuda_runtime' and
+              e['name'] in ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
+                            'cudaEventSynchronize', 'cudaMemcpy'))
+  steps = spans['easyrec.step']
+  log('%s step trace %s: %d easyrec.step spans, %d kernels (%.3f device ms '
+      'a step), %.1f synchronizing calls a step; spans (count, host ms a '
+      'step): %s' % (what, path, steps, len(kernels),
+                     sum(float(e.get('dur', 0.0)) for e in kernels) / 1e3 /
+                     max(steps, 1), syncs / max(steps, 1),
+                     {n: (c, round(host[n] / 1e3 / max(steps, 1), 3))
+                      for n, c in sorted(spans.items())}))
+  if steps != 5:
+    fail('%s step trace: %d easyrec.step spans, 5 expected' % (what, steps))
+  missing = [n for n in STEP_SPANS if not spans[n]]
+  if missing:
+    fail('%s step trace: no %s span' % (what, ', '.join(missing)))
+  if not kernels:
+    fail('%s step trace: no device kernel' % what)
 
 
 def dssm_trained(torch, result, data):

@@ -27,6 +27,7 @@ from easyrec_torch.features.embedding_layout import EmbeddingLayout
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.parallel import exchange as xch
 from easyrec_torch.parallel.mesh import RowSplit, World
+from easyrec_torch.utils.spans import span
 
 
 def pack_ids(layout: EmbeddingLayout, batch: Dict[str, torch.Tensor],
@@ -68,12 +69,13 @@ def pack_all_views(layout: EmbeddingLayout,
                    batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
   """The base batch's packs, then each sampled view's present in the
   batch, under '<view><table>'."""
-  packs = pack_ids(layout, batch)
-  for pfx in VIEWS:
-    if any(k.startswith(pfx + 'feat.') for k in batch):
-      packs.update({pfx + k: v for k, v in
-                    pack_ids(layout, batch, prefix=pfx).items()})
-  return packs
+  with span('easyrec.pack'):
+    packs = pack_ids(layout, batch)
+    for pfx in VIEWS:
+      if any(k.startswith(pfx + 'feat.') for k in batch):
+        packs.update({pfx + k: v for k, v in
+                      pack_ids(layout, batch, prefix=pfx).items()})
+    return packs
 
 
 def view_table(pack_key: str) -> str:
@@ -219,38 +221,40 @@ class InputLayer:
                         ) -> torch.Tensor:
     """[B, dim] combined embedding of one categorical feature, of the
     base batch or of the sampled view `prefix`."""
-    spec = self.specs[fname]
-    key, use = self.layout.feature_use[(fname, role)]
-    wkey = '%sfeat.%s.weights' % (prefix, fname)
-    if prefix and wkey not in batch:
-      raise KeyError(
-          'feature %r is used by a sampled-negative tower but is not in '
-          'the batch view %r: add its input column to the sampler\'s '
-          'attr_fields' % (fname, prefix))
-    rows = pulled[prefix + key][:, use.start:use.start + use.k]
-    if use.col_dim:
-      # merged wide-into-deep table: this role reads a column slice
-      rows = rows[..., use.col_start:use.col_start + use.col_dim]
-    combiner = spec.combiner if role == 'deep' else 'sum'
-    return combine(rows, batch[wkey], combiner)
+    with span('easyrec.embed'):
+      spec = self.specs[fname]
+      key, use = self.layout.feature_use[(fname, role)]
+      wkey = '%sfeat.%s.weights' % (prefix, fname)
+      if prefix and wkey not in batch:
+        raise KeyError(
+            'feature %r is used by a sampled-negative tower but is not in '
+            'the batch view %r: add its input column to the sampler\'s '
+            'attr_fields' % (fname, prefix))
+      rows = pulled[prefix + key][:, use.start:use.start + use.k]
+      if use.col_dim:
+        # merged wide-into-deep table: this role reads a column slice
+        rows = rows[..., use.col_start:use.col_start + use.col_dim]
+      combiner = spec.combiner if role == 'deep' else 'sum'
+      return combine(rows, batch[wkey], combiner)
 
   def sequence_embedding(self, pulled, batch, fname: str,
                          prefix: str = ''):
     """([B, L, dim] rows x mask, mask [B, L]) of one id sequence, or the
     [B, L, N] values x mask of a numeric one."""
-    spec = self.specs[fname]
-    mkey = '%sfeat.%s.mask' % (prefix, fname)
-    if prefix and mkey not in batch:
-      raise KeyError('sequence feature %r has no %r view in the batch'
-                     % (fname, prefix))
-    mask = batch[mkey]
-    if spec.seq_is_dense:
-      return batch[prefix + spec.dense_key] * mask[:, :, None], mask
-    key, use = self.layout.feature_use[(fname, 'deep')]
-    rows = pulled[prefix + key][:, use.start:use.start + use.k]
-    if use.col_dim:
-      rows = rows[..., use.col_start:use.col_start + use.col_dim]
-    return rows * mask[:, :, None], mask
+    with span('easyrec.embed'):
+      spec = self.specs[fname]
+      mkey = '%sfeat.%s.mask' % (prefix, fname)
+      if prefix and mkey not in batch:
+        raise KeyError('sequence feature %r has no %r view in the batch'
+                       % (fname, prefix))
+      mask = batch[mkey]
+      if spec.seq_is_dense:
+        return batch[prefix + spec.dense_key] * mask[:, :, None], mask
+      key, use = self.layout.feature_use[(fname, 'deep')]
+      rows = pulled[prefix + key][:, use.start:use.start + use.k]
+      if use.col_dim:
+        rows = rows[..., use.col_start:use.col_start + use.col_dim]
+      return rows * mask[:, :, None], mask
 
   def dense_feature(self, batch, fname: str, prefix: str = ''
                     ) -> torch.Tensor:

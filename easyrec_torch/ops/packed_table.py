@@ -44,6 +44,7 @@ import torch
 from easyrec_torch.ops import kernels
 from easyrec_torch.optim.sparse import (MATH_NAMES, MAX_CONSTS,
                                         SparseOptimizer)
+from easyrec_torch.utils.spans import span
 
 GG_MODES = {'0': 0, '1': 1, 'mix': 2}
 
@@ -187,22 +188,25 @@ def sort_segments(ids: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """ids [N] int64 -> (sids [N] sorted ids, order [N] sorted slot ->
   original slot, starts [N+1]: first sorted slot of segment k, N for
-  unused k and for starts[N]). No host sync. The sort is stable, as the
+  unused k and for starts[N]). On a card it syncs the host once:
+  `starts[n] = n` copies a host scalar to the device (a
+  cudaStreamSynchronize under aten::copy_). The sort is stable, as the
   JAX package's argsort: a segment's slots keep their batch order, which
   fixes the order of its gradient sum on every device (PyTorch's unstable
   sort of up to 4,096 keys on the card is a bitonic network that orders
   equal keys otherwise than the CPU's)."""
-  n = ids.shape[0]
-  sids, order = torch.sort(ids, stable=True)
-  first = torch.ones(n, dtype=torch.bool, device=ids.device)
-  first[1:] = sids[1:] != sids[:-1]
-  seg = torch.cumsum(first, 0) - 1
-  # non-first slots scatter into the dump slot n, reset right after
-  slot = torch.where(first, seg, torch.full_like(seg, n))
-  starts = torch.full((n + 1,), n, dtype=torch.int64, device=ids.device)
-  starts.scatter_(0, slot, torch.arange(n, device=ids.device))
-  starts[n] = n
-  return sids, order, starts
+  with span('easyrec.sparse_update.sort'):
+    n = ids.shape[0]
+    sids, order = torch.sort(ids, stable=True)
+    first = torch.ones(n, dtype=torch.bool, device=ids.device)
+    first[1:] = sids[1:] != sids[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    # non-first slots scatter into the dump slot n, reset right after
+    slot = torch.where(first, seg, torch.full_like(seg, n))
+    starts = torch.full((n + 1,), n, dtype=torch.int64, device=ids.device)
+    starts.scatter_(0, slot, torch.arange(n, device=ids.device))
+    starts[n] = n
+    return sids, order, starts
 
 
 # ------------------------------------ the chunk tree shared by K1 and K3

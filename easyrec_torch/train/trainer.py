@@ -28,6 +28,8 @@ device (parallel/mesh.py; the JAX package's mesh code, :104-213, :289-453,
      segment;
   7. with ev_params, counts the batch's ids and stamps their step into the
      EV aux tables through the same update (block maths ev_add, ev_set).
+These stages are the easyrec.* spans of utils/spans.py, recorded only
+while a torch profiler runs (train_config.is_profiling, fit).
 Eval reports the metrics of eval_config, gauc and session_auc grouped on
 the host by the batch's field.<name> ids (JAX :527-612). Eval and export
 run the model in eval mode on eval_params(): the dense
@@ -38,7 +40,9 @@ The tables hold the embedding optimizer's slots beside the weights
 (packed_table.table_meta: one part per slot, Adam's moments as bf16 pairs
 unless EASYREC_PACKED_COMPACT=0). Everything the step needs per step (step
 counter, learning rates, Adam bias corrections) stays on the device: a
-step syncs the host only where the caller reads a loss.
+step syncs the host in each ops/packed_table.py sort_segments (`starts[n]
+= n`: once a table on one device without EV) and where the caller reads a
+loss.
 
 In a world (a Trainer made with `world`, or after mesh.join_world) every
 rank reads its own shard of the input (shard_index = rank), and the step
@@ -97,6 +101,7 @@ from easyrec_torch.train import checkpoints as ckpt_lib
 from easyrec_torch.train import hooks
 from easyrec_torch.train.restore import fine_tune_restore
 from easyrec_torch.utils.registry import INPUTS
+from easyrec_torch.utils.spans import span
 
 
 def l2_of_kernels(model: nn.Module) -> torch.Tensor:
@@ -374,41 +379,43 @@ class Trainer:
   # -- train step ----------------------------------------------------------
 
   def _regularised_loss(self, outputs, batch, pulled):
-    total, loss_dict = self.model.build_loss(outputs, batch)
-    # the losses backbone layers record (AuxiliaryLoss, VariationalDropout;
-    # JAX trainer.py:319-327), in training only
-    for aux in outputs.get('aux_losses', ()):
-      total = total + aux
-      loss_dict['aux_loss'] = loss_dict.get('aux_loss', 0.0) + aux
-    l2 = l2_of_kernels(self.model) if self.l2_reg > 0 else None
-    if l2 is not None:
-      total = total + self.l2_reg * l2
-    if self.emb_reg > 0:
-      # padded tail rows (sample_weight 0) stay out of the regulariser; a
-      # sampler's views have none and count whole, filler columns too. In
-      # a world the base batch's and the 'hard_neg.' view's rows are each
-      # rank's (summed over the ranks), the 'neg.' view's alike on every
-      # rank
-      valid = (batch['sample_weight'] > 0).to(torch.float32)
-      reg = None
-      for k, p in pulled.items():
-        sq = torch.sum(p * p, dim=tuple(range(1, p.ndim)))
-        if emb_ops.view_table(k) == k and p.shape[0] == valid.shape[0]:
-          term = mesh.batch_sum(torch.sum(sq * valid))
-        elif k.startswith('hard_neg.'):
-          term = mesh.batch_sum(torch.sum(sq))
-        else:
-          term = torch.sum(sq)
-        reg = term if reg is None else reg + term
-      total = total + self.emb_reg * reg
-    return total, loss_dict
+    with span('easyrec.loss'):
+      total, loss_dict = self.model.build_loss(outputs, batch)
+      # the losses backbone layers record (AuxiliaryLoss, VariationalDropout;
+      # JAX trainer.py:319-327), in training only
+      for aux in outputs.get('aux_losses', ()):
+        total = total + aux
+        loss_dict['aux_loss'] = loss_dict.get('aux_loss', 0.0) + aux
+      l2 = l2_of_kernels(self.model) if self.l2_reg > 0 else None
+      if l2 is not None:
+        total = total + self.l2_reg * l2
+      if self.emb_reg > 0:
+        # padded tail rows (sample_weight 0) stay out of the regulariser; a
+        # sampler's views have none and count whole, filler columns too. In
+        # a world the base batch's and the 'hard_neg.' view's rows are each
+        # rank's (summed over the ranks), the 'neg.' view's alike on every
+        # rank
+        valid = (batch['sample_weight'] > 0).to(torch.float32)
+        reg = None
+        for k, p in pulled.items():
+          sq = torch.sum(p * p, dim=tuple(range(1, p.ndim)))
+          if emb_ops.view_table(k) == k and p.shape[0] == valid.shape[0]:
+            term = mesh.batch_sum(torch.sum(sq * valid))
+          elif k.startswith('hard_neg.'):
+            term = mesh.batch_sum(torch.sum(sq))
+          else:
+            term = torch.sum(sq)
+          reg = term if reg is None else reg + term
+        total = total + self.emb_reg * reg
+      return total, loss_dict
 
   def pull(self, packs: Dict[str, torch.Tensor]
            ) -> Dict[str, torch.Tensor]:
     """The rows of every pack, through the exchange where tables are
     row-sharded."""
-    return emb_ops.pull_embeddings(self.tables, packs, self.metas,
-                                   self.sharding)
+    with span('easyrec.pull'):
+      return emb_ops.pull_embeddings(self.tables, packs, self.metas,
+                                     self.sharding)
 
   def _reduce_dense_grads(self) -> None:
     """Sum the dense gradients over the ranks in one all-reduce and divide
@@ -438,56 +445,65 @@ class Trainer:
   def train_step(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
     """One step on a batch of device tensors; returns device scalars."""
-    packs = emb_ops.pack_all_views(self.layout, batch)
-    pulled = {k: v.requires_grad_() for k, v in self.pull(packs).items()}
-    used = ev_lib.mask_pulled(pulled, packs, self.ev_state, self.ev_plan,
-                              self.step, self.ev_masked, self.sharding) \
-        if self.ev_plan else pulled
-    self.model.train()
-    with mesh.step_scope(self.world):
-      outputs = self.model(batch, used)
-      total, loss_dict = self._regularised_loss(outputs, batch, used)
-    for p in self.dense_opt.params:
-      p.grad = None
-    total.backward()
-    for p in self.frozen:
-      p.grad = None           # a zero gradient: the optimizer still steps
-    if self.world is not None:
-      self._reduce_dense_grads()
-    self.dense_opt.step()
-    with torch.no_grad():
-      lr = self.embed_pair.schedule(self.step) * \
-          self.embed_pair.embedding_lr_multiplier
-      sparse = self.embed_pair.sparse
-      hypers = sparse.hypers(lr, self.step)
-      sh = self.sharding
-      for key, meta in self.metas.items():
-        ids, grads = view_stream(packs, pulled, key)
-        if sh is None:
-          pt.apply_packed_update(self.tables[key], ids, grads, hypers,
-                                 sparse, meta)
-          continue
-        if sh.world.size > 1:
-          grads = grads / sh.world.size
-        if key in sh.splits:
-          sh.count('update_overflow', sparse_lib.packed_update_sharded(
-              sh.world, self.tables[key], ids, grads, hypers, sparse,
-              pt.TableMeta(self.tables[key].shape[0], meta.dim,
-                           meta.logical_parts, meta.compact),
-              sh.splits[key]))
-        else:
-          sparse_lib.packed_update_replicated(sh.world, self.tables[key],
-                                              ids, grads, hypers, sparse,
-                                              meta)
+    with span('easyrec.step'):
+      packs = emb_ops.pack_all_views(self.layout, batch)
+      pulled = {k: v.requires_grad_() for k, v in self.pull(packs).items()}
+      used = pulled
       if self.ev_plan:
-        ev_lib.update_ev_state(self.ev_state, packs, self.ev_plan,
-                               self.step, sh)
-      self.step += 1
-    out = {k: v.detach() for k, v in loss_dict.items()}
-    out['total_loss'] = total.detach()
-    if sh is not None and sh.splits:
-      out.update(self._exchange_counts())
-    return out
+        with span('easyrec.ev'):
+          used = ev_lib.mask_pulled(pulled, packs, self.ev_state,
+                                    self.ev_plan, self.step, self.ev_masked,
+                                    self.sharding)
+      self.model.train()
+      with mesh.step_scope(self.world):
+        with span('easyrec.forward'):
+          outputs = self.model(batch, used)
+        total, loss_dict = self._regularised_loss(outputs, batch, used)
+      for p in self.dense_opt.params:
+        p.grad = None
+      with span('easyrec.backward'):
+        total.backward()
+      for p in self.frozen:
+        p.grad = None         # a zero gradient: the optimizer still steps
+      with span('easyrec.dense_opt'):
+        if self.world is not None:
+          self._reduce_dense_grads()
+        self.dense_opt.step()
+      with torch.no_grad():
+        lr = self.embed_pair.schedule(self.step) * \
+            self.embed_pair.embedding_lr_multiplier
+        sparse = self.embed_pair.sparse
+        hypers = sparse.hypers(lr, self.step)
+        sh = self.sharding
+        with span('easyrec.sparse_update'):
+          for key, meta in self.metas.items():
+            ids, grads = view_stream(packs, pulled, key)
+            if sh is None:
+              pt.apply_packed_update(self.tables[key], ids, grads, hypers,
+                                     sparse, meta)
+              continue
+            if sh.world.size > 1:
+              grads = grads / sh.world.size
+            if key in sh.splits:
+              sh.count('update_overflow', sparse_lib.packed_update_sharded(
+                  sh.world, self.tables[key], ids, grads, hypers, sparse,
+                  pt.TableMeta(self.tables[key].shape[0], meta.dim,
+                               meta.logical_parts, meta.compact),
+                  sh.splits[key]))
+            else:
+              sparse_lib.packed_update_replicated(
+                  sh.world, self.tables[key], ids, grads, hypers, sparse,
+                  meta)
+        if self.ev_plan:
+          with span('easyrec.ev'):
+            ev_lib.update_ev_state(self.ev_state, packs, self.ev_plan,
+                                   self.step, sh)
+        self.step += 1
+      out = {k: v.detach() for k, v in loss_dict.items()}
+      out['total_loss'] = total.detach()
+      if sh is not None and sh.splits:
+        out.update(self._exchange_counts())
+      return out
 
   # -- pipelines -----------------------------------------------------------
 
@@ -729,7 +745,9 @@ class Trainer:
 
   def step_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """train_step on a host batch of this rank (device_batch)."""
-    return self.train_step(self.device_batch(batch))
+    with span('easyrec.input'):
+      batch = self.device_batch(batch)
+    return self.train_step(batch)
 
   def export(self, export_fn):
     """export_fn() on rank 0, with the tables whole (every rank of a world
@@ -781,7 +799,11 @@ class Trainer:
     (train/incremental.py) snapshots the state at the first step, then
     publishes every sparse_save_steps (else dense_save_steps, else
     save_checkpoints_steps) steps, or sparse_save_secs (else
-    dense_save_secs) seconds, and once more at the end.
+    dense_save_secs) seconds, and once more at the end. With is_profiling
+    and a model_dir, the first logging window runs under torch.profiler
+    (the host, and the card's kernels and copies on a card); its chrome
+    trace, with the easyrec.* spans of utils/spans.py, goes to
+    model_dir/profile/rank<r>.pt.trace.json.
 
     Returns the global step, the log history, this run's total losses (one
     a step) and the eval metrics."""
@@ -880,8 +902,36 @@ class Trainer:
                      'offsets': {str(k): int(v)
                                  for k, v in trained_offsets.items()}}, f)
 
-    for batch in train_pipe:
-      if stop_training or (num_steps and step >= num_steps):
+    profiler = None
+    if tc.is_profiling and self.model_dir:
+      # the first logging window under torch.profiler (JAX :771-777,
+      # :855-858, :917-920), with the easyrec.* spans of utils/spans.py
+      from torch.profiler import ProfilerActivity, profile
+      profiler = profile(activities=[ProfilerActivity.CPU] + (
+          [ProfilerActivity.CUDA] if self.device.type == 'cuda' else []))
+      profiler.start()
+
+    def write_profile():
+      """Stop the profiler and write its chrome trace into
+      model_dir/profile, one file a rank."""
+      nonlocal profiler
+      if profiler is None:
+        return
+      if self.device.type == 'cuda':
+        torch.cuda.synchronize()
+      profiler.stop()
+      path = os.path.join(self.model_dir, 'profile', 'rank%d.pt.trace.json'
+                          % (self.world.rank if self.world else 0))
+      os.makedirs(os.path.dirname(path), exist_ok=True)
+      profiler.export_chrome_trace(path)
+      logging.info('profiler trace written to %s', path)
+      profiler = None
+
+    batches = iter(train_pipe)
+    while True:
+      with span('easyrec.input'):
+        batch = next(batches, None)
+      if batch is None or stop_training or (num_steps and step >= num_steps):
         break
       # the pipeline cuts batches one at a time: its offsets are this
       # batch's
@@ -907,6 +957,7 @@ class Trainer:
           summary.add_scalars({'global_step/examples_per_sec': rate}, step)
           summary.flush()
         t0, window = time.time(), 0
+        write_profile()
         if deadline is not None and deadline.should_stop():
           logging.warning('dead_line reached; stopping training')
           stop_training = True
@@ -953,6 +1004,7 @@ class Trainer:
           (incr_secs and time.time() - last_incr >= incr_secs)):
         last_incr = time.time()
         publisher.publish(self, step)
+    write_profile()           # training ended inside the first window
     if manager is not None:
       self.save(manager, step, force=True)
       save_offsets(step)
