@@ -13,7 +13,10 @@ owns them (models/seq_input.build_group_input) and is passed as
 `owner`. The pull
 happens OUTSIDE the differentiated forward: the backward pass produces
 gradients of the pulled rows [B, totK, dim], which the sparse update then
-applies to the table.
+applies to the table. In a train step the pulled rows come as a
+`StepPulls`, which cuts each pack once into its uses' pieces; the
+InputLayer reads a use's rows from its piece there, and by a slice of the
+whole pack from any other mapping (eval, predict, export).
 """
 
 from __future__ import annotations
@@ -209,12 +212,77 @@ def sequence_dim(spec) -> int:
   return spec.value_dim if spec.seq_is_dense else spec.embedding_dim
 
 
+# feature uses whose rows came from a piece of a StepPulls ('piece') and
+# from a slice of the whole pack ('slice': a plain mapping, or a use whose
+# slots are not one piece of its table)
+_USES = {'piece': 0, 'slice': 0}
+
+
+def reset_use_counts() -> None:
+  _USES.update(piece=0, slice=0)
+
+
+def use_counts() -> Dict[str, int]:
+  return dict(_USES)
+
+
+class StepPulls(dict):
+  """The pulled packs of one train step (pack key -> [rows, totK, dim]),
+  each cut once, at its first read, along its slot axis into the pieces of
+  its table's uses (FusedTable.uses: consecutive and disjoint). Every use
+  of the step reads its piece, so the backward of the one split writes the
+  pack's gradient once; a slice per use would fill and add a gradient of
+  the whole pack each. A piece is a view of its pack and holds it and its
+  graph: Trainer.train_step makes one for the step alone."""
+
+  def __init__(self, pulled: Dict[str, torch.Tensor],
+               layout: EmbeddingLayout):
+    super().__init__(pulled)
+    self.layout = layout
+    self._pieces: Dict[str, tuple] = {}
+
+  def pieces(self, key: str) -> tuple:
+    """Pack `key`'s pieces [rows, k, dim], one a use of its table."""
+    got = self._pieces.get(key)
+    if got is None:
+      uses = self.layout.tables[view_table(key)].uses
+      with span('easyrec.embed.split'):
+        got = torch.split(self[key], [u.k for u in uses], dim=1)
+      self._pieces[key] = got
+    return got
+
+
 class InputLayer:
   """Assembles per-feature embeddings from the fused pulls."""
 
   def __init__(self, layout: EmbeddingLayout, specs):
     self.layout = layout
     self.specs = specs
+    # (feature, role) -> its piece among its table's uses, where its slots
+    # are exactly one (a merged wide use shares its deep use's)
+    self.piece_of = {}
+    for fr, (key, use) in layout.feature_use.items():
+      for i, u in enumerate(layout.tables[key].uses):
+        if (u.start, u.k) == (use.start, use.k):
+          self.piece_of[fr] = i
+          break
+
+  def use_rows(self, pulled, fname: str, role: str, prefix: str = ''
+               ) -> torch.Tensor:
+    """[rows, k, d] pulled rows of one use: its piece of a StepPulls, else
+    a slice of the whole pack; then its columns of a merged table."""
+    key, use = self.layout.feature_use[(fname, role)]
+    i = self.piece_of.get((fname, role))
+    if i is not None and isinstance(pulled, StepPulls):
+      _USES['piece'] += 1
+      rows = pulled.pieces(prefix + key)[i]
+    else:
+      _USES['slice'] += 1
+      rows = pulled[prefix + key][:, use.start:use.start + use.k]
+    if use.col_dim:
+      # merged wide-into-deep table: this role reads a column slice
+      rows = rows[..., use.col_start:use.col_start + use.col_dim]
+    return rows
 
   def feature_embedding(self, pulled, batch, fname: str,
                         role: str = 'deep', prefix: str = ''
@@ -223,17 +291,13 @@ class InputLayer:
     base batch or of the sampled view `prefix`."""
     with span('easyrec.embed'):
       spec = self.specs[fname]
-      key, use = self.layout.feature_use[(fname, role)]
       wkey = '%sfeat.%s.weights' % (prefix, fname)
       if prefix and wkey not in batch:
         raise KeyError(
             'feature %r is used by a sampled-negative tower but is not in '
             'the batch view %r: add its input column to the sampler\'s '
             'attr_fields' % (fname, prefix))
-      rows = pulled[prefix + key][:, use.start:use.start + use.k]
-      if use.col_dim:
-        # merged wide-into-deep table: this role reads a column slice
-        rows = rows[..., use.col_start:use.col_start + use.col_dim]
+      rows = self.use_rows(pulled, fname, role, prefix)
       combiner = spec.combiner if role == 'deep' else 'sum'
       return combine(rows, batch[wkey], combiner)
 
@@ -250,10 +314,7 @@ class InputLayer:
       mask = batch[mkey]
       if spec.seq_is_dense:
         return batch[prefix + spec.dense_key] * mask[:, :, None], mask
-      key, use = self.layout.feature_use[(fname, 'deep')]
-      rows = pulled[prefix + key][:, use.start:use.start + use.k]
-      if use.col_dim:
-        rows = rows[..., use.col_start:use.col_start + use.col_dim]
+      rows = self.use_rows(pulled, fname, 'deep', prefix)
       return rows * mask[:, :, None], mask
 
   def dense_feature(self, batch, fname: str, prefix: str = ''

@@ -454,6 +454,8 @@ class Trainer:
           used = ev_lib.mask_pulled(pulled, packs, self.ev_state,
                                     self.ev_plan, self.step, self.ev_masked,
                                     self.sharding)
+      # each pack cut once into its uses' pieces, for this step alone
+      used = emb_ops.StepPulls(used, self.layout)
       self.model.train()
       with mesh.step_scope(self.world):
         with span('easyrec.forward'):

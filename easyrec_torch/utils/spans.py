@@ -18,6 +18,10 @@ The spans of a train step (train/trainer.py Trainer.train_step and fit):
   easyrec.forward             the model's forward
   easyrec.embed               InputLayer.feature_embedding and
                               sequence_embedding (inside the forward)
+  easyrec.embed.split         the one split of a pulled pack into its
+                              uses' pieces (ops/embedding.py StepPulls),
+                              inside the step's first easyrec.embed that
+                              reads the pack
   easyrec.loss                Trainer._regularised_loss
   easyrec.backward            total.backward()
   easyrec.dense_opt           the dense optimizer's step, after the

@@ -27,7 +27,8 @@ from tests import fixtures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_SPANS = ('easyrec.step', 'easyrec.pack', 'easyrec.pull',
-              'easyrec.forward', 'easyrec.embed', 'easyrec.loss',
+              'easyrec.forward', 'easyrec.embed', 'easyrec.embed.split',
+              'easyrec.loss',
               'easyrec.backward', 'easyrec.dense_opt',
               'easyrec.sparse_update', 'easyrec.sparse_update.sort')
 
@@ -95,6 +96,9 @@ def test_train_step_records_its_spans_nested(tmp_path, which):
   for name in STEP_SPANS:
     if name in ('easyrec.embed', 'easyrec.sparse_update.sort'):
       assert names.count(name) >= 1
+    elif name == 'easyrec.embed.split':
+      # one a pack (a table here: no sampled views)
+      assert names.count(name) == len(trainer.metas), names.count(name)
     else:
       assert names.count(name) == 1, (name, names.count(name))
   assert names.count('easyrec.ev') == (2 if which == 'ev' else 0)
@@ -110,6 +114,8 @@ def test_train_step_records_its_spans_nested(tmp_path, which):
       assert _inside(s, by['easyrec.step']), s
   for s in by['easyrec.embed']:
     assert _inside(s, by['easyrec.forward']), s
+  for s in by['easyrec.embed.split']:
+    assert _inside(s, by['easyrec.embed']), s
   for s in by.get('easyrec.ev', []):
     assert not _inside(s, by['easyrec.sparse_update'])
     assert not _inside(s, by['easyrec.forward'])
