@@ -12,7 +12,9 @@ mix or metric is a file of its own that the harness finds by name:
     recbench/configs/<config>.config  the pipeline config the port runs
     recbench/reference/<config>.py    the plain PyTorch reference model
     recbench/traffic/<traffic>.json   parameters of the batch generator
-    recbench/metrics/<metric>.py      one reader a metric
+    recbench/metrics/<metric>.py      one reader a metric (one line for
+                                      a span of the port's: spans.py
+                                      span_reader)
 
 Nothing here imports jax, flax or the JAX package, and the reference
 imports nothing of easyrec_torch.

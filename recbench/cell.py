@@ -22,6 +22,15 @@ PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_DIR = os.path.dirname(PACKAGE_DIR)
 
 
+# feature kinds with no table: their values reach the model in the batch
+TABLELESS = ('dense',)
+
+
+def table_features(features: List[dict]) -> List[dict]:
+  """The features that have a table (every kind but `dense`)."""
+  return [f for f in features if f['kind'] not in TABLELESS]
+
+
 def read_json(path: str) -> dict:
   with open(path) as f:
     return json.load(f)

@@ -34,6 +34,7 @@ from typing import Dict, List
 
 import torch
 
+from recbench.cell import table_features
 from recbench.reference import common
 from recbench.weights import CHUNK_ROWS, program_columns, table_chunks
 
@@ -72,7 +73,7 @@ def program_gradient_norms(trainer, features, opt: dict
   for name, mu, nu in zip(dopt.names, dopt.mu, dopt.nu):
     grad_m[name] = float(torch.linalg.vector_norm(mu.double())) / a
     grad_v[name] = math.sqrt(float(nu.double().sum())) / b
-  for f in features:
+  for f in table_features(features):
     for role, width in common.roles(f):
       table, meta, row, col = _columns(trainer, f['name'], role)
       sm = sv = 0.0
@@ -94,7 +95,7 @@ def program_change_norms(trainer, features, dense0, seed: int, std: float
   chunk by chunk, beside the port's rows)."""
   out = {n: float(torch.linalg.vector_norm((p - dense0[n]).double()))
          for n, p in trainer.model.named_parameters()}
-  for f in features:
+  for f in table_features(features):
     cols = {role: _columns(trainer, f['name'], role)
             for role, _ in common.roles(f)}
     sq = {role: 0.0 for role in cols}
@@ -102,9 +103,9 @@ def program_change_norms(trainer, features, dense0, seed: int, std: float
     for lo, hi, block in table_chunks(seed, f, std, trainer.device):
       for role, width in common.roles(f):
         table, _, row, col = cols[role]
-        diff = table[row + lo:row + hi, col:col + width] - \
-            block[:, first[role]:first[role] + width]
-        sq[role] += float((diff.double() ** 2).sum())
+        sq[role] += common.squared_gap(
+            table[row + lo:row + hi, col:col + width],
+            block[:, first[role]:first[role] + width])
     for role in cols:
       out[common.leaf_name(f['name'], role)] = math.sqrt(sq[role])
   return out

@@ -21,7 +21,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from recbench import check, traffic, weights
-from recbench.cell import Cell
+from recbench.cell import Cell, table_features
 from recbench.reference import common
 
 CHECK_STEPS = 3
@@ -116,22 +116,27 @@ class Session:
 def reference_readings(cell: Cell, seed: int, batches: List[dict],
                        device) -> dict:
   """The plain reference's readings of the first three steps, from the
-  seed's initial weights."""
+  seed's initial weights: each feature's table is drawn block by block
+  into the one copy the reference trains (its deep and wide columns
+  apart), and drawn again for the change norms."""
   model = model_description(cell)
   ref_mod = cell.reference()
   std = float(model['init_std'])
   tables = {}
-  for f in model['features']:
-    blocks = [block for _, _, block in
-              weights.table_chunks(seed, f, std, device)]
-    full = torch.cat(blocks) if len(blocks) > 1 else blocks[0]
-    del blocks
-    at = 0
-    for role, width in common.roles(f):
-      tables[(f['name'], role)] = full[:, at:at + width].contiguous()
-      at += width
-    del full
+  for f in table_features(model['features']):
+    parts = [(role, width, torch.empty((int(f['rows']), width),
+                                       device=device))
+             for role, width in common.roles(f)]
+    for lo, hi, block in weights.table_chunks(seed, f, std, device):
+      at = 0
+      for _, width, table in parts:
+        table[lo:hi] = block[:, at:at + width]
+        at += width
+      del block
+    for role, _, table in parts:
+      tables[(f['name'], role)] = table
   dense = weights.dense_weights(ref_mod.param_shapes(model), seed, device)
-  ref = common.Reference(model, functools.partial(ref_mod.model_loss, model),
-                         tables, dense)
+  ref = common.Reference(
+      model, functools.partial(ref_mod.model_loss, model), tables, dense,
+      lambda f: weights.table_chunks(seed, f, std, device))
   return common.readings(ref, batches, CHECK_STEPS)

@@ -9,6 +9,8 @@ from recbench import counts, peaks
 
 def read(run):
   w = run.window
+  if w is None:           # a traced stretch alone (recbench.spans)
+    return None
   flops = counts.train_flops(run.flops_per_example,
                              w['steps'] * run.cell.batch_size)
   return 100.0 * flops / w['seconds'] / \

@@ -18,14 +18,22 @@ the table rows a batch touches (the global step's bias corrections; the
 update uses the new moments before they are stored at bf16), over the
 per-row gradient sums, whose slots are rounded to bf16 and the sums once
 more where the configuration states `"grad_sum": "bf16"`.
+
+A feature of kind `dense` has no table: its values reach the model
+through the batch (feat.<f>.dense). Each table is held once, trained in
+place; the lazy moments are kept for the rows a step has touched alone
+(an untouched row's are zero), and the change from the initial table is
+read against the initial rows drawn again, block by block.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
+
+from recbench.cell import TABLELESS, table_features  # noqa: F401
 
 Leaf = str
 
@@ -104,7 +112,10 @@ def pooled(rows: torch.Tensor, batch, name: str) -> torch.Tensor:
 
 
 def roles(feature: dict) -> List[Tuple[str, int]]:
-  """(role, width) of each table a feature has."""
+  """(role, width) of each table a feature has: none for a `dense`
+  feature."""
+  if feature['kind'] in TABLELESS:
+    return []
   out = [('deep', int(feature['dim']))]
   if int(feature.get('wide_dim', 0)):
     out.append(('wide', int(feature['wide_dim'])))
@@ -126,21 +137,71 @@ def _norm(x: torch.Tensor) -> float:
   return float(torch.linalg.vector_norm(x.to(torch.float64)))
 
 
+def squared_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+  """sum((a - b) ** 2) in float64, over one block of a table's rows."""
+  return float(((a - b).double() ** 2).sum())
+
+
+class Moments:
+  """Lazy Adam's moments of the rows a table's updates have touched:
+  sorted row ids and their m and v; every other row's are zero."""
+
+  def __init__(self, width: int, device):
+    self.rows = torch.zeros(0, dtype=torch.int64, device=device)
+    self.m = torch.zeros((0, width), device=device)
+    self.v = torch.zeros((0, width), device=device)
+
+  def _find(self, rows: torch.Tensor):
+    """(where each of `rows` is or would go, whether it is there)."""
+    n = self.rows.shape[0]
+    if n == 0:
+      return rows, torch.zeros_like(rows, dtype=torch.bool)
+    pos = torch.searchsorted(self.rows, rows).clamp_(max=n - 1)
+    return pos, self.rows[pos] == rows
+
+  def get(self, rows: torch.Tensor):
+    """(m, v) of `rows` (sorted, distinct), zero where never touched."""
+    pos, known = self._find(rows)
+    m = torch.zeros((rows.shape[0], self.m.shape[1]), device=self.m.device)
+    v = torch.zeros_like(m)
+    m[known] = self.m[pos[known]]
+    v[known] = self.v[pos[known]]
+    return m, v
+
+  def put(self, rows: torch.Tensor, m: torch.Tensor, v: torch.Tensor):
+    """Store (m, v) of `rows` (sorted, distinct)."""
+    pos, known = self._find(rows)
+    self.m[pos[known]] = m[known]
+    self.v[pos[known]] = v[known]
+    new = ~known
+    every = torch.cat([self.rows, rows[new]])
+    order = torch.argsort(every)
+    self.rows = every[order]
+    self.m = torch.cat([self.m, m[new]])[order]
+    self.v = torch.cat([self.v, v[new]])[order]
+
+
 class Reference:
   """A configuration's model trained by plain PyTorch from the harness's
   initial weights. `loss_fn(params, emb, batch)` is the reference module's
-  model loss; emb maps (feature, role) to its pulled rows [B, k, d]."""
+  model loss; emb maps (feature, role) to its pulled rows [B, k, d].
+  `tables` maps (feature, role) to its initial table, which is trained in
+  place; `initial(feature)` draws a feature's initial [rows, dim +
+  wide_dim] table again as (lo, hi, rows lo..hi) blocks, for the change
+  norms."""
 
   def __init__(self, model: dict, loss_fn: Callable,
                tables: Dict[Tuple[str, str], torch.Tensor],
-               dense_params: Dict[str, torch.Tensor]):
+               dense_params: Dict[str, torch.Tensor],
+               initial: Callable[[dict], Iterator[Tuple[int, int,
+                                                         torch.Tensor]]]):
     self.model = model
     self.loss_fn = loss_fn
     self.features = model['features']
-    self.w = {k: t.clone() for k, t in tables.items()}
-    self.w0 = tables
-    self.m = {k: torch.zeros_like(t) for k, t in tables.items()}
-    self.v = {k: torch.zeros_like(t) for k, t in tables.items()}
+    self.w = tables
+    self.initial = initial
+    self.moments = {k: Moments(t.shape[1], t.device)
+                    for k, t in tables.items()}
     self.p = {k: t.clone() for k, t in dense_params.items()}
     self.p0 = dense_params
     self.mu = {k: torch.zeros_like(t) for k, t in dense_params.items()}
@@ -152,7 +213,7 @@ class Reference:
     model loss, l2 over the kernels and the embedding regulariser over
     every pulled row, masked by sample_weight."""
     emb = {}
-    for f in self.features:
+    for f in table_features(self.features):
       ids = batch['feat.%s.ids' % f['name']].to(torch.int64)
       for role, _ in roles(f):
         emb[(f['name'], role)] = \
@@ -189,7 +250,7 @@ class Reference:
     b1, b2, eps = opt['b1'], opt['b2'], opt['eps']
     t = self.step + 1
     c1, c2 = 1.0 / (1 - b1 ** t), 1.0 / (1 - b2 ** t)
-    for f in self.features:
+    for f in table_features(self.features):
       ids = batch['feat.%s.ids' % f['name']].reshape(-1).to(torch.int64)
       uniq, inv = torch.unique(ids, return_inverse=True)
       sums = {}
@@ -209,13 +270,13 @@ class Reference:
       for role, _ in roles(f):
         key = (f['name'], role)
         g = sums[role][touched]
-        m = b1 * self.m[key][rows] + (1 - b1) * g
-        v = b2 * self.v[key][rows] + (1 - b2) * (g * g)
+        m0, v0 = self.moments[key].get(rows)
+        m = b1 * m0 + (1 - b1) * g
+        v = b2 * v0 + (1 - b2) * (g * g)
         self.w[key][rows] += -lr * (m * c1) / (torch.sqrt(v * c2) + eps)
         if sparse['moments'] == 'bf16_pair':
           m, v = bf16(m), bf16(v)
-        self.m[key][rows] = m
-        self.v[key][rows] = v
+        self.moments[key].put(rows, m, v)
 
   def train_step(self, batch) -> float:
     total, emb, params = self.total_loss(batch)
@@ -235,16 +296,26 @@ class Reference:
     grad_m = {k: _norm(t) / a for k, t in self.mu.items()}
     grad_v = {k: math.sqrt(float(t.double().sum())) / b
               for k, t in self.nu.items()}
-    for (name, role), t in self.m.items():
-      grad_m[leaf_name(name, role)] = _norm(t) / a
+    for (name, role), mom in self.moments.items():
+      grad_m[leaf_name(name, role)] = _norm(mom.m) / a
       grad_v[leaf_name(name, role)] = \
-          math.sqrt(float(self.v[(name, role)].double().sum())) / b
+          math.sqrt(float(mom.v.double().sum())) / b
     return {'grad_m': grad_m, 'grad_v': grad_v}
 
+  @torch.no_grad()
   def change_norms(self) -> Dict[Leaf, float]:
     out = {k: _norm(t - self.p0[k]) for k, t in self.p.items()}
-    for (name, role), t in self.w.items():
-      out[leaf_name(name, role)] = _norm(t - self.w0[(name, role)])
+    for f in table_features(self.features):
+      sq = {role: 0.0 for role, _ in roles(f)}
+      for lo, hi, block in self.initial(f):
+        at = 0
+        for role, width in roles(f):
+          sq[role] += squared_gap(self.w[(f['name'], role)][lo:hi],
+                                  block[:, at:at + width])
+          at += width
+        del block
+      for role in sq:
+        out[leaf_name(f['name'], role)] = math.sqrt(sq[role])
     return out
 
 

@@ -162,7 +162,16 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool,
   prog = session.readings
   batches = session.close()
   del session, losses
+  t = time.perf_counter()
+  if device.type == 'cuda':
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
   ref = harness.reference_readings(cell, seed, batches, device)
+  if device.type == 'cuda':
+    print('reference: %.3f s, peak %d B, %d B of it held before it (the '
+          'first batches)' % (time.perf_counter() - t,
+                              torch.cuda.max_memory_allocated(), held),
+          file=sys.stderr)
   return record, check.gaps(prog, ref), failed
 
 

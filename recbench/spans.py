@@ -1,8 +1,9 @@
 """The port's own spans (easyrec_torch/utils/spans.py: easyrec.step,
 easyrec.pack, ...) read back from a torch.profiler chrome trace.
 
-parse() attributes each device operation as trace.py attributes it to the
-harness's ranges: to the innermost program span its launch lies in, or,
+parse() (trace.parse_spans, which trace.parse also runs over the traced
+stretch of every run) attributes each device operation as trace.py
+attributes it to the harness's ranges: to the innermost program span its launch lies in, or,
 for a launch inside the autograd engine, to `backward:<span>`, the span
 of the forward operation that recorded the node (the profiler's sequence
 number), `backward` where none did. It also collects the synchronizing
@@ -16,8 +17,11 @@ operator it ran under. Over the parsed trace:
     step_idle_ms           device idle ms inside easyrec.step: the card
                            waiting on the port's own host code
     sparse_sort_ms         device ms of easyrec.sparse_update.sort
-    embedding_ms           easyrec.pack, easyrec.pull, easyrec.embed and
-                           their backward (pack_pull_ms's twin)
+                           (the reader of BENCHMARK.json's sparse_sort_ms
+                           is its twin)
+    embedding_ms           easyrec.pack, easyrec.pull, easyrec.embed,
+                           easyrec.embed.split and their backward
+                           (pack_pull_ms's twin)
     dense_model_ms         easyrec.forward outside easyrec.embed,
                            easyrec.loss, and every backward but the
                            embedding's (dense_fwd_bwd_ms's twin)
@@ -36,11 +40,16 @@ operator it ran under. Over the parsed trace:
     python3 -m recbench.spans --workload <cell> --seed <n>
 
 runs the cell's set-up and warm-up as recbench.run does, then its traced
-stretch under the harness's ranges (trace.layer_ranges) with the port's
+stretch under the harness's ranges (trace.record_events) with the port's
 spans on, and prints one JSON line: the harness's per-layer metrics read
 by their readers from trace.parse of that trace, the metrics above from
-the same trace, and the breakdown. The result line of recbench.run does
-not carry these yet: trace.profile_steps keeps no events.
+the same trace, and the breakdown.
+
+A metric of BENCHMARK.json reads the spans of a run's traced stretch
+through trace.span_ms: trace.parse keeps the spans' parse of the trace
+on the Profile (Profile.spans), and a reader file is one line,
+
+    from recbench.trace import span_reader; read = span_reader('easyrec.x')
 """
 
 from __future__ import annotations
@@ -48,11 +57,9 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
-import dataclasses
 import json
 import os
 import sys
-import tempfile
 import time
 import types
 from typing import Dict, List, Optional, Tuple
@@ -61,148 +68,18 @@ import torch
 
 from recbench import counts, harness, peaks, trace, traffic
 from recbench.cell import REPO_DIR, load_cell
-from recbench.trace import BACKWARD, backward_of
+from recbench.trace import (BACKWARD, SYNC_CALLS, Spans, Sync,  # noqa: F401
+                            backward_of, span_ms, span_reader)
 
-PREFIX = 'easyrec.'
-STEP = 'easyrec.step'
+PREFIX = trace.SPAN_PREFIX
+STEP = trace.SPAN_STEP
+parse = trace.parse_spans
 SORT = 'easyrec.sparse_update.sort'
 UPDATE = ('easyrec.sparse_update', SORT)
-EMBEDDING = ('easyrec.pack', 'easyrec.pull', 'easyrec.embed')
+EMBEDDING = ('easyrec.pack', 'easyrec.pull', 'easyrec.embed',
+             'easyrec.embed.split')
 DENSE = ('easyrec.forward', 'easyrec.loss')
 BETWEEN = 'between steps'
-# CUDA calls that block the host until the device catches up
-SYNC_CALLS = frozenset((
-    'cudaStreamSynchronize', 'cudaDeviceSynchronize', 'cudaEventSynchronize',
-    'cudaMemcpy', 'cuStreamSynchronize', 'cuCtxSynchronize',
-    'cuEventSynchronize', 'cuMemcpyDtoH_v2', 'cuMemcpyHtoD_v2'))
-
-
-@dataclasses.dataclass
-class Sync:
-  name: str
-  thread: tuple
-  start: float          # us, the trace's clock
-  dur: float
-  span: Optional[str]   # as a launch's range
-  host_op: str
-
-
-@dataclasses.dataclass
-class Spans:
-  """The parsed trace: `ops` with `range` the program span (or
-  backward:<span>) of their launch; `spans` every easyrec.* interval
-  (thread, lo, hi, name); the stretch from the first easyrec.step's start
-  to the last device operation's end."""
-  steps: int
-  start: float
-  end: float
-  ops: List[trace.DeviceOp]
-  spans: List[Tuple[tuple, float, float, str]]
-  syncs: List[Sync]
-  step_thread: Optional[tuple]
-
-  def has(self, name: str) -> bool:
-    return any(s[3] == name for s in self.spans)
-
-  def device_ms(self, ranges) -> float:
-    """Device ms a step of the operations launched from `ranges`."""
-    return sum(op.dur for op in self.ops if op.range in ranges) / 1e3 / \
-        self.steps
-
-  def step_intervals(self) -> List[Tuple[float, float]]:
-    return sorted((lo, hi) for th, lo, hi, name in self.spans
-                  if name == STEP and th == self.step_thread)
-
-  def idle_intervals(self) -> List[Tuple[float, float]]:
-    """The device's idle intervals inside the stretch."""
-    out, edge = [], self.start
-    for op in sorted(self.ops, key=lambda o: o.start):
-      if op.start > edge and op.start > self.start:
-        out.append((edge, min(op.start, self.end)))
-      edge = max(edge, op.start + op.dur)
-    if edge < self.end:
-      out.append((edge, self.end))
-    return [(lo, hi) for lo, hi in out if hi > lo]
-
-  def in_step(self, t: float) -> bool:
-    return any(lo <= t <= hi for lo, hi in self.step_intervals())
-
-
-def parse(events: List[dict], steps: int) -> Spans:
-  """A chrome trace of torch.profiler -> Spans."""
-  launches, device = {}, []
-  spans = collections.defaultdict(list)
-  autograd = collections.defaultdict(list)
-  cpu_ops = collections.defaultdict(list)
-  numbered, calls = [], []
-  for e in events:
-    if e.get('ph') != 'X':
-      continue
-    cat, args = e.get('cat', ''), e.get('args', {})
-    thread = (e.get('pid'), e.get('tid'))
-    lo = float(e['ts'])
-    hi = lo + float(e.get('dur', 0.0))
-    if cat in trace.DEVICE_CATS:
-      device.append((e, trace.DEVICE_CATS[cat]))
-    elif cat in trace.LAUNCH_CATS:
-      if 'correlation' in args:
-        launches[args['correlation']] = (thread, lo)
-      if e['name'] in SYNC_CALLS:
-        calls.append((e['name'], thread, lo, hi - lo))
-    elif cat == 'user_annotation' and e['name'].startswith(PREFIX):
-      spans[thread].append((lo, hi, e['name']))
-    elif cat == 'cpu_op':
-      if e['name'].startswith(trace.EVALUATE):
-        autograd[thread].append((lo, hi, args.get(trace.SEQ)))
-      elif trace.SEQ in args:
-        numbered.append((lo, thread, args[trace.SEQ]))
-      cpu_ops[thread].append((lo, hi, e['name']))
-  flat = [(th, lo, hi, name) for th, items in spans.items()
-          for lo, hi, name in items]
-  step_counts = collections.Counter(th for th, _, _, name in flat
-                                    if name == STEP)
-  step_thread = step_counts.most_common(1)[0][0] if step_counts else None
-  spans = {k: trace._Intervals(v) for k, v in spans.items()}
-  autograd = {k: trace._Intervals(v) for k, v in autograd.items()}
-  cpu_ops = {k: trace._Intervals(v) for k, v in cpu_ops.items()}
-  recorded = {}
-  for t, thread, seq in sorted(numbered, key=lambda n: n[0]):
-    if thread in autograd and autograd[thread].find(t) is not None:
-      continue            # a node's own event, inside the engine
-    recorded[seq] = spans[thread].innermost(t) if thread in spans else None
-
-  def attribute(thread, t) -> Optional[str]:
-    """The span of a call at t on `thread`: backward:<span> inside a node
-    of the autograd engine that began inside the innermost span."""
-    inner = spans[thread].find(t) if thread in spans else None
-    node = autograd[thread].find(t) if thread in autograd else None
-    if node is not None and (inner is None or node[0] >= inner[0]):
-      fwd = recorded.get(node[2])
-      return backward_of(fwd) if fwd else BACKWARD
-    return inner[2] if inner is not None else None
-
-  def host_op(thread, t) -> str:
-    return (cpu_ops[thread].innermost(t) if thread in cpu_ops else None) or ''
-
-  ops = []
-  for e, kind in device:
-    launch = launches.get(e.get('args', {}).get('correlation'))
-    rng = host = None
-    if launch is not None:
-      rng, host = attribute(*launch), host_op(*launch)
-    ops.append(trace.DeviceOp(name=e['name'], start=float(e['ts']),
-                              dur=float(e.get('dur', 0.0)), kind=kind,
-                              range=rng, host_op=host or ''))
-  syncs = [Sync(name=n, thread=th, start=t, dur=d, span=attribute(th, t),
-                host_op=host_op(th, t)) for n, th, t, d in calls]
-  starts = [lo for th, lo, hi, name in flat if name == STEP]
-  start = min(starts) if starts else \
-      min((o.start for o in ops), default=0.0)
-  end = max((o.start + o.dur for o in ops), default=start)
-  return Spans(steps=steps, start=start, end=end, ops=ops, spans=flat,
-               syncs=syncs, step_thread=step_thread)
-
-
 def _overlap(a: List[Tuple[float, float]], b: List[Tuple[float, float]]
              ) -> float:
   """Length of the intersection of two sorted lists of disjoint
@@ -249,9 +126,7 @@ def step_idle_ms(s: Spans, run=None) -> Optional[float]:
 
 
 def sparse_sort_ms(s: Spans, run=None) -> Optional[float]:
-  if not s.ops or not s.has(SORT):
-    return None
-  return s.device_ms((SORT,))
+  return span_ms(s, (SORT,))
 
 
 def embedding_ms(s: Spans, run=None) -> Optional[float]:
@@ -292,7 +167,8 @@ METRICS = {f.__name__: f for f in (
 # each program-side metric beside the harness-range metric it twins
 TWINS = {'embedding_ms': 'pack_pull_ms', 'dense_model_ms': 'dense_fwd_bwd_ms',
          'dense_optimizer_ms': 'dense_opt_ms',
-         'sparse_update_hbm_pct': 'sparse_update_roofline'}
+         'sparse_update_hbm_pct': 'sparse_update_roofline',
+         'sparse_sort_ms': 'sparse_sort_ms'}
 
 
 # -- the breakdown -------------------------------------------------------
@@ -353,29 +229,7 @@ def metrics(s: Spans, run) -> Dict[str, float]:
   return out
 
 
-# -- the traced stretch with both the harness's ranges and the spans ----
-
-def record_events(trainer, batches, first: int, steps: int) -> List[dict]:
-  """The chrome trace's events of `steps` train steps on batches[first:]
-  (cycling) under torch.profiler, inside the harness's ranges
-  (trace.profile_steps's stretch, with its events kept)."""
-  from torch.profiler import ProfilerActivity, profile, record_function
-  cuda = trainer.device.type == 'cuda'
-  sync = torch.cuda.synchronize if cuda else (lambda: None)
-  activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
-                                         else [])
-  sync()
-  with trace.layer_ranges(trainer), profile(activities=activities) as prof:
-    for i in range(steps):
-      with record_function(trace.STEP):
-        trainer.train_step(batches[(first + i) % len(batches)])
-    sync()
-  with tempfile.TemporaryDirectory() as tmp:
-    path = os.path.join(tmp, 'trace.json')
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-      return json.load(f)['traceEvents']
-
+# -- the tool ------------------------------------------------------------
 
 def span_off_ns(n: int = 200000) -> Optional[float]:
   """ns a span costs with no profiler active (the port's spans module;
@@ -408,21 +262,20 @@ def main(argv=None, device: str = 'cuda', root: str = REPO_DIR,
     session.step(first + i)
   first += int(cell.workload['warmup_steps'])
   steps = int(cell.workload['trace_steps'])
-  events = record_events(session.trainer, session.batches, first, steps)
+  events = trace.record_events(session.trainer, session.batches, first,
+                               steps)
   run = types.SimpleNamespace(
-      cell=cell, profile=trace.parse(events, steps),
+      cell=cell, profile=trace.parse(events, steps), window=None,
       trace_counts=[traffic.slot_counts(
           session.features, session.batches[(first + i) %
                                             len(session.batches)])
                     for i in range(steps)])
   harness_metrics = {}
   for m in cell.per_layer:
-    if m['name'] == 'step_mfu':
-      continue            # reads the untraced window
     value = cell.metric_reader(m['name']).read(run)
     if value is not None:
       harness_metrics[m['name']] = float(value)
-  s = parse(events, steps)
+  s = run.profile.spans
   program = metrics(s, run)
   line = {'harness': harness_metrics, 'program': program,
           'twins': {p: [program.get(p), harness_metrics.get(h)]

@@ -22,11 +22,11 @@ def test_cell_prints_the_contract_line(workload, trace, root):
   for m in line['metrics'].values():
     assert set(m) == {'value', 'unit'} and isinstance(m['value'], float)
   if not trace:
-    assert set(line['metrics']) == {'train_examples_per_s', 'step_ms_p95',
-                                    'peak_mem_gib', 'setup_s'}
+    assert set(line['metrics']) == {'train_examples_per_s', 'peak_mem_gib',
+                                    'setup_s'}
   else:
     # no device operations on the CPU: only the window's readers read
-    assert set(line['metrics']) == {'step_mfu'}
+    assert set(line['metrics']) == {'step_mfu', 'step_ms_p95.host_paced'}
     assert set(line['breakdown']) == {'device_ops', 'idle_gaps'}
   for check in line['checks'].values():
     assert check['value'] <= check['limit']

@@ -44,7 +44,7 @@ def read(name, run):
 def test_end_to_end_readers():
   run = canned_run()
   assert read('train_examples_per_s', run) == 100 * 131072 / 5.0
-  assert read('step_ms_p95', run) == 64.0      # rank 95 of 100
+  assert read('step_ms_p95.host_paced', run) == 64.0      # rank 95 of 100
   assert read('peak_mem_gib', run) == 3.0
   assert read('setup_s', run) == 12.5
   # 3 x 1e6 x 100 steps x 131072 / 5 s / 67 TFLOP/s

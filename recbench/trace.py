@@ -13,6 +13,10 @@ The ranges wrap, from outside the port, for the stretch only:
   recbench.loss           Trainer._regularised_loss (the model's loss)
   recbench.dense_opt      the dense optimizer's step
   recbench.sparse_update  easyrec_torch.ops.packed_table.apply_packed_update
+The parsed stretch also carries the port's own `easyrec.*` spans
+(parse_spans, Profile.spans), so a metric's reader may read a span of
+the program by name (span_ms, span_reader); recbench/spans.py reads
+more from them.
 A launch inside one of the autograd engine's
 `autograd::engine::evaluate_function` events is backward: it goes to
 `backward:<range>`, the range of the forward operation that recorded the
@@ -32,7 +36,7 @@ import functools
 import json
 import os
 import tempfile
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -43,6 +47,9 @@ STEP = 'recbench.step'
 DEVICE_CATS = {'kernel': 'kernel', 'gpu_memcpy': 'memcpy',
                'gpu_memset': 'memset'}
 LAUNCH_CATS = ('cuda_runtime', 'cuda_driver')
+# the port's own spans (easyrec_torch/utils/spans.py)
+SPAN_PREFIX = 'easyrec.'
+SPAN_STEP = 'easyrec.step'
 
 
 def backward_of(name: str) -> str:
@@ -63,11 +70,13 @@ class DeviceOp:
 @dataclasses.dataclass
 class Profile:
   """`steps` train steps from `start` (the first step's host range) to
-  `end` (the last device operation's end), in us."""
+  `end` (the last device operation's end), in us; `spans`, the same
+  trace read by the port's spans (parse_spans)."""
   steps: int
   start: float
   end: float
   ops: List[DeviceOp]
+  spans: Optional['Spans'] = None
 
   @property
   def window_us(self) -> float:
@@ -161,10 +170,10 @@ def layer_ranges(trainer):
         setattr(obj, attr, orig)
 
 
-def profile_steps(trainer, batches, first: int, steps: int) -> Profile:
-  """Run `steps` train steps on batches[first:] (cycling) under the
-  profiler with the layer ranges; the parsed trace (on the CPU, with no
-  device operations)."""
+def record_events(trainer, batches, first: int, steps: int) -> List[dict]:
+  """The chrome trace's events of `steps` train steps on batches[first:]
+  (cycling) under torch.profiler, inside the layer ranges (on the CPU,
+  with no device operations)."""
   from torch.profiler import ProfilerActivity, profile, record_function
   cuda = trainer.device.type == 'cuda'
   sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -180,8 +189,12 @@ def profile_steps(trainer, batches, first: int, steps: int) -> Profile:
     path = os.path.join(tmp, 'trace.json')
     prof.export_chrome_trace(path)
     with open(path) as f:
-      events = json.load(f)['traceEvents']
-  return parse(events, steps)
+      return json.load(f)['traceEvents']
+
+
+def profile_steps(trainer, batches, first: int, steps: int) -> Profile:
+  """The parsed trace of record_events."""
+  return parse(record_events(trainer, batches, first, steps), steps)
 
 
 class _Intervals:
@@ -208,7 +221,7 @@ class _Intervals:
 def parse(events: List[dict], steps: int) -> Profile:
   """A chrome trace of torch.profiler -> Profile: each device operation
   with the harness range, or the backward of one, that its launch lies
-  in."""
+  in; and the trace's reading by the port's spans."""
   launches, ops = {}, []
   ranges = collections.defaultdict(list)
   autograd = collections.defaultdict(list)
@@ -270,7 +283,165 @@ def parse(events: List[dict], steps: int) -> Profile:
   start = min(step_starts) if step_starts else \
       min((o.start for o in out), default=0.0)
   end = max((o.start + o.dur for o in out), default=start)
-  return Profile(steps=steps, start=start, end=end, ops=out)
+  return Profile(steps=steps, start=start, end=end, ops=out,
+                 spans=parse_spans(events, steps))
+
+
+# -- the port's own spans, read from the same trace ------------------
+
+# CUDA calls that block the host until the device catches up
+SYNC_CALLS = frozenset((
+    'cudaStreamSynchronize', 'cudaDeviceSynchronize', 'cudaEventSynchronize',
+    'cudaMemcpy', 'cuStreamSynchronize', 'cuCtxSynchronize',
+    'cuEventSynchronize', 'cuMemcpyDtoH_v2', 'cuMemcpyHtoD_v2'))
+
+
+@dataclasses.dataclass
+class Sync:
+  name: str
+  thread: tuple
+  start: float          # us, the trace's clock
+  dur: float
+  span: Optional[str]   # as a launch's range
+  host_op: str
+
+
+@dataclasses.dataclass
+class Spans:
+  """The parsed trace: `ops` with `range` the program span (or
+  backward:<span>) of their launch; `spans` every easyrec.* interval
+  (thread, lo, hi, name); the stretch from the first easyrec.step's start
+  to the last device operation's end."""
+  steps: int
+  start: float
+  end: float
+  ops: List[DeviceOp]
+  spans: List[Tuple[tuple, float, float, str]]
+  syncs: List[Sync]
+  step_thread: Optional[tuple]
+
+  def has(self, name: str) -> bool:
+    return any(s[3] == name for s in self.spans)
+
+  def device_ms(self, ranges) -> float:
+    """Device ms a step of the operations launched from `ranges`."""
+    return sum(op.dur for op in self.ops if op.range in ranges) / 1e3 / \
+        self.steps
+
+  def step_intervals(self) -> List[Tuple[float, float]]:
+    return sorted((lo, hi) for th, lo, hi, name in self.spans
+                  if name == SPAN_STEP and th == self.step_thread)
+
+  def idle_intervals(self) -> List[Tuple[float, float]]:
+    """The device's idle intervals inside the stretch."""
+    out, edge = [], self.start
+    for op in sorted(self.ops, key=lambda o: o.start):
+      if op.start > edge and op.start > self.start:
+        out.append((edge, min(op.start, self.end)))
+      edge = max(edge, op.start + op.dur)
+    if edge < self.end:
+      out.append((edge, self.end))
+    return [(lo, hi) for lo, hi in out if hi > lo]
+
+  def in_step(self, t: float) -> bool:
+    return any(lo <= t <= hi for lo, hi in self.step_intervals())
+
+
+def parse_spans(events: List[dict], steps: int) -> Spans:
+  """A chrome trace of torch.profiler -> Spans: each device operation with
+  the program span (or backward:<span>) of its launch, attributed as
+  parse attributes the harness's ranges."""
+  launches, device = {}, []
+  spans = collections.defaultdict(list)
+  autograd = collections.defaultdict(list)
+  cpu_ops = collections.defaultdict(list)
+  numbered, calls = [], []
+  for e in events:
+    if e.get('ph') != 'X':
+      continue
+    cat, args = e.get('cat', ''), e.get('args', {})
+    thread = (e.get('pid'), e.get('tid'))
+    lo = float(e['ts'])
+    hi = lo + float(e.get('dur', 0.0))
+    if cat in DEVICE_CATS:
+      device.append((e, DEVICE_CATS[cat]))
+    elif cat in LAUNCH_CATS:
+      if 'correlation' in args:
+        launches[args['correlation']] = (thread, lo)
+      if e['name'] in SYNC_CALLS:
+        calls.append((e['name'], thread, lo, hi - lo))
+    elif cat == 'user_annotation' and e['name'].startswith(SPAN_PREFIX):
+      spans[thread].append((lo, hi, e['name']))
+    elif cat == 'cpu_op':
+      if e['name'].startswith(EVALUATE):
+        autograd[thread].append((lo, hi, args.get(SEQ)))
+      elif SEQ in args:
+        numbered.append((lo, thread, args[SEQ]))
+      cpu_ops[thread].append((lo, hi, e['name']))
+  flat = [(th, lo, hi, name) for th, items in spans.items()
+          for lo, hi, name in items]
+  step_counts = collections.Counter(th for th, _, _, name in flat
+                                    if name == SPAN_STEP)
+  step_thread = step_counts.most_common(1)[0][0] if step_counts else None
+  spans = {k: _Intervals(v) for k, v in spans.items()}
+  autograd = {k: _Intervals(v) for k, v in autograd.items()}
+  cpu_ops = {k: _Intervals(v) for k, v in cpu_ops.items()}
+  recorded = {}
+  for t, thread, seq in sorted(numbered, key=lambda n: n[0]):
+    if thread in autograd and autograd[thread].find(t) is not None:
+      continue            # a node's own event, inside the engine
+    recorded[seq] = spans[thread].innermost(t) if thread in spans else None
+
+  def attribute(thread, t) -> Optional[str]:
+    """The span of a call at t on `thread`: backward:<span> inside a node
+    of the autograd engine that began inside the innermost span."""
+    inner = spans[thread].find(t) if thread in spans else None
+    node = autograd[thread].find(t) if thread in autograd else None
+    if node is not None and (inner is None or node[0] >= inner[0]):
+      fwd = recorded.get(node[2])
+      return backward_of(fwd) if fwd else BACKWARD
+    return inner[2] if inner is not None else None
+
+  def host_op(thread, t) -> str:
+    return (cpu_ops[thread].innermost(t) if thread in cpu_ops else None) or ''
+
+  ops = []
+  for e, kind in device:
+    launch = launches.get(e.get('args', {}).get('correlation'))
+    rng = host = None
+    if launch is not None:
+      rng, host = attribute(*launch), host_op(*launch)
+    ops.append(DeviceOp(name=e['name'], start=float(e['ts']),
+                              dur=float(e.get('dur', 0.0)), kind=kind,
+                              range=rng, host_op=host or ''))
+  syncs = [Sync(name=n, thread=th, start=t, dur=d, span=attribute(th, t),
+                host_op=host_op(th, t)) for n, th, t, d in calls]
+  starts = [lo for th, lo, hi, name in flat if name == SPAN_STEP]
+  start = min(starts) if starts else \
+      min((o.start for o in ops), default=0.0)
+  end = max((o.start + o.dur for o in ops), default=start)
+  return Spans(steps=steps, start=start, end=end, ops=ops, spans=flat,
+               syncs=syncs, step_thread=step_thread)
+
+
+def span_ms(s: Optional[Spans], names: Iterable[str]) -> Optional[float]:
+  """Device ms a step of the operations launched inside the spans `names`
+  and in the backward of what they recorded; None without a parsed trace,
+  where it holds none of the spans, or no device operation."""
+  names = tuple(names)
+  if s is None or not s.ops or not any(s.has(n) for n in names):
+    return None
+  return s.device_ms(names + tuple(backward_of(n) for n in names))
+
+
+def span_reader(*names: str) -> Callable:
+  """A metric's `read(run)`: span_ms of `names` over the run's traced
+  stretch (run.profile.spans)."""
+  def read(run):
+    return span_ms(run.profile.spans if run.profile is not None else None,
+                   names)
+  return read
+
 
 
 def breakdown(profile: Profile, top: int = 10) -> Dict[str, list]:

@@ -14,11 +14,14 @@ configuration, how its values are drawn:
               `length_group`; positions past it carry id 0 and mask 0.
   lognormal   raw values exp(N(0, sigma)) - 1 rounded to `decimals`, then
               (x - min_val) / (max_val - min_val) as the port's RawFeature
-              transform scales them;
+              transform scales them: a `raw` feature's one value a row,
+              the weight of its one-row table, or a `dense` feature's
+              `value_dim` values a row, which reach the model with no
+              table (feat.<f>.dense [B, value_dim]);
 
 and each label's `bernoulli` share `p`. The batches are the dicts the
-port's input pipeline yields (feat.<f>.ids / .weights / .mask, label.<l>,
-sample_weight), made on the device in a few calls per feature. Every draw
+port's input pipeline yields (feat.<f>.ids / .weights / .mask or
+feat.<f>.dense, label.<l>, sample_weight), made on the device in a few calls per feature. Every draw
 has a generator of its own, seeded from (seed, batch, feature), so the same
 seed gives the same batches, and a seed changes the rows but not the sizes.
 """
@@ -31,6 +34,7 @@ from typing import Dict, List
 import torch
 
 from recbench import counts
+from recbench.cell import table_features
 
 
 def generator(seed: int, *parts, device) -> torch.Generator:
@@ -55,6 +59,18 @@ def power_law_ids(gen, shape, vocab: int, exponent: float, rows: int,
   return (rank - 1) % rows
 
 
+def lognormal_values(gen, shape, p: dict, device) -> torch.Tensor:
+  """float32 values of `shape` by a `lognormal` draw's parameters."""
+  x = torch.exp(torch.randn(shape, generator=gen, device=device) *
+                float(p.get('sigma', 1.0))) - 1.0
+  scale = 10.0 ** int(p.get('decimals', 3))
+  x = torch.round(x * scale) / scale
+  lo, hi = float(p.get('min_val', 0.0)), float(p.get('max_val', 0.0))
+  if hi > lo:
+    x = (x - lo) / (hi - lo)
+  return x.to(torch.float32)
+
+
 def make_batch(features: List[dict], traffic: dict, seed: int, index: int,
                device) -> Dict[str, torch.Tensor]:
   """Batch `index` of the traffic for `seed`."""
@@ -66,17 +82,17 @@ def make_batch(features: List[dict], traffic: dict, seed: int, index: int,
     name, kind = f['name'], f['kind']
     p = spec[name]
     gen = generator(seed, index, name, device=device)
+    if kind in ('raw', 'dense') and p['draw'] != 'lognormal':
+      raise ValueError('feature %s: unknown draw %r' % (name, p['draw']))
+    if kind == 'dense':
+      batch['feat.%s.dense' % name] = lognormal_values(
+          gen, (b, int(f['value_dim'])), p, device)
+      continue
     if kind == 'raw':
-      x = torch.exp(torch.randn((b, 1), generator=gen, device=device) *
-                    float(p.get('sigma', 1.0))) - 1.0
-      scale = 10.0 ** int(p.get('decimals', 3))
-      x = torch.round(x * scale) / scale
-      lo, hi = float(p.get('min_val', 0.0)), float(p.get('max_val', 0.0))
-      if hi > lo:
-        x = (x - lo) / (hi - lo)
       batch['feat.%s.ids' % name] = torch.zeros((b, 1), dtype=torch.int32,
                                                 device=device)
-      batch['feat.%s.weights' % name] = x.to(torch.float32)
+      batch['feat.%s.weights' % name] = lognormal_values(gen, (b, 1), p,
+                                                         device)
       continue
     if p['draw'] != 'power_law':
       raise ValueError('feature %s: unknown draw %r' % (name, p['draw']))
@@ -117,10 +133,10 @@ def slot_counts(features: List[dict], batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, int]:
   """{'slots': id slots of the batch, 'rows': distinct rows they name,
   'slot_bytes': what the slots bring to the sparse update
-  (counts.slot_bytes)}, over every feature (each feature's rows are its
-  own). Syncs the device: set-up only."""
+  (counts.slot_bytes)}, over every feature with a table (each feature's
+  rows are its own). Syncs the device: set-up only."""
   slots = rows = nbytes = 0
-  for f in features:
+  for f in table_features(features):
     ids = batch['feat.%s.ids' % f['name']]
     slots += ids.numel()
     rows += int(torch.unique(ids).numel())

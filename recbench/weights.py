@@ -17,9 +17,14 @@ from typing import Dict, Iterator, Tuple
 
 import torch
 
+from recbench.cell import table_features
 from recbench.traffic import generator
 
-CHUNK_ROWS = 1 << 22
+# rows of a table that a walk over it (drawing, writing, reading the
+# norms) holds at a time; the generator draws DRAW_ROWS rows a call, which
+# fixes the tables' bits
+CHUNK_ROWS = 1 << 20
+DRAW_ROWS = 1 << 22
 _TRUNC_STD = 0.87962566103423978   # stddev of N(0, 1) truncated to (-2, 2)
 
 
@@ -30,13 +35,17 @@ def table_width(feature: dict) -> int:
 def table_chunks(seed: int, feature: dict, std: float, device
                  ) -> Iterator[Tuple[int, int, torch.Tensor]]:
   """(lo, hi, rows lo..hi of the feature's [rows, dim + wide_dim] initial
-  table), in order."""
+  table), in order, at most CHUNK_ROWS rows each."""
   gen = generator(seed, 'table', feature['name'], device=device)
   rows, width = int(feature['rows']), table_width(feature)
-  for lo in range(0, rows, CHUNK_ROWS):
-    hi = min(rows, lo + CHUNK_ROWS)
-    yield lo, hi, torch.randn((hi - lo, width), generator=gen,
-                              device=device).mul_(float(std))
+  for first in range(0, rows, DRAW_ROWS):
+    last = min(rows, first + DRAW_ROWS)
+    drawn = torch.randn((last - first, width), generator=gen,
+                        device=device).mul_(float(std))
+    for lo in range(first, last, CHUNK_ROWS):
+      hi = min(last, lo + CHUNK_ROWS)
+      yield lo, hi, drawn[lo - first:hi - first]
+    del drawn
 
 
 def dense_weights(shapes: Dict[str, Tuple[int, ...]], seed: int, device
@@ -69,8 +78,9 @@ def program_columns(trainer, name: str, role: str):
 def load_into_program(trainer, features, shapes, seed: int, std: float
                       ) -> Dict[str, torch.Tensor]:
   """Write the initial weights into an initialised Trainer's tables and
-  model; returns the dense weights (the reference gets the same)."""
-  for f in features:
+  model; returns the dense weights (the reference gets the same). A
+  `dense` feature has no table to write."""
+  for f in table_features(features):
     dim, wide = int(f['dim']), int(f.get('wide_dim', 0))
     deep_k, deep_r, deep_c = program_columns(trainer, f['name'], 'deep')
     deep_t = trainer.tables[deep_k]
