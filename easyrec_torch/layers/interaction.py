@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from easyrec_torch.layers.dnn import Dense, flax_init
+from easyrec_torch.utils.spans import span
 
 
 class FM(nn.Module):
@@ -103,12 +104,13 @@ class CrossNetV2(nn.Module):
               x: Optional[torch.Tensor] = None) -> torch.Tensor:
     if x is None:
       x = x0
-    for i in range(self.num_layers):
-      if self.low_rank:
-        wx = getattr(self, 'v_%d' % i)(getattr(self, 'u_%d' % i)(x))
-      else:
-        wx = getattr(self, 'w_%d' % i)(x)
-      x = x0 * wx + x
+    with span('easyrec.cross'):
+      for i in range(self.num_layers):
+        if self.low_rank:
+          wx = getattr(self, 'v_%d' % i)(getattr(self, 'u_%d' % i)(x))
+        else:
+          wx = getattr(self, 'w_%d' % i)(x)
+        x = x0 * wx + x
     return x
 
 

@@ -182,20 +182,21 @@ def combine(rows: torch.Tensor, weights: torch.Tensor,
             combiner: str) -> torch.Tensor:
   """Reduce [B, K, dim] weighted rows to [B, dim]; weight 0 marks
   padding."""
-  if combiner == 'sum':
-    return torch.einsum('bk,bkd->bd', weights, rows)
-  if combiner == 'mean':
-    total = torch.einsum('bk,bkd->bd', weights, rows)
-    denom = torch.clamp(weights.sum(dim=1, keepdim=True), min=1e-9)
-    return total / denom
-  if combiner in ('max', 'min'):
-    mask = (weights > 0)[:, :, None]
-    fill = float('-inf') if combiner == 'max' else float('inf')
-    masked = torch.where(mask, rows * weights[:, :, None],
-                         torch.full_like(rows, fill))
-    out = masked.amax(dim=1) if combiner == 'max' else masked.amin(dim=1)
-    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
-  raise ValueError('unknown combiner %r' % combiner)
+  with span('easyrec.embed.pool'):
+    if combiner == 'sum':
+      return torch.einsum('bk,bkd->bd', weights, rows)
+    if combiner == 'mean':
+      total = torch.einsum('bk,bkd->bd', weights, rows)
+      denom = torch.clamp(weights.sum(dim=1, keepdim=True), min=1e-9)
+      return total / denom
+    if combiner in ('max', 'min'):
+      mask = (weights > 0)[:, :, None]
+      fill = float('-inf') if combiner == 'max' else float('inf')
+      masked = torch.where(mask, rows * weights[:, :, None],
+                           torch.full_like(rows, fill))
+      out = masked.amax(dim=1) if combiner == 'max' else masked.amin(dim=1)
+      return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    raise ValueError('unknown combiner %r' % combiner)
 
 
 def sequence_combiner(spec):

@@ -22,6 +22,12 @@ The spans of a train step (train/trainer.py Trainer.train_step and fit):
                               uses' pieces (ops/embedding.py StepPulls),
                               inside the step's first easyrec.embed that
                               reads the pack
+  easyrec.embed.pool          the reduction of a feature's pulled rows by
+                              its combiner (ops/embedding.py combine),
+                              inside easyrec.embed
+  easyrec.cross               the DCN-v2 cross layers (layers/
+                              interaction.py CrossNetV2.forward), inside
+                              easyrec.forward
   easyrec.loss                Trainer._regularised_loss
   easyrec.backward            total.backward()
   easyrec.dense_opt           the dense optimizer's step, after the
