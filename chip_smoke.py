@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order; any failure exits nonzero before the result line:
   1. device  the card's name, count, and nvidia-smi's name and power limit;
-  2. build   the five CUDA kernels from easyrec_torch/csrc with nvcc for
+  2. build   the CUDA kernels from easyrec_torch/csrc with nvcc for
              sm_90a (one nvcc per source, started together), with ptxas's
              report;
   3. kernels each kernel against its plain PyTorch version on the card:
@@ -22,8 +22,10 @@ Phases, in order; any failure exits nonzero before the result line:
              dim 16, so K2 runs four lanes a row); K3 with every block math at the DIN shape
              and at dim 256; K2 and K3 with the EV maths (ev_add, ev_set)
              on the [210,002, 1] aux table of the EV sample (phase 10's
-             shape); all bit-exact, with times from CUDA events beside
-             bounds, the plain versions' times and the library
+             shape); K7 (bag pooling, forward and backward) at the
+             DLRM-DCNv2 cell's 16,384 x 214 x 128 in 26 bags
+             (phase_bag_pool); all bit-exact, with times from CUDA events
+             beside bounds, the plain versions' times and the library
              yardsticks;
   4. groups  K4 (group push) and K5 (group RMW) against their plain
              versions at the ported benchmarks' shapes (K4: 106,496 slots
@@ -39,7 +41,9 @@ Phases, in order; any failure exits nonzero before the result line:
              Adagrad, momentum, momentumW, RMSProp, FTRL), unfused (K1 +
              K2) and fused (K3), and a small DIN (K3): losses, table
              weights and EMA weights must agree, and K2/K3 must launch
-             with the optimizer's block math;
+             with the optimizer's block math; f32 losses that part are
+             held by kink_witness (the first parting a ReLU input at
+             zero, within KINK_RTOL) or fail;
   6. din     the Taobao DIN config through easyrec_torch.main
              .train_and_evaluate at full width with EASYREC_PACKED_FUSED=1
              (num_steps cut to 20; eval runs DummyInput's cap of 50
@@ -449,7 +453,7 @@ def phase_kernel_only(torch):
   for label, event_ms, bound, call, make in KERNEL_ONLY:
     dev = make()
     total = log_kernel_ms(label, kernel_times(torch, lambda: call(**dev),
-                                              20, flush), event_ms)
+                                              20, flush), event_ms, bound)
     if total is not None:
       log('%s: kernels only %.2f x the bound (%.4f ms)'
           % (label, total / bound, bound))
@@ -459,10 +463,13 @@ def phase_kernel_only(torch):
   torch.cuda.empty_cache()
 
 
-def log_kernel_ms(what, by_name, event_ms):
+def log_kernel_ms(what, by_name, event_ms, bound):
   """One line: the kernels' summed device time beside the event time of
   the whole wrapper, and each kernel's share. A sum above the event time
-  is not the kernels' alone: it is logged as not measured."""
+  is not the kernels' alone, and a sum under the bound is not all of
+  them (no kernel moves its bytes faster than the card's bandwidth, nor
+  does its operations faster than its peak): each is logged as not
+  measured."""
   if not by_name:
     log('%s: kernel-only time not measured (the profiler recorded no '
         'device time); event time %.4f ms' % (what, event_ms))
@@ -473,6 +480,12 @@ def log_kernel_ms(what, by_name, event_ms):
         'exceeds the event time of the wrapper %.4f ms; %s)'
         % (what, total, event_ms, '; '.join(
             '%s %.4f' % (k[:60], v) for k, v in by_name.items())))
+    return None
+  if total < bound:
+    log('%s: kernel-only time not measured (the profiler\'s sum %.4f ms is '
+        'under the bound %.4f ms: it lacks some of the calls\' kernels; '
+        'event time of the wrapper %.4f ms)' % (what, total, bound,
+                                                 event_ms))
     return None
   log('%s: kernels only %.4f ms a call (profiler), event time of the '
       'wrapper %.4f ms; %s' % (what, total, event_ms, '; '.join(
@@ -684,6 +697,89 @@ def check_rmw_rows(torch, pt, table, uids, gsum, hypers, opt, what):
               .any(dim=1).all()):
     fail('rmw_rows (%s): a touched row kept its bytes' % what)
   return err
+
+
+# MLPerf DLRM-DCNv2's multi-hot bag sizes, the cell dlrm_dcnv2's 26 bags
+DLRM_BAGS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1)
+
+
+def phase_bag_pool(torch, batch=16384, dim=128):
+  """K7 (csrc/bag_pool.cu) at the DLRM-DCNv2 cell's shape: a pack of
+  16,384 x 214 rows of 128 f32 in its 26 bags, every weight 1. Forward
+  and backward bit-exact against the plain version run on the card (the
+  same roundings in the same order as on the CPU), then each direction's
+  CUDA-event ms after an L2 flush beside its byte bound, the plain
+  version and the path K7 replaces: 26 einsums on the split's pieces
+  forward, their 26 backward products and the split's backward (a cat)
+  backward. Queues each direction for phase_kernel_only. Returns the two
+  kernels' result rows."""
+  from easyrec_torch.ops import embedding as emb_ops
+  dev = torch.device('cuda')
+  sizes = DLRM_BAGS
+  tot = sum(sizes)
+  bags = tuple((sum(sizes[:j]), k, 0) for j, k in enumerate(sizes))
+
+  def make():
+    gen = torch.Generator(device=dev).manual_seed(26)
+    return dict(rows=torch.randn((batch, tot, dim), generator=gen,
+                                 device=dev),
+                w=torch.ones((batch, tot), device=dev),
+                g=torch.randn((batch, len(bags), dim), generator=gen,
+                              device=dev))
+
+  made = make()
+  rows, w, g = made['rows'], made['w'], made['g']
+  flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+  out = emb_ops.pool_bags(rows, w, bags)
+  grad = emb_ops.pool_bags_grad(g, w, bags)
+  err = 0.0
+  for what, got, want in (
+      ('forward', out, emb_ops.pool_bags_plain(rows, w, bags)),
+      ('backward', grad, emb_ops.pool_bags_grad_plain(g, w, bags))):
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+      fail('bag_pool %s: differs from the plain version (max %g)'
+           % (what, float((got - want).abs().max())))
+    err = max(err, float((got - want).abs().max()))
+    del want
+  log('bag_pool: forward and backward bit-exact against the plain version '
+      'at [%d, %d, %d] in %d bags' % (batch, tot, dim, len(bags)))
+  del out, grad
+  nbytes = batch * tot * dim * 4 + batch * tot * 4 + \
+      batch * len(bags) * dim * 4
+  bound, by = bound_ms(nbytes, 2 * batch * tot * dim)
+  pieces = torch.split(rows, list(sizes), dim=1)
+  wp = torch.split(w, list(sizes), dim=1)
+  gb = torch.unbind(g, dim=1)
+  fwd = lambda: emb_ops.pool_bags(rows, w, bags)  # noqa: E731
+  bwd = lambda: emb_ops.pool_bags_grad(g, w, bags)  # noqa: E731
+  lib_fwd = lambda: [torch.einsum('bk,bkd->bd', a, b)  # noqa: E731
+                     for a, b in zip(wp, pieces)]
+  lib_bwd = lambda: torch.cat([torch.einsum(  # noqa: E731
+      'bk,bd->bkd', a, b) for a, b in zip(wp, gb)], dim=1)
+  results = []
+  for name, fn, plain, lib, call in (
+      ('bag_pool', fwd, lambda: emb_ops.pool_bags_plain(rows, w, bags),
+       lib_fwd, lambda rows, w, g: emb_ops.pool_bags(rows, w, bags)),
+      ('bag_pool_grad', bwd,
+       lambda: emb_ops.pool_bags_grad_plain(g, w, bags), lib_bwd,
+       lambda rows, w, g: emb_ops.pool_bags_grad(g, w, bags))):
+    ms = cuda_ms(torch, fn, 20, flush)
+    plain_ms = cuda_ms(torch, plain, 3, flush)
+    lib_ms = cuda_ms(torch, lib, 20, flush)
+    log('%s: %.4f ms, bound %.4f ms (%d bytes / 3.35 TB/s, %.1f%% of it), '
+        'plain %.3f ms, the einsum path it replaces %.4f ms'
+        % (name, ms, bound, nbytes, 100.0 * bound / ms, plain_ms, lib_ms))
+    queue_kernel_only('%s (DLRM-DCNv2 cell shape)' % name, ms, bound, call,
+                      make=make)
+    results.append(dict(
+        name=name, route='cuda', source='easyrec_torch/csrc/bag_pool.cu',
+        replaces='none (XLA combine)', max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms))
+  del flush, made, rows, w, g, pieces, wp, gb
+  torch.cuda.empty_cache()
+  return results
 
 
 def check_seg_sum(torch, pt, sids, order, starts, grads, sentinel, what):
@@ -1199,6 +1295,128 @@ def phase_experimental(torch):
   return {'correct': ok}
 
 
+# kink_witness: a tensor of a train step's forward parts, card against CPU,
+# where its largest gap passes KINK_RTOL of its largest magnitude. The
+# small samples' readings before their kink, NVIDIA H100 80GB HBM3, 700 W:
+# up to 1.3e-4 (dlrm_periodic's top_mlp.bn_0, a BatchNorm over 256 rows
+# that divides the dense layers' last-bit gaps by a small deviation), 2.3e-7
+# in dat's user_dnn.bn_0; a dense layer's own rounding reads 1e-7 to 1e-6
+KINK_RTOL = 1e-3
+
+
+def _tensors(x):
+  """The floating tensors of a module's output, in order."""
+  import torch
+  if isinstance(x, torch.Tensor):
+    return [x] if x.is_floating_point() else []
+  if isinstance(x, (list, tuple)):
+    return [t for y in x for t in _tensors(y)]
+  if isinstance(x, dict):
+    return [t for y in x.values() for t in _tensors(y)]
+  return []
+
+
+def forward_events(torch, trainer, batch):
+  """One train step of `trainer` on `batch`, recording its forward in
+  order: each module's output tensors as the module returns (named by
+  the module), and each ReLU's input as the ReLU is called (named by the
+  module that calls it and the call's number there). Returns the step's
+  total loss and the events [(name, is_relu, tensor on the CPU)]."""
+  import torch.nn.functional as F
+  from torch.overrides import TorchFunctionMode
+  events, stack, calls, hooks = [], [], collections.Counter(), []
+  relus = {F.relu, torch.relu, torch.relu_, torch.Tensor.relu,
+           torch.Tensor.relu_}
+
+  class Relus(TorchFunctionMode):
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+      if func in relus and torch.is_grad_enabled():
+        where = stack[-1] if stack else ''
+        calls[where] += 1
+        events.append(('%s/relu%d' % (where, calls[where]), True,
+                       args[0].detach().cpu().clone()))
+      return func(*args, **(kwargs or {}))
+
+  for name, m in trainer.model.named_modules():
+    hooks.append(m.register_forward_pre_hook(
+        lambda mod, inp, name=name: stack.append(name)))
+
+    def done(mod, inp, out, name=name):
+      stack.pop()
+      if torch.is_grad_enabled():
+        events.extend(('%s:%d' % (name, i), False, o.detach().cpu().clone())
+                      for i, o in enumerate(_tensors(out)))
+    hooks.append(m.register_forward_hook(done))
+  try:
+    with Relus():
+      loss = float(trainer.train_step(batch)['total_loss'])
+  finally:
+    for h in hooks:
+      h.remove()
+  return loss, events
+
+
+def kink_witness(torch, cfg, state, train, what, loss_rtol, card='cuda'):
+  """Why the card's and the CPU's losses part, where they do: two
+  trainers of `cfg` from the shared `state` (the model's state_dict and
+  the tables) train on `train` again, card and CPU, recording each step's
+  forward (forward_events). The first step whose forward holds a tensor
+  that parts (past KINK_RTOL of its scale), or a ReLU whose input has
+  another sign on each side, is searched event by event. The runs are
+  explained only where that first parting is a ReLU whose input is
+  within KINK_RTOL on each side (the dense rounding before it) and takes
+  another sign on the card than on the CPU somewhere, and the step's loss
+  is within the rule: from there the two sides take another branch of
+  the ReLU, and the optimizer turns the gradient it passes on one side
+  and not on the other into steps apart. Fails naming the first parting
+  otherwise. Returns a line that names the kink."""
+  from easyrec_torch.train.trainer import Trainer, to_device
+  runs = []
+  for dev in ('cpu', card):
+    t = Trainer(cfg, device=dev)
+    t.init_state()
+    t.model.load_state_dict(state[0])
+    for key, table in state[1].items():
+      t.tables[key].copy_(table)
+    runs.append(t)
+  for step, batch in enumerate(train, 1):
+    got = [forward_events(torch, t, to_device(batch, t.device))
+           for t in runs]
+    (loss_cpu, cpu), (loss_card, on_card) = got
+    if [e[:2] for e in cpu] != [e[:2] for e in on_card]:
+      fail('small %s: the card\'s and the CPU\'s forward of step %d ran '
+           'other modules or ReLUs' % (what, step))
+    for (name, relu, x), (_, _, y) in zip(cpu, on_card):
+      scale = float(x.abs().max()) if x.numel() else 0.0
+      gap = float((x - y).abs().max()) if x.numel() else 0.0
+      apart = (x > 0) != (y > 0) if relu else None
+      if gap <= KINK_RTOL * scale and (apart is None or not bool(
+          apart.any())):
+        continue
+      if apart is None or gap > KINK_RTOL * scale:
+        fail('small %s: losses differ; the card and the CPU first part in '
+             'step %d at %s (%s), by %g of %g, past the dense rounding '
+             '%g of its scale' % (what, step, name,
+                                  'a ReLU\'s input' if relu else 'not a '
+                                  'ReLU', gap, scale, KINK_RTOL))
+      if abs(loss_card - loss_cpu) > loss_rtol * max(1.0, abs(loss_cpu)):
+        fail('small %s: losses differ; the kink at %s in step %d comes with '
+             'that step\'s losses apart already, card %r and CPU %r'
+             % (what, name, step, loss_card, loss_cpu))
+      near = int(torch.argmin(torch.where(apart, x.abs(), torch.full_like(
+          x, math.inf))))
+      return ('step %d\'s forward first parts at the ReLU %s: %d of its '
+              '%d inputs take another sign on each side, the one nearest '
+              'zero CPU %.6g, card %.6g; the input\'s gap %.3g of its scale '
+              '%.3g (rule %g), every tensor before it within the rule'
+              % (step, name, int(apart.sum()), x.numel(),
+                 float(x.reshape(-1)[near]), float(y.reshape(-1)[near]),
+                 gap, scale, KINK_RTOL))
+  fail('small %s: losses differ, and no tensor of the three steps\' '
+       'forwards parts: the sides part in a backward or an update' % what)
+
+
 def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
                 batches=None):
   """A small model: 3 steps on the card and on the CPU from the same
@@ -1227,8 +1445,10 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
   the bf16 rule instead (ROADMAP's known divergences say why): its eval
   logits as bf16_control holds them, its losses and eval losses within
   BF16_LOSS_RTOL relative, at most 1 in BF16_FAR_SHARE of its table
-  weights past 1e-5, each within 2 lr a step. Returns the card's
-  launches by kernel and math."""
+  weights past 1e-5, each within 2 lr a step. Losses of an f32 model
+  that part past the rule are explained by kink_witness or fail: its
+  first parting must be a ReLU at its kink, and the tables are held all
+  the same. Returns the card's launches by kernel and math."""
   from easyrec_torch.ops import kernels
   from easyrec_torch.optim.sparse import MATH_NAMES
   from easyrec_torch.train.trainer import Trainer, to_device
@@ -1246,6 +1466,8 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
   runs['cuda'].model.load_state_dict(runs['cpu'].model.state_dict())
   for key, table in runs['cpu'].tables.items():
     runs['cuda'].tables[key].copy_(table)
+  state = ({k: v.clone() for k, v in runs['cpu'].model.state_dict().items()},
+           {k: v.clone() for k, v in runs['cpu'].tables.items()})
   tasks = runs['cpu'].model.metric_task_names()
   keys = runs['cpu'].metrics.result_names() + ['auc_%s' % k for k in tasks]
   evaluate = bool(tasks) or keys != ['auc'] or draws or batches is not None
@@ -1290,9 +1512,16 @@ def phase_agree(torch, what, cfg, fused, compact='1', draws=False,
         % (what, fused, losses['cuda'], losses['cpu'], tagged))
     return tagged
   for a, b in zip(losses['cpu'], losses['cuda']):
-    if not math.isfinite(b) or abs(a - b) > loss_rtol * max(1.0, abs(a)):
+    if not math.isfinite(b) or (abs(a - b) > loss_rtol * max(1.0, abs(a))
+                                and bf16):
       fail('small %s: losses differ on the card %s and the CPU %s'
            % (what, losses['cuda'], losses['cpu']))
+  if rel_gap(losses['cpu'], losses['cuda']) > loss_rtol:
+    log('agree: small %s: losses part on the card %s and the CPU %s, by up '
+        'to %.3g relative; kink witness: %s'
+        % (what, losses['cuda'], losses['cpu'],
+           rel_gap(losses['cpu'], losses['cuda']),
+           kink_witness(torch, cfg, state, train, what, loss_rtol)))
   # f32 reduction order differs between the card's dense model and the
   # CPU's, so the summed table gradients differ in their last bits; where a
   # sum cancels to rounding noise its sign may differ, and Adam turns
@@ -1565,13 +1794,18 @@ def phase_optimizers(torch):
       % launches)
 
 
+# K7's forward and backward (csrc/bag_pool.cu)
+POOL_KERNELS = ('bag_pool', 'bag_pool_grad')
+
+
 def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math,
-                views=False, after=None):
+                pool=0, views=False, after=None):
   """train_and_evaluate of `cfg` at full width, SLICE_STEPS steps, with
   every launch counter set to 0 just before and read just after: each
-  kernel of `path_kernels` must launch once per step and table, every
-  other kernel not at all, and K2 or K3 only with the block math
-  `path_math`; the eval must report `auc` and `auc_<task>` for each of
+  kernel of `path_kernels` must launch once per step and table, K7
+  (POOL_KERNELS) `pool` times a step each way (the model's packs whose
+  bags it pools), every other kernel not at all, and K2 or K3 only
+  with the block math `path_math`; the eval must report `auc` and `auc_<task>` for each of
   the model's metric_task_names(). Then the steady-state train-step rate over pre-built
   synthetic batches, or with `views` (a sampler's) over batches of the
   model's own input pipeline, whose id slots a step are logged by view.
@@ -1620,7 +1854,8 @@ def phase_slice(torch, card, what, cfg, fused, path_kernels, path_math,
       fail('%s: eval %s missing or out of range: %r' % (what, key, auc))
   n_tables = len(result['trainer'].tables)
   for name, c in counts.items():
-    want = SLICE_STEPS * n_tables if name in path_kernels else 0
+    want = SLICE_STEPS * n_tables if name in path_kernels else \
+        SLICE_STEPS * pool if name in POOL_KERNELS else 0
     if c != want:
       fail('%s: kernel %s launched %d times in %d steps over %d tables, '
            '%d expected' % (what, name, c, SLICE_STEPS, n_tables, want))
@@ -3367,7 +3602,7 @@ def phase_dssm(torch, card):
   cfg.train_config.is_profiling = True
   counts = phase_slice(
       torch, card, 'DSSM (dssm_neg_sampler)', cfg, '0',
-      ('seg_sum', 'rmw_rows'), 'compact_adam', views=True,
+      ('seg_sum', 'rmw_rows'), 'compact_adam', pool=1, views=True,
       after=lambda result: trained.update(dssm_trained(torch, result,
                                                        data)))
   check_step_trace(os.path.join(root, 'md', 'profile',
@@ -3566,9 +3801,12 @@ def phase_retrieve(torch, smi, data, trained, n_users=8192, device='cuda'):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
   launched, tagged = trained['launches'], trained['tagged']
+  # K7 pools the base batch's pack once a step; the 'neg.' view, which
+  # lacks the user features, is split
   if device == 'cuda' and launched != dict(
-      {k: 0 for k in launched}, seg_sum=SLICE_STEPS, rmw_rows=SLICE_STEPS):
-    fail('%s: training launched %s, K1 and K2 once a step expected'
+      {k: 0 for k in launched}, seg_sum=SLICE_STEPS, rmw_rows=SLICE_STEPS,
+      bag_pool=SLICE_STEPS, bag_pool_grad=SLICE_STEPS):
+    fail('%s: training launched %s, K1, K2 and K7 once a step expected'
          % (what, launched))
   log('%s: the DSSM trained %d steps through train_and_evaluate on this '
       'phase\'s model_dir in phase 24 (losses %s ... %s; eval %s); '
@@ -5249,7 +5487,7 @@ def phase_parquet_dlrm(torch, card, smi):
   del pipes
   errs = phase_kernel_path(torch, cfg_pq, what, pack=pipeline_pack)
   launches = phase_slice(torch, card, what, cfg_pq, '0',
-                         ('seg_sum', 'rmw_rows'), 'compact_adam')
+                         ('seg_sum', 'rmw_rows'), 'compact_adam', pool=1)
   shutil.rmtree(root, ignore_errors=True)
   return launches, errs
 
@@ -5618,9 +5856,12 @@ def phase_gates(torch, card):
   unfused, fused = ('seg_sum', 'rmw_rows'), ('rmw_fused',)
   total = {}
 
-  def gate(what, path, path_kernels, bars, device='cuda', under=False):
+  def gate(what, path, path_kernels, bars, device='cuda', under=False,
+           pool=0):
     """Train one gate; each metric of `bars` must read above its bar (with
-    `under`, under it)."""
+    `under`, under it). On the card K7 launches `pool` times a step each
+    way: once for a table of sum or mean bags alone, which the multi-task
+    and two-tower gates have."""
     os.environ['EASYREC_PACKED_FUSED'] = '1' if path_kernels == fused \
         else '0'
     kernels.reset_launches()
@@ -5641,7 +5882,8 @@ def phase_gates(torch, card):
            % (what, len(losses), steps))
     for name, c in counts.items():
       want = steps * n_tables if device == 'cuda' and \
-          name in path_kernels else 0
+          name in path_kernels else steps * pool if device == 'cuda' and \
+          name in POOL_KERNELS else 0
       if c != want:
         fail('phase 37 %s: kernel %s launched %d times in %d steps over %d '
              'tables, %d expected' % (what, name, c, steps, n_tables, want))
@@ -5677,14 +5919,14 @@ def phase_gates(torch, card):
          'compute_dtype ignored' % m['loss'])
   gate('MultiTowerDIN', d.gate_config(root, d.SEQ_BODIES['MultiTowerDIN'],
                                       ['lseq']), unfused, {'auc': lseq})
-  gate('MMoE', mmoe, unfused, mt)
+  gate('MMoE', mmoe, unfused, mt, pool=1)
   gate('ESMM', d.gate_config(root, d.ESMM_BODY, ['lctr', 'lcvr']), unfused,
-       dict(mt, auc_cvr=d.BAYES['lcvr'] - d.MARGIN['esmm_cvr']))
+       dict(mt, auc_cvr=d.BAYES['lcvr'] - d.MARGIN['esmm_cvr']), pool=1)
   mind, evalp = d.mind_config(os.path.join(root, 'mind'))
   gate('MIND', mind, unfused, {'recall@5': d.mind_gate(evalp)})
   gate('DSSM pointwise', d.extra_config(os.path.join(root, 'extra'),
                                         d.DSSM_POINTWISE, 'ltwr'),
-       unfused, {'auc': d.TWO_TOWER_BAR})
+       unfused, {'auc': d.TWO_TOWER_BAR}, pool=1)
   control = gate('FM, tables frozen (control)', d.gate_config(
       root, d.RANK_BODIES['FM'], ['lint'], frozen=True), unfused,
                  {'auc': lint}, under=True)
@@ -5740,6 +5982,7 @@ def main():
   from easyrec_torch.utils import flagship
   results = phase_kernels(torch)
   results += phase_kernels_ev(torch)
+  results += phase_bag_pool(torch)
   groups = phase_groups(torch)
   phase_optimizers(torch)
   phase_agree(torch, 'DIN', flagship.taobao_din_config(
@@ -5783,12 +6026,12 @@ def main():
   phase_serve_mmoe(torch, smi)
   phase_zoo(torch)
   dlrm = phase_slice(torch, card, 'Criteo DLRM', flagship.criteo_dlrm_config(),
-                     '0', ('seg_sum', 'rmw_rows'), 'compact_adam')
+                     '0', ('seg_sum', 'rmw_rows'), 'compact_adam', pool=1)
   phase_serve_dlrm(torch, smi)
   phase_backbone(torch)
   backbone = phase_slice(torch, card, 'Criteo DLRM, backbone DSL',
                          flagship.criteo_dlrm_backbone_config(), '0',
-                         ('seg_sum', 'rmw_rows'), 'compact_adam')
+                         ('seg_sum', 'rmw_rows'), 'compact_adam', pool=1)
   phase_serve_dlrm(torch, smi, 'Criteo DLRM, backbone DSL',
                    'criteo_dlrm_backbone_config')
   phase_match(torch)

@@ -14,19 +14,24 @@ owns them (models/seq_input.build_group_input) and is passed as
 happens OUTSIDE the differentiated forward: the backward pass produces
 gradients of the pulled rows [B, totK, dim], which the sparse update then
 applies to the table. In a train step the pulled rows come as a
-`StepPulls`, which cuts each pack once into its uses' pieces; the
-InputLayer reads a use's rows from its piece there, and by a slice of the
-whole pack from any other mapping (eval, predict, export).
+`StepPulls`, which pools each pack whose bags are all sum or mean bags
+once, by kernel K7 (csrc/bag_pool.cu; `PoolBags`), and cuts any other
+pack once into its uses' pieces; the InputLayer reads a use's bag or its
+piece there, and a slice of the whole pack from any other mapping (eval,
+predict, export).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from easyrec_torch.features.embedding_layout import EmbeddingLayout
+from easyrec_torch.ops import kernels
 from easyrec_torch.ops import packed_table as pt
 from easyrec_torch.parallel import exchange as xch
 from easyrec_torch.parallel.mesh import RowSplit, World
@@ -199,6 +204,151 @@ def combine(rows: torch.Tensor, weights: torch.Tensor,
     raise ValueError('unknown combiner %r' % combiner)
 
 
+# -- K7: every bag of a pulled pack pooled at once (csrc/bag_pool.cu)
+
+# bags a table of K7 holds (kMaxBags of csrc/bag_pool.cu)
+MAX_BAGS = 256
+
+# a pack's bags: (start, k, mean) a use of its table, in slot order
+Bags = Tuple[Tuple[int, int, int], ...]
+
+
+def pool_layout(layout: EmbeddingLayout, key: str) -> Optional[Bags]:
+  """The bags of table `key` where K7 pools its packs: every use of it a
+  categorical deep use that reads whole rows (no merged column slice)
+  with the combiner sum or mean, at most MAX_BAGS of them; else None."""
+  bags, at = [], 0
+  for use in layout.tables[key].uses:
+    spec = layout.specs[use.feature]
+    if use.role != 'deep' or use.col_dim or use.start != at or \
+        use.k < 1 or spec.kind != 'categorical' or \
+        spec.combiner not in ('sum', 'mean'):
+      return None
+    bags.append((use.start, use.k, int(spec.combiner == 'mean')))
+    at += use.k
+  return tuple(bags) if 0 < len(bags) <= MAX_BAGS else None
+
+
+def _denominators(weights: torch.Tensor, bags: Bags) -> torch.Tensor:
+  """[rows, nbags]: max(each bag's weights summed in slot order, 1e-9)."""
+  den = weights.new_zeros((weights.shape[0], len(bags)))
+  for p in range(max(k for _, k, _ in bags)):
+    live = [j for j, (_, k, _) in enumerate(bags) if k > p]
+    den[:, live] = den[:, live] + weights[:, [bags[j][0] + p for j in live]]
+  return torch.clamp(den, min=1e-9)
+
+
+def pool_bags_plain(rows: torch.Tensor, weights: torch.Tensor,
+                    bags: Bags) -> torch.Tensor:
+  """Plain PyTorch K7 forward: [rows, T, D] x [rows, T] -> [rows, nbags,
+  D], each bag's weighted rows added in slot order from 0, a product and
+  then a sum a slot; a mean bag divided by its _denominators."""
+  out = rows.new_zeros((rows.shape[0], len(bags), rows.shape[2]))
+  for p in range(max(k for _, k, _ in bags)):
+    live = [j for j, (_, k, _) in enumerate(bags) if k > p]
+    slots = [bags[j][0] + p for j in live]
+    out[:, live] = out[:, live] + weights[:, slots, None] * rows[:, slots]
+  mean = [j for j, (_, _, m) in enumerate(bags) if m]
+  if mean:
+    out[:, mean] = out[:, mean] / _denominators(weights, bags)[:, mean,
+                                                               None]
+  return out
+
+
+def pool_bags_grad_plain(grad: torch.Tensor, weights: torch.Tensor,
+                         bags: Bags) -> torch.Tensor:
+  """Plain PyTorch K7 backward: the pack's gradient [rows, T, D], each
+  slot's weight times its bag's gradient (in a mean bag, the gradient
+  over the bag's denominator)."""
+  mean = [j for j, (_, _, m) in enumerate(bags) if m]
+  if mean:
+    grad = grad.clone()
+    grad[:, mean] = grad[:, mean] / _denominators(weights, bags)[:, mean,
+                                                                 None]
+  bag_of = [j for j, (_, k, _) in enumerate(bags) for _ in range(k)]
+  return weights[:, :, None] * grad[:, bag_of]
+
+
+def _bag_table(bags: Bags):
+  """K7's host bag table: int triples (start, k, mean) a bag."""
+  flat = [x for bag in bags for x in bag]
+  return (ctypes.c_int * len(flat))(*flat)
+
+
+def _check_pool_args(what: str, pack: torch.Tensor, weights: torch.Tensor,
+                     bags: Bags, nslots: int) -> None:
+  """Shapes and dtypes: pack f32 [n, nslots, D] (the rows, or the bags'
+  gradient with nslots the bags) and weights f32 [n, T] on one device, T
+  the slots the bags hold; on the card both contiguous, as K7 reads them.
+  The bags themselves are pool_layout's, checked where it builds them
+  (and by K7's read_bags before a launch)."""
+  n = pack.shape[0] if pack.dim() else -1
+  tot_k = sum(k for _, k, _ in bags)
+  if pack.dim() != 3 or pack.shape[1] != nslots or \
+      weights.shape != (n, tot_k) or pack.dtype != torch.float32 or \
+      weights.dtype != torch.float32 or weights.device != pack.device:
+    raise ValueError('%s: f32 [n, %d, D] and weights f32 [n, %d] on one '
+                     'device, got %s %s and %s %s'
+                     % (what, nslots, tot_k, pack.dtype, tuple(pack.shape),
+                        weights.dtype, tuple(weights.shape)))
+  if pack.device.type == 'cuda' and not (pack.is_contiguous() and
+                                         weights.is_contiguous()):
+    raise ValueError('%s: K7 reads contiguous tensors' % what)
+
+
+def pool_bags(rows: torch.Tensor, weights: torch.Tensor,
+              bags: Bags) -> torch.Tensor:
+  """Every bag of a pack pooled: [rows, T, D] -> [rows, nbags, D]. CPU
+  tensors: pool_bags_plain; CUDA: K7, bit-equal to it, on contiguous
+  tensors only."""
+  _check_pool_args('pool_bags', rows, weights, bags, weights.shape[-1])
+  if rows.device.type == 'cpu':
+    return pool_bags_plain(rows, weights, bags)
+  n, tot_k, dim = rows.shape
+  out = torch.empty((n, len(bags), dim), dtype=torch.float32,
+                    device=rows.device)
+  kernels.BAG_POOL.launch(rows.device, rows.data_ptr(), weights.data_ptr(),
+                          _bag_table(bags), out.data_ptr(), n, tot_k,
+                          len(bags), dim)
+  return out
+
+
+def pool_bags_grad(grad: torch.Tensor, weights: torch.Tensor,
+                   bags: Bags) -> torch.Tensor:
+  """The pack's gradient [rows, T, D] from its bags' [rows, nbags, D].
+  CPU tensors: pool_bags_grad_plain; CUDA: K7's backward, bit-equal to
+  it."""
+  _check_pool_args('pool_bags_grad', grad, weights, bags, len(bags))
+  if grad.device.type == 'cpu':
+    return pool_bags_grad_plain(grad, weights, bags)
+  n, _, dim = grad.shape
+  tot_k = weights.shape[1]
+  out = torch.empty((n, tot_k, dim), dtype=torch.float32, device=grad.device)
+  kernels.BAG_POOL_GRAD.launch(grad.device, grad.data_ptr(),
+                               weights.data_ptr(), _bag_table(bags),
+                               out.data_ptr(), n, tot_k, len(bags), dim)
+  return out
+
+
+class PoolBags(torch.autograd.Function):
+  """pool_bags forward, pool_bags_grad backward: the pack's gradient is
+  the one tensor the backward writes."""
+
+  @staticmethod
+  def forward(ctx, rows, weights, bags):
+    ctx.save_for_backward(weights)
+    ctx.bags = bags
+    return pool_bags(rows, weights, bags)
+
+  @staticmethod
+  @once_differentiable
+  def backward(ctx, grad):
+    weights, = ctx.saved_tensors
+    # the bags' gradient as unbind's backward stacks it; any other layout
+    # autograd hands in is made contiguous here, once
+    return pool_bags_grad(grad.contiguous(), weights, ctx.bags), None, None
+
+
 def sequence_combiner(spec):
   """The SequenceCombiner a sequence feature names (attention,
   multi_head_attention, text_cnn), or None for the masked mean."""
@@ -213,14 +363,15 @@ def sequence_dim(spec) -> int:
   return spec.value_dim if spec.seq_is_dense else spec.embedding_dim
 
 
-# feature uses whose rows came from a piece of a StepPulls ('piece') and
-# from a slice of the whole pack ('slice': a plain mapping, or a use whose
-# slots are not one piece of its table)
-_USES = {'piece': 0, 'slice': 0}
+# feature uses whose rows came from a piece of a StepPulls ('piece'), from
+# a slice of the whole pack ('slice': a plain mapping, or a use whose slots
+# are not one piece of its table), and uses served their bag of a pack
+# that K7 pooled ('pooled')
+_USES = {'piece': 0, 'slice': 0, 'pooled': 0}
 
 
 def reset_use_counts() -> None:
-  _USES.update(piece=0, slice=0)
+  _USES.update(piece=0, slice=0, pooled=0)
 
 
 def use_counts() -> Dict[str, int]:
@@ -229,18 +380,24 @@ def use_counts() -> Dict[str, int]:
 
 class StepPulls(dict):
   """The pulled packs of one train step (pack key -> [rows, totK, dim]),
-  each cut once, at its first read, along its slot axis into the pieces of
-  its table's uses (FusedTable.uses: consecutive and disjoint). Every use
-  of the step reads its piece, so the backward of the one split writes the
-  pack's gradient once; a slice per use would fill and add a gradient of
-  the whole pack each. A piece is a view of its pack and holds it and its
-  graph: Trainer.train_step makes one for the step alone."""
+  each read at its first read in one of two ways. A pack whose table's
+  layout K7 pools (pool_layout), read by its uses' combiners, is pooled
+  once into all its bags, [rows, nbags, dim], handed out by one unbind:
+  its backward writes the pack's gradient once, in K7's backward. Any
+  other pack (or a use's raw rows) is cut once along its slot axis into
+  the pieces of its table's uses (FusedTable.uses: consecutive and
+  disjoint), and every use reads its piece, so the backward of the one
+  split writes the pack's gradient once; a slice per use would fill and
+  add a gradient of the whole pack each. A bag or a piece holds its pack
+  and its graph: Trainer.train_step makes one StepPulls for the step
+  alone."""
 
   def __init__(self, pulled: Dict[str, torch.Tensor],
                layout: EmbeddingLayout):
     super().__init__(pulled)
     self.layout = layout
     self._pieces: Dict[str, tuple] = {}
+    self._pooled: Dict[str, Optional[tuple]] = {}
 
   def pieces(self, key: str) -> tuple:
     """Pack `key`'s pieces [rows, k, dim], one a use of its table."""
@@ -250,6 +407,26 @@ class StepPulls(dict):
       with span('easyrec.embed.split'):
         got = torch.split(self[key], [u.k for u in uses], dim=1)
       self._pieces[key] = got
+    return got
+
+  def pooled(self, key: str, batch) -> Optional[tuple]:
+    """Pack `key`'s bags [rows, dim], one a use of its table, pooled by
+    K7 with the batch's weights; None where the pack is split instead: its
+    layout is not pool_layout's, or a use's weights are missing from the
+    batch (a sampled view that lacks the feature)."""
+    if key in self._pooled:
+      return self._pooled[key]
+    got = None
+    base = view_table(key)
+    bags = pool_layout(self.layout, base)
+    wkeys = ['%sfeat.%s.weights' % (key[:len(key) - len(base)], u.feature)
+             for u in self.layout.tables[base].uses]
+    if bags is not None and all(k in batch for k in wkeys):
+      with span('easyrec.embed.pool'):
+        weights = torch.cat([batch[k].to(torch.float32) for k in wkeys],
+                            dim=1)
+        got = torch.unbind(PoolBags.apply(self[key], weights, bags), dim=1)
+    self._pooled[key] = got
     return got
 
 
@@ -298,6 +475,12 @@ class InputLayer:
             'feature %r is used by a sampled-negative tower but is not in '
             'the batch view %r: add its input column to the sampler\'s '
             'attr_fields' % (fname, prefix))
+      if role == 'deep' and isinstance(pulled, StepPulls):
+        key, _ = self.layout.feature_use[(fname, role)]
+        bags = pulled.pooled(prefix + key, batch)
+        if bags is not None:
+          _USES['pooled'] += 1
+          return bags[self.piece_of[(fname, role)]]
       rows = self.use_rows(pulled, fname, role, prefix)
       combiner = spec.combiner if role == 'deep' else 'sum'
       return combine(rows, batch[wkey], combiner)

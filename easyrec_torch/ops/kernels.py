@@ -1,10 +1,11 @@
 """The port's hand-written CUDA kernels: build, load and launch counts.
 
-Each kernel is one source under easyrec_torch/csrc/ with a plain C entry
-point that launches on the stream it is given and returns
-cudaGetLastError(). It is built with nvcc for sm_90a into
-build/easyrec_torch/ at first use and loaded with ctypes; nothing is built
-or imported when this module is imported.
+Each kernel is a plain C entry point of a source under easyrec_torch/csrc/
+(one a source, but K7's forward and backward share bag_pool.cu) that
+launches on the stream it is given and returns cudaGetLastError(). It is
+built with nvcc for sm_90a into build/easyrec_torch/ at first use and
+loaded with ctypes; nothing is built or imported when this module is
+imported.
 """
 
 from __future__ import annotations
@@ -85,6 +86,18 @@ RMW_FUSED = CudaKernel(
     # (host float[8]), n, rows, dim, vec, stream
     [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P])
 
+BAG_POOL = CudaKernel(
+    'bag_pool', 'bag_pool.cu', 'easyrec_bag_pool',
+    # rows, w, table (host int[3 * nbags]), out, batch, tot_k, nbags, dim,
+    # stream
+    [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P])
+
+BAG_POOL_GRAD = CudaKernel(
+    'bag_pool_grad', 'bag_pool.cu', 'easyrec_bag_pool_grad',
+    # g, w, table (host int[3 * nbags]), grad_rows, batch, tot_k, nbags,
+    # dim, stream
+    [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P])
+
 GROUP_PUSH = CudaKernel(
     'group_push', 'group_push.cu', 'easyrec_group_push',
     # table, gids, rows, bad, n, groups, elems, idx64, stream
@@ -97,14 +110,18 @@ GROUP_RMW = CudaKernel(
     [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32, _F32, _F32, _I32, _I32,
      _P])
 
-ALL = (SEG_SUM, RMW_ROWS, RMW_FUSED, GROUP_PUSH, GROUP_RMW)
+ALL = (SEG_SUM, RMW_ROWS, RMW_FUSED, BAG_POOL, BAG_POOL_GRAD, GROUP_PUSH,
+       GROUP_RMW)
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:
-  """Build every kernel with one nvcc each, all started together; returns
-  each kernel's compiler output (ptxas register/spill report with
-  verbose)."""
-  builds = {k.name: k.builder() for k in ALL}
+  """Build every kernel source with one nvcc each, all started together;
+  returns each source's compiler output (ptxas register/spill report with
+  verbose) under the name of its first kernel."""
+  builds = {}
+  for k in ALL:
+    if all(b.source != k.source for b in builds.values()):
+      builds[k.name] = k.builder()
   for b in builds.values():
     b.start(verbose=verbose)
   return {name: b.wait() for name, b in builds.items()}

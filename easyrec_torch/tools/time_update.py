@@ -46,8 +46,11 @@ def kernel_times(torch, fn, reps, flush):
   the host's clock, so the flush's kernel never does, whatever the
   profiler names it and however the device's clock is offset from the
   host's. The wrapper's host gaps between its launches are not in the
-  sum. Returns {} where the profiler records no device time, not every
-  range, or a device event without its launching call."""
+  sum. The profiler may drop a device event (its buffers are cleared as
+  it goes), which would leave a call's sum short: only the calls each of
+  whose launches, memsets and copies has its device event are averaged.
+  Returns {} where the profiler records no device time, not every range,
+  a device event without its launching call, or no call whole."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -75,12 +78,25 @@ def kernel_times(torch, fn, reps, flush):
   if len(ranges) != reps or not device or \
       any(e.id not in launched for e in device):
     return {}
-  out = {}
+  ran = {}
   for e in device:
-    if any(lo <= launched[e.id] <= hi for lo, hi in ranges):
-      out[e.name] = out.get(e.name, 0.0) + (e.time_range.end -
-                                            e.time_range.start)
-  return {k: v / 1e3 / reps for k, v in out.items() if v > 0}
+    ran.setdefault(e.id, []).append(e)
+  # the API calls that put work on the card
+  work = [e for e in host if e.name.startswith('cu') and any(
+      k in e.name for k in ('LaunchKernel', 'Memset', 'Memcpy'))]
+  out, whole = {}, 0
+  for lo, hi in ranges:
+    calls = [e.id for e in work if lo <= e.time_range.start <= hi]
+    if not calls or any(i not in ran for i in calls):
+      continue
+    whole += 1
+    for i in calls:
+      for e in ran[i]:
+        out[e.name] = out.get(e.name, 0.0) + (e.time_range.end -
+                                              e.time_range.start)
+  if not whole:
+    return {}
+  return {k: v / 1e3 / whole for k, v in out.items() if v > 0}
 
 
 def main(argv=None) -> int:

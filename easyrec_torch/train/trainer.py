@@ -454,7 +454,8 @@ class Trainer:
           used = ev_lib.mask_pulled(pulled, packs, self.ev_state,
                                     self.ev_plan, self.step, self.ev_masked,
                                     self.sharding)
-      # each pack cut once into its uses' pieces, for this step alone
+      # each pack pooled or cut into its uses' pieces once, for this step
+      # alone
       used = emb_ops.StepPulls(used, self.layout)
       self.model.train()
       with mesh.step_scope(self.world):
@@ -465,6 +466,9 @@ class Trainer:
         p.grad = None
       with span('easyrec.backward'):
         total.backward()
+      # the pooled bags (a pack's [rows, nbags, dim]) die with the graph,
+      # before the update
+      del used
       for p in self.frozen:
         p.grad = None         # a zero gradient: the optimizer still steps
       with span('easyrec.dense_opt'):

@@ -22,9 +22,12 @@ The spans of a train step (train/trainer.py Trainer.train_step and fit):
                               uses' pieces (ops/embedding.py StepPulls),
                               inside the step's first easyrec.embed that
                               reads the pack
-  easyrec.embed.pool          the reduction of a feature's pulled rows by
-                              its combiner (ops/embedding.py combine),
-                              inside easyrec.embed
+  easyrec.embed.pool          the reduction of pulled rows by their
+                              combiner, inside easyrec.embed: every bag of
+                              a pack at once, by K7 (ops/embedding.py
+                              StepPulls.pooled, PoolBags), once a pooled
+                              pack a step; else one feature's
+                              (ops/embedding.py combine)
   easyrec.cross               the DCN-v2 cross layers (layers/
                               interaction.py CrossNetV2.forward), inside
                               easyrec.forward

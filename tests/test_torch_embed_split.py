@@ -308,6 +308,15 @@ def test_every_use_of_a_train_step_reads_its_piece(tmp_path, which):
   assert len(made) == len(set(made))         # one split a pack
   if which == 'dssm':
     assert any(k.startswith('neg.') for k in made)
+    # the base batch's pack, all sum and mean bags, is pooled by K7 (its
+    # uses counted apart); the 'neg.' view, which lacks the user
+    # features' weights, is split
+    assert counts['pooled'] > 0
+    assert 'emb16' not in made
+  else:
+    # the DeepFM's merged wide columns and the DIN's id sequences keep
+    # their tables' packs split
+    assert counts['pooled'] == 0
   if which == 'din':
     # the id sequences' tables were split too
     seq = [f for f, spec in trainer.specs.items()
@@ -333,14 +342,15 @@ def test_eval_through_a_plain_dict_takes_the_slices(tmp_path, which):
     split = trainer.eval_forward(batch, emb_ops.StepPulls(pulled,
                                                           trainer.layout))
   assert emb_ops.use_counts() == {'piece': counts['slice'],
-                                  'slice': counts['slice']}
+                                  'slice': counts['slice'], 'pooled': 0}
   assert sorted(plain) == sorted(split)
   for k, v in plain.items():
     if isinstance(v, torch.Tensor):
       assert torch.equal(v, split[k]), k
   emb_ops.reset_use_counts()
   trainer.eval_step(batch, trainer.metrics.init_states(trainer.device))
-  assert emb_ops.use_counts() == {'piece': 0, 'slice': counts['slice']}
+  assert emb_ops.use_counts() == {'piece': 0, 'slice': counts['slice'],
+                                  'pooled': 0}
 
 
 def test_a_use_that_is_not_one_piece_falls_back_to_its_slice(tmp_path):
@@ -374,8 +384,8 @@ def test_a_use_that_is_not_one_piece_falls_back_to_its_slice(tmp_path):
                 emb_ops.use_counts())
   for a, b in zip(got['plain'][:4], got['split'][:4]):
     assert torch.equal(a, b)
-  assert got['plain'][4] == {'piece': 0, 'slice': 11}
-  assert got['split'][4] == {'piece': 9, 'slice': 2}
+  assert got['plain'][4] == {'piece': 0, 'slice': 11, 'pooled': 0}
+  assert got['split'][4] == {'piece': 9, 'slice': 2, 'pooled': 0}
 
 
 def _split_spans(events):
@@ -389,7 +399,8 @@ def _split_spans(events):
 @pytest.mark.parametrize('which', ['deepfm', 'dssm'])
 def test_the_split_span_shows_once_a_pack_a_step(tmp_path, which):
   """(f) Under a CPU profiler, easyrec.embed.split appears once a pack
-  the model read a step, each inside an easyrec.embed of that step."""
+  the model read a step, each inside an easyrec.embed of that step; a
+  pack that K7 pools (the DSSM's base batch) shows no split."""
   if which == 'deepfm':
     trainer = _deepfm(tmp_path, 1e-5)
     batch = _batch(trainer)
@@ -398,10 +409,24 @@ def test_the_split_span_shows_once_a_pack_a_step(tmp_path, which):
     batch = _sampled_batch(trainer)
   trainer.train_step(batch)                  # the first step, untraced
   steps = _keep_pulled(trainer)
-  with profile(activities=[ProfilerActivity.CPU]) as prof:
-    trainer.train_step(batch)
-    trainer.train_step(batch)
-  read = [k for k, v in steps[0].items() if v.grad is not None]
+  pooled, pool = set(), emb_ops.StepPulls.pooled
+
+  def recording(self, key, batch):
+    got = pool(self, key, batch)
+    if got is not None:
+      pooled.add(key)
+    return got
+
+  emb_ops.StepPulls.pooled = recording
+  try:
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+      trainer.train_step(batch)
+      trainer.train_step(batch)
+  finally:
+    emb_ops.StepPulls.pooled = pool
+  assert pooled == (set() if which == 'deepfm' else {'emb16'})
+  read = [k for k, v in steps[0].items()
+          if v.grad is not None and k not in pooled]
   path = os.path.join(str(tmp_path), 'trace.json')
   prof.export_chrome_trace(path)
   with open(path) as f:
@@ -426,8 +451,8 @@ def test_the_use_counters_count_from_their_reset(tmp_path):
   first = _counted_step(trainer, batch)
   # DeepFM: the wide use of c1-c3, and the FM's and the DNN's deep use of
   # c1-c3 and of the embedded d1 and d2
-  assert first == {'piece': 3 + 5 + 5, 'slice': 0}
+  assert first == {'piece': 3 + 5 + 5, 'slice': 0, 'pooled': 0}
   trainer.train_step(batch)
-  assert emb_ops.use_counts() == {'piece': 26, 'slice': 0}
+  assert emb_ops.use_counts() == {'piece': 26, 'slice': 0, 'pooled': 0}
   emb_ops.reset_use_counts()
-  assert emb_ops.use_counts() == {'piece': 0, 'slice': 0}
+  assert emb_ops.use_counts() == {'piece': 0, 'slice': 0, 'pooled': 0}

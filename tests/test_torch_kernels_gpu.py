@@ -366,8 +366,112 @@ def test_train_step_launches_each_kernel_once(cuda, fused, monkeypatch):
   n = len(trainer.tables)
   want = {'seg_sum': 0, 'rmw_rows': 0, 'rmw_fused': n} if fused == '1' \
       else {'seg_sum': n, 'rmw_rows': n, 'rmw_fused': 0}
-  want.update(group_push=0, group_rmw=0)
+  want.update(bag_pool=0, bag_pool_grad=0, group_push=0, group_rmw=0)
   assert kernels.launch_counts() == want
+
+
+# MLPerf DLRM-DCNv2's multi-hot bag sizes (the cell dlrm_dcnv2's 26 bags)
+DLRM_BAGS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1)
+
+
+def _bag_inputs(device, sizes, means, batch, dim, ragged, seed):
+  """A pack [batch, sum(sizes), dim], its weights and bag table: every
+  weight 1, or with `ragged` each bag of an example cut at a random length
+  with weight-0 padding behind it and random positive weights in front."""
+  gen = torch.Generator(device=device).manual_seed(seed)
+  tot = sum(sizes)
+  rows = torch.randn((batch, tot, dim), generator=gen, device=device)
+  bags, at = [], 0
+  for k, m in zip(sizes, means):
+    bags.append((at, k, int(m)))
+    at += k
+  w = torch.ones((batch, tot), device=device)
+  if ragged:
+    w = 0.25 + torch.rand((batch, tot), generator=gen, device=device)
+    for start, k, _ in bags:
+      keep = torch.randint(0, k + 1, (batch, 1), generator=gen,
+                           device=device)
+      w[:, start:start + k] *= (torch.arange(k, device=device) < keep)
+  return rows, w, tuple(bags)
+
+
+@pytest.mark.parametrize('case', ['dlrm_sum', 'ragged_mean', 'dim_16',
+                                  'dim_126', 'unaligned'])
+def test_bag_pool_kernel_matches_plain(cuda, case):
+  """K7 bit-exact against its plain version, forward and backward: at
+  B = 256 with the DLRM-DCNv2's 26 bags at dim 128 (sum, every weight 1);
+  ragged bags with weight-0 padding, mean and sum mixed; dim 16; on
+  scalar lanes, at dim 126 (not a whole number of float4) and on a pack
+  and a gradient 4 bytes off 16-byte alignment. Each direction launches
+  its kernel once."""
+  from easyrec_torch.ops import embedding as emb_ops
+  dim = {'dim_16': 16, 'dim_126': 126}.get(case, 128)
+  means = [case != 'dlrm_sum' and j % 2 == 0 for j in range(len(DLRM_BAGS))]
+  rows, w, bags = _bag_inputs(cuda, DLRM_BAGS, means, 256, dim,
+                              case != 'dlrm_sum', seed=7)
+  if case == 'ragged_mean':
+    w[:5] = 0.0                           # whole examples of padding
+  g = torch.randn((256, len(bags), dim), device=cuda)
+  if case == 'unaligned':
+    rows = torch.cat([rows.new_zeros(1), rows.reshape(-1)])[1:].view(
+        rows.shape)
+    g = torch.cat([g.new_zeros(1), g.reshape(-1)])[1:].view(g.shape)
+    assert rows.data_ptr() % 16 == 4 and rows.is_contiguous()
+  before = kernels.launch_counts()
+  out = emb_ops.pool_bags(rows, w, bags)
+  grad = emb_ops.pool_bags_grad(g, w, bags)
+  torch.cuda.synchronize()
+  after = kernels.launch_counts()
+  assert after['bag_pool'] == before['bag_pool'] + 1
+  assert after['bag_pool_grad'] == before['bag_pool_grad'] + 1
+  want = emb_ops.pool_bags_plain(rows.cpu(), w.cpu(), bags)
+  want_grad = emb_ops.pool_bags_grad_plain(g.cpu(), w.cpu(), bags)
+  assert torch.equal(out.cpu(), want)
+  assert torch.equal(grad.cpu(), want_grad)
+  # through the autograd Function, as StepPulls calls it
+  leaf = rows.clone().requires_grad_()
+  emb_ops.PoolBags.apply(leaf, w, bags).backward(g)
+  assert torch.equal(leaf.grad.cpu(), want_grad)
+
+
+def test_bag_pool_refuses_a_pack_that_is_not_contiguous(cuda):
+  """On the card K7 reads contiguous f32 tensors: another pack raises
+  before any launch, and is not pooled by plain PyTorch in its place."""
+  from easyrec_torch.ops import embedding as emb_ops
+  rows, w, bags = _bag_inputs(cuda, DLRM_BAGS, [0] * len(DLRM_BAGS), 8, 16,
+                              False, seed=3)
+  before = kernels.launch_counts()
+  for bad in (rows.transpose(0, 1).contiguous().transpose(0, 1),
+              rows.double()):
+    with pytest.raises(ValueError):
+      emb_ops.pool_bags(bad, w, bags)
+  with pytest.raises(ValueError):
+    emb_ops.pool_bags_grad(torch.zeros((8, 16, len(bags)), device=cuda)
+                           .transpose(1, 2), w, bags)
+  assert kernels.launch_counts() == before
+
+
+def test_dlrm_train_step_pools_its_pack_with_k7(cuda):
+  """The DLRM-DCNv2 at a small size on the card: its one pack pooled by
+  K7 once a step each way, 26 uses served from it, no piece."""
+  from easyrec_torch.ops import embedding as emb_ops
+  from easyrec_torch.train.trainer import Trainer
+  from recbench import harness, traffic
+  from recbench.cell import load_cell
+  from recbench.tests.small import SMALL
+  cell = load_cell('dlrm_dcnv2.multihot_b16384', shrink=SMALL)
+  trainer = Trainer(cell.pipeline_config(), device='cuda')
+  trainer.init_state()
+  feats = harness.model_description(cell)['features']
+  batch = traffic.make_batch(feats, cell.traffic, 2 ** 31 + 4099, 0, cuda)
+  kernels.reset_launches()
+  emb_ops.reset_use_counts()
+  out = trainer.train_step(batch)
+  assert np.isfinite(float(out['total_loss']))
+  counts = kernels.launch_counts()
+  assert (counts['bag_pool'], counts['bag_pool_grad']) == (1, 1)
+  assert emb_ops.use_counts() == {'piece': 0, 'slice': 0, 'pooled': 26}
 
 
 def _groups(device, groups, width, n_real, n_pad, idx_dtype, seed):
@@ -704,7 +808,7 @@ def test_bst_trains_on_the_card_as_on_the_cpu(cuda, fused, monkeypatch):
   n = len(runs['cuda'].tables)
   want = {'seg_sum': 0, 'rmw_rows': 0, 'rmw_fused': 3 * n} if fused == '1' \
       else {'seg_sum': 3 * n, 'rmw_rows': 3 * n, 'rmw_fused': 0}
-  want.update(group_push=0, group_rmw=0)
+  want.update(bag_pool=0, bag_pool_grad=0, group_push=0, group_rmw=0)
   assert kernels.launch_counts() == want
   lr_sum = sum(float(runs['cpu'].embed_pair.schedule(torch.tensor(s)))
                for s in range(3))

@@ -280,7 +280,8 @@ def test_wrappers_take_plain_path_on_cpu_and_check_inputs():
   hyp = opt.hypers(torch.tensor(0.1), torch.tensor(0, dtype=torch.int32))
   tpt.rmw_rows(table, uids, gsum, hyp, opt)
   assert kernels.launch_counts() == {'seg_sum': 0, 'rmw_rows': 0,
-                                     'rmw_fused': 0, 'group_push': 0,
+                                     'rmw_fused': 0, 'bag_pool': 0,
+                                     'bag_pool_grad': 0, 'group_push': 0,
                                      'group_rmw': 0}
   with pytest.raises(TypeError):
     tpt.seg_sum(sids, order, starts, grads.double(), 3)
